@@ -1,0 +1,43 @@
+"""difffe_tpu_torch — differentiable finite elements in PyTorch and CUDA.
+
+The PyTorch port of ``difffe_tpu`` for NVIDIA Hopper cards.  Module paths
+mirror the JAX package, which stays the reference each ported part is
+checked against.  This package imports ``torch`` and never ``jax``.
+
+Ported so far (slice A, the main path): per-element-κ inversion on 1D line
+meshes — ``FEMesh.line``, 1D load and band assembly, the PCR tridiagonal
+oracle, the closed-form chain solves, the hand-written CUDA kernel K1
+(closed-form grad step and SGD chain) and ``fit_kappa``'s 1D route.
+"""
+
+from .mesh import FEMesh, default_dtype
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "FEMesh",
+    "default_dtype",
+    "solve_poisson",
+    "solve_poisson_batched",
+    "solve_poisson_cf_batched",
+    "fit_kappa",
+    "kappa_sgd_chain_cf",
+]
+
+
+def __getattr__(name):
+    # Lazy imports keep `import difffe_tpu_torch` light.
+    if name in ("solve_poisson", "solve_poisson_batched"):
+        from . import solver
+        return getattr(solver, name)
+    if name == "solve_poisson_cf_batched":
+        from .ops.cf1d import solve_poisson_cf_batched
+        return solve_poisson_cf_batched
+    if name == "fit_kappa":
+        from .inverse import fit_kappa
+        return fit_kappa
+    if name == "kappa_sgd_chain_cf":
+        from .ops.kernels.fused_grad_cf_kernel import kappa_sgd_chain_cf
+        return kappa_sgd_chain_cf
+    raise AttributeError(
+        f"module 'difffe_tpu_torch' has no attribute {name!r}")

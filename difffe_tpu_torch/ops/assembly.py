@@ -1,0 +1,79 @@
+"""P1 line-element assembly: load vector and tridiagonal stiffness bands.
+
+PyTorch counterpart of the 1D subset of ``difffe_tpu/ops/assembly.py``.
+The JAX scatter-adds become ``index_add`` (load) and pad-and-add (bands).
+Semantics kept: the trapezoidal nodal load F_i += h_e/2·f_i and the local
+stiffness κ_e/h_e·[[1,-1],[-1,1]].  Every other element family raises
+``NotImplementedError`` naming the slice that ports it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F_
+
+from ..mesh import FEMesh
+
+_UNPORTED_FAMILIES = {
+    (1, 3): "P2 line elements are not ported yet (slice B: ops/p2.py)",
+    (2, 3): "P1 triangle elements are not ported yet (slices C/E)",
+    (2, 6): "P2 triangle elements are not ported yet (slice E)",
+    (3, 4): "P1 tetrahedra are not ported yet (slices D/E)",
+}
+
+
+def element_family(mesh: FEMesh) -> str:
+    """'p1_line' — the only family this package assembles so far."""
+    key = (mesh.dim, mesh.elements.shape[1])
+    if key == (1, 2):
+        return "p1_line"
+    if key in _UNPORTED_FAMILIES:
+        raise NotImplementedError(_UNPORTED_FAMILIES[key])
+    raise NotImplementedError(
+        f"unsupported element family: dim={key[0]}, nodes/elem={key[1]}")
+
+
+def kappa_on_elements(mesh: FEMesh, kappa) -> torch.Tensor:
+    """Normalize κ to per-element values ``(..., n_elements)``.
+
+    Accepts a scalar, per-element ``(..., n_elements)``, or per-node
+    ``(..., n_nodes)`` (averaged over each element's nodes).
+    """
+    kappa = torch.as_tensor(kappa, dtype=mesh.dtype, device=mesh.device)
+    ne, nn = mesh.n_elements, mesh.n_nodes
+    if kappa.ndim == 0:
+        return kappa.expand(ne)
+    if kappa.shape[-1] == ne:
+        return kappa
+    if kappa.shape[-1] == nn:
+        return kappa[..., mesh.elements].mean(dim=-1)
+    raise ValueError(
+        f"kappa shape {tuple(kappa.shape)} matches neither "
+        f"n_elements={ne} nor n_nodes={nn}")
+
+
+def element_geometry_1d(mesh: FEMesh) -> torch.Tensor:
+    """Element lengths h_e = x_j − x_i (signed)."""
+    x = mesh.nodes[:, 0]
+    return x[mesh.elements[:, 1]] - x[mesh.elements[:, 0]]
+
+
+def assemble_load(mesh: FEMesh, f) -> torch.Tensor:
+    """Trapezoidal nodal load F_i += h_e/2·f_i from forcing ``f``
+    (..., n_nodes); leading batch axes are kept."""
+    element_family(mesh)
+    f = torch.as_tensor(f, dtype=mesh.dtype, device=mesh.device)
+    h = element_geometry_1d(mesh)
+    i, j = mesh.elements[:, 0], mesh.elements[:, 1]
+    F = f.new_zeros(f.shape[:-1] + (mesh.n_nodes,))
+    F = F.index_add(-1, i, h / 2.0 * f[..., i])
+    return F.index_add(-1, j, h / 2.0 * f[..., j])
+
+
+def assemble_tridiag_1d(mesh: FEMesh, kappa):
+    """Stiffness of a chain mesh (elements (i, i+1)) as bands ``(d, e)``:
+    d (..., n) on the diagonal, e (..., n−1) on both off-diagonals."""
+    element_family(mesh)
+    ke =kappa_on_elements(mesh, kappa) / element_geometry_1d(mesh)
+    d = F_.pad(ke, (0, 1)) + F_.pad(ke, (1, 0))
+    return d, -ke

@@ -1,0 +1,126 @@
+"""Batched symmetric tridiagonal solver by parallel cyclic reduction (PCR).
+
+PyTorch counterpart of ``difffe_tpu/ops/tridiag.py`` and the oracle every
+1D path of this package is checked against.  ``tridiag_solve`` is a
+``torch.autograd.Function``: the matrix is symmetric, so the backward pass
+is one more PCR solve λ = T⁻¹ḡ followed by the elementwise contractions
+
+    ∂F = λ,   ∂d = −λ⊙u,   ∂e_i = −(λ_i u_{i+1} + λ_{i+1} u_i).
+
+All functions act on the last axis and broadcast over leading batch axes.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F_
+
+from ..mesh import FEMesh
+
+
+def tridiag_matvec(d: torch.Tensor, e: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """y = T x for symmetric tridiagonal T (diag d (…, n), off-diag e
+    (…, n−1))."""
+    return (d * x + F_.pad(e * x[..., 1:], (0, 1))
+            + F_.pad(e * x[..., :-1], (1, 0)))
+
+
+def _shift_down(x, s, fill):
+    """y_i = x_{i+s} (tail padded with fill)."""
+    return F_.pad(x[..., s:], (0, s), value=fill)
+
+
+def _shift_up(x, s, fill):
+    """y_i = x_{i−s} (head padded with fill)."""
+    return F_.pad(x[..., :-s], (s, 0), value=fill)
+
+
+def _pcr(a, b, c, r):
+    """Parallel cyclic reduction for a_i x_{i−1} + b_i x_i + c_i x_{i+1} = r_i
+    with a[..., 0] = c[..., −1] = 0, over ⌈log₂n⌉ strides."""
+    n = b.shape[-1]
+    steps = max(1, math.ceil(math.log2(n))) if n > 1 else 0
+    s = 1
+    for _ in range(steps):
+        b_up, b_dn = _shift_up(b, s, 1.0), _shift_down(b, s, 1.0)
+        a_up, c_dn = _shift_up(a, s, 0.0), _shift_down(c, s, 0.0)
+        c_up, a_dn = _shift_up(c, s, 0.0), _shift_down(a, s, 0.0)
+        r_up, r_dn = _shift_up(r, s, 0.0), _shift_down(r, s, 0.0)
+        alpha = -a / b_up
+        gamma = -c / b_dn
+        a = alpha * a_up
+        c = gamma * c_dn
+        b = b + alpha * c_up + gamma * a_dn
+        r = r + alpha * r_up + gamma * r_dn
+        s *= 2
+    return r / b
+
+
+def _tridiag_solve_impl(d, e, F):
+    shape = torch.broadcast_shapes(d.shape, F.shape)
+    e = e.expand(shape[:-1] + e.shape[-1:])
+    a = F_.pad(e, (1, 0))                      # sub-diagonal
+    c = F_.pad(e, (0, 1))                      # super-diagonal
+    return _pcr(a, d.expand(shape), c, F.expand(shape))
+
+
+class _TridiagSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, d, e, F):
+        u = _tridiag_solve_impl(d, e, F)
+        ctx.save_for_backward(d, e, u)
+        ctx.shapes = (d.shape, e.shape, F.shape)
+        return u
+
+    @staticmethod
+    def backward(ctx, g):
+        d, e, u = ctx.saved_tensors
+        d_shape, e_shape, F_shape = ctx.shapes
+        lam = _tridiag_solve_impl(d, e, g)     # T symmetric ⇒ Tλ = ḡ
+        grad_d = -lam * u
+        grad_e = -(lam[..., :-1] * u[..., 1:] + lam[..., 1:] * u[..., :-1])
+        return (grad_d.sum_to_size(d_shape), grad_e.sum_to_size(e_shape),
+                lam.sum_to_size(F_shape))
+
+
+def tridiag_solve(d: torch.Tensor, e: torch.Tensor,
+                  F: torch.Tensor) -> torch.Tensor:
+    """Solve T u = F for symmetric tridiagonal T = tridiag(e, d, e)."""
+    return _TridiagSolve.apply(d, e, F)
+
+
+def solve_poisson_tridiag(mesh: FEMesh, d: torch.Tensor, e: torch.Tensor,
+                          F: torch.Tensor, backend: str = "xla",
+                          bc_values=None, chunk: int = 64) -> torch.Tensor:
+    """Eliminate the Dirichlet rows of banded (d, e, F) on a chain mesh and
+    PCR-solve.  Mask elimination in band form:
+
+        d̃ = p⊙d + m,  ẽ_i = p_i p_{i+1} e_i,  F̃ = m⊙g + p(F − T(m⊙g)).
+
+    ``bc_values`` optionally overrides the mesh's Dirichlet values and may
+    carry leading batch axes.  ``backend`` keeps the JAX signature: only
+    ``"xla"`` (the elementwise PCR sweeps) is ported; ``chunk`` is read
+    by the unported SPIKE backend only.
+    """
+    if backend == "pallas":
+        raise NotImplementedError(
+            "backend='pallas' needs the PCR kernel K2, not ported yet "
+            "(K2, slice B)")
+    if backend == "spike":
+        raise NotImplementedError(
+            "backend='spike' is not ported yet (slice B: ops/spike.py)")
+    if backend != "xla":
+        raise ValueError(f"unknown tridiagonal backend {backend!r} "
+                         "(expected 'xla', 'pallas', or 'spike')")
+    m = mesh.bc_mask
+    g = mesh.bc_values if bc_values is None else \
+        torch.as_tensor(bc_values, dtype=mesh.dtype, device=mesh.device)
+    p = 1.0 - m
+    d_mod = p * d + m
+    e_mod = p[..., :-1] * p[..., 1:] * e
+    mg = (m * g).expand(F.shape)
+    F_mod = (mg + p * (F - tridiag_matvec(d, e, mg))).expand(F.shape)
+    return tridiag_solve(d_mod, e_mod, F_mod)

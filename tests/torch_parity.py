@@ -1,0 +1,32 @@
+"""Helpers shared by the parity tests of the PyTorch port
+(tests/test_torch_*.py): numpy/JAX arrays in, torch tensors out."""
+
+import numpy as np
+import torch
+
+from difffe_tpu_torch.mesh import FEMesh
+
+
+def as_torch(a) -> torch.Tensor:
+    """A torch copy of any array ``np.asarray`` takes (dtype kept)."""
+    return torch.tensor(np.asarray(a))
+
+
+def _f64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().double().cpu().numpy()
+    return np.asarray(x, np.float64)
+
+
+def rel_err(a, b) -> float:
+    """max|a − b| / max|b| in float64, for torch, numpy or JAX arrays."""
+    a, b = _f64(a), _f64(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def port_mesh(jax_mesh, **kw) -> FEMesh:
+    """The port's FEMesh holding the same arrays as a ``difffe_tpu`` mesh."""
+    return FEMesh.from_arrays(np.asarray(jax_mesh.nodes),
+                              np.asarray(jax_mesh.elements),
+                              np.asarray(jax_mesh.bc_mask),
+                              np.asarray(jax_mesh.bc_values), **kw)
