@@ -1,31 +1,56 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``difffe_tpu_torch``) on one CUDA card.
 
-Drives the port's main path, per-element-κ inversion on a 1D line mesh,
-at the workload of ``bench.py`` (n = 30 elements, B = 2^21 scenarios, one
-shared forcing), in phases; any failure raises, so the run exits non-zero
-and never prints the final ``ok`` line:
+Drives the port's two inversion paths through their public entry points, in
+phases; any failure raises, so the run exits non-zero and never prints the
+final ``ok`` line:
 
 1. versions, the card's name and power limit (refuses to run without a
    card);
 2. build the CUDA kernels from ``difffe_tpu_torch/csrc/``;
+
+The 1D path (per-element κ on a line mesh, bench.py's workload: n = 30
+elements, B = 2^21 scenarios, one shared forcing), kernel K1:
+
 3. each K1 variant (step/chain × shared/f32/bf16 u_data) against its plain
    PyTorch version, n ∈ {10, 30, 128}, B ∈ {1000, 2^21};
 4. ``fit_kappa`` through the public entry point, 128 steps = 4 chain
    launches, with loss checks;
 5. bench.py's parity gate: the step kernel's gradient against autograd
    through the PCR tridiagonal oracle on the bf16-quantized plane;
-6. chained timing of the chain and step kernels and their plain versions
-   at the bench workload.
+6. chained timing of the chain and step kernels and their plain versions.
 
-The launch counts of phases 4-5 (the main path) are read from the kernel
-wrappers; phases 3 and 6 do not count.  The second-to-last line is one
-JSON object describing each kernel; the last line is the ``ok`` JSON.
+The 2D path (κ-field inversion on ``FEMesh.rectangle(64, 64)``, the
+structured-grid config of BASELINE.json, B = 4096 scenarios), kernels K3a
+(whole-CG solve) and K3b (forward + MSE cotangent + adjoint CG):
+
+7. K3a and K3b against their plain versions on the card at 8² (B = 7),
+   64² (B = 4096) and 256² (B = 64), cold and warm, zero and nonzero
+   Dirichlet values.  f32 CG amplifies summation-order differences, so the
+   kernel is held against the plain version run in f64 on the card: its
+   relative max error on x, λ and the κ gradient may be at most twice the
+   f32 plain version's error against the same f64 run, plus 1e-6;
+8. the main path: u_data from the fixed-trip batched solve (K3a),
+   ``fit_kappa`` for 100 steps at lr = 300 (one K3b launch each; the
+   converged misfit must fall below half the first step's), and the κ
+   gradient of Σu² through the fixed-trip batched solve (K3a forward and
+   adjoint) held against the plain version by the rule of phase 7;
+9. chained timing of K3b and K3a against their plain versions, host time of
+   ``fit_kappa`` and a ``torch.profiler`` split of one call.
+
+Each path's launch counts are set to 0 just before its main-path phases
+(4-5, 8) and read just after; comparisons and timing do not count.  The
+third-to-last line is one JSON object describing each kernel, with its
+bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over 67 TFLOP/s (H100 SXM, fp32 outside the tensor cores).  The
+second-to-last line is the card's name and power limit; the last line is
+the ``ok`` JSON.
 
 Run: ``python3 chip_smoke.py`` from the repository root.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,6 +68,31 @@ GATE_TOL = 1e-4          # bench.py's gradient-parity gate
 CU_SOURCE = "difffe_tpu_torch/csrc/fused_grad_cf.cu"
 JAX_KERNEL = "difffe_tpu/ops/pallas/fused_grad_cf_kernel.py"
 
+N_2D = 64                # config 4's grid, 64 × 64 quads
+BATCH_2D = 4096
+STEPS_2D = 100
+K3A_ITERS = 256          # the u_data solve and K3a's timed workload
+K3B_ITERS = 32           # fit_kappa's per-step iterations at 64²
+GRAD_ITERS = 128         # the fixed-trip solve the κ gradient runs through
+# fit_kappa's 2D default lr (30) lowers the 64² misfit only ~10% in 100
+# steps, in the JAX reference as in the port (CPU runs at B = 2); ten times
+# that halves it within the run, which the phase 8 gate asks
+LR_2D = 300.0
+K3_CASES = ((8, 7), (N_2D, BATCH_2D), (256, 64))   # phase 7: (n, B)
+K3_SOURCE = "difffe_tpu_torch/csrc/stencil_cg.cu"
+JAX_K3 = "difffe_tpu/ops/pallas/stencil_cg_kernel.py"
+
+PEAK_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12     # H100 SXM HBM3
+# K1 operations per element row per SGD step, counted from the three
+# passes of cf_kernel in csrc/fused_grad_cf.cu (a division counts as one):
+# 5 (S, T totals) + 21 (u, d, loss, P^λ, running sums) + 10 (gradient and
+# the update)
+K1_OPS_PER_ROW_STEP = 36
+# K3 operations per node per CG iteration (stencil_cg_kernel.py:210):
+# 5-point apply 9, two dots 4, x/r/p updates 6, Jacobi 1
+K3_OPS_PER_NODE_ITER = 20
+
 
 def log(*args):
     print(*args, flush=True)
@@ -52,41 +102,43 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-def main() -> int:
-    import torch
+def bound(ops, nbytes):
+    """(bound_ms, bound_by) of a function doing ``ops`` operations that
+    must move ``nbytes`` bytes."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA card is available")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+def kernel_entry(name, source, replaces, launches, max_abs, ms, plain_ms,
+                 ops, nbytes):
+    b_ms, b_by = bound(ops, nbytes)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def timed_pair(kernel_fn, plain_fn, x0, length):
+    """Best chained ms per call of each, timed plain, kernel, kernel,
+    plain."""
+    from difffe_tpu_torch.utils.profiling import timeit_chained
+
+    best = {"kernel": float("inf"), "plain": float("inf")}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = kernel_fn if which == "kernel" else plain_fn
+        t = timeit_chained(fn, x0, length=length, repeats=2)
+        best[which] = min(best[which], t.min_s * 1e3)
+    return best
+
+
+def run_1d(torch, dev, card):
+    """Phases 3-6; returns the K1 entries of the kernels line."""
     from difffe_tpu_torch import fit_kappa
     from difffe_tpu_torch.mesh import FEMesh
     from difffe_tpu_torch.ops.assembly import assemble_load
     from difffe_tpu_torch.ops.cf1d import solve_poisson_cf_batched
-    from difffe_tpu_torch.ops.kernels import _build
     from difffe_tpu_torch.ops.kernels import fused_grad_cf_kernel as tk
     from difffe_tpu_torch.solver import solve_poisson_batched
-    from difffe_tpu_torch.utils.profiling import timeit_chained
-
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # -- phase 1: what runs where
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0].strip()
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} "
-        f"count {torch.cuda.device_count()}")
-    log(f"card: {card}")
-
-    # -- phase 2: build
-    t0 = time.perf_counter()
-    lib = _build.load_library()
-    log(f"phase 2 build: {_build.library_path().name} in "
-        f"{time.perf_counter() - t0:.1f} s ({lib._name})")
 
     def problem(n, B, seed):
         mesh = FEMesh.line(n, dtype=torch.float32, device=dev)
@@ -194,15 +246,14 @@ def main() -> int:
     if not gate < GATE_TOL:
         raise AssertionError(f"bench parity gate failed: {gate:.3e}")
     main_path = dict(tk.launches)
-    log(f"main-path launches: {main_path}")
+    log(f"1D main-path launches: {main_path}")
     for k, v in main_path.items():
         if v < 1:
             raise AssertionError(f"kernel {k} was not launched by the path")
     del u, ke, ud_q, gT
     torch.cuda.empty_cache()
 
-    # -- phase 6: chained timing at the bench workload (plain, kernel,
-    # kernel, plain; best of each)
+    # -- phase 6: chained timing at the bench workload
     udT, cols, B, u_l, u_r = (aux["udT"], aux["cols"], aux["B"], aux["u_l"],
                               aux["u_r"])
     runs = {
@@ -217,12 +268,8 @@ def main() -> int:
     }
     ms = {}
     for name, (kernel_fn, plain_fn) in runs.items():
-        best = {"kernel": float("inf"), "plain": float("inf")}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = kernel_fn if which == "kernel" else plain_fn
-            t = timeit_chained(fn, keT0, length=STEPS // CHAIN_K, repeats=3)
-            best[which] = min(best[which], t.min_s * 1e3)
-        ms[name] = best
+        ms[name] = best = timed_pair(kernel_fn, plain_fn, keT0,
+                                     STEPS // CHAIN_K)
         steps = CHAIN_K if name == "chain" else 1
         log(f"phase 6 {name}: kernel {best['kernel']:.4f} ms/launch, plain "
             f"{best['plain']:.4f} ms/launch, {steps} SGD step(s)/launch; "
@@ -231,16 +278,300 @@ def main() -> int:
             f"{BATCH * steps / best['plain'] * 1e3:.6e} grad-solves/s "
             f"[{card}]")
 
-    kernels = [
-        {"name": "cf_chain", "route": "cuda", "source": CU_SOURCE,
-         "replaces": f"{JAX_KERNEL}:445", "launches": main_path["chain"],
-         "max_abs_err": max_abs["chain"], "ms": ms["chain"]["kernel"],
-         "plain_ms": ms["chain"]["plain"]},
-        {"name": "cf_step", "route": "cuda", "source": CU_SOURCE,
-         "replaces": f"{JAX_KERNEL}:132", "launches": main_path["step"],
-         "max_abs_err": max_abs["step"], "ms": ms["step"]["kernel"],
-         "plain_ms": ms["step"]["plain"]},
+    # Both timed functions map κ to κ′ and must read κ (f32) and the bf16
+    # u_data plane once and write κ′ once (the loss row: 4 B a scenario).
+    nbytes = BATCH * (2 * N_ELEMENTS * 4 + n * udT.element_size() + 4)
+    return [
+        kernel_entry("cf_chain", CU_SOURCE, f"{JAX_KERNEL}:445",
+                     main_path["chain"], max_abs["chain"],
+                     ms["chain"]["kernel"], ms["chain"]["plain"],
+                     K1_OPS_PER_ROW_STEP * n * BATCH * CHAIN_K, nbytes),
+        kernel_entry("cf_step", CU_SOURCE, f"{JAX_KERNEL}:132",
+                     main_path["step"], max_abs["step"],
+                     ms["step"]["kernel"], ms["step"]["plain"],
+                     K1_OPS_PER_ROW_STEP * n * BATCH, nbytes),
     ]
+
+
+def run_2d(torch, dev, card):
+    """Phases 7-9; returns the K3 entries of the kernels line."""
+    from difffe_tpu_torch import fit_kappa
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
+    from difffe_tpu_torch.ops.stencil import (StructuredGrid,
+                                              kappa_lu_from_elements,
+                                              residual_vjp_manual)
+    from difffe_tpu_torch.solver import solve_poisson_batched
+
+    f64 = torch.float64
+    max_abs = {"cg": 0.0, "cg2": 0.0}
+
+    def check(name, kernel, plain32, plain64, what):
+        """The tolerance rule of phase 7; returns the kernel's error."""
+        if not bool(torch.isfinite(kernel).all()):
+            raise AssertionError(f"{what}: {name} is not finite")
+        ek, ep = rel_err(kernel, plain64), rel_err(plain32, plain64)
+        if not ek <= 2.0 * ep + 1e-6:
+            raise AssertionError(f"{what}: {name} error {ek:.3e} exceeds "
+                                 f"2 x {ep:.3e} + 1e-6")
+        return ek, ep
+
+    def problem(n, B, g_nonzero, seed):
+        grid = StructuredGrid.unit(n, n)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        opts = dict(dtype=f64, device=dev)
+        kl = 1.2 + 0.6 * torch.rand(B, n, n, generator=gen, **opts)
+        ku = 1.2 + 0.6 * torch.rand(B, n, n, generator=gen, **opts)
+        xs = torch.linspace(0.0, 1.0, n + 1, **opts)
+        Y, X = torch.meshgrid(xs, xs, indexing="ij")
+        bump = torch.sin(math.pi * X) * torch.sin(math.pi * Y)
+        f = 10.0 * bump * (1.0 + 0.2 * torch.rand(B, 1, 1, generator=gen,
+                                                  **opts))
+        g = 0.3 * X + 0.1 * Y if g_nonzero else torch.zeros_like(X)
+        ud = 0.05 * bump * (1.0 + torch.rand(B, 1, 1, generator=gen,
+                                             **opts))
+        return grid, (kl, ku, f, g, ud)
+
+    def k3b_steps(grid, arrays, dtype, cg2, steps=4):
+        """A cold SGD step, then warm ones, each through ``cg2``."""
+        kl, ku, f, g, ud = (a.to(dtype).contiguous() for a in arrays)
+        H, W = grid.node_shape
+        out, state = [], None
+        for _ in range(steps):
+            C, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), f, g)
+            x0, lam0 = state if state else (x0, torch.zeros_like(b))
+            x, lam = cg2(D, b, Minv, x0, lam0, ud, 2.0 / (H * W), K3B_ITERS)
+            (gl, gu), _, _ = residual_vjp_manual(grid, (kl, ku), f, g, x,
+                                                 lam, C=C)
+            out.append({"x": x, "lam": lam, "grad": torch.stack([gl, gu])})
+            state = (x, lam)
+            kl, ku = kl - LR * gl, ku - LR * gu
+        return out
+
+    # -- phase 7: K3a and K3b against their plain versions
+    t0 = time.perf_counter()
+    for n, B in K3_CASES:
+        for g_nonzero in (False, True):
+            grid, arrays = problem(n, B, g_nonzero, seed=n + B + g_nonzero)
+            runs = [k3b_steps(grid, arrays, dt, cg2) for dt, cg2 in (
+                (torch.float32, sk._cg2), (torch.float32, sk._cg2_plain),
+                (f64, sk._cg2_plain))]
+            worst = {}
+            for step, (k, p, q) in enumerate(zip(*runs)):
+                for key in ("x", "lam", "grad"):
+                    ek, ep = check("K3b", k[key], p[key], q[key],
+                                   f"n={n} B={B} step {step} {key}")
+                    worst[key] = max(worst.get(key, (0, 0)), (ek, ep))
+                    max_abs["cg2"] = max(max_abs["cg2"], float(
+                        (k[key] - q[key]).abs().max()))
+            log(f"phase 7 K3b n={n} B={B} g={'nonzero' if g_nonzero else 0}"
+                f" cold+3 warm: worst (kernel, f32 plain) rel err vs f64: "
+                + " ".join(f"{k}=({a:.2e}, {b:.2e})"
+                           for k, (a, b) in worst.items()))
+            del runs
+            sols = {}
+            for name, dt, cg in (("kernel", torch.float32, sk._cg),
+                                 ("f32", torch.float32, sk._cg_plain),
+                                 ("f64", f64, sk._cg_plain)):
+                kl, ku, f, g, ud = (a.to(dt).contiguous() for a in arrays)
+                _, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), f, g)
+                sols[name] = (cg(D, b, Minv, x0, K3A_ITERS),
+                              cg(D, ud, Minv, torch.zeros_like(ud),
+                                 K3A_ITERS))
+            errs = [check("K3a", sols["kernel"][i], sols["f32"][i],
+                          sols["f64"][i], f"n={n} B={B} solve {i}")
+                    for i in range(2)]
+            for i in range(2):
+                max_abs["cg"] = max(max_abs["cg"], float(
+                    (sols["kernel"][i] - sols["f64"][i]).abs().max()))
+            log(f"phase 7 K3a n={n} B={B} g={'nonzero' if g_nonzero else 0}"
+                f" {K3A_ITERS} iters: (kernel, f32 plain) rel err vs f64: "
+                f"solve {errs[0][0]:.2e}, {errs[0][1]:.2e}; adjoint-style "
+                f"{errs[1][0]:.2e}, {errs[1][1]:.2e}")
+            del sols, arrays
+            torch.cuda.empty_cache()
+    log(f"phase 7 kernel vs plain: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 8: the 2D main path, with launch counts
+    mesh = FEMesh.rectangle(N_2D, N_2D, dtype=torch.float32)
+    if mesh.device.type != dev.type:
+        raise AssertionError(f"the mesh factory put the mesh on "
+                             f"{mesh.device}")
+    grid, ne, nn = mesh.grid, mesh.n_elements, mesh.n_nodes
+    H, W = grid.node_shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, y = mesh.nodes.T
+    f = (10.0 * torch.sin(math.pi * x) * torch.sin(math.pi * y)).expand(
+        BATCH_2D, nn)
+    k_true = 1.2 + 0.6 * torch.rand(BATCH_2D, ne, generator=gen, device=dev)
+    for k in sk.launches:
+        sk.launches[k] = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        u_data = solve_poisson_batched(mesh, k_true, f, cg_tol=0.0,
+                                       cg_maxiter=K3A_ITERS)
+    kappa, info = fit_kappa(mesh, f, u_data, steps=STEPS_2D, lr=LR_2D)
+    hist = info["loss_history"]
+    ke = torch.ones(BATCH_2D, ne, device=dev, requires_grad=True)
+    (solve_poisson_batched(mesh, ke, f, cg_tol=0.0, cg_maxiter=GRAD_ITERS)
+     ** 2).sum().backward()
+    torch.cuda.synchronize()
+    main_path = dict(sk.launches)
+    log(f"phase 8 fit_kappa: path={info['path']} iters={info['iters']} "
+        f"warm={info['warm']} loss_history[0]={float(hist[0]):.6e} "
+        f"loss_history[-1]={float(hist[-1]):.6e} "
+        f"eval_loss={info['eval_loss']:.6e} "
+        f"({time.perf_counter() - t0:.2f} s with u_data and the gradient)")
+    log(f"2D main-path launches: {main_path}")
+    if info["path"] != "stencil2d_fused":
+        raise AssertionError(f"fit_kappa took path {info['path']}")
+    if info["iters"] != K3B_ITERS or info["warm"] is not True:
+        raise AssertionError(f"iteration policy {info['iters']}, "
+                             f"warm={info['warm']}")
+    if main_path["cg2"] != STEPS_2D:
+        raise AssertionError(f"K3b launches {main_path['cg2']}")
+    if main_path["cg"] < 1:
+        raise AssertionError("K3a was not launched by the path")
+    if kappa.shape != (BATCH_2D, ne) or not bool(
+            torch.isfinite(kappa).all()):
+        raise AssertionError("fit_kappa's kappa is not finite of shape "
+                             f"{(BATCH_2D, ne)}")
+    if not info["eval_loss"] < 0.5 * float(hist[0]):
+        raise AssertionError("eval_loss is not below half the first loss")
+
+    def grad_plain(dtype):
+        kl, ku = kappa_lu_from_elements(
+            grid, torch.ones(BATCH_2D, ne, dtype=dtype, device=dev))
+        fg = f.to(dtype).reshape(BATCH_2D, H, W)
+        g0 = mesh.bc_values.to(dtype).reshape(H, W)
+        C, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), fg, g0)
+        u = sk._cg_plain(D, b, Minv, x0, GRAD_ITERS)
+        lam = sk._cg_plain(D, 2.0 * u, Minv, torch.zeros_like(u),
+                           GRAD_ITERS)
+        (gl, gu), _, _ = residual_vjp_manual(grid, (kl, ku), fg, g0, u, lam,
+                                             C=C)
+        return torch.stack([gl, gu], dim=-1).reshape(BATCH_2D, ne)
+
+    ek, ep = check("K3a gradient", ke.grad, grad_plain(torch.float32),
+                   grad_plain(f64), "phase 8 κ gradient")
+    log(f"phase 8 κ gradient of Σu² through K3a (forward + adjoint, "
+        f"{GRAD_ITERS} iters): rel err vs f64 plain {ek:.3e}, f32 plain "
+        f"{ep:.3e}")
+    del ke, kappa, info
+    torch.cuda.empty_cache()
+
+    # -- phase 9: timing at the main path's workload
+    kl, ku = kappa_lu_from_elements(grid, k_true)
+    fg = f.reshape(BATCH_2D, H, W)
+    g0 = mesh.bc_values.reshape(H, W)
+    ud = u_data.reshape(BATCH_2D, H, W).contiguous()
+    _, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), fg, g0)
+    scale = 2.0 / (H * W)
+    state0 = (x0, torch.zeros_like(b))
+    ms = {
+        "cg2": timed_pair(
+            lambda s: sk._cg2(D, b, Minv, *s, ud, scale, K3B_ITERS),
+            lambda s: sk._cg2_plain(D, b, Minv, *s, ud, scale, K3B_ITERS),
+            state0, 3),
+        "cg": timed_pair(
+            lambda v: sk._cg(D, b, Minv, v, K3A_ITERS),
+            lambda v: sk._cg_plain(D, b, Minv, v, K3A_ITERS), x0, 2),
+    }
+    for name, iters, solves in (("cg2", K3B_ITERS, 2), ("cg", K3A_ITERS, 1)):
+        best = ms[name]
+        log(f"phase 9 {name}: kernel {best['kernel']:.4f} ms/launch, plain "
+            f"{best['plain']:.4f} ms/launch ({N_2D}², B={BATCH_2D}, "
+            f"{solves} x {iters} iters; kernel "
+            f"{BATCH_2D / best['kernel'] * 1e3:.6e} scenarios/s) [{card}]")
+
+    def fit(**kw):
+        return fit_kappa(mesh, f, u_data, steps=STEPS_2D, lr=LR_2D, **kw)
+
+    fit()
+    for eval_final in (True, False):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit(eval_final=eval_final)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        log(f"phase 9 fit_kappa host time, {STEPS_2D} steps, "
+            f"eval_final={eval_final}: " + ", ".join(f"{t:.4f}" for t in
+                                                    times)
+            + f" s; {BATCH_2D * STEPS_2D / min(times):.6e} grad-solves/s "
+            f"[{card}]")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    log(f"phase 9 profile of one fit_kappa call: {busy:.1f} ms of device "
+        f"time in a {window * 1e3:.1f} ms window [{card}]")
+    for key, count, t in rows[:12]:
+        log(f"  {t:9.2f} ms {100 * t / busy:5.1f}% x{count:<5d} {key[:90]}")
+
+    n_nodes = BATCH_2D * H * W
+    return [
+        kernel_entry("stencil_cg", K3_SOURCE, f"{JAX_K3}:191",
+                     main_path["cg"], max_abs["cg"], ms["cg"]["kernel"],
+                     ms["cg"]["plain"],
+                     K3_OPS_PER_NODE_ITER * n_nodes * K3A_ITERS,
+                     9 * n_nodes * 4),
+        kernel_entry("stencil_cg2", K3_SOURCE, f"{JAX_K3}:412",
+                     main_path["cg2"], max_abs["cg2"], ms["cg2"]["kernel"],
+                     ms["cg2"]["plain"],
+                     K3_OPS_PER_NODE_ITER * n_nodes * K3B_ITERS * 2,
+                     12 * n_nodes * 4),
+    ]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA card is available")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from difffe_tpu_torch.ops.kernels import _build
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- phase 1: what runs where
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0].strip()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    log(f"card: {card}")
+
+    # -- phase 2: build
+    t0 = time.perf_counter()
+    lib = _build.load_library()
+    log(f"phase 2 build: {_build.library_path().name} in "
+        f"{time.perf_counter() - t0:.1f} s ({lib._name})")
+
+    t0 = time.perf_counter()
+    kernels = run_1d(torch, dev, card)
+    log(f"1D path, phases 3-6: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels += run_2d(torch, dev, card)
+    log(f"2D path, phases 7-9: {time.perf_counter() - t0:.1f} s")
+
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -4,10 +4,20 @@ The PyTorch port of ``difffe_tpu`` for NVIDIA Hopper cards.  Module paths
 mirror the JAX package, which stays the reference each ported part is
 checked against.  This package imports ``torch`` and never ``jax``.
 
-Ported so far (slice A, the main path): per-element-κ inversion on 1D line
-meshes — ``FEMesh.line``, 1D load and band assembly, the PCR tridiagonal
-oracle, the closed-form chain solves, the hand-written CUDA kernel K1
-(closed-form grad step and SGD chain) and ``fit_kappa``'s 1D route.
+Ported so far:
+
+* slice A, per-element-κ inversion on 1D line meshes — ``FEMesh.line``,
+  1D load and band assembly, the PCR tridiagonal oracle, the closed-form
+  chain solves, the hand-written CUDA kernel K1 (closed-form grad step and
+  SGD chain) and ``fit_kappa``'s 1D route;
+* slice C items 12-13, κ-field inversion on 2D structured grids —
+  ``FEMesh.rectangle``, the stencil operators (ops/stencil.py), the PCG
+  body (ops/pcg.py), the hand-written CUDA whole-CG kernels K3a/K3b
+  (ops/kernels/stencil_cg_kernel.py), the rectangle routes of
+  ``solve_poisson[_batched]`` and ``fit_kappa``'s 2D route.
+
+Entry points run on the CUDA card unless the caller asks for the CPU
+(``device="cpu"`` in the mesh factories).
 """
 
 from .mesh import FEMesh, default_dtype

@@ -1,14 +1,20 @@
-"""Per-element κ-field inversion: ``fit_kappa``, 1D route.
+"""Per-element κ-field inversion: ``fit_kappa``, 1D and 2D-grid routes.
 
-PyTorch counterpart of ``fit_kappa`` in ``difffe_tpu/inverse.py``.  On a
-``FEMesh.line`` mesh (Dirichlet at both ends) the loop is SGD on κ with
-exact closed-form solves:
+PyTorch counterpart of ``fit_kappa`` in ``difffe_tpu/inverse.py``.
+
+On a ``FEMesh.line`` mesh (Dirichlet at both ends) the loop is SGD on κ
+with exact closed-form solves:
 
 * shared forcing → the K1 chain (ops/kernels/fused_grad_cf_kernel.py), 32
   SGD steps per launch with κ held on the chip
   (``info["path"] == "cf_chain_kernel"``);
 * per-scenario forcings → the torch closed form of ops/cf1d.py
   (``info["path"] == "cf_torch"``).
+
+On a ``FEMesh.rectangle`` mesh with its factory boundary the loop is SGD
+on the per-triangle κ planes, one fixed-trip warm-started gradient step
+per SGD step, each step one K3b launch (ops/kernels/stencil_cg_kernel.py,
+``info["path"] == "stencil2d_fused"``).
 
 Every other route of the JAX dispatcher raises ``NotImplementedError``
 naming the slice that ports it.
@@ -35,7 +41,10 @@ def fit_kappa(mesh: FEMesh, f, u_data, steps: int = 100,
     steps : SGD steps.  lr : SGD learning rate (1D default 30.0 with the
         per-scenario scale 2/n).  kappa0 : starting κ, broadcast to
         (B, n_elements); default 1.
-    iters, warm, block_b : read by the 2D/3D routes only (not ported).
+    iters, warm : override the 2D per-step CG iteration count (default
+        32/8/4 by grid side ≤64/≤128/larger) and warm-start policy
+        (default True).  block_b : passed to the 2D kernels (see
+        ops/kernels/stencil_cg_kernel.py; 1 above 64² grids).
     eval_final : run one exact solve at the final κ and report the mean
         squared misfit as ``info["eval_loss"]``.
 
@@ -46,6 +55,13 @@ def fit_kappa(mesh: FEMesh, f, u_data, steps: int = 100,
     u_data = torch.as_tensor(u_data, dtype=mesh.dtype, device=mesh.device)
     if f.ndim == 1:
         f, u_data = f[None], u_data[None]
+    grid = mesh.grid
+    if grid is not None:
+        # the structured loops assume the factory full-boundary Dirichlet
+        # mask; a replaced mask takes the generic routes
+        from .solver import _mask_is_factory
+        if not _mask_is_factory(mesh):
+            grid = None
 
     if mesh.dim == 1:
         from .ops.cf1d import mesh_supports_cf
@@ -56,13 +72,122 @@ def fit_kappa(mesh: FEMesh, f, u_data, steps: int = 100,
             "fit_kappa on a 1D mesh without two-end Dirichlet takes the "
             "generic Adam route (recover_kappa_field), not ported yet "
             "(slice B; general meshes: slice E)")
-    if mesh.dim == 2:
+    if grid is None:
         raise NotImplementedError(
-            "fit_kappa on 2D meshes is not ported yet (slice C: structured "
-            "grids; slice E: general meshes)")
+            "fit_kappa on a mesh without structured-grid metadata (or with "
+            "a non-factory Dirichlet mask) takes the generic edge-ELL/Adam "
+            "routes, not ported yet (slice E: general meshes)")
+    if mesh.dim == 2:
+        return _fit_kappa_2d(mesh, grid, f, u_data, steps, lr, kappa0,
+                             iters, warm, block_b, eval_final)
     raise NotImplementedError(
-        "fit_kappa on 3D meshes is not ported yet (slice D: boxes; "
-        "slice E: general meshes)")
+        "fit_kappa on 3D boxes is not ported yet (slice D)")
+
+
+def _build_loop_2d(grid, path, iters, warm, block_b, lr, scale, steps):
+    """The 2D SGD inversion loop for one static configuration.
+
+    ``path`` 'fused' / 'two_launch': a cold first gradient step, then
+    ``steps − 1`` steps warm-started from the previous (u, λ) when
+    ``warm``; 'xla': ``steps`` steps of autograd through
+    ``solve_poisson_structured``.  The returned function maps
+    (κ_lower, κ_upper, f, g, u_data) planes to (κ_lower, κ_upper,
+    loss_history) with the history in MSE units, kept on the device."""
+    from .ops.kernels.stencil_cg_kernel import (
+        fused_kappa_mse_step_2d, kappa_mse_step_2d_two_launch)
+    from .ops.stencil import solve_poisson_structured
+
+    if path in ("fused", "two_launch"):
+        step_fn = (fused_kappa_mse_step_2d if path == "fused"
+                   else kappa_mse_step_2d_two_launch)
+
+        def loop(kl, ku, fg, g0, ug):
+            state, hist = None, []
+            for _ in range(max(steps, 1)):
+                lp, (gl, gu), _, state = step_fn(
+                    grid, (kl, ku), fg, g0, ug, iters=iters,
+                    block_b=block_b, scale=scale,
+                    warm_state=state if warm else None, return_state=True)
+                kl, ku = kl - lr * gl, ku - lr * gu
+                hist.append((scale / 2.0) * lp.mean())
+            return kl, ku, torch.stack(hist)
+        return loop
+
+    def loop(kl, ku, fg, g0, ug):
+        B = fg.shape[0]
+        hist = []
+        for _ in range(steps):
+            klu = (kl.detach().requires_grad_(),
+                   ku.detach().requires_grad_())
+            with torch.enable_grad():
+                u = solve_poisson_structured(grid, klu, fg, g0, 0.0, iters)
+                d = u - ug
+                # per-scenario cotangent scale; history in MSE units
+                loss = (scale / 2.0) * (d * d).sum()
+                gl, gu = torch.autograd.grad(loss, klu)
+            kl, ku = kl - lr * gl, ku - lr * gu
+            hist.append(loss.detach() / B)
+        return kl, ku, torch.stack(hist)
+    return loop
+
+
+def _build_eval_2d(grid, maxiter):
+    """The converged check: MSE of one global-dot fixed-trip solve."""
+    from .ops.stencil import solve_poisson_structured
+
+    def ev(kl, ku, fg, g0, ug):
+        with torch.no_grad():
+            u = solve_poisson_structured(grid, (kl, ku), fg, g0, 0.0,
+                                         maxiter)
+            return ((u - ug) ** 2).mean()
+    return ev
+
+
+def _fit_kappa_2d(mesh, grid, f, u_data, steps, lr, kappa0, iters, warm,
+                  block_b, eval_final):
+    """2D per-triangle inversion on the structured grid."""
+    from .ops.kernels.stencil_cg_kernel import choose_2d_path
+    from .ops.stencil import kappa_lu_from_elements
+
+    B = f.shape[0]
+    H, W = grid.node_shape
+    if iters is None:
+        # per-step warm iteration policy of the JAX package, gated there
+        # on the converged eval loss (an accuracy result, kept as is)
+        n_side = max(grid.nx, grid.ny)
+        iters = 32 if n_side <= 64 else (8 if n_side <= 128 else 4)
+    if max(grid.nx, grid.ny) > 64 and block_b > 1:
+        block_b = 1
+    warm = True if warm is None else warm
+    lr = 30.0 if lr is None else lr
+    # per-scenario-mean cotangent scale: gradient magnitude independent of B
+    scale = 2.0 / (H * W)
+    fg = f.reshape(B, H, W)
+    ug = u_data.reshape(B, H, W)
+    g0 = mesh.bc_values.reshape(H, W)
+    if kappa0 is None:
+        kl0 = torch.ones((B, grid.ny, grid.nx), dtype=mesh.dtype,
+                         device=mesh.device)
+        ku0 = kl0
+    else:
+        kl0, ku0 = kappa_lu_from_elements(grid, torch.as_tensor(
+            kappa0, dtype=mesh.dtype, device=mesh.device).expand(
+                B, mesh.n_elements))
+
+    path = choose_2d_path(grid, block_b=block_b,
+                          itemsize=mesh.dtype.itemsize)
+    if path == "two_launch":
+        block_b = 1
+    loop = _build_loop_2d(grid, path, iters, warm, block_b, float(lr),
+                          float(scale), steps)
+    kl, ku, losses = loop(kl0, ku0, fg, g0, ug)
+    kappa = torch.stack([kl, ku], dim=-1).reshape(B, mesh.n_elements)
+    info = {"path": f"stencil2d_{path}", "iters": iters, "warm": warm,
+            "loss_history": losses, "eval_loss": None}
+    if eval_final:
+        ev = _build_eval_2d(grid, max(4 * iters, 256))
+        info["eval_loss"] = float(ev(kl, ku, fg, g0, ug))
+    return kappa, info
 
 
 def _build_loop_1d(keT, aux, n_full, k, rem, lr, scale):

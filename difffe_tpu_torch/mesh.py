@@ -5,6 +5,10 @@ per-node tensors (``bc_mask`` ∈ {0,1}, ``bc_values``), so every op keeps
 static shapes.  All tensors of a mesh live on one ``device``; float fields
 share one ``dtype`` and ``elements`` is int64 (torch's index type).
 
+The factories put a mesh on the CUDA card unless the caller passes
+``device`` (``device="cpu"`` for the CPU): there is no fallback, so
+without a card the default raises torch's own error.
+
 ``FEMesh.from_arrays`` builds a mesh from numpy arrays — the converter the
 parity tests use to hand the JAX package's meshes (including nonuniform
 ones) to this package unchanged.
@@ -13,7 +17,7 @@ ones) to this package unchanged.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +26,11 @@ import torch
 def default_dtype() -> torch.dtype:
     """torch's default float dtype (float32 unless the caller changed it)."""
     return torch.get_default_dtype()
+
+
+def _device(device) -> torch.device:
+    """The factories' device: the CUDA card unless one is named."""
+    return torch.device("cuda" if device is None else device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,12 +44,17 @@ class FEMesh:
     bc_mask : (n_nodes,) float tensor — 1.0 on Dirichlet nodes, else 0.0.
     bc_values : (n_nodes,) float tensor — prescribed Dirichlet values
         (only read where ``bc_mask == 1``).
+    grid : ``ops.stencil.StructuredGrid`` of a ``rectangle`` mesh, else
+        None.  When present, ``solve_poisson(method="auto")`` and
+        ``fit_kappa`` take the structured stencil routes;
+        ``with_dirichlet`` drops it, as in the JAX package.
     """
 
     nodes: torch.Tensor
     elements: torch.Tensor
     bc_mask: torch.Tensor
     bc_values: torch.Tensor
+    grid: Optional[object] = None
 
     # ---------------------------------------------------------------- queries
 
@@ -74,13 +88,18 @@ class FEMesh:
         return np.nonzero(self.bc_mask.cpu().numpy() < 0.5)[0]
 
     def h(self) -> float:
-        """Characteristic element size = minimum element length (1D)."""
-        if self.dim != 1:
-            raise NotImplementedError(
-                "FEMesh.h for 2D/3D meshes is not ported yet (slices C/D)")
-        x = self.nodes[:, 0]
-        d = (x[self.elements[:, 1]] - x[self.elements[:, 0]]).abs()
-        return float(d.min())
+        """Characteristic element size: the minimum element length in 1D,
+        the minimum edge length over all vertex pairs of every element in
+        2D/3D."""
+        if self.dim == 1:
+            x = self.nodes[:, 0]
+            d = (x[self.elements[:, 1]] - x[self.elements[:, 0]]).abs()
+            return float(d.min())
+        p = self.nodes[self.elements]              # (ne, k, dim)
+        k = p.shape[1]
+        lengths = [torch.linalg.vector_norm(p[:, b] - p[:, a], dim=-1)
+                   for a in range(k) for b in range(a + 1, k)]
+        return float(torch.stack(lengths).min())
 
     def __repr__(self) -> str:
         return (f"FEMesh(dim={self.dim}, n_nodes={self.n_nodes}, "
@@ -91,13 +110,15 @@ class FEMesh:
 
     @classmethod
     def from_arrays(cls, nodes, elements, bc_mask, bc_values,
-                    device=None, dtype: Optional[torch.dtype] = None
-                    ) -> "FEMesh":
+                    device=None, dtype: Optional[torch.dtype] = None,
+                    grid=None) -> "FEMesh":
         """Build a mesh from numpy arrays (or anything ``np.asarray`` takes).
 
         ``dtype`` defaults to the dtype of ``nodes`` when it is a float
-        array, else to :func:`default_dtype`.
+        array, else to :func:`default_dtype`; ``device`` to the CUDA card.
+        ``grid`` is the structured-grid metadata to attach, if any.
         """
+        device = _device(device)
         nodes = np.asarray(nodes)
         if dtype is None:
             dtype = (torch.from_numpy(np.empty(0, nodes.dtype)).dtype
@@ -113,6 +134,7 @@ class FEMesh:
                                   device=device),
             bc_mask=as_float(bc_mask),
             bc_values=as_float(bc_values),
+            grid=grid,
         )
 
     @classmethod
@@ -123,6 +145,7 @@ class FEMesh:
         """Uniform 1D mesh on [x_left, x_right]: n_elements+1 nodes,
         Dirichlet at each end whose value is not None."""
         dtype = dtype or default_dtype()
+        device = _device(device)
         n = n_elements + 1
         x = torch.linspace(x_left, x_right, n, dtype=dtype, device=device)
         idx = torch.arange(n_elements, device=device)
@@ -139,20 +162,68 @@ class FEMesh:
                    bc_values=bc_values)
 
     @classmethod
-    def rectangle(cls, *args, **kwargs) -> "FEMesh":
-        raise NotImplementedError(
-            "FEMesh.rectangle is not ported yet (slice C: 2D structured "
-            "grids)")
+    def rectangle(cls, nx: int = 4, ny: int = 4,
+                  x_range: Tuple[float, float] = (0.0, 1.0),
+                  y_range: Tuple[float, float] = (0.0, 1.0),
+                  bc_value: float = 0.0,
+                  dtype: Optional[torch.dtype] = None,
+                  device=None) -> "FEMesh":
+        """Uniform 2D triangulated grid, Dirichlet on all four edges.
+
+        Node id = row·(nx+1) + col; quad (a, b, c, d) → triangles (a, b, d)
+        and (b, c, d), interleaved [lower_0, upper_0, lower_1, …].  The
+        boundary is found by index, not by coordinates.
+        """
+        from .ops.stencil import StructuredGrid
+
+        dtype = dtype or default_dtype()
+        device = _device(device)
+        xs = torch.linspace(x_range[0], x_range[1], nx + 1, dtype=dtype,
+                            device=device)
+        ys = torch.linspace(y_range[0], y_range[1], ny + 1, dtype=dtype,
+                            device=device)
+        yy, xx = torch.meshgrid(ys, xs, indexing="ij")     # (ny+1, nx+1)
+        nodes = torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=1)
+        i = torch.arange(ny, device=device)[:, None]
+        j = torch.arange(nx, device=device)[None, :]
+        a = (i * (nx + 1) + j).reshape(-1)
+        b = (i * (nx + 1) + j + 1).reshape(-1)
+        c = ((i + 1) * (nx + 1) + j + 1).reshape(-1)
+        d = ((i + 1) * (nx + 1) + j).reshape(-1)
+        lower = torch.stack([a, b, d], dim=1)
+        upper = torch.stack([b, c, d], dim=1)
+        elements = torch.stack([lower, upper], dim=1).reshape(-1, 3)
+        rows = torch.arange(ny + 1, device=device)[:, None]
+        cols = torch.arange(nx + 1, device=device)[None, :]
+        on_bnd = ((rows == 0) | (rows == ny) | (cols == 0)
+                  | (cols == nx)).reshape(-1)
+        bc_mask = on_bnd.to(dtype)
+        return cls(nodes=nodes, elements=elements, bc_mask=bc_mask,
+                   bc_values=bc_mask * bc_value,
+                   grid=StructuredGrid.unit(nx, ny, x_range, y_range))
 
     @classmethod
     def box(cls, *args, **kwargs) -> "FEMesh":
         raise NotImplementedError(
             "FEMesh.box is not ported yet (slice D: 3D boxes)")
 
+    @classmethod
+    def line_p2(cls, *args, **kwargs) -> "FEMesh":
+        raise NotImplementedError(
+            "FEMesh.line_p2 is not ported yet (slice B: ops/p2.py)")
+
+    @classmethod
+    def rectangle_p2(cls, *args, **kwargs) -> "FEMesh":
+        raise NotImplementedError(
+            "FEMesh.rectangle_p2 is not ported yet (slice E: ops/p2.py)")
+
     # ------------------------------------------------------------------ misc
 
     def with_dirichlet(self, node_indices, values) -> "FEMesh":
-        """Return a copy with additional/overridden Dirichlet constraints."""
+        """Return a copy with additional/overridden Dirichlet constraints.
+
+        The copy has no ``grid``: custom constraints break the full-boundary
+        Dirichlet assumption of the structured stencil routes."""
         idx = torch.as_tensor(node_indices, dtype=torch.int64,
                               device=self.device).reshape(-1)
         vals = torch.as_tensor(values, dtype=self.dtype,
@@ -162,4 +233,4 @@ class FEMesh:
         bc_mask[idx] = 1.0
         bc_values[idx] = vals
         return dataclasses.replace(self, bc_mask=bc_mask,
-                                   bc_values=bc_values)
+                                   bc_values=bc_values, grid=None)

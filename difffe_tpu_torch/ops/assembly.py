@@ -1,10 +1,13 @@
-"""P1 line-element assembly: load vector and tridiagonal stiffness bands.
+"""P1 line-element assembly and the κ rules the 2D stencil routes share.
 
-PyTorch counterpart of the 1D subset of ``difffe_tpu/ops/assembly.py``.
+PyTorch counterpart of the 1D subset of ``difffe_tpu/ops/assembly.py``
+plus its element-family and κ-normalization rules for P1 triangles.
 The JAX scatter-adds become ``index_add`` (load) and pad-and-add (bands).
 Semantics kept: the trapezoidal nodal load F_i += h_e/2·f_i and the local
-stiffness κ_e/h_e·[[1,-1],[-1,1]].  Every other element family raises
-``NotImplementedError`` naming the slice that ports it.
+stiffness κ_e/h_e·[[1,-1],[-1,1]].  P1 triangles are recognised (the
+structured routes of ops/stencil.py assemble them in stencil form); their
+generic assembly, P2 and tetrahedra raise ``NotImplementedError`` naming
+the slice that ports them.
 """
 
 from __future__ import annotations
@@ -14,19 +17,20 @@ import torch.nn.functional as F_
 
 from ..mesh import FEMesh
 
+_FAMILIES = {(1, 2): "p1_line", (2, 3): "p1_tri"}
 _UNPORTED_FAMILIES = {
     (1, 3): "P2 line elements are not ported yet (slice B: ops/p2.py)",
-    (2, 3): "P1 triangle elements are not ported yet (slices C/E)",
     (2, 6): "P2 triangle elements are not ported yet (slice E)",
     (3, 4): "P1 tetrahedra are not ported yet (slices D/E)",
 }
 
 
 def element_family(mesh: FEMesh) -> str:
-    """'p1_line' — the only family this package assembles so far."""
+    """'p1_line' | 'p1_tri' from (dim, nodes/elem); the other families of
+    the JAX package raise ``NotImplementedError`` naming their slice."""
     key = (mesh.dim, mesh.elements.shape[1])
-    if key == (1, 2):
-        return "p1_line"
+    if key in _FAMILIES:
+        return _FAMILIES[key]
     if key in _UNPORTED_FAMILIES:
         raise NotImplementedError(_UNPORTED_FAMILIES[key])
     raise NotImplementedError(
@@ -40,6 +44,11 @@ def kappa_on_elements(mesh: FEMesh, kappa) -> torch.Tensor:
     ``(..., n_nodes)`` (averaged over each element's nodes).
     """
     kappa = torch.as_tensor(kappa, dtype=mesh.dtype, device=mesh.device)
+    if is_tensor_kappa(mesh, kappa):
+        raise ValueError(
+            "tensor-valued kappa reached a scalar-diffusion path; tensor "
+            "diffusivity needs the generic P1 assembly (method='dense'/"
+            "'lu'/'cg'), not ported yet (slice E: ops/assembly.py)")
     ne, nn = mesh.n_elements, mesh.n_nodes
     if kappa.ndim == 0:
         return kappa.expand(ne)
@@ -52,6 +61,22 @@ def kappa_on_elements(mesh: FEMesh, kappa) -> torch.Tensor:
         f"n_elements={ne} nor n_nodes={nn}")
 
 
+def is_tensor_kappa(mesh: FEMesh, kappa) -> bool:
+    """True when κ is a dim×dim diffusion tensor: any shape with trailing
+    dims (d, d) on a 2D/3D mesh."""
+    shape = tuple(torch.as_tensor(kappa).shape)
+    d = mesh.dim
+    return d in (2, 3) and len(shape) >= 2 and shape[-2:] == (d, d)
+
+
+def _require_line(mesh: FEMesh):
+    if element_family(mesh) != "p1_line":
+        raise NotImplementedError(
+            "generic P1 triangle assembly is not ported yet (slice E: "
+            "ops/assembly.py); FEMesh.rectangle meshes assemble in stencil "
+            "form (ops/stencil.py)")
+
+
 def element_geometry_1d(mesh: FEMesh) -> torch.Tensor:
     """Element lengths h_e = x_j − x_i (signed)."""
     x = mesh.nodes[:, 0]
@@ -61,7 +86,7 @@ def element_geometry_1d(mesh: FEMesh) -> torch.Tensor:
 def assemble_load(mesh: FEMesh, f) -> torch.Tensor:
     """Trapezoidal nodal load F_i += h_e/2·f_i from forcing ``f``
     (..., n_nodes); leading batch axes are kept."""
-    element_family(mesh)
+    _require_line(mesh)
     f = torch.as_tensor(f, dtype=mesh.dtype, device=mesh.device)
     h = element_geometry_1d(mesh)
     i, j = mesh.elements[:, 0], mesh.elements[:, 1]
@@ -73,7 +98,7 @@ def assemble_load(mesh: FEMesh, f) -> torch.Tensor:
 def assemble_tridiag_1d(mesh: FEMesh, kappa):
     """Stiffness of a chain mesh (elements (i, i+1)) as bands ``(d, e)``:
     d (..., n) on the diagonal, e (..., n−1) on both off-diagonals."""
-    element_family(mesh)
-    ke =kappa_on_elements(mesh, kappa) / element_geometry_1d(mesh)
+    _require_line(mesh)
+    ke = kappa_on_elements(mesh, kappa) / element_geometry_1d(mesh)
     d = F_.pad(ke, (0, 1)) + F_.pad(ke, (1, 0))
     return d, -ke

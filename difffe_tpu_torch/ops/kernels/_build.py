@@ -2,10 +2,13 @@
 
 ``load_library()`` compiles every ``difffe_tpu_torch/csrc/*.cu`` into one
 shared library with a plain C interface, on first use, into
-``difffe_tpu_torch/_build/libdifffe_<hash>.so``.  The name carries a hash
-of the sources and the flags, so an edit rebuilds and an unchanged tree
-reuses the library.  The library includes no PyTorch header, which keeps
-the build to seconds; tensors cross as raw pointers.
+``difffe_tpu_torch/_build/libdifffe_<hash>.so``: one ``nvcc -c`` per
+source, all started together, then one link.  The name carries a hash of
+the sources and the flags, so an edit rebuilds and an unchanged tree
+reuses the library.  The compilers' output (``-Xptxas -v``: registers,
+shared memory and spills of every kernel) is kept beside it as
+``libdifffe_<hash>.log``.  The library includes no PyTorch header, which
+keeps the build to seconds; tensors cross as raw pointers.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every pointer and the stream as void*)
@@ -31,6 +35,10 @@ _SIGNATURES = {
     "difffe_cf_step": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
     "difffe_cf_chain": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                         _I, _F, _P],
+    "difffe_stencil_cg_work": [_I, _I],
+    "difffe_stencil_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "difffe_stencil_cg2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _F, _P],
 }
 
 
@@ -40,7 +48,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -62,9 +70,19 @@ def find_nvcc() -> str:
         "kernels of difffe_tpu_torch are built from source at first use")
 
 
-def nvcc_command(out: Path) -> list[str]:
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), *cu]
+def _run_all(commands: list[list[str]], log: list[str]):
+    """Run the commands together; raise with the output of any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    failed = []
+    for cmd, proc in zip(commands, procs):
+        out, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
 def build() -> Path:
@@ -73,13 +91,23 @@ def build() -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    cu = [s for s in sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in cu]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    log: list[str] = []
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(cu, objs)], log)
+        _run_all([[nvcc, *NVCC_FLAGS, *LINK_FLAGS, "-o", str(tmp),
+                   *map(str, objs)]], log)
+        out.with_suffix(".log").write_text("\n".join(log))
+        os.replace(tmp, out)        # atomic: concurrent builds agree
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)            # atomic: concurrent builds agree
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 

@@ -1,60 +1,148 @@
-"""Solve −∇·(κ∇u) = f with Dirichlet BCs: the 1D facade.
+"""Solve −∇·(κ∇u) = f with Dirichlet BCs: the 1D and 2D-structured facade.
 
-PyTorch counterpart of the 1D subset of ``difffe_tpu/solver.py``:
+PyTorch counterpart of the ported subset of ``difffe_tpu/solver.py``:
 ``solve_poisson`` and ``solve_poisson_batched`` with the JAX package's
-κ-batching rules, routed to the PCR tridiagonal solver
-(ops/tridiag.py).  Every route not ported yet raises
-``NotImplementedError`` naming the slice that ports it.
+κ-batching rules, routed to
+
+* the PCR tridiagonal solver (ops/tridiag.py) on 1D line meshes;
+* the structured stencil solver (ops/stencil.py) on ``FEMesh.rectangle``
+  meshes with their factory Dirichlet boundary, and for fixed-trip batched
+  solves (``cg_tol=0``, ``cg_maxiter ≤ 256``) the whole-CG kernel K3a
+  (ops/kernels/stencil_cg_kernel.py), forward and adjoint.
+
+Every route not ported yet raises ``NotImplementedError`` naming the
+slice that ports it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .mesh import FEMesh
 from .ops import tridiag as _tridiag
-from .ops.assembly import assemble_load, assemble_tridiag_1d, element_family
+from .ops.assembly import (assemble_load, assemble_tridiag_1d,
+                           element_family, is_tensor_kappa,
+                           kappa_on_elements)
 
 _UNPORTED_METHODS = {
     "tridiag_pallas": "method='tridiag_pallas' needs the PCR kernel K2, "
                       "not ported yet (K2, slice B)",
-    "dense": "method='dense' is not ported yet (slice B: ops/solve.py)",
-    "lu": "method='lu' is not ported yet (slice B: ops/solve.py)",
-    "cg": "method='cg' is not ported yet (slice C: ops/cg.py)",
-    "stencil": "method='stencil' is not ported yet (slices C/D: "
-               "ops/stencil.py, ops/stencil3d.py)",
+    "dense": "method='dense' is not ported yet (slice B: ops/solve.py; "
+             "2D/3D assembly: slice E)",
+    "lu": "method='lu' is not ported yet (slice B: ops/solve.py; 2D/3D "
+          "assembly: slice E)",
+    "cg": "method='cg' is not ported yet (slice C item 14: ops/cg.py)",
 }
+_NATURAL_2D = ("Neumann/Robin terms and non-factory Dirichlet masks on "
+               "rectangle meshes take the generalized-mask stencil solver, "
+               "not ported yet (slice C item 14: ops/stencil_natural.py)")
 
 
-def _resolve_method(mesh: FEMesh, method: str) -> str:
+def _resolve_method(mesh: FEMesh, method: str, kappa=None,
+                    structured_ok: bool = True) -> str:
     if method != "auto":
         return method
-    element_family(mesh)    # raises for every family not ported yet
-    return "tridiag"
+    if element_family(mesh) == "p1_line":
+        return "tridiag"
+    # structured rectangle meshes carry their grid metadata: route to the
+    # closed-form stencil operators when κ is isotropic
+    if (structured_ok and mesh.grid is not None
+            and (kappa is None or not is_tensor_kappa(mesh, kappa))):
+        return "stencil"
+    return "dense" if mesh.n_nodes <= 4096 else "cg"
 
 
-def _require_ported(mesh: FEMesh, method: str, kw: dict):
+def _cg_policy(mesh: FEMesh, cg_tol, cg_maxiter):
+    """Default iteration policy for the public CG surface: unspecified
+    ``cg_tol`` converges to 1e-6 (f32) / 1e-12 (f64) relative residual
+    with a cap of ≈10·√n iterations; ``cg_tol=0.0`` with an explicit
+    ``cg_maxiter`` is the fixed-trip mode."""
+    if cg_tol is None:
+        cg_tol = 1e-12 if mesh.dtype == torch.float64 else 1e-6
+    if cg_maxiter is None and cg_tol > 0.0:
+        n = mesh.n_nodes
+        cg_maxiter = min(n, max(64, 10 * math.isqrt(n)))
+    return cg_tol, cg_maxiter
+
+
+def _mask_is_factory(mesh: FEMesh) -> bool:
+    """True when the mesh's Dirichlet set is the factory full boundary of
+    its grid (the assumption of the structured stencil solvers).  One
+    device-to-host copy of the mask."""
+    mask = mesh.bc_mask.detach().cpu().numpy() > 0.5
+    shape = mesh.grid.node_shape
+    factory = np.zeros(shape, bool)
+    for ax in range(len(shape)):
+        lo = [slice(None)] * len(shape)
+        lo[ax] = 0
+        hi = [slice(None)] * len(shape)
+        hi[ax] = -1
+        factory[tuple(lo)] = True
+        factory[tuple(hi)] = True
+    return bool((mask.reshape(shape) == factory).all())
+
+
+def _solve_stencil(mesh: FEMesh, kappa, f: torch.Tensor, cg_tol: float,
+                   cg_maxiter: Optional[int], neumann=None, robin=None,
+                   bc_values=None, dot=None) -> torch.Tensor:
+    """Route onto the closed-form structured stencil solver.
+
+    κ in any facade form (scalar / per-element / per-node, leading batch
+    axes allowed) becomes per-triangle fields by the generic assembly's
+    rules; flat node vectors reshape to the node grid and back.  All of it
+    is differentiable.  ``dot`` is the CG inner product
+    (``pcg.batched_dot(2)`` for independent scenarios)."""
+    from .ops.stencil import kappa_lu_from_elements, solve_poisson_structured
+
+    if mesh.dim != 2:
+        raise NotImplementedError(
+            "3D structured stencil solves are not ported yet (slice D: "
+            "ops/stencil3d.py)")
+    if neumann is not None or robin is not None or not _mask_is_factory(mesh):
+        raise NotImplementedError(_NATURAL_2D)
+    grid = mesh.grid
+    shape = grid.node_shape
+    ke = kappa_on_elements(mesh, kappa)
+    g = mesh.bc_values if bc_values is None else bc_values
+    g = g.reshape(g.shape[:-1] + shape)
+    fg = f.reshape(f.shape[:-1] + shape)
+    u = solve_poisson_structured(grid, kappa_lu_from_elements(grid, ke),
+                                 fg, g, cg_tol, cg_maxiter, dot)
+    return u.reshape(u.shape[:-2] + (mesh.n_nodes,))
+
+
+def _check_kw(kw: dict):
+    extra = set(kw) - {"neumann", "robin", "cg_tol", "cg_maxiter"}
+    if extra:
+        raise TypeError(f"unexpected keyword arguments {sorted(extra)}")
+
+
+def _require_1d_ported(mesh: FEMesh, method: str, kw: dict):
     for name in ("neumann", "robin"):
         if kw.get(name) is not None:
             raise NotImplementedError(
                 f"{name}= boundary terms are not ported yet (slice B: "
                 f"ops/{name}.py)")
-    extra = set(kw) - {"neumann", "robin", "cg_tol", "cg_maxiter"}
-    if extra:
-        raise TypeError(f"unexpected keyword arguments {sorted(extra)}")
-    if method in _UNPORTED_METHODS:
-        raise NotImplementedError(_UNPORTED_METHODS[method])
-    if method != "tridiag":
-        raise ValueError(f"Unknown method {method!r}")
     if mesh.dim != 1:
         raise ValueError(f"method={method!r} requires a 1D mesh")
-    if mesh.n_dirichlet == 0:
+
+
+def _require_stencil(mesh: FEMesh):
+    if mesh.grid is None:
         raise ValueError(
-            "mesh has no Dirichlet nodes: the Poisson system is singular "
-            "(constant nullspace). Pin at least one node "
-            "(FEMesh.with_dirichlet).")
+            "method='stencil' requires structured-grid metadata (a mesh "
+            "built by FEMesh.rectangle whose Dirichlet set is the factory "
+            "boundary); general meshes take method='cg' or 'dense' (slice E)")
+
+
+def _unknown_or_unported(method: str):
+    if method in _UNPORTED_METHODS:
+        raise NotImplementedError(_UNPORTED_METHODS[method])
+    raise ValueError(f"Unknown method {method!r}")
 
 
 def solve_poisson(mesh: FEMesh, kappa, f, method: str = "auto",
@@ -65,20 +153,60 @@ def solve_poisson(mesh: FEMesh, kappa, f, method: str = "auto",
 
     kappa : scalar, (n_elements,) or (n_nodes,) diffusion coefficient.
     f : (n_nodes,) nodal forcing values.
-    method : 'auto' | 'tridiag' (ported); 'tridiag_pallas', 'dense', 'lu',
-        'cg' and 'stencil' raise NotImplementedError.
+    method : 'auto' | 'tridiag' (1D) | 'stencil' (rectangle meshes) are
+        ported; 'tridiag_pallas', 'dense', 'lu' and 'cg' raise
+        NotImplementedError.
+    cg_tol, cg_maxiter : the stencil route's CG policy (``_cg_policy``).
     bc_values : optional (n_nodes,) override of the Dirichlet values.
-    ``cg_tol``/``cg_maxiter`` are read by the unported CG routes only.
 
     Returns u (n_nodes,), differentiable wrt kappa, f and bc_values.
     """
     f = torch.as_tensor(f, dtype=mesh.dtype, device=mesh.device)
-    method = _resolve_method(mesh, method)
-    _require_ported(mesh, method, dict(neumann=neumann, robin=robin))
-    d, e = assemble_tridiag_1d(mesh, kappa)
-    F = assemble_load(mesh, f)
-    return _tridiag.solve_poisson_tridiag(mesh, d, e, F,
-                                          bc_values=bc_values)
+    natural = neumann is not None or robin is not None
+    method = _resolve_method(mesh, method, kappa=kappa,
+                             structured_ok=(not natural) or mesh.dim == 2)
+    if robin is None and mesh.n_dirichlet == 0:
+        raise ValueError(
+            "mesh has no Dirichlet nodes: the Poisson system is singular "
+            "(constant nullspace). Pin at least one node "
+            "(FEMesh.with_dirichlet).")
+    if method == "tridiag":
+        _require_1d_ported(mesh, method, dict(neumann=neumann, robin=robin))
+        d, e = assemble_tridiag_1d(mesh, kappa)
+        F = assemble_load(mesh, f)
+        return _tridiag.solve_poisson_tridiag(mesh, d, e, F,
+                                              bc_values=bc_values)
+    if bc_values is not None:
+        bc_values = torch.as_tensor(bc_values, dtype=mesh.dtype,
+                                    device=mesh.device)
+    if method == "stencil":
+        _require_stencil(mesh)
+        cg_tol, cg_maxiter = _cg_policy(mesh, cg_tol, cg_maxiter)
+        return _solve_stencil(mesh, kappa, f, cg_tol, cg_maxiter,
+                              neumann=neumann, robin=robin,
+                              bc_values=bc_values)
+    _unknown_or_unported(method)
+
+
+def _kappa_batched(mesh, kappa, kappa_batched, batch_sizes) -> bool:
+    k_core = tuple(kappa.shape[:-2] if is_tensor_kappa(mesh, kappa)
+                   else kappa.shape)
+    if kappa_batched is not None:
+        return kappa_batched and len(k_core) >= 1
+    if len(k_core) == 2:
+        return True
+    if len(k_core) == 1:
+        L = k_core[0]
+        looks_field = L in (mesh.n_elements, mesh.n_nodes)
+        looks_batch = (not batch_sizes and not looks_field) or \
+            (L in batch_sizes)
+        if looks_field and looks_batch:
+            raise ValueError(
+                f"ambiguous kappa lead dim of length {L}: could be a shared "
+                f"per-element/per-node field or B={L} per-scenario values "
+                f"— pass kappa_batched=True (batch) or False (field)")
+        return looks_batch and not looks_field
+    return False
 
 
 def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
@@ -93,7 +221,14 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
     n_elements/n_nodes it is one shared field.  When B equals n_elements
     or n_nodes the two readings collide and the call raises: pass
     ``kappa_batched=True/False``.
+
+    On rectangle meshes a fixed-trip solve (``cg_tol=0.0``,
+    ``cg_maxiter ≤ 256``) of batched forcings with shared boundary values
+    runs on the whole-CG kernel K3a, its gradient too; other batched
+    stencil solves run the torch CG with per-scenario dots (the JAX
+    package ``vmap``s one solve per scenario there).
     """
+    _check_kw(kw)
     dt, dev = mesh.dtype, mesh.device
     kappa = torch.as_tensor(kappa, dtype=dt, device=dev)
     f = torch.as_tensor(f, dtype=dt, device=dev)
@@ -101,44 +236,67 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
         bc_values = torch.as_tensor(bc_values, dtype=dt, device=dev)
     f_batched = f.ndim >= 2
     g_batched = bc_values is not None and bc_values.ndim >= 2
-
-    k_core = tuple(kappa.shape)
-    if kappa_batched is not None:
-        k_batched = kappa_batched and len(k_core) >= 1
-    elif len(k_core) == 2:
-        k_batched = True
-    elif len(k_core) == 1:
-        L = k_core[0]
-        looks_field = L in (mesh.n_elements, mesh.n_nodes)
-        batch_sizes = ({f.shape[0]} if f_batched else set()) | (
-            {bc_values.shape[0]} if g_batched else set())
-        looks_batch = (not batch_sizes and not looks_field) or \
-            (L in batch_sizes)
-        if looks_field and looks_batch:
-            raise ValueError(
-                f"ambiguous kappa lead dim of length {L}: could be a shared "
-                f"per-element/per-node field or B={L} per-scenario values "
-                f"— pass kappa_batched=True (batch) or False (field)")
-        k_batched = looks_batch and not looks_field
-    else:
-        k_batched = False
+    nm, rb = kw.get("neumann"), kw.get("robin")
+    natural = nm is not None or rb is not None
+    batch_sizes = ({f.shape[0]} if f_batched else set()) | (
+        {bc_values.shape[0]} if g_batched else set())
+    k_batched = _kappa_batched(mesh, kappa, kappa_batched, batch_sizes)
 
     if not (k_batched or f_batched or g_batched):
         return solve_poisson(mesh, kappa, f, method=method,
                              bc_values=bc_values, **kw)
 
-    method = _resolve_method(mesh, method)
-    _require_ported(mesh, method, kw)
+    method = _resolve_method(mesh, method, kappa=kappa,
+                             structured_ok=(not natural) or mesh.dim == 2)
     if k_batched and kappa.ndim == 1:
         # (B,) scalar-per-scenario → (B, n_elements)
         kappa = kappa[:, None].expand(kappa.shape[0], mesh.n_elements)
-    d, e = assemble_tridiag_1d(mesh, kappa)
-    F = assemble_load(mesh, f)
-    lead = torch.broadcast_shapes(
-        d.shape[:-1], F.shape[:-1],
-        bc_values.shape[:-1] if g_batched else ())
-    F = F.expand(lead + F.shape[-1:])
-    d = d.expand(lead + d.shape[-1:])
-    e = e.expand(lead + e.shape[-1:])
-    return _tridiag.solve_poisson_tridiag(mesh, d, e, F,
-                                          bc_values=bc_values)
+
+    if method == "stencil":
+        _require_stencil(mesh)
+        if mesh.dim == 2 and (natural or not _mask_is_factory(mesh)):
+            raise NotImplementedError(_NATURAL_2D)
+        from .ops.kernels.stencil_cg_kernel import choose_2d_path
+        from .ops.pcg import batched_dot
+
+        cg_tol, cg_maxiter = kw.get("cg_tol"), kw.get("cg_maxiter")
+        if (mesh.dim == 2 and f_batched and not g_batched
+                and cg_tol == 0.0 and cg_maxiter and cg_maxiter <= 256
+                and choose_2d_path(mesh.grid, block_b=8) == "fused"):
+            return _solve_batched_kernel(mesh, kappa, f, bc_values,
+                                         int(cg_maxiter))
+        cg_tol, cg_maxiter = _cg_policy(mesh, cg_tol, cg_maxiter)
+        return _solve_stencil(mesh, kappa, f, cg_tol, cg_maxiter,
+                              bc_values=bc_values, dot=batched_dot(2))
+
+    if method == "tridiag":
+        _require_1d_ported(mesh, method, kw)
+        d, e = assemble_tridiag_1d(mesh, kappa)
+        F = assemble_load(mesh, f)
+        lead = torch.broadcast_shapes(
+            d.shape[:-1], F.shape[:-1],
+            bc_values.shape[:-1] if g_batched else ())
+        F = F.expand(lead + F.shape[-1:])
+        d = d.expand(lead + d.shape[-1:])
+        e = e.expand(lead + e.shape[-1:])
+        return _tridiag.solve_poisson_tridiag(mesh, d, e, F,
+                                              bc_values=bc_values)
+    _unknown_or_unported(method)
+
+
+def _solve_batched_kernel(mesh, kappa, f, bc_values, iters):
+    """The fixed-trip batched rectangle solve on K3a (block_b = 8, as the
+    JAX route passes)."""
+    from .ops.kernels.stencil_cg_kernel import solve_structured_kernel
+    from .ops.stencil import kappa_lu_from_elements
+
+    grid = mesh.grid
+    B = f.shape[0]
+    keB = kappa_on_elements(mesh, kappa).expand(B, mesh.n_elements)
+    g = mesh.bc_values if bc_values is None else bc_values
+    u = solve_structured_kernel(
+        grid, kappa_lu_from_elements(grid, keB),
+        f.reshape((B,) + grid.node_shape), g.reshape(grid.node_shape),
+        iters, 8)
+    return u.reshape(B, mesh.n_nodes)
+

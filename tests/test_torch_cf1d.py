@@ -42,7 +42,8 @@ def test_mesh_supports_cf():
     jm, tm, *_ = _setup()
     assert tcf.mesh_supports_cf(tm) and jcf.mesh_supports_cf(jm)
     for pin in (tm.with_dirichlet([5], 0.0),
-                TMesh.line(8, bc_right=None, dtype=torch.float64)):
+                TMesh.line(8, bc_right=None, dtype=torch.float64,
+                           device="cpu")):
         assert not tcf.mesh_supports_cf(pin)
     with pytest.raises(ValueError, match="endpoint"):
         tcf.solve_poisson_cf_batched(tm.with_dirichlet([5], 0.0),

@@ -6,6 +6,8 @@ no JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import math
+
 import pytest
 import torch
 
@@ -13,6 +15,8 @@ from difffe_tpu_torch.inverse import fit_kappa
 from difffe_tpu_torch.mesh import FEMesh
 from difffe_tpu_torch.ops.assembly import assemble_load
 from difffe_tpu_torch.ops.kernels import fused_grad_cf_kernel as tk
+from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
+from difffe_tpu_torch.ops.stencil import StructuredGrid, residual_vjp_manual
 from difffe_tpu_torch.solver import solve_poisson_batched
 from difffe_tpu_torch.utils.profiling import timeit_chained
 from torch_parity import rel_err
@@ -26,7 +30,8 @@ CHAIN_TOL = 1e-4    # the same over a 32-step chain
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the K1 kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the K1 and K3 kernels have no CPU "
+                    "mode")
     return torch.device("cuda")
 
 
@@ -102,3 +107,134 @@ def test_timeit_chained_times_the_card(cuda):
     t = timeit_chained(lambda x: x * 1.0001, torch.ones(1024, device=cuda),
                        length=4, repeats=2)
     assert t.min_s > 0 and t.iters == 8
+
+
+# ---------------------------------------------------------------------------
+# K3a / K3b: whole-CG stencil kernels.  f32 CG amplifies summation-order
+# differences, so the kernel is held against the plain version run in f64
+# on the card: its error may be at most twice the f32 plain version's error
+# against the same f64 run, plus 1e-6.
+# ---------------------------------------------------------------------------
+
+
+def _within_rule(kernel, plain32, plain64):
+    ek, ep = rel_err(kernel, plain64), rel_err(plain32, plain64)
+    return ek <= 2.0 * ep + 1e-6, (ek, ep)
+
+
+def _k3_problem(dev, n, B, g_nonzero, seed):
+    """f64 κ planes, forcing, Dirichlet values and observations."""
+    grid = StructuredGrid.unit(n, n)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    kl = 1.2 + 0.6 * torch.rand(B, n, n, generator=gen, **f64)
+    ku = 1.2 + 0.6 * torch.rand(B, n, n, generator=gen, **f64)
+    xs = torch.linspace(0.0, 1.0, n + 1, **f64)
+    Y, X = torch.meshgrid(xs, xs, indexing="ij")
+    bump = torch.sin(math.pi * X) * torch.sin(math.pi * Y)
+    f = 10.0 * bump * (1.0 + 0.2 * torch.rand(B, 1, 1, generator=gen, **f64))
+    g = 0.3 * X + 0.1 * Y if g_nonzero else torch.zeros_like(X)
+    ud = 0.05 * bump * (1.0 + torch.rand(B, 1, 1, generator=gen, **f64))
+    return grid, (kl, ku, f, g, ud)
+
+
+def _k3b_steps(grid, arrays, dtype, cg2, iters, steps, lr=30.0):
+    """``steps`` SGD steps on κ, the first cold and the rest warm-started,
+    each through ``cg2`` (the K3b wrapper or its plain version)."""
+    kl, ku, f, g, ud = (a.to(dtype).contiguous() for a in arrays)
+    H, W = grid.node_shape
+    scale = 2.0 / (H * W)
+    out, state = [], None
+    for _ in range(steps):
+        C, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), f, g)
+        x0, lam0 = state if state else (x0, torch.zeros_like(b))
+        x, lam = cg2(D, b, Minv, x0, lam0, ud, scale, iters)
+        (gl, gu), _, _ = residual_vjp_manual(grid, (kl, ku), f, g, x, lam,
+                                             C=C)
+        out.append({"x": x, "lam": lam, "grad": torch.stack([gl, gu])})
+        state = (x, lam)
+        kl, ku = kl - lr * gl, ku - lr * gu
+    return out
+
+
+@pytest.mark.parametrize("n,B", [(8, 7), (64, 16), (256, 2)],
+                         ids=["8x8_B7", "64x64_B16", "256x256_B2"])
+@pytest.mark.parametrize("g_nonzero", [False, True], ids=["g0", "g"])
+def test_k3b_matches_plain_cold_and_warm(cuda, n, B, g_nonzero):
+    grid, arrays = _k3_problem(cuda, n, B, g_nonzero, seed=n + B)
+    before = sk.launches["cg2"]
+    kern = _k3b_steps(grid, arrays, torch.float32, sk._cg2, 32, 4)
+    p32 = _k3b_steps(grid, arrays, torch.float32, sk._cg2_plain, 32, 4)
+    p64 = _k3b_steps(grid, arrays, torch.float64, sk._cg2_plain, 32, 4)
+    torch.cuda.synchronize()
+    assert sk.launches["cg2"] == before + 4
+    for step, (k, p, q) in enumerate(zip(kern, p32, p64)):
+        for key in ("x", "lam", "grad"):
+            assert torch.isfinite(k[key]).all()
+            ok, errs = _within_rule(k[key], p[key], q[key])
+            assert ok, (step, key, errs)
+
+
+@pytest.mark.parametrize("n,B,iters", [(8, 7, 64), (64, 16, 256),
+                                       (256, 2, 128)],
+                         ids=["8x8_B7", "64x64_B16", "256x256_B2"])
+def test_k3a_matches_plain(cuda, n, B, iters):
+    grid, arrays = _k3_problem(cuda, n, B, True, seed=3 * n + B)
+    out = {}
+    for name, dt, cg in (("kernel", torch.float32, sk._cg),
+                         ("f32", torch.float32, sk._cg_plain),
+                         ("f64", torch.float64, sk._cg_plain)):
+        kl, ku, f, g, ud = (a.to(dt).contiguous() for a in arrays)
+        _, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), f, g)
+        # a forward solve from m·g and an adjoint-style solve from 0
+        out[name] = (cg(D, b, Minv, x0, iters),
+                     cg(D, ud, Minv, torch.zeros_like(ud), iters))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert torch.isfinite(out["kernel"][i]).all()
+        ok, errs = _within_rule(out["kernel"][i], out["f32"][i],
+                                out["f64"][i])
+        assert ok, (i, errs)
+
+
+def test_k3_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    grid, arrays = _k3_problem(cuda, 8, 3, False, seed=0)
+    kl, ku, f, g, ud = (a.float().contiguous() for a in arrays)
+    _, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), f, g)
+    with pytest.raises(TypeError, match="float32"):
+        sk._cg(D.double(), b.double(), Minv.double(), x0.double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk._cg(D, b.transpose(1, 2), Minv, x0, 4)
+    with pytest.raises(ValueError, match="block_b"):
+        sk._cg2(D, b, Minv, x0, x0, ud, 1.0, 4, block_b=0)
+    with pytest.raises(ValueError, match="B, H, W"):
+        sk._cg(D, b[:2], Minv, x0, 4)
+
+
+def test_factories_default_to_the_card(cuda):
+    assert FEMesh.line(30).device.type == "cuda"
+    assert FEMesh.rectangle(8, 8).device.type == "cuda"
+
+
+def test_2d_routes_launch_k3(cuda):
+    mesh = FEMesh.rectangle(8, 8, dtype=torch.float32)
+    B = 8
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x, y = mesh.nodes.T
+    f = (10.0 * torch.sin(math.pi * x) * torch.sin(math.pi * y)).expand(
+        B, mesh.n_nodes)
+    k_true = 1.2 + 0.6 * torch.rand(B, mesh.n_elements, generator=gen,
+                                    device=cuda)
+    before = dict(sk.launches)
+    ud = solve_poisson_batched(mesh, k_true, f, cg_tol=0.0, cg_maxiter=200)
+    assert sk.launches["cg"] == before["cg"] + 1
+    k = torch.ones(B, mesh.n_elements, device=cuda, requires_grad=True)
+    (solve_poisson_batched(mesh, k, f, cg_tol=0.0, cg_maxiter=64) ** 2
+     ).sum().backward()
+    assert sk.launches["cg"] == before["cg"] + 3      # forward and adjoint
+    assert torch.isfinite(k.grad).all()
+    kappa, info = fit_kappa(mesh, f, ud, steps=40, block_b=2)
+    assert info["path"] == "stencil2d_fused"
+    assert sk.launches["cg2"] == before["cg2"] + 40
+    assert torch.isfinite(kappa).all()
+    assert info["eval_loss"] < 0.5 * float(info["loss_history"][0])

@@ -101,8 +101,9 @@ def test_fit_kappa_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="slice B"):
         t_fit(tm.with_dirichlet([5], 0.0), as_torch(f), as_torch(ud), steps=2)
     tri = TMesh.from_arrays(np.array([[0., 0.], [1., 0.], [0., 1.]]),
-                            np.array([[0, 1, 2]]), np.ones(3), np.zeros(3))
-    with pytest.raises(NotImplementedError, match="slice C"):
+                            np.array([[0, 1, 2]]), np.ones(3), np.zeros(3),
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="slice E"):
         t_fit(tri, torch.ones(3), torch.zeros(3), steps=2)
 
 

@@ -202,7 +202,7 @@ def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
     assert "fused_grad_cf.cu" in [s.name for s in _build.sources()]
     for flag in ("arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                  "-shared", "-fPIC"):
-        assert flag in _build.NVCC_FLAGS
+        assert flag in _build.NVCC_FLAGS + _build.LINK_FLAGS
     (tmp_path / "fused_grad_cf.cu").write_text(
         _build.sources()[0].read_text() + "\n// edited\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)

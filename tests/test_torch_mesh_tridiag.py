@@ -63,7 +63,7 @@ def test_line_fields_match(n, bc):
     jm = JMesh.line(n, x_left=-0.5, x_right=2.0, bc_left=bc[0],
                     bc_right=bc[1], dtype=jnp.float64)
     tm = TMesh.line(n, x_left=-0.5, x_right=2.0, bc_left=bc[0],
-                    bc_right=bc[1], dtype=F64)
+                    bc_right=bc[1], dtype=F64, device="cpu")
     np.testing.assert_allclose(tm.nodes.numpy(), np.asarray(jm.nodes),
                                rtol=0, atol=1e-15)
     np.testing.assert_array_equal(tm.elements.numpy(),
@@ -97,7 +97,7 @@ def test_from_arrays_converter(nonuniform):
     assert tm.n_dirichlet == 2               # the original is unchanged
 
 
-@pytest.mark.parametrize("factory", ["rectangle", "box"])
+@pytest.mark.parametrize("factory", ["box", "line_p2", "rectangle_p2"])
 def test_unported_factories_raise(factory):
     with pytest.raises(NotImplementedError, match="slice"):
         getattr(TMesh, factory)(4, 4)
@@ -132,7 +132,13 @@ def test_assemble_load_and_bands(nonuniform):
     np.testing.assert_allclose(te.numpy(), np.asarray(je), **TIGHT)
     with pytest.raises(NotImplementedError, match="slice"):
         tasm.element_family(TMesh.from_arrays(
-            np.zeros((3, 2)), np.array([[0, 1, 2]]), np.ones(3), np.zeros(3)))
+            np.zeros((4, 3)), np.array([[0, 1, 2, 3]]), np.ones(4),
+            np.zeros(4), device="cpu"))
+    tri = TMesh.from_arrays(np.zeros((3, 2)), np.array([[0, 1, 2]]),
+                            np.ones(3), np.zeros(3), device="cpu")
+    assert tasm.element_family(tri) == "p1_tri"
+    with pytest.raises(NotImplementedError, match="slice E"):
+        tasm.assemble_load(tri, torch.ones(3, dtype=F64))
 
 
 def _spd_bands(rng, B, n):
@@ -232,13 +238,16 @@ def test_facade_rules_and_unported_routes():
         u.numpy(), np.asarray(j_solve_b(jm, jnp.full((7,), 2.0),
                                         jnp.ones((7, 8)),
                                         kappa_batched=True)), **TIGHT)
-    for method in ("tridiag_pallas", "dense", "lu", "cg", "stencil"):
+    for method in ("tridiag_pallas", "dense", "lu", "cg"):
         with pytest.raises(NotImplementedError, match="slice"):
             t_solve(tm, 1.0, f[0], method=method)
+    with pytest.raises(ValueError, match="structured-grid metadata"):
+        t_solve(tm, 1.0, f[0], method="stencil")
     with pytest.raises(NotImplementedError, match="slice B"):
         t_solve(tm, 1.0, f[0], neumann=torch.zeros(8, dtype=F64))
     with pytest.raises(ValueError, match="Unknown method"):
         t_solve(tm, 1.0, f[0], method="nope")
-    free = TMesh.line(7, bc_left=None, bc_right=None, dtype=F64)
+    free = TMesh.line(7, bc_left=None, bc_right=None, dtype=F64,
+                      device="cpu")
     with pytest.raises(ValueError, match="singular"):
         t_solve(free, 1.0, f[0])

@@ -5,6 +5,7 @@ import numpy as np
 import torch
 
 from difffe_tpu_torch.mesh import FEMesh
+from difffe_tpu_torch.ops.stencil import StructuredGrid
 
 
 def as_torch(a) -> torch.Tensor:
@@ -24,9 +25,20 @@ def rel_err(a, b) -> float:
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
+def port_grid(jax_grid):
+    """The port's StructuredGrid for a ``difffe_tpu`` 2D grid (None stays
+    None)."""
+    if jax_grid is None:
+        return None
+    return StructuredGrid(jax_grid.nx, jax_grid.ny, jax_grid.hx, jax_grid.hy)
+
+
 def port_mesh(jax_mesh, **kw) -> FEMesh:
-    """The port's FEMesh holding the same arrays as a ``difffe_tpu`` mesh."""
+    """The port's FEMesh holding the same arrays and grid metadata as a
+    ``difffe_tpu`` mesh, on the CPU unless ``device`` is given."""
+    kw.setdefault("device", "cpu")
     return FEMesh.from_arrays(np.asarray(jax_mesh.nodes),
                               np.asarray(jax_mesh.elements),
                               np.asarray(jax_mesh.bc_mask),
-                              np.asarray(jax_mesh.bc_values), **kw)
+                              np.asarray(jax_mesh.bc_values),
+                              grid=port_grid(jax_mesh.grid), **kw)
