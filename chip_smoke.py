@@ -18,7 +18,9 @@ elements, B = 2^21 scenarios, one shared forcing), kernel K1:
    launches, with loss checks;
 5. bench.py's parity gate: the step kernel's gradient against autograd
    through the PCR tridiagonal oracle on the bf16-quantized plane;
-6. chained timing of the chain and step kernels and their plain versions.
+6. chained timing of the chain and step kernels and their plain versions,
+   with the streamed bf16 u_data plane (K1d, K1b) and with shared u_data
+   (K1c, K1a).
 
 The 2D path (κ-field inversion on ``FEMesh.rectangle(64, 64)``, the
 structured-grid config of BASELINE.json, B = 4096 scenarios), kernels K3a
@@ -38,8 +40,28 @@ structured-grid config of BASELINE.json, B = 4096 scenarios), kernels K3a
 9. chained timing of K3b and K3a against their plain versions, host time of
    ``fit_kappa`` and a ``torch.profiler`` split of one call.
 
+The 3D path (κ-field inversion on ``FEMesh.box(32, 32, 32)``, B = 128
+scenarios, the README's 32³ configuration at the κ-safe 100 iterations),
+kernels K4a (whole-CG solve) and K4b (forward + MSE cotangent + adjoint CG):
+
+10. K4a and K4b against their plain versions on the card at (nx, ny, nz) =
+    (4, 4, 4) B = 5, (12, 9, 6) B = 7, 16³ B = 256 (CG vectors in shared
+    memory) and 32³ B = 128 (global workspace), cold and warm, zero and
+    nonzero Dirichlet values, and at 16³ with bf16 coefficient storage, by
+    the rule of phase 7;
+11. the main path: u_data from the fixed-trip batched solve (one K4a
+    launch), ``fit_kappa`` with its default policy (100 steps of one K4b
+    launch, 100 cold iterations each, then one K4a eval launch) at
+    lr = 1e7 (the converged misfit must fall below the first step's), and
+    the κ gradient of Σu²
+    through the fixed-trip batched solve (K4a forward and adjoint) held by
+    the rule of phase 7;
+12. chained timing of K4b and K4a against their plain versions, host time
+    of ``fit_kappa`` (at its default lr, whose misfit it logs) with and
+    without its eval solve, and a ``torch.profiler`` split of one call.
+
 Each path's launch counts are set to 0 just before its main-path phases
-(4-5, 8) and read just after; comparisons and timing do not count.  The
+(4-5, 8, 11) and read just after; comparisons and timing do not count.  The
 third-to-last line is one JSON object describing each kernel, with its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (H100 SXM, fp32 outside the tensor cores).  The
@@ -92,6 +114,24 @@ K1_OPS_PER_ROW_STEP = 36
 # K3 operations per node per CG iteration (stencil_cg_kernel.py:210):
 # 5-point apply 9, two dots 4, x/r/p updates 6, Jacobi 1
 K3_OPS_PER_NODE_ITER = 20
+
+N_3D = 32                # the README's 32³ box
+BATCH_3D = 128
+STEPS_3D = 100           # fit_kappa's default
+K4B_ITERS = 100          # fit_kappa's κ-safe default above 16 a side
+K4A_ITERS = 400          # the u_data solve and K4a's timed workload
+# fit_kappa's 3D default lr (100·B/256 = 50 here) hardly moves the 32³
+# misfit in 100 steps (phase 12 logs it), so the gate that the misfit
+# falls needs a larger step; 1e7 stays well inside κ_true's range
+LR_3D = 1e7
+# phase 10: (nx, ny, nz, B); the non-cubic grids catch a transposed axis
+K4_CASES = ((4, 4, 4, 5), (12, 9, 6, 7), (16, 16, 16, 256),
+            (N_3D, N_3D, N_3D, BATCH_3D))
+K4_SOURCE = "difffe_tpu_torch/csrc/stencil3d_cg.cu"
+JAX_K4 = "difffe_tpu/ops/pallas/stencil3d_cg_kernel.py"
+# K4 operations per node per CG iteration (stencil3d_cg_kernel.py:159):
+# 7-point apply 13, two dots 4, x/r/p updates 6, Jacobi 1
+K4_OPS_PER_NODE_ITER = 24
 
 
 def log(*args):
@@ -256,6 +296,9 @@ def run_1d(torch, dev, card):
     # -- phase 6: chained timing at the bench workload
     udT, cols, B, u_l, u_r = (aux["udT"], aux["cols"], aux["B"], aux["u_l"],
                               aux["u_r"])
+    _, aux_s = tk.cf_packed_operands(mesh, ke0, assemble_load(mesh, fv),
+                                     u_data[0], block_lanes=BLOCK_LANES)
+    cols_s = aux_s["cols"]
     runs = {
         "chain": (lambda k: tk.kappa_sgd_chain_cf(k, aux, CHAIN_K, LR,
                                                   scale)[1],
@@ -265,18 +308,34 @@ def run_1d(torch, dev, card):
                      k, aux, scale)[1],
                  lambda k: k - LR * tk._cf_step_plain(
                      k, udT, cols, B, scale, u_l, u_r)[1]),
+        "chain_shared": (
+            lambda k: tk.kappa_sgd_chain_cf(k, aux_s, CHAIN_K, LR,
+                                            scale)[1],
+            lambda k: tk._cf_chain_plain(k, None, cols_s, B, scale, u_l,
+                                         u_r, CHAIN_K, LR)[1]),
+        "step_shared": (
+            lambda k: k - LR * tk.kappa_mse_step_cf_packed(
+                k, aux_s, scale)[1],
+            lambda k: k - LR * tk._cf_step_plain(
+                k, None, cols_s, B, scale, u_l, u_r)[1]),
     }
     ms = {}
     for name, (kernel_fn, plain_fn) in runs.items():
         ms[name] = best = timed_pair(kernel_fn, plain_fn, keT0,
                                      STEPS // CHAIN_K)
-        steps = CHAIN_K if name == "chain" else 1
+        steps = CHAIN_K if name.startswith("chain") else 1
         log(f"phase 6 {name}: kernel {best['kernel']:.4f} ms/launch, plain "
             f"{best['plain']:.4f} ms/launch, {steps} SGD step(s)/launch; "
             f"kernel {BATCH * steps / best['kernel'] * 1e3:.6e} "
             f"grad-solves/s, plain "
             f"{BATCH * steps / best['plain'] * 1e3:.6e} grad-solves/s "
             f"[{card}]")
+    # with shared u_data only κ moves (κ in, κ′ out, the 4 B loss row)
+    for name in ("chain_shared", "step_shared"):
+        steps = CHAIN_K if name.startswith("chain") else 1
+        b_ms, b_by = bound(K1_OPS_PER_ROW_STEP * n * BATCH * steps,
+                           BATCH * (2 * N_ELEMENTS * 4 + 4))
+        log(f"phase 6 {name}: bound {b_ms:.4f} ms ({b_by}) [{card}]")
 
     # Both timed functions map κ to κ′ and must read κ (f32) and the bf16
     # u_data plane once and write κ′ once (the loss row: 4 B a scenario).
@@ -293,6 +352,43 @@ def run_1d(torch, dev, card):
     ]
 
 
+def check_rule(name, kernel, plain32, plain64, what):
+    """The tolerance rule of phase 7: the kernel's relative max error
+    against the f64 plain run may be at most twice the f32 plain run's,
+    plus 1e-6.  Returns both errors."""
+    import torch
+
+    if not bool(torch.isfinite(kernel).all()):
+        raise AssertionError(f"{what}: {name} is not finite")
+    ek, ep = rel_err(kernel, plain64), rel_err(plain32, plain64)
+    if not ek <= 2.0 * ep + 1e-6:
+        raise AssertionError(f"{what}: {name} error {ek:.3e} exceeds "
+                             f"2 x {ep:.3e} + 1e-6")
+    return ek, ep
+
+
+def profile_split(torch, fn, label, card):
+    """Device time by kernel name of one call of ``fn`` under
+    torch.profiler; logs the busy time, the window and the top rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    log(f"{label} profile of one fit_kappa call: {busy:.1f} ms of device "
+        f"time in a {window * 1e3:.1f} ms window [{card}]")
+    for key, count, t in rows[:12]:
+        log(f"  {t:9.2f} ms {100 * t / busy:5.1f}% x{count:<5d} {key[:90]}")
+
+
 def run_2d(torch, dev, card):
     """Phases 7-9; returns the K3 entries of the kernels line."""
     from difffe_tpu_torch import fit_kappa
@@ -305,16 +401,6 @@ def run_2d(torch, dev, card):
 
     f64 = torch.float64
     max_abs = {"cg": 0.0, "cg2": 0.0}
-
-    def check(name, kernel, plain32, plain64, what):
-        """The tolerance rule of phase 7; returns the kernel's error."""
-        if not bool(torch.isfinite(kernel).all()):
-            raise AssertionError(f"{what}: {name} is not finite")
-        ek, ep = rel_err(kernel, plain64), rel_err(plain32, plain64)
-        if not ek <= 2.0 * ep + 1e-6:
-            raise AssertionError(f"{what}: {name} error {ek:.3e} exceeds "
-                                 f"2 x {ep:.3e} + 1e-6")
-        return ek, ep
 
     def problem(n, B, g_nonzero, seed):
         grid = StructuredGrid.unit(n, n)
@@ -359,7 +445,7 @@ def run_2d(torch, dev, card):
             worst = {}
             for step, (k, p, q) in enumerate(zip(*runs)):
                 for key in ("x", "lam", "grad"):
-                    ek, ep = check("K3b", k[key], p[key], q[key],
+                    ek, ep = check_rule("K3b", k[key], p[key], q[key],
                                    f"n={n} B={B} step {step} {key}")
                     worst[key] = max(worst.get(key, (0, 0)), (ek, ep))
                     max_abs["cg2"] = max(max_abs["cg2"], float(
@@ -378,7 +464,7 @@ def run_2d(torch, dev, card):
                 sols[name] = (cg(D, b, Minv, x0, K3A_ITERS),
                               cg(D, ud, Minv, torch.zeros_like(ud),
                                  K3A_ITERS))
-            errs = [check("K3a", sols["kernel"][i], sols["f32"][i],
+            errs = [check_rule("K3a", sols["kernel"][i], sols["f32"][i],
                           sols["f64"][i], f"n={n} B={B} solve {i}")
                     for i in range(2)]
             for i in range(2):
@@ -452,7 +538,7 @@ def run_2d(torch, dev, card):
                                              C=C)
         return torch.stack([gl, gu], dim=-1).reshape(BATCH_2D, ne)
 
-    ek, ep = check("K3a gradient", ke.grad, grad_plain(torch.float32),
+    ek, ep = check_rule("K3a gradient", ke.grad, grad_plain(torch.float32),
                    grad_plain(f64), "phase 8 κ gradient")
     log(f"phase 8 κ gradient of Σu² through K3a (forward + adjoint, "
         f"{GRAD_ITERS} iters): rel err vs f64 plain {ek:.3e}, f32 plain "
@@ -502,23 +588,7 @@ def run_2d(torch, dev, card):
             + f" s; {BATCH_2D * STEPS_2D / min(times):.6e} grad-solves/s "
             f"[{card}]")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fit()
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[2])
-    busy = sum(r[2] for r in rows)
-    log(f"phase 9 profile of one fit_kappa call: {busy:.1f} ms of device "
-        f"time in a {window * 1e3:.1f} ms window [{card}]")
-    for key, count, t in rows[:12]:
-        log(f"  {t:9.2f} ms {100 * t / busy:5.1f}% x{count:<5d} {key[:90]}")
+    profile_split(torch, fit, "phase 9", card)
 
     n_nodes = BATCH_2D * H * W
     return [
@@ -532,6 +602,262 @@ def run_2d(torch, dev, card):
                      ms["cg2"]["plain"],
                      K3_OPS_PER_NODE_ITER * n_nodes * K3B_ITERS * 2,
                      12 * n_nodes * 4),
+    ]
+
+
+def run_3d(torch, dev, card):
+    """Phases 10-12; returns the K4 entries of the kernels line."""
+    from difffe_tpu_torch import fit_kappa
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.ops.kernels import stencil3d_cg_kernel as tk
+    from difffe_tpu_torch.ops.stencil3d import (StructuredGrid3,
+                                                residual_vjp_manual_3d)
+    from difffe_tpu_torch.solver import solve_poisson_batched
+
+    f64 = torch.float64
+    bf16 = torch.bfloat16
+    max_abs = {"cg3": 0.0, "cg3_2": 0.0}
+
+    def problem(nx, ny, nz, B, g_nonzero, seed):
+        grid = StructuredGrid3.unit(nx, ny, nz)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        opts = dict(dtype=f64, device=dev)
+        k = 1.2 + 0.6 * torch.rand(B, grid.n_elements, generator=gen, **opts)
+        Z, Y, X = torch.meshgrid(*(torch.linspace(0.0, 1.0, n + 1, **opts)
+                                   for n in (nz, ny, nx)), indexing="ij")
+        bump = (torch.sin(math.pi * X) * torch.sin(math.pi * Y)
+                * torch.sin(math.pi * Z))
+        f = 10.0 * bump * (1.0 + 0.2 * torch.rand(B, 1, 1, 1, generator=gen,
+                                                  **opts))
+        g = 0.3 * X + 0.1 * Y - 0.2 * Z if g_nonzero else torch.zeros_like(X)
+        ud = 0.05 * bump * (1.0 + torch.rand(B, 1, 1, 1, generator=gen,
+                                             **opts))
+        return grid, (k, f, g, ud)
+
+    def operands(grid, k, f, g, operand_dtype):
+        """K4's operands in k's dtype.  With bf16 storage every run takes
+        the planes the f32 run stores, so all three share one operator."""
+        C, D, b, Minv, x0, _ = tk._prepare3(grid, k, f, g)
+        if operand_dtype is not None:
+            _, D, _, Minv, _, _ = tk._prepare3(
+                grid, k.float(), f.float(), g.float(),
+                operand_dtype=operand_dtype)
+        return C, D, b, Minv, x0
+
+    def k4b_steps(grid, arrays, dtype, cg3_2, operand_dtype, steps=3):
+        """A cold SGD step, then warm ones, each through ``cg3_2``.  With
+        bf16 storage κ stays put: κs that differ in their last bits between
+        the runs could round a plane to another bf16 value."""
+        k, f, g, ud = (a.to(dtype).contiguous() for a in arrays)
+        out, state = [], None
+        lr = 0.0 if operand_dtype else 100.0 * k.shape[0] / 256.0
+        for _ in range(steps):
+            C, D, b, Minv, x0 = operands(grid, k, f, g, operand_dtype)
+            x0, lam0 = state if state else (x0, torch.zeros_like(b))
+            x, lam = cg3_2(D, b, Minv, x0, lam0, ud, 2.0 / b.numel(),
+                           K4B_ITERS)
+            gk, _, _ = residual_vjp_manual_3d(grid, k, f, g, x, lam, C=C)
+            out.append({"x": x, "lam": lam, "grad": gk})
+            state = (x, lam)
+            k = k - lr * gk
+        return out
+
+    # -- phase 10: K4a and K4b against their plain versions
+    t0 = time.perf_counter()
+    for nx, ny, nz, B in K4_CASES:
+        storages = (None, bf16) if nx == 16 else (None,)
+        for g_nonzero in (False, True):
+            grid, arrays = problem(nx, ny, nz, B, g_nonzero,
+                                   seed=nx * ny * nz + B + g_nonzero)
+            for od in storages:
+                tag = (f"{nx}x{ny}x{nz} B={B} "
+                       f"g={'nonzero' if g_nonzero else 0}"
+                       f"{' bf16' if od else ''}")
+                runs = [k4b_steps(grid, arrays, dt, cg, od) for dt, cg in (
+                    (torch.float32, tk._cg3_2),
+                    (torch.float32, tk._cg3_2_plain),
+                    (f64, tk._cg3_2_plain))]
+                worst = {}
+                for step, (kk, p, q) in enumerate(zip(*runs)):
+                    for key in ("x", "lam", "grad"):
+                        ek, ep = check_rule("K4b", kk[key], p[key], q[key],
+                                            f"{tag} step {step} {key}")
+                        worst[key] = max(worst.get(key, (0, 0)), (ek, ep))
+                        if od is None:      # the main path's f32 storage
+                            max_abs["cg3_2"] = max(max_abs["cg3_2"], float(
+                                (kk[key] - q[key]).abs().max()))
+                log(f"phase 10 K4b {tag} cold+2 warm: worst (kernel, f32 "
+                    f"plain) rel err vs f64: " + " ".join(
+                        f"{k}=({a:.2e}, {b:.2e})"
+                        for k, (a, b) in worst.items()))
+                del runs
+                sols = {}
+                for name, dt, cg in (("kernel", torch.float32, tk._cg3),
+                                     ("f32", torch.float32, tk._cg3_plain),
+                                     ("f64", f64, tk._cg3_plain)):
+                    k, f, g, ud = (a.to(dt).contiguous() for a in arrays)
+                    _, D, b, Minv, x0 = operands(grid, k, f, g, od)
+                    sols[name] = (cg(D, b, Minv, x0, K4A_ITERS),
+                                  cg(D, ud, Minv, torch.zeros_like(ud),
+                                     K4A_ITERS))
+                errs = [check_rule("K4a", sols["kernel"][i], sols["f32"][i],
+                                   sols["f64"][i], f"{tag} solve {i}")
+                        for i in range(2)]
+                if od is None:
+                    max_abs["cg3"] = max(max_abs["cg3"], *(float(
+                        (sols["kernel"][i] - sols["f64"][i]).abs().max())
+                        for i in range(2)))
+                log(f"phase 10 K4a {tag} {K4A_ITERS} iters: (kernel, f32 "
+                    f"plain) rel err vs f64: solve {errs[0][0]:.2e}, "
+                    f"{errs[0][1]:.2e}; adjoint-style {errs[1][0]:.2e}, "
+                    f"{errs[1][1]:.2e}")
+                del sols
+            del arrays
+            torch.cuda.empty_cache()
+    log(f"phase 10 kernel vs plain: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 11: the 3D main path, with launch counts
+    mesh = FEMesh.box(N_3D, N_3D, N_3D, dtype=torch.float32)
+    if mesh.device.type != dev.type:
+        raise AssertionError(f"the mesh factory put the mesh on "
+                             f"{mesh.device}")
+    grid, ne, nn = mesh.grid, mesh.n_elements, mesh.n_nodes
+    shape = (BATCH_3D,) + grid.node_shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, y, z = mesh.nodes.T
+    f = (10.0 * torch.sin(math.pi * x) * torch.sin(math.pi * y)
+         * torch.sin(math.pi * z)).expand(BATCH_3D, nn)
+    k_true = 1.2 + 0.6 * torch.rand(BATCH_3D, ne, generator=gen, device=dev)
+    for k in tk.launches:
+        tk.launches[k] = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        u_data = solve_poisson_batched(mesh, k_true, f, cg_tol=0.0,
+                                       cg_maxiter=K4A_ITERS)
+    kappa, info = fit_kappa(mesh, f, u_data, lr=LR_3D)
+    hist = info["loss_history"]
+    ke = torch.ones(BATCH_3D, ne, device=dev, requires_grad=True)
+    (solve_poisson_batched(mesh, ke, f, cg_tol=0.0, cg_maxiter=GRAD_ITERS)
+     ** 2).sum().backward()
+    torch.cuda.synchronize()
+    main_path = dict(tk.launches)
+    log(f"phase 11 fit_kappa: path={info['path']} iters={info['iters']} "
+        f"warm={info['warm']} loss_history[0]={float(hist[0]):.6e} "
+        f"loss_history[-1]={float(hist[-1]):.6e} "
+        f"eval_loss={info['eval_loss']:.6e} "
+        f"({time.perf_counter() - t0:.2f} s with u_data and the gradient)")
+    log(f"3D main-path launches: {main_path}")
+    if info["path"] != "stencil3d_kernel":
+        raise AssertionError(f"fit_kappa took path {info['path']}")
+    if info["iters"] != K4B_ITERS or info["warm"] is not False:
+        raise AssertionError(f"iteration policy {info['iters']}, "
+                             f"warm={info['warm']}")
+    # u_data, the eval solve, the gradient's forward and adjoint
+    if main_path != {"cg3": 4, "cg3_2": STEPS_3D}:
+        raise AssertionError(f"K4 launches {main_path}")
+    if not bool(torch.isfinite(hist).all()):
+        raise AssertionError("fit_kappa's loss history is not finite")
+    if kappa.shape != (BATCH_3D, ne) or not bool(
+            torch.isfinite(kappa).all()):
+        raise AssertionError("fit_kappa's kappa is not finite of shape "
+                             f"{(BATCH_3D, ne)}")
+    if not info["eval_loss"] < float(hist[0]):
+        raise AssertionError("eval_loss is not below the first loss")
+
+    def grad_plain(dtype):
+        k = torch.ones(BATCH_3D, ne, dtype=dtype, device=dev)
+        fg = f.to(dtype).reshape(shape)
+        g0 = mesh.bc_values.to(dtype).reshape(grid.node_shape)
+        C, D, b, Minv, x0, _ = tk._prepare3(grid, k, fg, g0)
+        u = tk._cg3_plain(D, b, Minv, x0, GRAD_ITERS)
+        lam = tk._cg3_plain(D, 2.0 * u, Minv, torch.zeros_like(u),
+                            GRAD_ITERS)
+        gk, _, _ = residual_vjp_manual_3d(grid, k, fg, g0, u, lam, C=C)
+        return gk
+
+    ek, ep = check_rule("K4a gradient", ke.grad, grad_plain(torch.float32),
+                        grad_plain(f64), "phase 11 κ gradient")
+    log(f"phase 11 κ gradient of Σu² through K4a (forward + adjoint, "
+        f"{GRAD_ITERS} iters): rel err vs f64 plain {ek:.3e}, f32 plain "
+        f"{ep:.3e}")
+    del ke, kappa, info
+    torch.cuda.empty_cache()
+
+    # -- phase 12: timing at the main path's workload
+    fg = f.reshape(shape)
+    g0 = mesh.bc_values.reshape(grid.node_shape)
+    ud = u_data.reshape(shape).contiguous()
+    _, D, b, Minv, x0, _ = tk._prepare3(grid, k_true, fg, g0)
+    scale = 2.0 / b.numel()
+    state0 = (x0, torch.zeros_like(b))
+    ms = {
+        "cg3_2": timed_pair(
+            lambda s: tk._cg3_2(D, b, Minv, *s, ud, scale, K4B_ITERS),
+            lambda s: tk._cg3_2_plain(D, b, Minv, *s, ud, scale, K4B_ITERS),
+            state0, 2),
+        "cg3": timed_pair(
+            lambda v: tk._cg3(D, b, Minv, v, K4A_ITERS),
+            lambda v: tk._cg3_plain(D, b, Minv, v, K4A_ITERS), x0, 2),
+    }
+    for name, iters, solves in (("cg3_2", K4B_ITERS, 2),
+                                ("cg3", K4A_ITERS, 1)):
+        best = ms[name]
+        log(f"phase 12 {name}: kernel {best['kernel']:.4f} ms/launch, plain "
+            f"{best['plain']:.4f} ms/launch ({N_3D}³, B={BATCH_3D}, "
+            f"{solves} x {iters} iters; kernel "
+            f"{BATCH_3D / best['kernel'] * 1e3:.6e} scenarios/s) [{card}]")
+    del D, b, Minv, x0, state0
+    torch.cuda.empty_cache()
+    # the shared-memory route at the README's other 3D size: 16³, B = 256,
+    # 32 iterations (fit_kappa's policy at ≤ 16 a side)
+    grid16, (k, f16, g16, ud16) = problem(16, 16, 16, 256, False, seed=16)
+    k, f16, g16, ud16 = (a.float().contiguous() for a in (k, f16, g16, ud16))
+    _, D, b, Minv, x0, _ = tk._prepare3(grid16, k, f16, g16)
+    best = timed_pair(
+        lambda s: tk._cg3_2(D, b, Minv, *s, ud16, 2.0 / b.numel(), 32),
+        lambda s: tk._cg3_2_plain(D, b, Minv, *s, ud16, 2.0 / b.numel(), 32),
+        (x0, torch.zeros_like(b)), 3)
+    b_ms, _ = bound(K4_OPS_PER_NODE_ITER * b.numel() * 64,
+                    14 * b.numel() * 4)
+    log(f"phase 12 cg3_2 at 16³: kernel {best['kernel']:.4f} ms/launch, "
+        f"plain {best['plain']:.4f} ms/launch (B=256, 2 x 32 iters; bound "
+        f"{b_ms:.4f} ms) [{card}]")
+    del D, b, Minv, x0, k, f16, g16, ud16
+    torch.cuda.empty_cache()
+
+    for eval_final in (True, False):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, info = fit_kappa(mesh, f, u_data, eval_final=eval_final)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if eval_final:
+            log(f"phase 12 fit_kappa at the default lr: loss_history[0]="
+                f"{float(info['loss_history'][0]):.6e} loss_history[-1]="
+                f"{float(info['loss_history'][-1]):.6e} eval_loss="
+                f"{info['eval_loss']:.6e}")
+        log(f"phase 12 fit_kappa host time, {STEPS_3D} steps, "
+            f"eval_final={eval_final}: " + ", ".join(f"{t:.4f}" for t in
+                                                    times)
+            + f" s; {BATCH_3D * STEPS_3D / min(times):.6e} grad-solves/s "
+            f"[{card}]")
+    profile_split(torch, lambda: fit_kappa(mesh, f, u_data), "phase 12",
+                  card)
+
+    n_nodes = BATCH_3D * nn
+    return [
+        kernel_entry("stencil3d_cg", K4_SOURCE, f"{JAX_K4}:153",
+                     main_path["cg3"], max_abs["cg3"], ms["cg3"]["kernel"],
+                     ms["cg3"]["plain"],
+                     K4_OPS_PER_NODE_ITER * n_nodes * K4A_ITERS,
+                     11 * n_nodes * 4),
+        kernel_entry("stencil3d_cg2", K4_SOURCE, f"{JAX_K4}:368",
+                     main_path["cg3_2"], max_abs["cg3_2"],
+                     ms["cg3_2"]["kernel"], ms["cg3_2"]["plain"],
+                     K4_OPS_PER_NODE_ITER * n_nodes * K4B_ITERS * 2,
+                     14 * n_nodes * 4),
     ]
 
 
@@ -571,6 +897,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += run_2d(torch, dev, card)
     log(f"2D path, phases 7-9: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels += run_3d(torch, dev, card)
+    log(f"3D path, phases 10-12: {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernels}))
     log(card)

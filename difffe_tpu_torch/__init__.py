@@ -14,7 +14,11 @@ Ported so far:
   ``FEMesh.rectangle``, the stencil operators (ops/stencil.py), the PCG
   body (ops/pcg.py), the hand-written CUDA whole-CG kernels K3a/K3b
   (ops/kernels/stencil_cg_kernel.py), the rectangle routes of
-  ``solve_poisson[_batched]`` and ``fit_kappa``'s 2D route.
+  ``solve_poisson[_batched]`` and ``fit_kappa``'s 2D route;
+* slice D items 15-16, κ-field inversion on 3D boxes — ``FEMesh.box``,
+  the 7-point stencil operators (ops/stencil3d.py), the hand-written CUDA
+  whole-CG kernels K4a/K4b (ops/kernels/stencil3d_cg_kernel.py), the box
+  routes of ``solve_poisson[_batched]`` and ``fit_kappa``'s 3D route.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"`` in the mesh factories).
@@ -32,7 +36,16 @@ __all__ = [
     "solve_poisson_cf_batched",
     "fit_kappa",
     "kappa_sgd_chain_cf",
+    "StructuredGrid3",
+    "solve_poisson_structured_3d",
+    "solve_poisson_structured_3d_batched",
+    "choose_3d_path",
+    "choose_3d_grad_step",
 ]
+
+_STENCIL3D = ("StructuredGrid3", "solve_poisson_structured_3d",
+              "solve_poisson_structured_3d_batched", "choose_3d_path",
+              "choose_3d_grad_step")
 
 
 def __getattr__(name):
@@ -46,6 +59,9 @@ def __getattr__(name):
     if name == "fit_kappa":
         from .inverse import fit_kappa
         return fit_kappa
+    if name in _STENCIL3D:
+        from .ops import stencil3d
+        return getattr(stencil3d, name)
     if name == "kappa_sgd_chain_cf":
         from .ops.kernels.fused_grad_cf_kernel import kappa_sgd_chain_cf
         return kappa_sgd_chain_cf

@@ -3,19 +3,10 @@
 // Replaces the Pallas TPU kernels of
 // difffe_tpu/ops/pallas/stencil_cg_kernel.py: _cg_kernel / _cg_kernel_tb
 // behind _cg_pallas (K3a, one fixed-trip solve) and _cg2_kernel_tb behind
-// _cg2_pallas (K3b, forward solve, MSE cotangent, adjoint solve).  Per
-// scenario b, on the BC-folded 5-point planes D0..D4 of an (H, W) node grid
-// with A v = sum_k D_k * shift(v, OFFSETS[k]):
-//
-//   r = rhs - A x0;  z = Minv r;  p = z;  rz = <r, z>
-//   floor = (4 eps)^2 * max(rz, 1e-30)
-//   iters times, live = rz > floor:
-//     alpha = live && pAp != 0 ? rz / pAp : 0
-//     x += alpha p;  r -= alpha Ap;  z = Minv r
-//     beta = live && rz' > floor && rz != 0 ? rz' / rz : 0;  p = z + beta p
-//
-// K3b solves A x = b from x0, writes x, forms gbar = scale * (x - u_data)
-// and solves A lam = gbar from lam0, writing lam.
+// _cg2_pallas (K3b, forward solve, MSE cotangent, adjoint solve).  The
+// operator is the BC-folded 5-point stencil D0..D4 of an (H, W) node grid,
+// A v = sum_k D_k * shift(v, OFFSETS[k]); the CG body (algorithm, freeze
+// rule, dots) is cg_common.cuh's, shared with the 3D kernels K4.
 //
 // Design.  One thread block per scenario; its threads stride over the H*W
 // nodes, so every plane read is coalesced along a row.  The CG vectors x,
@@ -23,11 +14,9 @@
 // block's opt-in limit (H*W <= 14,500 nodes: the 64^2 grid of the main
 // path, 16.5 KB a plane), else in a global workspace of 4*H*W floats per
 // scenario that the wrapper allocates.  The coefficient planes and Minv are
-// read from device memory (through L1/L2) in every iteration.  Each dot is
-// a warp-shuffle butterfly plus a fixed-order sum of the warp partials in
-// shared memory: no atomics, so a run repeats bit for bit.  Neighbour reads
-// are guarded at the grid's edges (no reliance on zero coefficients) and
-// plane offsets are 64-bit.
+// read from device memory (through L1/L2) in every iteration.  Neighbour
+// reads are guarded at the grid's edges (no reliance on zero coefficients)
+// and plane offsets are 64-bit.
 //
 // Bound.  At the main path's workload (64^2 grid, B = 4096, 32 iterations,
 // two solves) the work is ~20 flop per node per iteration, 2.2e10 flop =
@@ -39,102 +28,55 @@
 
 #include <cuda_runtime.h>
 
-#include <cfloat>
 #include <cstddef>
-#include <cstdint>
+
+#include "cg_common.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 512;
-constexpr int kVecs = 4;  // x, r, p, Ap
 
-struct Grid {
-  int H, W, n;           // n = H * W
-  int step_r, step_c;    // a thread's stride over nodes, as (rows, cols)
-  size_t plane_stride;   // B * H * W: distance between two D planes
+// The BC-folded 5-point operator of one scenario on an (H, W) node grid.
+struct Stencil5 {
+  const float* D;                  // this scenario's D0 plane
+  const float* minv_;
+  size_t plane_stride;             // B * H * W: distance between D planes
+  int H, W, n;                     // n = H * W
+  int step_r, step_c;              // a thread's stride, as (rows, cols)
+
+  struct Cursor {
+    int i, row, col;
+  };
+
+  __device__ Cursor first() const {
+    Cursor c;
+    c.i = threadIdx.x;
+    c.row = threadIdx.x / W;
+    c.col = threadIdx.x - c.row * W;
+    return c;
+  }
+
+  __device__ void next(Cursor& c) const {
+    c.i += blockDim.x;
+    c.row += step_r;
+    c.col += step_c;
+    c.row += (c.col >= W);
+    c.col -= (c.col >= W) * W;
+  }
+
+  // (A v) at the cursor's node, with guarded neighbour reads.
+  __device__ float apply(const Cursor& c, const float* v) const {
+    const int i = c.i;
+    float out = __ldg(D + i) * v[i];
+    if (c.col + 1 < W) out += __ldg(D + plane_stride + i) * v[i + 1];
+    if (c.col > 0) out += __ldg(D + 2 * plane_stride + i) * v[i - 1];
+    if (c.row + 1 < H) out += __ldg(D + 3 * plane_stride + i) * v[i + W];
+    if (c.row > 0) out += __ldg(D + 4 * plane_stride + i) * v[i - W];
+    return out;
+  }
+
+  __device__ float minv(int i) const { return __ldg(minv_ + i); }
 };
-
-// Sum over the block in a fixed order; every thread gets the total.
-// `red` is one of two 32-float buffers, used alternately, so the write of
-// one reduction never races the reads of the previous one.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < nw; ++w) s += red[w];
-  return s;
-}
-
-// (A v)_i at node i = (row, col), with guarded neighbour reads.
-__device__ __forceinline__ float apply_at(const float* __restrict__ D,
-                                          const Grid& g, int i, int row,
-                                          int col, const float* v) {
-  float out = __ldg(D + i) * v[i];
-  if (col + 1 < g.W) out += __ldg(D + g.plane_stride + i) * v[i + 1];
-  if (col > 0) out += __ldg(D + 2 * g.plane_stride + i) * v[i - 1];
-  if (row + 1 < g.H) out += __ldg(D + 3 * g.plane_stride + i) * v[i + g.W];
-  if (row > 0) out += __ldg(D + 4 * g.plane_stride + i) * v[i - g.W];
-  return out;
-}
-
-// Walk this thread's nodes: i = tid, tid + blockDim, ... with (row, col)
-// advanced incrementally (no division in the loop).
-#define FOR_NODES(g)                                                    \
-  for (int i = threadIdx.x, row = threadIdx.x / (g).W,                  \
-           col = threadIdx.x - row * (g).W;                             \
-       i < (g).n; i += blockDim.x, row += (g).step_r, col += (g).step_c, \
-           row += (col >= (g).W), col -= (col >= (g).W) * (g).W)
-
-// One fixed-trip PCG solve.  On entry x holds x0 and r holds the right-hand
-// side, both complete (the caller synchronized); on exit x holds the
-// solution.  D and minv point at this scenario's planes.
-__device__ void cg_solve(const float* __restrict__ D,
-                         const float* __restrict__ minv, float* x, float* r,
-                         float* p, float* ap, const Grid& g, int iters,
-                         float (*red)[32], int& rb) {
-  float part = 0.f;
-  FOR_NODES(g) {
-    const float ri = r[i] - apply_at(D, g, i, row, col, x);
-    const float zi = __ldg(minv + i) * ri;
-    r[i] = ri;
-    p[i] = zi;
-    part += ri * zi;
-  }
-  float rz = block_sum(part, red[rb]);
-  rb ^= 1;
-  const float eps4 = 4.f * FLT_EPSILON;
-  const float floor_ = eps4 * eps4 * fmaxf(rz, 1e-30f);
-
-  for (int it = 0; it < iters; ++it) {
-    const bool live = rz > floor_;
-    part = 0.f;
-    FOR_NODES(g) {
-      const float a = apply_at(D, g, i, row, col, p);
-      ap[i] = a;
-      part += p[i] * a;
-    }
-    const float pap = block_sum(part, red[rb]);
-    rb ^= 1;
-    const float alpha = (live && pap != 0.f) ? rz / pap : 0.f;
-    part = 0.f;
-    FOR_NODES(g) {
-      x[i] += alpha * p[i];
-      const float ri = r[i] - alpha * ap[i];
-      r[i] = ri;
-      part += ri * (__ldg(minv + i) * ri);
-    }
-    const float rz_new = block_sum(part, red[rb]);
-    rb ^= 1;
-    const float beta =
-        (live && rz_new > floor_ && rz != 0.f) ? rz_new / rz : 0.f;
-    FOR_NODES(g) { p[i] = __ldg(minv + i) * r[i] + beta * p[i]; }
-    __syncthreads();  // p complete before the next stencil apply reads it
-    rz = rz_new;
-  }
-}
 
 template <bool TWO_SOLVES>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -143,51 +85,20 @@ stencil_cg_kernel(const float* __restrict__ D, const float* __restrict__ b,
                   const float* __restrict__ x0,
                   const float* __restrict__ lam0,
                   const float* __restrict__ ud, float* __restrict__ x_out,
-                  float* __restrict__ lam_out, float* work, Grid g,
+                  float* __restrict__ lam_out, float* work, Stencil5 grid,
                   int iters, float scale) {
   extern __shared__ float smem[];
-  __shared__ float red[2][32];
-  int rb = 0;
-  const size_t base = static_cast<size_t>(blockIdx.x) * g.n;
-  float* vecs = work ? work + static_cast<size_t>(blockIdx.x) * kVecs * g.n
+  const size_t base = static_cast<size_t>(blockIdx.x) * grid.n;
+  float* vecs = work ? work + static_cast<size_t>(blockIdx.x) * kVecs * grid.n
                      : smem;
-  float *x = vecs, *r = vecs + g.n, *p = vecs + 2 * g.n,
-        *ap = vecs + 3 * g.n;
-  const float* Ds = D + base;
-  const float* ms = minv + base;
-
-  for (int i = threadIdx.x; i < g.n; i += blockDim.x) {
-    x[i] = x0[base + i];
-    r[i] = b[base + i];
-  }
-  __syncthreads();
-  cg_solve(Ds, ms, x, r, p, ap, g, iters, red, rb);
-
-  if constexpr (TWO_SOLVES) {
-    for (int i = threadIdx.x; i < g.n; i += blockDim.x) {
-      const float xi = x[i];
-      x_out[base + i] = xi;
-      r[i] = scale * (xi - ud[base + i]);
-      x[i] = lam0[base + i];
-    }
-    __syncthreads();
-    cg_solve(Ds, ms, x, r, p, ap, g, iters, red, rb);
-    for (int i = threadIdx.x; i < g.n; i += blockDim.x)
-      lam_out[base + i] = x[i];
-  } else {
-    for (int i = threadIdx.x; i < g.n; i += blockDim.x) x_out[base + i] = x[i];
-  }
-}
-
-// Floats of dynamic shared memory a block may take on the current device.
-int smem_optin_floats() {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return (bytes - static_cast<int>(sizeof(float) * 2 * 32)) /
-         static_cast<int>(sizeof(float));
+  Stencil5 op = grid;
+  op.D = D + base;
+  op.minv_ = minv + base;
+  cg_block<TWO_SOLVES>(op, b + base, x0 + base,
+                       TWO_SOLVES ? lam0 + base : nullptr,
+                       TWO_SOLVES ? ud + base : nullptr, x_out + base,
+                       TWO_SOLVES ? lam_out + base : nullptr, vecs, iters,
+                       scale);
 }
 
 template <bool TWO_SOLVES>
@@ -195,18 +106,20 @@ int launch(const void* D, const void* b, const void* minv, const void* x0,
            const void* lam0, const void* ud, void* x_out, void* lam_out,
            void* work, int B, int H, int W, int iters, float scale,
            void* stream) {
-  Grid g;
-  g.H = H;
-  g.W = W;
-  g.n = H * W;
-  int threads = ((g.n + 31) / 32) * 32;
+  Stencil5 op;
+  op.D = nullptr;     // set per scenario in the kernel
+  op.minv_ = nullptr;
+  op.H = H;
+  op.W = W;
+  op.n = H * W;
+  int threads = ((op.n + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
-  g.step_r = threads / W;
-  g.step_c = threads - g.step_r * W;
-  g.plane_stride = static_cast<size_t>(B) * g.n;
+  op.step_r = threads / W;
+  op.step_c = threads - op.step_r * W;
+  op.plane_stride = static_cast<size_t>(B) * op.n;
   size_t smem = 0;
   if (work == nullptr) {
-    smem = sizeof(float) * kVecs * static_cast<size_t>(g.n);
+    smem = sizeof(float) * kVecs * static_cast<size_t>(op.n);
     cudaError_t e = cudaFuncSetAttribute(
         stencil_cg_kernel<TWO_SOLVES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -218,7 +131,7 @@ int launch(const void* D, const void* b, const void* minv, const void* x0,
           static_cast<const float*>(minv), static_cast<const float*>(x0),
           static_cast<const float*>(lam0), static_cast<const float*>(ud),
           static_cast<float*>(x_out), static_cast<float*>(lam_out),
-          static_cast<float*>(work), g, iters, scale);
+          static_cast<float*>(work), op, iters, scale);
   return cudaGetLastError();
 }
 

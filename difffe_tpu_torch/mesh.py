@@ -44,7 +44,8 @@ class FEMesh:
     bc_mask : (n_nodes,) float tensor — 1.0 on Dirichlet nodes, else 0.0.
     bc_values : (n_nodes,) float tensor — prescribed Dirichlet values
         (only read where ``bc_mask == 1``).
-    grid : ``ops.stencil.StructuredGrid`` of a ``rectangle`` mesh, else
+    grid : ``ops.stencil.StructuredGrid`` of a ``rectangle`` mesh,
+        ``ops.stencil3d.StructuredGrid3`` of a ``box`` mesh, else
         None.  When present, ``solve_poisson(method="auto")`` and
         ``fit_kappa`` take the structured stencil routes;
         ``with_dirichlet`` drops it, as in the JAX package.
@@ -203,9 +204,54 @@ class FEMesh:
                    grid=StructuredGrid.unit(nx, ny, x_range, y_range))
 
     @classmethod
-    def box(cls, *args, **kwargs) -> "FEMesh":
-        raise NotImplementedError(
-            "FEMesh.box is not ported yet (slice D: 3D boxes)")
+    def box(cls, nx: int = 4, ny: int = 4, nz: int = 4,
+            x_range: Tuple[float, float] = (0.0, 1.0),
+            y_range: Tuple[float, float] = (0.0, 1.0),
+            z_range: Tuple[float, float] = (0.0, 1.0),
+            bc_value: float = 0.0, dtype: Optional[torch.dtype] = None,
+            device=None) -> "FEMesh":
+        """Uniform 3D box mesh of P1 tetrahedra, Dirichlet on all six faces.
+
+        Node id = (iz·(ny+1) + iy)·(nx+1) + ix (x fastest).  Each cube is
+        split into the six Kuhn tetrahedra sharing its main diagonal
+        c000–c111, one per monotone lattice path, interleaved per cube
+        [cube0 tet0..5, cube1 tet0..5, …].  The boundary is found by index.
+        """
+        from .ops.stencil3d import StructuredGrid3
+
+        dtype = dtype or default_dtype()
+        device = _device(device)
+
+        def axis(r, n):
+            return torch.linspace(r[0], r[1], n + 1, dtype=dtype,
+                                  device=device)
+
+        zz, yy, xx = torch.meshgrid(axis(z_range, nz), axis(y_range, ny),
+                                    axis(x_range, nx), indexing="ij")
+        nodes = torch.stack([xx.reshape(-1), yy.reshape(-1),
+                             zz.reshape(-1)], dim=1)
+        i = torch.arange(nx, device=device)[None, None, :]
+        j = torch.arange(ny, device=device)[None, :, None]
+        k = torch.arange(nz, device=device)[:, None, None]
+
+        def corner(di, dj, dk):
+            return (((k + dk) * (ny + 1) + (j + dj)) * (nx + 1)
+                    + (i + di)).reshape(-1)
+
+        # six monotone paths 000→111; each tet = {000, step1, step2, 111}
+        paths = (((1, 0, 0), (1, 1, 0)), ((1, 0, 0), (1, 0, 1)),
+                 ((0, 1, 0), (1, 1, 0)), ((0, 1, 0), (0, 1, 1)),
+                 ((0, 0, 1), (1, 0, 1)), ((0, 0, 1), (0, 1, 1)))
+        tets = [torch.stack([corner(0, 0, 0), corner(*p1), corner(*p2),
+                             corner(1, 1, 1)], dim=1) for p1, p2 in paths]
+        elements = torch.stack(tets, dim=1).reshape(-1, 4)
+        m = torch.ones((nz + 1, ny + 1, nx + 1), dtype=dtype, device=device)
+        m[1:-1, 1:-1, 1:-1] = 0.0
+        bc_mask = m.reshape(-1)
+        return cls(nodes=nodes, elements=elements, bc_mask=bc_mask,
+                   bc_values=bc_mask * bc_value,
+                   grid=StructuredGrid3.unit(nx, ny, nz, x_range, y_range,
+                                             z_range))
 
     @classmethod
     def line_p2(cls, *args, **kwargs) -> "FEMesh":

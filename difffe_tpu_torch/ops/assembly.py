@@ -1,13 +1,14 @@
-"""P1 line-element assembly and the κ rules the 2D stencil routes share.
+"""P1 line-element assembly and the κ rules the stencil routes share.
 
 PyTorch counterpart of the 1D subset of ``difffe_tpu/ops/assembly.py``
-plus its element-family and κ-normalization rules for P1 triangles.
-The JAX scatter-adds become ``index_add`` (load) and pad-and-add (bands).
-Semantics kept: the trapezoidal nodal load F_i += h_e/2·f_i and the local
-stiffness κ_e/h_e·[[1,-1],[-1,1]].  P1 triangles are recognised (the
-structured routes of ops/stencil.py assemble them in stencil form); their
-generic assembly, P2 and tetrahedra raise ``NotImplementedError`` naming
-the slice that ports them.
+plus its element-family and κ-normalization rules for P1 triangles and
+tetrahedra.  The JAX scatter-adds become ``index_add`` (load) and
+pad-and-add (bands).  Semantics kept: the trapezoidal nodal load
+F_i += h_e/2·f_i and the local stiffness κ_e/h_e·[[1,-1],[-1,1]].  P1
+triangles and tetrahedra are recognised (the structured routes of
+ops/stencil.py and ops/stencil3d.py assemble them in stencil form); their
+generic assembly and P2 raise ``NotImplementedError`` naming the slice
+that ports them.
 """
 
 from __future__ import annotations
@@ -17,17 +18,17 @@ import torch.nn.functional as F_
 
 from ..mesh import FEMesh
 
-_FAMILIES = {(1, 2): "p1_line", (2, 3): "p1_tri"}
+_FAMILIES = {(1, 2): "p1_line", (2, 3): "p1_tri", (3, 4): "p1_tet"}
 _UNPORTED_FAMILIES = {
     (1, 3): "P2 line elements are not ported yet (slice B: ops/p2.py)",
     (2, 6): "P2 triangle elements are not ported yet (slice E)",
-    (3, 4): "P1 tetrahedra are not ported yet (slices D/E)",
 }
 
 
 def element_family(mesh: FEMesh) -> str:
-    """'p1_line' | 'p1_tri' from (dim, nodes/elem); the other families of
-    the JAX package raise ``NotImplementedError`` naming their slice."""
+    """'p1_line' | 'p1_tri' | 'p1_tet' from (dim, nodes/elem); the other
+    families of the JAX package raise ``NotImplementedError`` naming their
+    slice."""
     key = (mesh.dim, mesh.elements.shape[1])
     if key in _FAMILIES:
         return _FAMILIES[key]
@@ -72,9 +73,10 @@ def is_tensor_kappa(mesh: FEMesh, kappa) -> bool:
 def _require_line(mesh: FEMesh):
     if element_family(mesh) != "p1_line":
         raise NotImplementedError(
-            "generic P1 triangle assembly is not ported yet (slice E: "
-            "ops/assembly.py); FEMesh.rectangle meshes assemble in stencil "
-            "form (ops/stencil.py)")
+            "generic P1 triangle and tetrahedron assembly is not ported yet "
+            "(slice E: ops/assembly.py); FEMesh.rectangle and FEMesh.box "
+            "meshes assemble in stencil form (ops/stencil.py, "
+            "ops/stencil3d.py)")
 
 
 def element_geometry_1d(mesh: FEMesh) -> torch.Tensor:

@@ -39,6 +39,11 @@ _SIGNATURES = {
     "difffe_stencil_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "difffe_stencil_cg2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _F, _P],
+    "difffe_stencil3d_cg_work": [_I, _I, _I],
+    "difffe_stencil3d_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P],
+    "difffe_stencil3d_cg2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _F, _I, _P],
 }
 
 

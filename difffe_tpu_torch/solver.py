@@ -1,4 +1,4 @@
-"""Solve −∇·(κ∇u) = f with Dirichlet BCs: the 1D and 2D-structured facade.
+"""Solve −∇·(κ∇u) = f with Dirichlet BCs: the 1D and structured facade.
 
 PyTorch counterpart of the ported subset of ``difffe_tpu/solver.py``:
 ``solve_poisson`` and ``solve_poisson_batched`` with the JAX package's
@@ -8,7 +8,12 @@ PyTorch counterpart of the ported subset of ``difffe_tpu/solver.py``:
 * the structured stencil solver (ops/stencil.py) on ``FEMesh.rectangle``
   meshes with their factory Dirichlet boundary, and for fixed-trip batched
   solves (``cg_tol=0``, ``cg_maxiter ≤ 256``) the whole-CG kernel K3a
-  (ops/kernels/stencil_cg_kernel.py), forward and adjoint.
+  (ops/kernels/stencil_cg_kernel.py), forward and adjoint;
+* the 3D structured stencil solver (ops/stencil3d.py) on ``FEMesh.box``
+  meshes with their factory Dirichlet boundary, and for fixed-trip batched
+  solves on the card (``cg_tol=0``, an explicit ``cg_maxiter``) the
+  whole-CG kernel K4a (ops/kernels/stencil3d_cg_kernel.py), forward and
+  adjoint.
 
 Every route not ported yet raises ``NotImplementedError`` naming the
 slice that ports it.
@@ -40,6 +45,9 @@ _UNPORTED_METHODS = {
 _NATURAL_2D = ("Neumann/Robin terms and non-factory Dirichlet masks on "
                "rectangle meshes take the generalized-mask stencil solver, "
                "not ported yet (slice C item 14: ops/stencil_natural.py)")
+_NATURAL_3D = ("the 3D structured stencil path supports the factory "
+               "Dirichlet boundary only (no Neumann/Robin); use "
+               "method='cg' or 'dense'")
 
 
 def _resolve_method(mesh: FEMesh, method: str, kappa=None,
@@ -97,22 +105,32 @@ def _solve_stencil(mesh: FEMesh, kappa, f: torch.Tensor, cg_tol: float,
     is differentiable.  ``dot`` is the CG inner product
     (``pcg.batched_dot(2)`` for independent scenarios)."""
     from .ops.stencil import kappa_lu_from_elements, solve_poisson_structured
+    from .ops.stencil3d import solve_poisson_structured_3d
 
-    if mesh.dim != 2:
-        raise NotImplementedError(
-            "3D structured stencil solves are not ported yet (slice D: "
-            "ops/stencil3d.py)")
-    if neumann is not None or robin is not None or not _mask_is_factory(mesh):
-        raise NotImplementedError(_NATURAL_2D)
+    _require_factory_dirichlet(mesh, neumann is not None or robin is not None)
     grid = mesh.grid
     shape = grid.node_shape
     ke = kappa_on_elements(mesh, kappa)
     g = mesh.bc_values if bc_values is None else bc_values
     g = g.reshape(g.shape[:-1] + shape)
     fg = f.reshape(f.shape[:-1] + shape)
-    u = solve_poisson_structured(grid, kappa_lu_from_elements(grid, ke),
-                                 fg, g, cg_tol, cg_maxiter, dot)
-    return u.reshape(u.shape[:-2] + (mesh.n_nodes,))
+    if mesh.dim == 3:
+        u = solve_poisson_structured_3d(grid, ke, fg, g, cg_tol, cg_maxiter,
+                                        dot)
+    else:
+        u = solve_poisson_structured(grid, kappa_lu_from_elements(grid, ke),
+                                     fg, g, cg_tol, cg_maxiter, dot)
+    return u.reshape(u.shape[:-len(shape)] + (mesh.n_nodes,))
+
+
+def _require_factory_dirichlet(mesh: FEMesh, natural: bool):
+    """The structured solvers take the factory Dirichlet boundary only: 3D
+    refuses anything else as the JAX package does; 2D's generalized-mask
+    solver is not ported yet."""
+    if natural or not _mask_is_factory(mesh):
+        if mesh.dim == 3:
+            raise ValueError(_NATURAL_3D)
+        raise NotImplementedError(_NATURAL_2D)
 
 
 def _check_kw(kw: dict):
@@ -135,8 +153,9 @@ def _require_stencil(mesh: FEMesh):
     if mesh.grid is None:
         raise ValueError(
             "method='stencil' requires structured-grid metadata (a mesh "
-            "built by FEMesh.rectangle whose Dirichlet set is the factory "
-            "boundary); general meshes take method='cg' or 'dense' (slice E)")
+            "built by FEMesh.rectangle or FEMesh.box whose Dirichlet set is "
+            "the factory boundary); general meshes take method='cg' or "
+            "'dense' (slice E)")
 
 
 def _unknown_or_unported(method: str):
@@ -153,8 +172,8 @@ def solve_poisson(mesh: FEMesh, kappa, f, method: str = "auto",
 
     kappa : scalar, (n_elements,) or (n_nodes,) diffusion coefficient.
     f : (n_nodes,) nodal forcing values.
-    method : 'auto' | 'tridiag' (1D) | 'stencil' (rectangle meshes) are
-        ported; 'tridiag_pallas', 'dense', 'lu' and 'cg' raise
+    method : 'auto' | 'tridiag' (1D) | 'stencil' (rectangle and box
+        meshes) are ported; 'tridiag_pallas', 'dense', 'lu' and 'cg' raise
         NotImplementedError.
     cg_tol, cg_maxiter : the stencil route's CG policy (``_cg_policy``).
     bc_values : optional (n_nodes,) override of the Dirichlet values.
@@ -226,7 +245,11 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
     ``cg_maxiter ≤ 256``) of batched forcings with shared boundary values
     runs on the whole-CG kernel K3a, its gradient too; other batched
     stencil solves run the torch CG with per-scenario dots (the JAX
-    package ``vmap``s one solve per scenario there).
+    package ``vmap``s one solve per scenario there).  On box meshes such a
+    solve (any explicit ``cg_maxiter``) on the card runs on K4a, its
+    gradient too; every other batched box solve runs
+    ``solve_poisson_structured_3d_batched`` (per-scenario dots, the JAX
+    package's batch-minor solve).
     """
     _check_kw(kw)
     dt, dev = mesh.dtype, mesh.device
@@ -254,13 +277,15 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
 
     if method == "stencil":
         _require_stencil(mesh)
-        if mesh.dim == 2 and (natural or not _mask_is_factory(mesh)):
-            raise NotImplementedError(_NATURAL_2D)
+        _require_factory_dirichlet(mesh, natural)
         from .ops.kernels.stencil_cg_kernel import choose_2d_path
         from .ops.pcg import batched_dot
 
         cg_tol, cg_maxiter = kw.get("cg_tol"), kw.get("cg_maxiter")
-        if (mesh.dim == 2 and f_batched and not g_batched
+        if mesh.dim == 3:
+            return _solve_batched_box(mesh, kappa, f, bc_values, cg_tol,
+                                      cg_maxiter)
+        if (f_batched and not g_batched
                 and cg_tol == 0.0 and cg_maxiter and cg_maxiter <= 256
                 and choose_2d_path(mesh.grid, block_b=8) == "fused"):
             return _solve_batched_kernel(mesh, kappa, f, bc_values,
@@ -300,3 +325,27 @@ def _solve_batched_kernel(mesh, kappa, f, bc_values, iters):
         iters, 8)
     return u.reshape(B, mesh.n_nodes)
 
+
+def _solve_batched_box(mesh, kappa, f, bc_values, cg_tol, cg_maxiter):
+    """The batched box solve: fixed-trip solves of batched forcings with
+    shared boundary values on the card take K4a (block_b = 1); the rest
+    take the plain per-scenario batched solve."""
+    from .ops.kernels.stencil3d_cg_kernel import solve_structured_kernel_3d
+    from .ops.stencil3d import solve_poisson_structured_3d_batched
+
+    grid = mesh.grid
+    shape = grid.node_shape
+    ke = kappa_on_elements(mesh, kappa)
+    g = mesh.bc_values if bc_values is None else bc_values
+    B = max(t.shape[0] if t.ndim == 2 else 1 for t in (ke, f, g))
+    keB = ke.expand(B, mesh.n_elements)
+    if (f.is_cuda and f.ndim == 2 and g.ndim == 1 and cg_tol == 0.0
+            and cg_maxiter):
+        u = solve_structured_kernel_3d(grid, keB, f.reshape((B,) + shape),
+                                       g.reshape(shape), int(cg_maxiter))
+    else:
+        cg_tol, cg_maxiter = _cg_policy(mesh, cg_tol, cg_maxiter)
+        u = solve_poisson_structured_3d_batched(
+            grid, keB, f.expand(B, mesh.n_nodes).reshape((B,) + shape),
+            g.reshape(g.shape[:-1] + shape), cg_tol, cg_maxiter)
+    return u.reshape(B, mesh.n_nodes)

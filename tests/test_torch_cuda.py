@@ -15,8 +15,11 @@ from difffe_tpu_torch.inverse import fit_kappa
 from difffe_tpu_torch.mesh import FEMesh
 from difffe_tpu_torch.ops.assembly import assemble_load
 from difffe_tpu_torch.ops.kernels import fused_grad_cf_kernel as tk
+from difffe_tpu_torch.ops.kernels import stencil3d_cg_kernel as k4
 from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
 from difffe_tpu_torch.ops.stencil import StructuredGrid, residual_vjp_manual
+from difffe_tpu_torch.ops.stencil3d import (StructuredGrid3,
+                                            residual_vjp_manual_3d)
 from difffe_tpu_torch.solver import solve_poisson_batched
 from difffe_tpu_torch.utils.profiling import timeit_chained
 from torch_parity import rel_err
@@ -30,8 +33,8 @@ CHAIN_TOL = 1e-4    # the same over a 32-step chain
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the K1 and K3 kernels have no CPU "
-                    "mode")
+        pytest.skip("needs a CUDA card: the K1, K3 and K4 kernels have no "
+                    "CPU mode")
     return torch.device("cuda")
 
 
@@ -214,6 +217,7 @@ def test_k3_wrappers_reject_what_the_kernels_do_not_take(cuda):
 def test_factories_default_to_the_card(cuda):
     assert FEMesh.line(30).device.type == "cuda"
     assert FEMesh.rectangle(8, 8).device.type == "cuda"
+    assert FEMesh.box(3, 2, 2).device.type == "cuda"
 
 
 def test_2d_routes_launch_k3(cuda):
@@ -238,3 +242,141 @@ def test_2d_routes_launch_k3(cuda):
     assert sk.launches["cg2"] == before["cg2"] + 40
     assert torch.isfinite(kappa).all()
     assert info["eval_loss"] < 0.5 * float(info["loss_history"][0])
+
+
+# ---------------------------------------------------------------------------
+# K4a / K4b: whole-CG 3D stencil kernels, held by the K3 rule above.  The
+# (12, 9, 6) box is non-cubic; 32³ takes the global-workspace route.
+# ---------------------------------------------------------------------------
+
+
+def _k4_problem(dev, n, B, g_nonzero, seed):
+    """f64 per-tet κ, forcing, Dirichlet values and observations."""
+    nx, ny, nz = n
+    grid = StructuredGrid3.unit(nx, ny, nz)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    k = 1.2 + 0.6 * torch.rand(B, grid.n_elements, generator=gen, **f64)
+    Z, Y, X = torch.meshgrid(*(torch.linspace(0.0, 1.0, m + 1, **f64)
+                               for m in (nz, ny, nx)), indexing="ij")
+    bump = torch.sin(math.pi * X) * torch.sin(math.pi * Y) * torch.sin(
+        math.pi * Z)
+    f = 10.0 * bump * (1.0 + 0.2 * torch.rand(B, 1, 1, 1, generator=gen,
+                                              **f64))
+    g = 0.3 * X + 0.1 * Y - 0.2 * Z if g_nonzero else torch.zeros_like(X)
+    ud = 0.05 * bump * (1.0 + torch.rand(B, 1, 1, 1, generator=gen, **f64))
+    return grid, (k, f, g, ud)
+
+
+def _k4b_steps(grid, arrays, dtype, cg3_2, iters, steps, operand_dtype=None):
+    """``steps`` SGD steps on κ, the first cold and the rest warm-started,
+    each through ``cg3_2`` (the K4b wrapper or its plain version).  With
+    bf16 storage every run takes the planes the f32 run stores, so the f64
+    reference solves the same operator, and κ stays put (κs that differ in
+    their last bits could round a plane to another bf16 value)."""
+    k, f, g, ud = (a.to(dtype).contiguous() for a in arrays)
+    out, state = [], None
+    for _ in range(steps):
+        C, D, b, Minv, x0, _ = k4._prepare3(grid, k, f, g)
+        if operand_dtype is not None:
+            _, D, _, Minv, _, _ = k4._prepare3(
+                grid, k.float(), f.float(), g.float(),
+                operand_dtype=operand_dtype)
+        x0, lam0 = state if state else (x0, torch.zeros_like(b))
+        x, lam = cg3_2(D, b, Minv, x0, lam0, ud, 2.0 / b.numel(), iters)
+        gk, _, _ = residual_vjp_manual_3d(grid, k, f, g, x, lam, C=C)
+        out.append({"x": x, "lam": lam, "grad": gk})
+        state = (x, lam)
+        if operand_dtype is None:
+            k = k - 20.0 * gk
+    return out
+
+
+@pytest.mark.parametrize("n,B,bf16", [((12, 9, 6), 7, False),
+                                      ((12, 9, 6), 7, True),
+                                      ((32, 32, 32), 3, False)],
+                         ids=["12x9x6_B7", "12x9x6_B7_bf16", "32cube_B3"])
+@pytest.mark.parametrize("g_nonzero", [False, True], ids=["g0", "g"])
+def test_k4b_matches_plain_cold_and_warm(cuda, n, B, bf16, g_nonzero):
+    grid, arrays = _k4_problem(cuda, n, B, g_nonzero, seed=sum(n) + B)
+    od = torch.bfloat16 if bf16 else None
+    before = k4.launches["cg3_2"]
+    kern = _k4b_steps(grid, arrays, torch.float32, k4._cg3_2, 48, 3, od)
+    p32 = _k4b_steps(grid, arrays, torch.float32, k4._cg3_2_plain, 48, 3, od)
+    p64 = _k4b_steps(grid, arrays, torch.float64, k4._cg3_2_plain, 48, 3, od)
+    torch.cuda.synchronize()
+    assert k4.launches["cg3_2"] == before + 3
+    for step, (k, p, q) in enumerate(zip(kern, p32, p64)):
+        for key in ("x", "lam", "grad"):
+            assert torch.isfinite(k[key]).all()
+            ok, errs = _within_rule(k[key], p[key], q[key])
+            assert ok, (step, key, errs)
+
+
+@pytest.mark.parametrize("n,B,iters", [((12, 9, 6), 7, 200),
+                                       ((32, 32, 32), 3, 128)],
+                         ids=["12x9x6_B7", "32cube_B3"])
+def test_k4a_matches_plain(cuda, n, B, iters):
+    grid, arrays = _k4_problem(cuda, n, B, True, seed=3 * sum(n) + B)
+    out = {}
+    for name, dt, cg in (("kernel", torch.float32, k4._cg3),
+                         ("f32", torch.float32, k4._cg3_plain),
+                         ("f64", torch.float64, k4._cg3_plain)):
+        k, f, g, ud = (a.to(dt).contiguous() for a in arrays)
+        _, D, b, Minv, x0, _ = k4._prepare3(grid, k, f, g)
+        out[name] = (cg(D, b, Minv, x0, iters),
+                     cg(D, ud, Minv, torch.zeros_like(ud), iters))
+    # no atomics: a second launch repeats the first bit for bit
+    k, f, g, _ = (a.float().contiguous() for a in arrays)
+    _, D, b, Minv, x0, _ = k4._prepare3(grid, k, f, g)
+    again = k4._cg3(D, b, Minv, x0, iters)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out["kernel"][0])
+    for i in range(2):
+        assert torch.isfinite(out["kernel"][i]).all()
+        ok, errs = _within_rule(out["kernel"][i], out["f32"][i],
+                                out["f64"][i])
+        assert ok, (i, errs)
+
+
+def test_k4_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    grid, arrays = _k4_problem(cuda, (4, 3, 2), 3, False, seed=0)
+    k, f, g, ud = (a.float().contiguous() for a in arrays)
+    _, D, b, Minv, x0, _ = k4._prepare3(grid, k, f, g)
+    with pytest.raises(TypeError, match="float32"):
+        k4._cg3(D.double(), b.double(), Minv.double(), x0.double(), 4)
+    with pytest.raises(TypeError, match="bfloat16"):
+        k4._cg3(D.bfloat16(), b, Minv, x0, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4._cg3(D, b.transpose(2, 3), Minv, x0, 4)
+    with pytest.raises(ValueError, match="block_b"):
+        k4._cg3_2(D, b, Minv, x0, x0, ud, 1.0, 4, block_b=0)
+    with pytest.raises(ValueError, match="B, Dz, H, W"):
+        k4._cg3(D, b[:2], Minv, x0, 4)
+
+
+def test_3d_routes_launch_k4(cuda):
+    mesh = FEMesh.box(8, 8, 8, dtype=torch.float32)
+    B = 8
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x, y, z = mesh.nodes.T
+    f = (10.0 * torch.sin(math.pi * x) * torch.sin(math.pi * y)
+         * torch.sin(math.pi * z)).expand(B, mesh.n_nodes)
+    k_true = 1.2 + 0.6 * torch.rand(B, mesh.n_elements, generator=gen,
+                                    device=cuda)
+    before = dict(k4.launches)
+    ud = solve_poisson_batched(mesh, k_true, f, cg_tol=0.0, cg_maxiter=200)
+    assert k4.launches["cg3"] == before["cg3"] + 1
+    k = torch.ones(B, mesh.n_elements, device=cuda, requires_grad=True)
+    (solve_poisson_batched(mesh, k, f, cg_tol=0.0, cg_maxiter=64) ** 2
+     ).sum().backward()
+    assert k4.launches["cg3"] == before["cg3"] + 3      # forward and adjoint
+    assert torch.isfinite(k.grad).all()
+    # the default lr (100·B/256) barely moves an 8³ misfit in 40 steps
+    kappa, info = fit_kappa(mesh, f, ud, steps=40, lr=5000.0)
+    assert info["path"] == "stencil3d_kernel"
+    assert info["iters"] == 32 and info["warm"] is False
+    assert k4.launches["cg3_2"] == before["cg3_2"] + 40
+    assert k4.launches["cg3"] == before["cg3"] + 4      # the eval solve
+    assert torch.isfinite(kappa).all()
+    assert info["eval_loss"] < float(info["loss_history"][0])

@@ -97,7 +97,7 @@ def test_from_arrays_converter(nonuniform):
     assert tm.n_dirichlet == 2               # the original is unchanged
 
 
-@pytest.mark.parametrize("factory", ["box", "line_p2", "rectangle_p2"])
+@pytest.mark.parametrize("factory", ["line_p2", "rectangle_p2"])
 def test_unported_factories_raise(factory):
     with pytest.raises(NotImplementedError, match="slice"):
         getattr(TMesh, factory)(4, 4)
@@ -132,8 +132,13 @@ def test_assemble_load_and_bands(nonuniform):
     np.testing.assert_allclose(te.numpy(), np.asarray(je), **TIGHT)
     with pytest.raises(NotImplementedError, match="slice"):
         tasm.element_family(TMesh.from_arrays(
-            np.zeros((4, 3)), np.array([[0, 1, 2, 3]]), np.ones(4),
-            np.zeros(4), device="cpu"))
+            np.zeros((6, 2)), np.array([[0, 1, 2, 3, 4, 5]]), np.ones(6),
+            np.zeros(6), device="cpu"))
+    tet = TMesh.from_arrays(np.zeros((4, 3)), np.array([[0, 1, 2, 3]]),
+                            np.ones(4), np.zeros(4), device="cpu")
+    assert tasm.element_family(tet) == "p1_tet"
+    with pytest.raises(NotImplementedError, match="slice E"):
+        tasm.assemble_load(tet, np.zeros(4))
     tri = TMesh.from_arrays(np.zeros((3, 2)), np.array([[0, 1, 2]]),
                             np.ones(3), np.zeros(3), device="cpu")
     assert tasm.element_family(tri) == "p1_tri"

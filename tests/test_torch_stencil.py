@@ -87,6 +87,7 @@ def test_factories_default_to_the_card():
         pytest.skip("a CUDA card is present: the default succeeds there")
     for make in (lambda: TMesh.line(30),
                  lambda: TMesh.rectangle(8, 8),
+                 lambda: TMesh.box(3, 2, 2),
                  lambda: TMesh.from_arrays(np.zeros((2, 1)),
                                            np.array([[0, 1]]), np.ones(2),
                                            np.zeros(2))):

@@ -6,6 +6,7 @@ import torch
 
 from difffe_tpu_torch.mesh import FEMesh
 from difffe_tpu_torch.ops.stencil import StructuredGrid
+from difffe_tpu_torch.ops.stencil3d import StructuredGrid3
 
 
 def as_torch(a) -> torch.Tensor:
@@ -26,10 +27,13 @@ def rel_err(a, b) -> float:
 
 
 def port_grid(jax_grid):
-    """The port's StructuredGrid for a ``difffe_tpu`` 2D grid (None stays
-    None)."""
+    """The port's StructuredGrid or StructuredGrid3 for a ``difffe_tpu``
+    2D or 3D grid (None stays None)."""
     if jax_grid is None:
         return None
+    if hasattr(jax_grid, "nz"):
+        return StructuredGrid3(jax_grid.nx, jax_grid.ny, jax_grid.nz,
+                               jax_grid.hx, jax_grid.hy, jax_grid.hz)
     return StructuredGrid(jax_grid.nx, jax_grid.ny, jax_grid.hx, jax_grid.hy)
 
 
