@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``difffe_tpu_torch``) on one CUDA card.
 
-Drives the port's two inversion paths through their public entry points, in
-phases; any failure raises, so the run exits non-zero and never prints the
-final ``ok`` line:
+Drives the port's four paths through their public entry points, in phases;
+any failure raises, so the run exits non-zero and never prints the final
+``ok`` line:
 
 1. versions, the card's name and power limit (refuses to run without a
    card);
@@ -60,8 +60,36 @@ kernels K4a (whole-CG solve) and K4b (forward + MSE cotangent + adjoint CG):
     of ``fit_kappa`` (at its default lr, whose misfit it logs) with and
     without its eval solve, and a ``torch.profiler`` split of one call.
 
+The 1D facade path (BASELINE.json config 2: per-element κ recovery on
+``FEMesh.line(128)``, 1024 κ/forcing scenarios, adjoint gradients), kernel
+K2 (batched PCR tridiagonal solve, ``method="tridiag_pallas"``):
+
+13. K2 against its plain version (the PCR oracle) on the card, n ∈ {1, 2,
+    31, 129, 257, 4097}, B ∈ {1, 7, 1024, 65 536} (65 536 for n ≤ 257),
+    f32 and f64, random diagonally dominant and Dirichlet-eliminated FEM
+    bands, batched and shared bands, u and the three band gradients: f64
+    within 1e-10 relative (at n = 4097 on FEM bands also a normwise
+    backward error ≤ 1e-11), f32 by the rule of phase 7; every layout
+    equal to 'auto' bit for bit;
+14. the main path: u_data from ``solve_poisson_batched(method=
+    "tridiag_pallas")``, ``recover_kappa_field`` for 200 Adam steps
+    (1 + 2 × 200 K2 launches; the misfit must fall 1e3×); then, in f64,
+    ``recover_kappa_scalar`` (κ error < 1e-6), the three stages of
+    examples/poisson_1d_demo.py (FEM error ≤ 1e-13, ``NeuralPDE`` within
+    5% after 3000 epochs, κ = 2 within 1e-4) and
+    ``DifferentiableFESolver(method="tridiag_pallas")`` against
+    ``method="dense"`` (≤ 1e-10);
+15. the κ gradient of the batched MSE through K2 forward and adjoint
+    against the 'tridiag' route (f32 by the rule of phase 7, f64 ≤ 1e-10);
+16. chained timing of K2 (forward, and forward + backward) at n = 129,
+    B = 65 536 against the plain version and ``torch.linalg.solve`` on the
+    densified systems (B = 8192, scaled), host time of
+    ``recover_kappa_field`` at B = 1024 and 65 536, and a
+    ``torch.profiler`` split of one call.
+
 Each path's launch counts are set to 0 just before its main-path phases
-(4-5, 8, 11) and read just after; comparisons and timing do not count.  The
+(4-5, 8, 11, 14) and read just after; comparisons and timing do not
+count.  The
 third-to-last line is one JSON object describing each kernel, with its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (H100 SXM, fp32 outside the tensor cores).  The
@@ -133,12 +161,29 @@ JAX_K4 = "difffe_tpu/ops/pallas/stencil3d_cg_kernel.py"
 # 7-point apply 13, two dots 4, x/r/p updates 6, Jacobi 1
 K4_OPS_PER_NODE_ITER = 24
 
+N_1D = 128               # BASELINE.json config 2: 128 elements, 129 nodes
+BATCH_1D = 1024          # its 1024 κ/forcing scenarios
+STEPS_1D = 200           # Adam steps of recover_kappa_field
+LR_1D = 0.05
+K2_NS = (1, 2, 31, 129, 257, 4097)      # phase 13: system sizes
+K2_BS = (1, 7, 1024, 65536)             # 65 536 only for n <= 257
+BATCH_K2 = 65536         # phase 16: scripts/probe_tridiag.py's batch at n=129
+BATCH_LIB = 8192         # torch.linalg.solve on the densified systems
+K2_SOURCE = "difffe_tpu_torch/csrc/tridiag_pcr.cu"
+JAX_K2 = "difffe_tpu/ops/pallas/tridiag_kernel.py"
+# K2 operations per row and PCR sweep, counted from csrc/tridiag_pcr.cu:
+# alpha, gamma (a negation and a division each) 4, a', c' 2, b', r' 8; one
+# division per row after the last sweep
+K2_OPS_PER_ROW_SWEEP = 14
+
 
 def log(*args):
     print(*args, flush=True)
 
 
 def rel_err(a, b):
+    if a.numel() == 0 and b.numel() == 0:
+        return 0.0
     return float((a - b).abs().max() / b.abs().max())
 
 
@@ -150,12 +195,12 @@ def bound(ops, nbytes):
 
 
 def kernel_entry(name, source, replaces, launches, max_abs, ms, plain_ms,
-                 ops, nbytes):
+                 ops, nbytes, library_ms=None):
     b_ms, b_by = bound(ops, nbytes)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
 def timed_pair(kernel_fn, plain_fn, x0, length):
@@ -367,7 +412,7 @@ def check_rule(name, kernel, plain32, plain64, what):
     return ek, ep
 
 
-def profile_split(torch, fn, label, card):
+def profile_split(torch, fn, label, card, what="fit_kappa"):
     """Device time by kernel name of one call of ``fn`` under
     torch.profiler; logs the busy time, the window and the top rows."""
     from torch.autograd import DeviceType
@@ -379,12 +424,18 @@ def profile_split(torch, fn, label, card):
         fn()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
+    # a user annotation (torch.optim's "Optimizer.step#Adam.step") also
+    # shows as a device range over the kernels it spans: count kernels only
+    spans = {e.name for e in prof.events()
+             if getattr(e, "is_user_annotation", False)}
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in spans]
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    log(f"{label} profile of one fit_kappa call: {busy:.1f} ms of device "
-        f"time in a {window * 1e3:.1f} ms window [{card}]")
+    log(f"{label} profile of one {what} call: {busy:.1f} ms of device "
+        f"time in a {window * 1e3:.1f} ms window, device idle "
+        f"{100 * max(0.0, 1 - busy / (window * 1e3)):.1f}% [{card}]")
     for key, count, t in rows[:12]:
         log(f"  {t:9.2f} ms {100 * t / busy:5.1f}% x{count:<5d} {key[:90]}")
 
@@ -861,6 +912,313 @@ def run_3d(torch, dev, card):
     ]
 
 
+def k2_bands(torch, kind, n, B, gen, dev):
+    """f64 bands (d (B, n), e (B, n−1)) of ``kind``: 'random', strictly
+    diagonally dominant SPD as tests/test_pallas_tridiag.py:15-22 builds
+    them, or 'fem', the Dirichlet-eliminated bands of FEMesh.line(n − 1)
+    with random per-element κ in [1.2, 1.8]."""
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.ops.assembly import assemble_tridiag_1d
+
+    opts = dict(dtype=torch.float64, device=dev)
+    if kind == "random":
+        e = -torch.rand(B, n - 1, generator=gen, **opts) - 0.1
+        d = torch.rand(B, n, generator=gen, **opts) + 0.1
+        d[:, :-1] -= e
+        d[:, 1:] -= e
+        return d, e
+    mesh = FEMesh.line(n - 1, dtype=torch.float64, device=dev)
+    k = 1.2 + 0.6 * torch.rand(B, n - 1, generator=gen, **opts)
+    d, e = assemble_tridiag_1d(mesh, k)
+    m = mesh.bc_mask
+    p = 1.0 - m
+    return p * d + m, p[:-1] * p[1:] * e
+
+
+def run_facade_1d(torch, dev, card):
+    """Phases 13-16; returns the K2 entry of the kernels line."""
+    from difffe_tpu_torch import (DifferentiableFESolver, NeuralPDE,
+                                  recover_kappa_field, recover_kappa_scalar)
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.ops import tridiag as ttri
+    from difffe_tpu_torch.ops.kernels import tridiag_kernel as tk
+    from difffe_tpu_torch.solver import solve_poisson, solve_poisson_batched
+
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def solve_and_grads(solve, d, e, F, w):
+        """u and the (d, e, F) gradients of <w, u> through ``solve``."""
+        ts = [t.clone().requires_grad_() for t in (d, e, F)]
+        u = solve(*ts)
+        u.backward(w)
+        return [u.detach()] + [t.grad for t in ts]
+
+    def residual(d, e, u, F):
+        return float((ttri.tridiag_matvec(d, e, u) - F).abs().max()
+                     / F.abs().max())
+
+    # -- phase 13: K2 against its plain version
+    t0 = time.perf_counter()
+    names = ("u", "d", "e", "F")
+    max_abs = 0.0
+    for kind in ("random", "fem"):
+        for n in K2_NS:
+            for B in (b for b in K2_BS if b < BATCH_K2 or n <= 257):
+                d64, e64 = k2_bands(torch, kind, n, B, gen, dev)
+                F64 = torch.randn(B, n, generator=gen, dtype=f64, device=dev)
+                w64 = torch.randn(B, n, generator=gen, dtype=f64, device=dev)
+                for shared in ((False, True) if B > 1 else (False,)):
+                    dd, ee = (d64[0], e64[0]) if shared else (d64, e64)
+                    for dt in (f32, f64):
+                        args = [t.to(dt) for t in (dd, ee, F64, w64)]
+                        k = solve_and_grads(tk.tridiag_solve_kernel, *args)
+                        p = solve_and_grads(ttri.tridiag_solve, *args)
+                        q = solve_and_grads(ttri.tridiag_solve,
+                                            *(a.double() for a in args))
+                        tag = (f"{kind} n={n} B={B} "
+                               f"{'shared' if shared else 'batched'} {dt}")
+                        errs = [rel_err(a, c) for a, c in zip(k, q)]
+                        if dt == f32:
+                            for name, a, b, c in zip(names, k, p, q):
+                                check_rule("K2", a, b, c, f"{tag} {name}")
+                            if n == N_1D + 1:
+                                max_abs = max(max_abs, *(float(
+                                    (a - c).abs().max()) for a, c in zip(k, q)))
+                        elif not max(errs) <= 1e-10:
+                            raise AssertionError(f"{tag}: rel err {errs}")
+                        elif kind == "fem" and n > 257:
+                            # ‖Tu − F‖/‖F‖ exceeds 1e-12 for the f64 plain
+                            # PCR (and for dense LU) at this condition, so
+                            # the gate is the normwise backward error
+                            dq, eq, Fq, wq = args
+                            Bd, Be = dq.expand(B, n), eq.expand(B, n - 1)
+                            for what, sol, rhs, ref in (
+                                    ("u", k[0], Fq, q[0]),
+                                    ("λ", k[3], wq, q[3])):
+                                r_k = residual(Bd, Be, sol, rhs)
+                                r_p = residual(Bd, Be, ref, rhs)
+                                bw = r_k * float(rhs.abs().max()) / (
+                                    float(Bd.abs().max() + 2 * Be.abs().max())
+                                    * float(sol.abs().max())
+                                    + float(rhs.abs().max()))
+                                log(f"phase 13 {tag} {what}: ‖Tx − b‖/‖b‖ "
+                                    f"kernel {r_k:.2e} plain {r_p:.2e}; "
+                                    f"backward error {bw:.2e}; rel err vs "
+                                    f"plain " + " ".join(
+                                        f"{m}={v:.2e}"
+                                        for m, v in zip(names, errs)))
+                                if not bw <= 1e-11:
+                                    raise AssertionError(
+                                        f"{tag} {what}: backward error {bw}")
+                        # layout and block_b only set the launch shape
+                        for layout, bb in (("transposed", 64), ("batch", 1),
+                                           ("batch", 64)):
+                            u_l = tk.tridiag_solve_kernel(*args[:3], bb,
+                                                          layout)
+                            if not torch.equal(u_l, k[0]):
+                                raise AssertionError(
+                                    f"{tag}: layout {layout} block_b {bb} "
+                                    f"changed the result")
+                del d64, e64, F64, w64, k, p, q, args
+            log(f"phase 13 {kind} n={n}: every B, batched and shared bands, "
+                f"f32 and f64, u and the three band gradients within the "
+                f"gates; every layout equal to 'auto' bit for bit")
+            torch.cuda.empty_cache()
+    log(f"phase 13 kernel vs plain: {time.perf_counter() - t0:.1f} s "
+        f"(max abs err at n={N_1D + 1} f32 vs f64 plain: {max_abs:.3e})")
+
+    # -- phase 14: the main path, BASELINE.json config 2
+    mesh = FEMesh.line(N_1D, dtype=f32)
+    if mesh.device.type != dev.type:
+        raise AssertionError(f"the mesh factory put the mesh on "
+                             f"{mesh.device}")
+    g0 = torch.Generator(device=dev).manual_seed(0)
+    x = mesh.nodes[:, 0]
+    k_true = 1.2 + 0.6 * torch.rand(BATCH_1D, N_1D, generator=g0, device=dev)
+    kk = 1.0 + (torch.arange(BATCH_1D, device=dev) % 4)
+    f = torch.sin(kk[:, None] * math.pi * x) + 1.5
+    for key in tk.launches:
+        tk.launches[key] = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        u_data = solve_poisson_batched(mesh, k_true, f,
+                                       method="tridiag_pallas")
+    kappa, hist = recover_kappa_field(mesh, f, u_data, adam_steps=STEPS_1D,
+                                      lr=LR_1D, method="tridiag_pallas")
+    torch.cuda.synchronize()
+    main_path = dict(tk.launches)
+    h0, h1 = float(hist[0]), float(hist[-1])
+    log(f"phase 14 recover_kappa_field: n={N_1D} B={BATCH_1D} "
+        f"{STEPS_1D} Adam steps lr={LR_1D}: loss {h0:.6e} -> {h1:.6e} "
+        f"({h0 / h1:.1f}x) ({time.perf_counter() - t0:.2f} s with u_data)")
+    log(f"1D facade main-path launches: {main_path}")
+    if main_path["pcr"] != 1 + 2 * STEPS_1D:
+        raise AssertionError(f"K2 launches {main_path}")
+    if kappa.shape != (BATCH_1D, N_1D) or not bool(
+            torch.isfinite(kappa).all()):
+        raise AssertionError("recover_kappa_field's kappa is not finite of "
+                             f"shape {(BATCH_1D, N_1D)}")
+    if not h1 < 1e-3 * h0:
+        raise AssertionError("the misfit fell less than 1e3x")
+
+    # recover_kappa_scalar, f64, bench_full.py's gate (the PCR oracle route)
+    m30 = FEMesh.line(30, dtype=f64)
+    x30 = m30.nodes[:, 0]
+    fB = (torch.sin(math.pi * x30) + 1.0).expand(4, m30.n_nodes)
+    kt = torch.tensor([0.7, 1.3, 2.0, 2.9], dtype=f64, device=dev)
+    ud = solve_poisson_batched(m30, kt, fB, kappa_batched=True)
+    kr, _ = recover_kappa_scalar(m30, fB, ud, adam_steps=100,
+                                 newton_steps=8)
+    err = float((kr - kt).abs().max())
+    log(f"phase 14 recover_kappa_scalar f64 n=30 B=4: max kappa error "
+        f"{err:.3e}")
+    if not err < 1e-6:
+        raise AssertionError(f"scalar kappa error {err:.3e}")
+
+    # examples/poisson_1d_demo.py's three stages, f64
+    m20 = FEMesh.line(20, dtype=f64)
+    x20 = m20.nodes[:, 0]
+    u_fem = solve_poisson(m20, 1.0, torch.ones_like(x20))
+    e1 = float((u_fem - x20 * (1.0 - x20) / 2.0).abs().max())
+    model = NeuralPDE(m20, hidden_dim=64, n_layers=3,
+                      generator=torch.Generator().manual_seed(42))
+    t0 = time.perf_counter()
+    losses = model.train_pde(torch.ones_like, n_epochs=3000, lr=1e-3,
+                             verbose=False)
+    t_nn = time.perf_counter() - t0
+    free = torch.as_tensor(m20.free_nodes(), device=dev)
+    with torch.no_grad():
+        u_nn = model()
+    e2 = float((u_nn[free] - u_fem[free]).abs().max()
+               / u_fem[free].abs().max())
+    f30 = torch.sin(math.pi * x30) + 1.0
+    u30 = solve_poisson(m30, 2.0, f30)
+    k = torch.tensor(1.0, dtype=f64, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([k], lr=0.1, betas=(0.9, 0.999), eps=1e-8)
+    for _ in range(200):
+        opt.zero_grad()
+        ((solve_poisson(m30, k.abs(), f30) - u30) ** 2).mean().backward()
+        opt.step()
+    e3 = abs(float(k.detach().abs()) - 2.0)
+    log(f"phase 14 demo: FEM max error {e1:.2e}; NeuralPDE 3000 epochs "
+        f"({t_nn:.1f} s) final loss {losses[-1]:.2e}, max relative error on "
+        f"free nodes {e2:.3e}; recovered kappa "
+        f"{float(k.detach().abs()):.6f}")
+    if not (e1 <= 1e-13 and e2 < 0.05 and e3 < 1e-4):
+        raise AssertionError(f"demo gates: {e1:.2e} {e2:.3e} {e3:.2e}")
+    fb = torch.randn(5, m20.n_nodes, generator=gen, dtype=f64, device=dev)
+    u_k = DifferentiableFESolver(m20, 1.7, method="tridiag_pallas")(fb)
+    u_d = DifferentiableFESolver(m20, 1.7, method="dense")(fb)
+    e4 = rel_err(u_k, u_d)
+    log(f"phase 14 DifferentiableFESolver tridiag_pallas vs dense, f64: "
+        f"rel err {e4:.2e}")
+    if not e4 <= 1e-10:
+        raise AssertionError(f"DifferentiableFESolver disagrees: {e4:.2e}")
+    del kappa, hist, model
+    torch.cuda.empty_cache()
+
+    # -- phase 15: the κ gradient through the route, K2 forward and adjoint
+    def kappa_grad(method, dt):
+        m = FEMesh.line(N_1D, dtype=dt)
+        ke = torch.ones(BATCH_1D, N_1D, dtype=dt, device=dev,
+                        requires_grad=True)
+        u = solve_poisson_batched(m, ke, f.to(dt), method=method)
+        ((u - u_data.to(dt)) ** 2).mean().backward()
+        return ke.grad
+
+    ek, ep = check_rule("K2 gradient", kappa_grad("tridiag_pallas", f32),
+                        kappa_grad("tridiag", f32), kappa_grad("tridiag", f64),
+                        "phase 15 κ gradient")
+    e64 = rel_err(kappa_grad("tridiag_pallas", f64),
+                  kappa_grad("tridiag", f64))
+    log(f"phase 15 κ gradient of the batched MSE through K2 (forward + "
+        f"adjoint): f32 rel err vs f64 plain {ek:.3e} (f32 plain {ep:.3e}); "
+        f"f64 rel err vs f64 plain {e64:.3e}")
+    if not e64 <= 1e-10:
+        raise AssertionError(f"f64 κ gradient disagrees: {e64:.3e}")
+
+    # -- phase 16: timing at n = 129, f32
+    n = N_1D + 1
+    dB, eB = k2_bands(torch, "fem", n, BATCH_K2, gen, dev)
+    dB, eB = dB.float(), eB.float()
+    F0 = torch.randn(BATCH_K2, n, generator=gen, device=dev)
+
+    def fwd_bwd(solve):
+        def step(c):
+            dd = dB.detach().requires_grad_()
+            (gd,) = torch.autograd.grad(solve(dd, eB, c), dd,
+                                        grad_outputs=c)
+            return gd
+        return step
+
+    ms = {
+        "fwd": timed_pair(lambda c: tk.tridiag_solve_kernel(dB, eB, c),
+                          lambda c: ttri.tridiag_solve(dB, eB, c), F0, 4),
+        "fwd_bwd": timed_pair(fwd_bwd(tk.tridiag_solve_kernel),
+                              fwd_bwd(ttri.tridiag_solve), F0, 4),
+    }
+    T = (torch.diag_embed(dB[:BATCH_LIB]) + torch.diag_embed(eB[:BATCH_LIB], 1)
+         + torch.diag_embed(eB[:BATCH_LIB], -1))
+    t_lib = timeit_chained_min(
+        lambda c: torch.linalg.solve(T, c[..., None])[..., 0],
+        F0[:BATCH_LIB].contiguous())
+    library_ms = t_lib * BATCH_K2 / BATCH_LIB
+    steps = math.ceil(math.log2(n))
+    ops = BATCH_K2 * n * (K2_OPS_PER_ROW_SWEEP * steps + 1)
+    nbytes = (4 * n - 1) * BATCH_K2 * 4
+    b_ms, b_by = bound(ops, nbytes)
+    for name, what in (("fwd", "forward solve"),
+                       ("fwd_bwd", "forward + backward (2 K2 launches)")):
+        best = ms[name]
+        log(f"phase 16 K2 {what}: kernel {best['kernel']:.4f} ms, plain "
+            f"{best['plain']:.4f} ms (n={n}, B={BATCH_K2}, f32) [{card}]")
+    log(f"phase 16 K2 bound {b_ms:.4f} ms ({b_by}); kernel "
+        f"{nbytes / ms['fwd']['kernel'] / 1e6:.1f} GB/s of the "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s peak; torch.linalg.solve on the "
+        f"densified systems {t_lib:.4f} ms at B={BATCH_LIB}, "
+        f"{library_ms:.4f} ms scaled to B={BATCH_K2} [{card}]")
+    del T, dB, eB, F0
+    torch.cuda.empty_cache()
+
+    for B in (BATCH_1D, BATCH_K2):
+        mB = FEMesh.line(N_1D, dtype=f32)
+        fb = f[torch.arange(B, device=dev) % BATCH_1D]
+        with torch.no_grad():
+            ub = solve_poisson_batched(
+                mB, k_true[torch.arange(B, device=dev) % BATCH_1D], fb,
+                method="tridiag_pallas")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recover_kappa_field(mB, fb, ub, adam_steps=STEPS_1D, lr=LR_1D,
+                                method="tridiag_pallas")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        log(f"phase 16 recover_kappa_field host time, {STEPS_1D} steps, "
+            f"B={B}: " + ", ".join(f"{t:.4f}" for t in times)
+            + f" s; {B * STEPS_1D / min(times):.6e} grad-solves/s [{card}]")
+    profile_split(
+        torch, lambda: recover_kappa_field(
+            mesh, f, u_data, adam_steps=STEPS_1D, lr=LR_1D,
+            method="tridiag_pallas"),
+        "phase 16", card, what=f"recover_kappa_field (B={BATCH_1D})")
+
+    return kernel_entry("tridiag_pcr", K2_SOURCE,
+                        f"{JAX_K2}:80 (_pcr_pallas_padded), :161 "
+                        f"(_pcr_pallas_T)", main_path["pcr"], max_abs,
+                        ms["fwd"]["kernel"], ms["fwd"]["plain"], ops, nbytes,
+                        library_ms)
+
+
+def timeit_chained_min(fn, x0, length=4):
+    """Best chained ms per call of one function."""
+    from difffe_tpu_torch.utils.profiling import timeit_chained
+
+    return timeit_chained(fn, x0, length=length, repeats=3).min_s * 1e3
+
+
 def main() -> int:
     import torch
 
@@ -901,6 +1259,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += run_3d(torch, dev, card)
     log(f"3D path, phases 10-12: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.append(run_facade_1d(torch, dev, card))
+    log(f"1D facade path, phases 13-16: {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -18,7 +18,14 @@ Ported so far:
 * slice D items 15-16, κ-field inversion on 3D boxes — ``FEMesh.box``,
   the 7-point stencil operators (ops/stencil3d.py), the hand-written CUDA
   whole-CG kernels K4a/K4b (ops/kernels/stencil3d_cg_kernel.py), the box
-  routes of ``solve_poisson[_batched]`` and ``fit_kappa``'s 3D route.
+  routes of ``solve_poisson[_batched]`` and ``fit_kappa``'s 3D route;
+* slice B's 1D facade and reference-parity surface — the hand-written
+  CUDA PCR kernel K2 (ops/kernels/tridiag_kernel.py) behind
+  ``method="tridiag_pallas"``, the dense Cholesky/LU solves
+  (ops/solve.py), point Neumann/Robin terms, ``DifferentiableFESolver``,
+  ``recover_kappa_scalar``, ``recover_kappa_field``, ``fit_kappa``'s
+  generic Adam route, ``PhysicsLoss`` (losses.py) and ``NeuralPDE``
+  (models/neural.py).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"`` in the mesh factories).
@@ -30,9 +37,14 @@ __version__ = "0.1.0"
 
 __all__ = [
     "FEMesh",
+    "DifferentiableFESolver",
     "default_dtype",
     "solve_poisson",
     "solve_poisson_batched",
+    "PhysicsLoss",
+    "NeuralPDE",
+    "recover_kappa_scalar",
+    "recover_kappa_field",
     "solve_poisson_cf_batched",
     "fit_kappa",
     "kappa_sgd_chain_cf",
@@ -50,9 +62,19 @@ _STENCIL3D = ("StructuredGrid3", "solve_poisson_structured_3d",
 
 def __getattr__(name):
     # Lazy imports keep `import difffe_tpu_torch` light.
-    if name in ("solve_poisson", "solve_poisson_batched"):
+    if name in ("solve_poisson", "solve_poisson_batched",
+                "DifferentiableFESolver"):
         from . import solver
         return getattr(solver, name)
+    if name == "PhysicsLoss":
+        from .losses import PhysicsLoss
+        return PhysicsLoss
+    if name == "NeuralPDE":
+        from .models.neural import NeuralPDE
+        return NeuralPDE
+    if name in ("recover_kappa_scalar", "recover_kappa_field"):
+        from . import inverse
+        return getattr(inverse, name)
     if name == "solve_poisson_cf_batched":
         from .ops.cf1d import solve_poisson_cf_batched
         return solve_poisson_cf_batched

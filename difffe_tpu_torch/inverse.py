@@ -1,10 +1,17 @@
-"""Per-element κ-field inversion: ``fit_kappa``, 1D, 2D-grid and 3D-box
-routes.
+"""Inverse problems: scalar and field κ recovery, and ``fit_kappa``'s 1D,
+2D-grid and 3D-box routes.
 
-PyTorch counterpart of ``fit_kappa`` in ``difffe_tpu/inverse.py``.
+PyTorch counterpart of ``difffe_tpu/inverse.py``.
 
-On a ``FEMesh.line`` mesh (Dirichlet at both ends) the loop is SGD on κ
-with exact closed-form solves:
+``recover_kappa_scalar`` (Adam warm-up then a safeguarded per-scenario
+Newton polish on log κ) and ``recover_kappa_field`` (Adam on per-element
+log κ) run their steps as Python loops over the facade's differentiable
+solves; ``torch.optim.Adam`` with optax's defaults (β = 0.9/0.999,
+ε = 1e-8, the same bias correction) stands in for ``optax.adam``.  The
+loss history stays on the device until the loop ends.
+
+On a ``FEMesh.line`` mesh (Dirichlet at both ends) ``fit_kappa``'s loop is
+SGD on κ with exact closed-form solves:
 
 * shared forcing → the K1 chain (ops/kernels/fused_grad_cf_kernel.py), 32
   SGD steps per launch with κ held on the chip
@@ -23,8 +30,10 @@ one K4b launch (ops/kernels/stencil3d_cg_kernel.py,
 ``info["path"] == "stencil3d_kernel"``); the final eval solve is one K4a
 launch.
 
-Every other route of the JAX dispatcher raises ``NotImplementedError``
-naming the slice that ports it.
+Any other line mesh takes the generic Adam field recovery
+(``recover_kappa_field``, ``info["path"] == "generic_adam"``).  Every
+other route of the JAX dispatcher raises ``NotImplementedError`` naming
+the slice that ports it.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from .mesh import FEMesh
+from .solver import solve_poisson_batched
 
 
 def fit_kappa(mesh: FEMesh, f, u_data, steps: int = 100,
@@ -78,10 +88,7 @@ def fit_kappa(mesh: FEMesh, f, u_data, steps: int = 100,
         if mesh_supports_cf(mesh):
             return _fit_kappa_1d(mesh, f, u_data, steps, lr, kappa0,
                                  eval_final)
-        raise NotImplementedError(
-            "fit_kappa on a 1D mesh without two-end Dirichlet takes the "
-            "generic Adam route (recover_kappa_field), not ported yet "
-            "(slice B; general meshes: slice E)")
+        return _fit_kappa_generic(mesh, f, u_data, steps, lr, eval_final)
     if grid is None:
         raise NotImplementedError(
             "fit_kappa on a mesh without structured-grid metadata (or with "
@@ -343,4 +350,114 @@ def _fit_kappa_1d(mesh, f, u_data, steps, lr, kappa0, eval_final):
     if eval_final:
         u = solve_poisson_cf_batched(mesh, kappa, f)
         info["eval_loss"] = float(((u - u_data) ** 2).mean())
+    return kappa, info
+
+
+def _adam(params, lr: float) -> torch.optim.Adam:
+    """``optax.adam(lr)``: β = (0.9, 0.999), ε = 1e-8, bias-corrected."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def recover_kappa_scalar(mesh: FEMesh, f, u_data, kappa0=None,
+                         adam_steps: int = 100, newton_steps: int = 6,
+                         lr: float = 0.1, method: str = "auto"
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Recover per-scenario scalar κ from observed solutions.
+
+    f, u_data: (B, n_nodes); returns (κ (B,), per-scenario final losses).
+    Parameterized as log κ.  Adam warm-up gets near the basin; a
+    per-scenario scalar Newton step (safeguarded, clipped to ±0.5 in
+    log κ) polishes to < 1e-6.  The loss separates over scenarios, so the
+    Hessian is diagonal and H·1, a reverse-over-reverse product, gives the
+    per-scenario second derivatives: ``method`` must be twice
+    differentiable ('auto'/'tridiag' through the PCR oracle, 'dense',
+    'lu'; the kernel route 'tridiag_pallas' is first-order only and
+    raises, as in the JAX package).
+    """
+    f = torch.as_tensor(f, dtype=mesh.dtype, device=mesh.device)
+    u_data = torch.as_tensor(u_data, dtype=mesh.dtype, device=mesh.device)
+    B = f.shape[0]
+    log_k = (torch.zeros(B, dtype=mesh.dtype, device=mesh.device)
+             if kappa0 is None else torch.log(torch.as_tensor(
+                 kappa0, dtype=mesh.dtype, device=mesh.device)).clone())
+
+    def per_scenario_loss(lk):
+        u = solve_poisson_batched(mesh, torch.exp(lk), f, method=method,
+                                  kappa_batched=True)
+        return ((u - u_data) ** 2).mean(dim=-1)
+
+    log_k.requires_grad_()
+    opt = _adam([log_k], lr)
+    for _ in range(adam_steps):
+        opt.zero_grad(set_to_none=True)
+        per_scenario_loss(log_k).sum().backward()
+        opt.step()
+
+    lk = log_k.detach()
+    for _ in range(newton_steps):
+        v = lk.clone().requires_grad_()
+        (g,) = torch.autograd.grad(per_scenario_loss(v).sum(), v,
+                                   create_graph=True)
+        (hdiag,) = torch.autograd.grad(g.sum(), v)
+        g = g.detach()
+        pos = hdiag > 0
+        step = torch.where(pos, g / torch.where(pos, hdiag, 1.0),
+                           torch.sign(g) * 0.1)
+        lk = lk - step.clamp(-0.5, 0.5)
+    with torch.no_grad():
+        return torch.exp(lk), per_scenario_loss(lk)
+
+
+def recover_kappa_field(mesh: FEMesh, f, u_data, adam_steps: int = 500,
+                        lr: float = 0.05, method: str = "auto",
+                        reg: float = 0.0, share_field: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Recover per-element κ fields: f, u_data (B, n_nodes); returns
+    (κ, loss history (adam_steps,)).
+
+    ``share_field=False``: each scenario recovers its own field (B,
+    n_elements) from its own forcing (identifiable only up to an
+    unobserved boundary-flux constant); ``share_field=True``: one field
+    (n_elements,) explains every forcing.  ``reg`` adds the Tikhonov
+    smoothing reg·mean((Δ log κ)²).  Each Adam step is one batched forward
+    solve and its adjoint: on ``method="tridiag_pallas"`` two K2 launches.
+    """
+    f = torch.as_tensor(f, dtype=mesh.dtype, device=mesh.device)
+    u_data = torch.as_tensor(u_data, dtype=mesh.dtype, device=mesh.device)
+    B, ne = f.shape[0], mesh.n_elements
+    shape = (ne,) if share_field else (B, ne)
+    log_k = torch.zeros(shape, dtype=mesh.dtype, device=mesh.device,
+                        requires_grad=True)
+
+    def loss_fn(lk):
+        kappa = torch.exp(lk).expand(B, ne)
+        u = solve_poisson_batched(mesh, kappa, f, method=method)
+        data = ((u - u_data) ** 2).mean()
+        if reg > 0:
+            return data + reg * (torch.diff(lk, dim=-1) ** 2).mean()
+        return data
+
+    opt = _adam([log_k], lr)
+    hist = []
+    for _ in range(adam_steps):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(log_k)
+        loss.backward()
+        opt.step()
+        hist.append(loss.detach())
+    hist = torch.stack(hist) if hist else log_k.new_zeros(0)
+    return torch.exp(log_k.detach()), hist
+
+
+def _fit_kappa_generic(mesh, f, u_data, steps, lr, eval_final):
+    """The generic Adam field recovery, for line meshes the closed-form
+    chain does not take (``info["path"] == "generic_adam"``)."""
+    kappa, hist = recover_kappa_field(mesh, f, u_data, adam_steps=steps,
+                                      lr=lr if lr is not None else 0.05)
+    info = {"path": "generic_adam", "iters": None, "warm": None,
+            "loss_history": hist, "eval_loss": None}
+    if eval_final:
+        with torch.no_grad():
+            u = solve_poisson_batched(mesh, kappa, f)
+            info["eval_loss"] = float(((u - u_data) ** 2).mean())
     return kappa, info

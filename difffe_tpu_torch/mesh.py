@@ -256,7 +256,8 @@ class FEMesh:
     @classmethod
     def line_p2(cls, *args, **kwargs) -> "FEMesh":
         raise NotImplementedError(
-            "FEMesh.line_p2 is not ported yet (slice B: ops/p2.py)")
+            "FEMesh.line_p2 is not ported yet (slice B, next PR: "
+            "ops/p2.py)")
 
     @classmethod
     def rectangle_p2(cls, *args, **kwargs) -> "FEMesh":

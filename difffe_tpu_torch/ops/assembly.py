@@ -2,8 +2,11 @@
 
 PyTorch counterpart of the 1D subset of ``difffe_tpu/ops/assembly.py``
 plus its element-family and κ-normalization rules for P1 triangles and
-tetrahedra.  The JAX scatter-adds become ``index_add`` (load) and
-pad-and-add (bands).  Semantics kept: the trapezoidal nodal load
+tetrahedra: load, bands, local stiffness, the dense stiffness (its banded
+fast form for P1 lines), the matrix-free applies and the lumped mass.  The
+JAX scatter-adds become ``index_add`` (load, dense matrix, applies) and
+pad-and-add (bands); leading batch axes of κ, f and u are kept where the
+JAX package ``vmap``s.  Semantics kept: the trapezoidal nodal load
 F_i += h_e/2·f_i and the local stiffness κ_e/h_e·[[1,-1],[-1,1]].  P1
 triangles and tetrahedra are recognised (the structured routes of
 ops/stencil.py and ops/stencil3d.py assemble them in stencil form); their
@@ -20,7 +23,8 @@ from ..mesh import FEMesh
 
 _FAMILIES = {(1, 2): "p1_line", (2, 3): "p1_tri", (3, 4): "p1_tet"}
 _UNPORTED_FAMILIES = {
-    (1, 3): "P2 line elements are not ported yet (slice B: ops/p2.py)",
+    (1, 3): "P2 line elements are not ported yet (slice B, next PR: "
+            "ops/p2.py)",
     (2, 6): "P2 triangle elements are not ported yet (slice E)",
 }
 
@@ -95,6 +99,69 @@ def assemble_load(mesh: FEMesh, f) -> torch.Tensor:
     F = f.new_zeros(f.shape[:-1] + (mesh.n_nodes,))
     F = F.index_add(-1, i, h / 2.0 * f[..., i])
     return F.index_add(-1, j, h / 2.0 * f[..., j])
+
+
+def dense_from_local(mesh: FEMesh, Ke: torch.Tensor) -> torch.Tensor:
+    """Scatter per-element blocks (…, ne, k, k) into dense (…, n, n)."""
+    n = mesh.n_nodes
+    k = Ke.shape[-1]
+    elems = mesh.elements
+    rows = elems.repeat_interleave(k, dim=1).reshape(-1)
+    cols = elems.repeat(1, k).reshape(-1)
+    lead = Ke.shape[:-3]
+    K = Ke.new_zeros(lead + (n * n,))
+    K = K.index_add(-1, rows * n + cols, Ke.reshape(lead + (-1,)))
+    return K.reshape(lead + (n, n))
+
+
+def local_stiffness(mesh: FEMesh, kappa) -> torch.Tensor:
+    """Per-element stiffness blocks (…, n_elements, 2, 2) of P1 lines."""
+    _require_line(mesh)
+    ke = kappa_on_elements(mesh, kappa) / element_geometry_1d(mesh)
+    S = torch.tensor([[1.0, -1.0], [-1.0, 1.0]], dtype=mesh.dtype,
+                     device=mesh.device)
+    return ke[..., None, None] * S
+
+
+def assemble_stiffness_dense(mesh: FEMesh, kappa) -> torch.Tensor:
+    """Dense stiffness matrix (…, n_nodes, n_nodes), no BCs applied; the
+    banded fast form of the generic scatter for P1 lines."""
+    _require_line(mesh)
+    n = mesh.n_nodes
+    ke = kappa_on_elements(mesh, kappa) / element_geometry_1d(mesh)
+    i, j = mesh.elements[:, 0], mesh.elements[:, 1]
+    K = ke.new_zeros(ke.shape[:-1] + (n * n,))
+    K = K.index_add(-1, i * n + i, ke).index_add(-1, j * n + j, ke)
+    K = K.index_add(-1, i * n + j, -ke).index_add(-1, j * n + i, -ke)
+    return K.reshape(ke.shape[:-1] + (n, n))
+
+
+def assemble_lumped_mass(mesh: FEMesh) -> torch.Tensor:
+    """Row-sum lumped mass entries (n_nodes,): ``assemble_load(mesh, 1)``."""
+    return assemble_load(mesh, torch.ones(mesh.n_nodes, dtype=mesh.dtype,
+                                          device=mesh.device))
+
+
+def element_apply(mesh: FEMesh, Ke: torch.Tensor,
+                  u: torch.Tensor) -> torch.Tensor:
+    """Matrix-free K·u from per-element blocks Ke (ne, k, k): gather the
+    element values of u (…, n_nodes), apply the blocks, scatter-add."""
+    elems = mesh.elements
+    kue = torch.einsum("epq,...eq->...ep", Ke, u[..., elems])
+    out = torch.zeros_like(u)
+    for p in range(elems.shape[1]):
+        out = out.index_add(-1, elems[:, p], kue[..., p])
+    return out
+
+
+def stiffness_apply(mesh: FEMesh, kappa, u: torch.Tensor) -> torch.Tensor:
+    """Matrix-free K(κ)·u for P1 lines, batched over leading axes."""
+    _require_line(mesh)
+    ke = kappa_on_elements(mesh, kappa) / element_geometry_1d(mesh)
+    i, j = mesh.elements[:, 0], mesh.elements[:, 1]
+    du = ke * (u[..., i] - u[..., j])
+    out = du.new_zeros(du.shape[:-1] + (mesh.n_nodes,))
+    return out.index_add(-1, i, du).index_add(-1, j, -du)
 
 
 def assemble_tridiag_1d(mesh: FEMesh, kappa):

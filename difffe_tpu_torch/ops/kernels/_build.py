@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 # C entry points: name -> argtypes (every pointer and the stream as void*)
 _SIGNATURES = {
     "difffe_cf_step": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
@@ -44,6 +45,8 @@ _SIGNATURES = {
                             _P],
     "difffe_stencil3d_cg2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _F, _I, _P],
+    "difffe_tridiag_pcr_max_rows": [_I],
+    "difffe_tridiag_pcr": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I, _P],
 }
 
 

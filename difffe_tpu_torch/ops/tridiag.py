@@ -96,23 +96,21 @@ def solve_poisson_tridiag(mesh: FEMesh, d: torch.Tensor, e: torch.Tensor,
                           F: torch.Tensor, backend: str = "xla",
                           bc_values=None, chunk: int = 64) -> torch.Tensor:
     """Eliminate the Dirichlet rows of banded (d, e, F) on a chain mesh and
-    PCR-solve.  Mask elimination in band form:
+    solve.  Mask elimination in band form:
 
         d̃ = p⊙d + m,  ẽ_i = p_i p_{i+1} e_i,  F̃ = m⊙g + p(F − T(m⊙g)).
 
     ``bc_values`` optionally overrides the mesh's Dirichlet values and may
-    carry leading batch axes.  ``backend`` keeps the JAX signature: only
-    ``"xla"`` (the elementwise PCR sweeps) is ported; ``chunk`` is read
-    by the unported SPIKE backend only.
+    carry leading batch axes.  ``backend``: ``"xla"`` (the elementwise PCR
+    sweeps above) or ``"pallas"`` (kernel K2, ops/kernels/tridiag_kernel.py,
+    on bands broadcast to F's batch shape); ``"spike"`` is not ported yet
+    and ``chunk`` is read by it only.
     """
-    if backend == "pallas":
-        raise NotImplementedError(
-            "backend='pallas' needs the PCR kernel K2, not ported yet "
-            "(K2, slice B)")
     if backend == "spike":
         raise NotImplementedError(
-            "backend='spike' is not ported yet (slice B: ops/spike.py)")
-    if backend != "xla":
+            "backend='spike' is not ported yet (slice B, next PR: "
+            "ops/spike.py)")
+    if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown tridiagonal backend {backend!r} "
                          "(expected 'xla', 'pallas', or 'spike')")
     m = mesh.bc_mask
@@ -123,4 +121,13 @@ def solve_poisson_tridiag(mesh: FEMesh, d: torch.Tensor, e: torch.Tensor,
     e_mod = p[..., :-1] * p[..., 1:] * e
     mg = (m * g).expand(F.shape)
     F_mod = (mg + p * (F - tridiag_matvec(d, e, mg))).expand(F.shape)
+    if backend == "pallas":
+        from .kernels.tridiag_kernel import tridiag_solve_kernel
+
+        # the kernel route takes explicitly batched bands (stride-0 views
+        # of a band shared by every scenario, read in place)
+        bshape = F_mod.shape[:-1]
+        return tridiag_solve_kernel(d_mod.expand(bshape + d_mod.shape[-1:]),
+                                    e_mod.expand(bshape + e_mod.shape[-1:]),
+                                    F_mod)
     return tridiag_solve(d_mod, e_mod, F_mod)

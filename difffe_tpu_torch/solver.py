@@ -1,10 +1,14 @@
 """Solve −∇·(κ∇u) = f with Dirichlet BCs: the 1D and structured facade.
 
 PyTorch counterpart of the ported subset of ``difffe_tpu/solver.py``:
-``solve_poisson`` and ``solve_poisson_batched`` with the JAX package's
-κ-batching rules, routed to
+``solve_poisson``, ``solve_poisson_batched`` with the JAX package's
+κ-batching rules, and the ``DifferentiableFESolver`` wrapper, routed to
 
-* the PCR tridiagonal solver (ops/tridiag.py) on 1D line meshes;
+* on 1D line meshes, the PCR tridiagonal solver (ops/tridiag.py), as
+  elementwise sweeps (``method="tridiag"``) or on kernel K2
+  (``method="tridiag_pallas"``, ops/kernels/tridiag_kernel.py), with
+  point Neumann loads and point Robin terms; or the dense Cholesky / LU
+  solves of ops/solve.py (``method="dense"`` / ``"lu"``);
 * the structured stencil solver (ops/stencil.py) on ``FEMesh.rectangle``
   meshes with their factory Dirichlet boundary, and for fixed-trip batched
   solves (``cg_tol=0``, ``cg_maxiter ≤ 256``) the whole-CG kernel K3a
@@ -29,19 +33,17 @@ import torch
 
 from .mesh import FEMesh
 from .ops import tridiag as _tridiag
-from .ops.assembly import (assemble_load, assemble_tridiag_1d,
-                           element_family, is_tensor_kappa,
-                           kappa_on_elements)
+from .ops.assembly import (assemble_load, assemble_stiffness_dense,
+                           assemble_tridiag_1d, element_family,
+                           is_tensor_kappa, kappa_on_elements)
+from .ops.solve import solve_dense
 
 _UNPORTED_METHODS = {
-    "tridiag_pallas": "method='tridiag_pallas' needs the PCR kernel K2, "
-                      "not ported yet (K2, slice B)",
-    "dense": "method='dense' is not ported yet (slice B: ops/solve.py; "
-             "2D/3D assembly: slice E)",
-    "lu": "method='lu' is not ported yet (slice B: ops/solve.py; 2D/3D "
-          "assembly: slice E)",
     "cg": "method='cg' is not ported yet (slice C item 14: ops/cg.py)",
 }
+_DENSE_2D = ("method='dense'/'lu' on 2D/3D meshes needs the generic P1 "
+             "triangle and tetrahedron assembly, not ported yet (slice E: "
+             "ops/assembly.py)")
 _NATURAL_2D = ("Neumann/Robin terms and non-factory Dirichlet masks on "
                "rectangle meshes take the generalized-mask stencil solver, "
                "not ported yet (slice C item 14: ops/stencil_natural.py)")
@@ -139,14 +141,58 @@ def _check_kw(kw: dict):
         raise TypeError(f"unexpected keyword arguments {sorted(extra)}")
 
 
-def _require_1d_ported(mesh: FEMesh, method: str, kw: dict):
-    for name in ("neumann", "robin"):
-        if kw.get(name) is not None:
-            raise NotImplementedError(
-                f"{name}= boundary terms are not ported yet (slice B: "
-                f"ops/{name}.py)")
+def _natural_1d(mesh: FEMesh, d, F, neumann, robin):
+    """Add point Neumann loads and a diagonal-only Robin term to 1D bands
+    (d, F); ``robin_diag``/``load`` keep any per-scenario lead dims."""
+    if neumann is not None:
+        F = F + torch.as_tensor(neumann, dtype=mesh.dtype, device=mesh.device)
+    if robin is not None:
+        if not robin.diagonal_only:
+            raise ValueError("tridiagonal path supports diagonal-only Robin "
+                             "terms (1D point Robin); use method='dense' "
+                             "for edge Robin")
+        from .ops.robin import robin_diag
+        d = d + robin_diag(mesh, robin)
+        F = F + robin.load
+    return d, F
+
+
+def _dense_route(mesh: FEMesh, method, kappa, f, bc_values, neumann, robin):
+    """The dense routes on 1D meshes: 'dense' (Cholesky) and 'lu', one
+    factorization per scenario, batched over the leading axes."""
+    if mesh.dim != 1:
+        raise NotImplementedError(_DENSE_2D)
+    K = assemble_stiffness_dense(mesh, kappa)
+    F = assemble_load(mesh, f)
+    if neumann is not None:
+        F = F + torch.as_tensor(neumann, dtype=mesh.dtype, device=mesh.device)
+    if robin is not None:
+        from .ops.robin import robin_matrix_dense
+        K = K + robin_matrix_dense(mesh, robin)
+        F = F + robin.load
+    return solve_dense(mesh, K, F,
+                       factor="cholesky" if method == "dense" else "lu",
+                       bc_values=bc_values)
+
+
+def _tridiag_route(mesh: FEMesh, method, kappa, f, bc_values, neumann,
+                   robin, batched: bool):
+    """The 1D band routes: 'tridiag' (elementwise PCR) and
+    'tridiag_pallas' (kernel K2)."""
     if mesh.dim != 1:
         raise ValueError(f"method={method!r} requires a 1D mesh")
+    d, e = assemble_tridiag_1d(mesh, kappa)
+    d, F = _natural_1d(mesh, d, assemble_load(mesh, f), neumann, robin)
+    if batched:
+        lead = torch.broadcast_shapes(
+            d.shape[:-1], F.shape[:-1],
+            bc_values.shape[:-1] if bc_values is not None else ())
+        F = F.expand(lead + F.shape[-1:])
+        d = d.expand(lead + d.shape[-1:])
+        e = e.expand(lead + e.shape[-1:])
+    backend = "pallas" if method == "tridiag_pallas" else "xla"
+    return _tridiag.solve_poisson_tridiag(mesh, d, e, F, backend=backend,
+                                          bc_values=bc_values)
 
 
 def _require_stencil(mesh: FEMesh):
@@ -172,11 +218,14 @@ def solve_poisson(mesh: FEMesh, kappa, f, method: str = "auto",
 
     kappa : scalar, (n_elements,) or (n_nodes,) diffusion coefficient.
     f : (n_nodes,) nodal forcing values.
-    method : 'auto' | 'tridiag' (1D) | 'stencil' (rectangle and box
-        meshes) are ported; 'tridiag_pallas', 'dense', 'lu' and 'cg' raise
-        NotImplementedError.
+    method : 'auto' | 'tridiag' | 'tridiag_pallas' | 'dense' | 'lu' (1D)
+        | 'stencil' (rectangle and box meshes) are ported; 'cg', and
+        'dense'/'lu' on 2D/3D meshes, raise NotImplementedError.
     cg_tol, cg_maxiter : the stencil route's CG policy (``_cg_policy``).
     bc_values : optional (n_nodes,) override of the Dirichlet values.
+    neumann : optional (n_nodes,) natural-BC load (ops/neumann.py), added
+        to F before Dirichlet elimination (1D routes).
+    robin : optional ops/robin.RobinBC (1D point Robin: every 1D route).
 
     Returns u (n_nodes,), differentiable wrt kappa, f and bc_values.
     """
@@ -188,13 +237,10 @@ def solve_poisson(mesh: FEMesh, kappa, f, method: str = "auto",
         raise ValueError(
             "mesh has no Dirichlet nodes: the Poisson system is singular "
             "(constant nullspace). Pin at least one node "
-            "(FEMesh.with_dirichlet).")
-    if method == "tridiag":
-        _require_1d_ported(mesh, method, dict(neumann=neumann, robin=robin))
-        d, e = assemble_tridiag_1d(mesh, kappa)
-        F = assemble_load(mesh, f)
-        return _tridiag.solve_poisson_tridiag(mesh, d, e, F,
-                                              bc_values=bc_values)
+            "(FEMesh.with_dirichlet) or add a Robin term.")
+    if method in ("tridiag", "tridiag_pallas"):
+        return _tridiag_route(mesh, method, kappa, f, bc_values, neumann,
+                              robin, batched=False)
     if bc_values is not None:
         bc_values = torch.as_tensor(bc_values, dtype=mesh.dtype,
                                     device=mesh.device)
@@ -204,6 +250,8 @@ def solve_poisson(mesh: FEMesh, kappa, f, method: str = "auto",
         return _solve_stencil(mesh, kappa, f, cg_tol, cg_maxiter,
                               neumann=neumann, robin=robin,
                               bc_values=bc_values)
+    if method in ("dense", "lu"):
+        return _dense_route(mesh, method, kappa, f, bc_values, neumann, robin)
     _unknown_or_unported(method)
 
 
@@ -250,6 +298,12 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
     gradient too; every other batched box solve runs
     ``solve_poisson_structured_3d_batched`` (per-scenario dots, the JAX
     package's batch-minor solve).
+
+    On line meshes the 'tridiag' and 'tridiag_pallas' routes solve the
+    whole batch as one batched band solve, and 'dense'/'lu' as one batched
+    factorization (the JAX package ``vmap``s one solve per scenario there).
+    Point Neumann loads (B, n) and Robin terms with batched α / r are
+    scenario axes too.
     """
     _check_kw(kw)
     dt, dev = mesh.dtype, mesh.device
@@ -261,11 +315,14 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
     g_batched = bc_values is not None and bc_values.ndim >= 2
     nm, rb = kw.get("neumann"), kw.get("robin")
     natural = nm is not None or rb is not None
+    nm_batched = nm is not None and torch.as_tensor(nm).ndim >= 2
+    rb_batched = rb is not None and (rb.vals.ndim >= 2 or rb.load.ndim >= 2)
     batch_sizes = ({f.shape[0]} if f_batched else set()) | (
         {bc_values.shape[0]} if g_batched else set())
     k_batched = _kappa_batched(mesh, kappa, kappa_batched, batch_sizes)
 
-    if not (k_batched or f_batched or g_batched):
+    if not (k_batched or f_batched or g_batched or nm_batched
+            or rb_batched):
         return solve_poisson(mesh, kappa, f, method=method,
                              bc_values=bc_values, **kw)
 
@@ -294,18 +351,11 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
         return _solve_stencil(mesh, kappa, f, cg_tol, cg_maxiter,
                               bc_values=bc_values, dot=batched_dot(2))
 
-    if method == "tridiag":
-        _require_1d_ported(mesh, method, kw)
-        d, e = assemble_tridiag_1d(mesh, kappa)
-        F = assemble_load(mesh, f)
-        lead = torch.broadcast_shapes(
-            d.shape[:-1], F.shape[:-1],
-            bc_values.shape[:-1] if g_batched else ())
-        F = F.expand(lead + F.shape[-1:])
-        d = d.expand(lead + d.shape[-1:])
-        e = e.expand(lead + e.shape[-1:])
-        return _tridiag.solve_poisson_tridiag(mesh, d, e, F,
-                                              bc_values=bc_values)
+    if method in ("tridiag", "tridiag_pallas"):
+        return _tridiag_route(mesh, method, kappa, f, bc_values, nm, rb,
+                              batched=True)
+    if method in ("dense", "lu"):
+        return _dense_route(mesh, method, kappa, f, bc_values, nm, rb)
     _unknown_or_unported(method)
 
 
@@ -349,3 +399,27 @@ def _solve_batched_box(mesh, kappa, f, bc_values, cg_tol, cg_maxiter):
             grid, keB, f.expand(B, mesh.n_nodes).reshape((B,) + shape),
             g.reshape(g.shape[:-1] + shape), cg_tol, cg_maxiter)
     return u.reshape(B, mesh.n_nodes)
+
+
+class DifferentiableFESolver:
+    """The reference's ``solver(f)`` call shape over ``solve_poisson``.
+
+    Holds no trainable state: κ is a plain tensor and gradients are taken
+    through the functional API.  A batched f (B, n_nodes) goes to
+    ``solve_poisson_batched``.
+    """
+
+    def __init__(self, mesh: FEMesh, kappa=1.0, method: str = "auto"):
+        self.mesh = mesh
+        self.kappa = torch.as_tensor(kappa, dtype=mesh.dtype,
+                                     device=mesh.device)
+        self.method = method
+
+    def __call__(self, f) -> torch.Tensor:
+        f = torch.as_tensor(f, dtype=self.mesh.dtype, device=self.mesh.device)
+        if f.ndim >= 2:
+            return solve_poisson_batched(self.mesh, self.kappa, f,
+                                         method=self.method)
+        return solve_poisson(self.mesh, self.kappa, f, method=self.method)
+
+    forward = __call__

@@ -17,7 +17,7 @@ from difffe_tpu_torch.mesh import FEMesh as TMesh
 from difffe_tpu_torch.ops import cf1d as tcf
 from difffe_tpu_torch.ops.assembly import assemble_load as t_load
 from difffe_tpu_torch.solver import solve_poisson_batched as t_solve_b
-from torch_parity import as_torch, port_mesh
+from torch_parity import as_torch, jax_mesh, port_mesh
 
 torch.set_num_threads(1)
 
@@ -25,7 +25,8 @@ TIGHT = dict(rtol=1e-12, atol=1e-13)    # same f64 algorithm, other order
 
 
 def _setup(n=20, B=6, nonuniform=False, bc=(0.4, -0.1), seed=0):
-    jm = JMesh.line(n, bc_left=bc[0], bc_right=bc[1], dtype=jnp.float64)
+    jm = jax_mesh(JMesh.line, n, bc_left=bc[0], bc_right=bc[1],
+                  dtype=jnp.float64)
     if nonuniform:
         xs = np.asarray(jm.nodes)[:, 0] ** 1.5
         jm = dataclasses.replace(jm, nodes=jnp.asarray(xs[:, None]))
@@ -89,7 +90,7 @@ def test_autograd_gradient_matches_jax(nonuniform):
         u = jcf.solve_poisson_cf_batched(jm, k, jnp.asarray(f))
         return jnp.mean((u - ud) ** 2)
 
-    g_j = jax.grad(jloss)(jnp.asarray(ke))
+    g_j = jax.jit(jax.grad(jloss))(jnp.asarray(ke))
     kt = as_torch(ke).requires_grad_()
     u = tcf.solve_poisson_cf_batched(tm, kt, as_torch(f))
     ((u - as_torch(ud)) ** 2).mean().backward()

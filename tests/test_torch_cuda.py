@@ -17,6 +17,8 @@ from difffe_tpu_torch.ops.assembly import assemble_load
 from difffe_tpu_torch.ops.kernels import fused_grad_cf_kernel as tk
 from difffe_tpu_torch.ops.kernels import stencil3d_cg_kernel as k4
 from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
+from difffe_tpu_torch.ops.kernels import tridiag_kernel as k2
+from difffe_tpu_torch.ops import tridiag as ttri
 from difffe_tpu_torch.ops.stencil import StructuredGrid, residual_vjp_manual
 from difffe_tpu_torch.ops.stencil3d import (StructuredGrid3,
                                             residual_vjp_manual_3d)
@@ -33,8 +35,8 @@ CHAIN_TOL = 1e-4    # the same over a 32-step chain
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the K1, K3 and K4 kernels have no "
-                    "CPU mode")
+        pytest.skip("needs a CUDA card: the K1, K2, K3 and K4 kernels have "
+                    "no CPU mode")
     return torch.device("cuda")
 
 
@@ -380,3 +382,98 @@ def test_3d_routes_launch_k4(cuda):
     assert k4.launches["cg3"] == before["cg3"] + 4      # the eval solve
     assert torch.isfinite(kappa).all()
     assert info["eval_loss"] < float(info["loss_history"][0])
+
+
+# ---------------------------------------------------------------------------
+# K2: batched PCR tridiagonal solve.  f64 within 1e-10 of the plain version
+# (the same PCR arithmetic); f32 by the rule of the K3 tests.
+# ---------------------------------------------------------------------------
+
+
+def _k2_bands(dev, n, B, seed):
+    """Strictly diagonally dominant SPD bands (f64), a right-hand side and
+    a loss weight."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    e = -torch.rand(B, n - 1, generator=gen, **f64) - 0.1
+    d = torch.rand(B, n, generator=gen, **f64) + 0.1
+    d[:, :-1] -= e
+    d[:, 1:] -= e
+    return (d, e, torch.randn(B, n, generator=gen, **f64),
+            torch.randn(B, n, generator=gen, **f64))
+
+
+def _k2_solve(solve, d, e, F, w, **kw):
+    ts = [t.clone().requires_grad_() for t in (d, e, F)]
+    u = solve(*ts, **kw)
+    u.backward(w)
+    return [u.detach()] + [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 129, 257, 4097])
+@pytest.mark.parametrize("shared", [False, True], ids=["batched", "shared"])
+def test_k2_matches_plain(cuda, n, shared):
+    d, e, F, w = _k2_bands(cuda, n, 7, seed=n)
+    if shared:
+        d, e = d[0], e[0]
+    before = k2.launches["pcr"]
+    q = _k2_solve(ttri.tridiag_solve, d, e, F, w)
+    for dt in (torch.float64, torch.float32):
+        args = [t.to(dt) for t in (d, e, F, w)]
+        k = _k2_solve(k2.tridiag_solve_kernel, *args)
+        p = _k2_solve(ttri.tridiag_solve, *args)
+        for a, b, c in zip(k, p, q):
+            assert a.shape == c.shape and torch.isfinite(a).all()
+            if dt == torch.float64:
+                assert rel_err(a, c) <= 1e-10
+            else:
+                ok, errs = _within_rule(a, b, c)
+                assert ok, errs
+        for layout, bb in (("transposed", 64), ("batch", 1), ("batch", 64),
+                           ("other", 3)):
+            u = k2.tridiag_solve_kernel(*args[:3], block_b=bb, layout=layout)
+            assert torch.equal(u, k[0]), (layout, bb)
+    torch.cuda.synchronize()
+    assert k2.launches["pcr"] == before + 2 * (2 + 4)
+
+
+def test_k2_unbatched_and_leading_axes(cuda):
+    d, e, F, _ = _k2_bands(cuda, 40, 6, seed=1)
+    u1 = k2.tridiag_solve_kernel(d[0], e[0], F[0])
+    assert u1.shape == (40,)
+    assert rel_err(u1, ttri.tridiag_solve(d[0], e[0], F[0])) <= 1e-12
+    u = k2.tridiag_solve_kernel(d.reshape(2, 3, 40), e.reshape(2, 3, 39),
+                                F.reshape(2, 3, 40))
+    assert u.shape == (2, 3, 40)
+    assert rel_err(u.reshape(6, 40), ttri.tridiag_solve(d, e, F)) <= 1e-12
+    Ft = F.t().contiguous().t()                  # non-contiguous rows
+    assert rel_err(k2.tridiag_solve_kernel(d, e, Ft),
+                   ttri.tridiag_solve(d, e, F)) <= 1e-12
+
+
+def test_k2_route_and_its_gradient(cuda):
+    mesh = FEMesh.line(128, bc_left=0.2, bc_right=-0.4,
+                       dtype=torch.float64, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    k = (1.2 + 0.6 * torch.rand(16, 128, generator=gen, device=cuda,
+                                dtype=torch.float64)).requires_grad_()
+    f = torch.randn(16, 129, generator=gen, device=cuda, dtype=torch.float64)
+    before = k2.launches["pcr"]
+    u = solve_poisson_batched(mesh, k, f, method="tridiag_pallas")
+    (g,) = torch.autograd.grad(u.square().sum(), k)
+    assert k2.launches["pcr"] == before + 2
+    u_x = solve_poisson_batched(mesh, k, f, method="tridiag")
+    (g_x,) = torch.autograd.grad(u_x.square().sum(), k)
+    assert rel_err(u, u_x) <= 1e-10 and rel_err(g, g_x) <= 1e-10
+
+
+def test_k2_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    d = torch.ones(2, 5, device=cuda)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        k2.tridiag_solve_kernel(d.half(), d[:, 1:].half(), d.half())
+    with pytest.raises(ValueError, match="dtype"):
+        k2.tridiag_solve_kernel(d.double(), -0.1 * d[:, 1:], d)
+    n = 9000
+    big = torch.ones(1, n, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="shared"):
+        k2.tridiag_solve_kernel(4 * big, -big[:, 1:], big)

@@ -18,7 +18,7 @@ from difffe_tpu_torch.mesh import FEMesh as TMesh
 from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as tk
 from difffe_tpu_torch.solver import solve_poisson as t_solve
 from difffe_tpu_torch.solver import solve_poisson_batched as t_solve_b
-from torch_parity import as_torch, port_grid, port_mesh, rel_err
+from torch_parity import as_torch, jax_mesh, port_grid, port_mesh, rel_err
 
 torch.set_num_threads(1)
 
@@ -29,15 +29,18 @@ def _workload(n=8, B=4, seed=5):
     """tests/test_facade_routing.py's fit_kappa workload in f64: shared
     f = 10·sin(πx)sin(πy), κ_true = 1.2 + 0.6·U(0,1) per element, u_data
     from the fixed-trip batched solve."""
-    jm = JMesh.rectangle(n, n, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.rectangle, n, n, dtype=jnp.float64)
     tm = port_mesh(jm)
     x, y = np.asarray(jm.nodes).T
     f = np.broadcast_to(10.0 * np.sin(np.pi * x) * np.sin(np.pi * y),
                         (B, jm.n_nodes)).copy()
     k_true = 1.2 + 0.6 * np.random.default_rng(seed).random(
         (B, jm.n_elements))
-    ud = np.asarray(j_solve_b(jm, jnp.asarray(k_true), jnp.asarray(f),
-                              cg_tol=0.0, cg_maxiter=200))
+    # the observations are data: the port's solve (held to JAX's in
+    # test_solve_poisson_batched_2d) spares a kernel compile in interpret
+    # mode
+    ud = t_solve_b(tm, as_torch(k_true), as_torch(f), cg_tol=0.0,
+                   cg_maxiter=200).numpy()
     return jm, tm, f, k_true, ud
 
 
@@ -97,7 +100,7 @@ def test_other_loop_branches_match_jax(path):
 
 @pytest.mark.parametrize("kappa_kind", ["scalar", "element", "node"])
 def test_facade_solve_poisson_2d(kappa_kind):
-    jm = JMesh.rectangle(6, 5, bc_value=0.4, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.rectangle, 6, 5, bc_value=0.4, dtype=jnp.float64)
     tm = port_mesh(jm)
     rng = np.random.default_rng(1)
     kappa = {"scalar": np.float64(1.7),
@@ -105,21 +108,22 @@ def test_facade_solve_poisson_2d(kappa_kind):
              "node": 1.0 + rng.random(jm.n_nodes)}[kappa_kind]
     f = rng.standard_normal(jm.n_nodes)
     bc = 0.2 * rng.standard_normal(jm.n_nodes)
-    for method in ("auto", "stencil"):
-        for kw in ({}, {"cg_tol": 0.0, "cg_maxiter": 30}):
-            ju = j_solve(jm, jnp.asarray(kappa), jnp.asarray(f),
-                         method=method, **kw)
+    for kw in ({}, {"cg_tol": 0.0, "cg_maxiter": 30}):
+        # JAX's 'auto' resolves to 'stencil' on a rectangle
+        ju = jax.jit(lambda k, f: j_solve(jm, k, f, **kw))(
+            jnp.asarray(kappa), jnp.asarray(f))
+        for method in ("auto", "stencil"):
             tu = t_solve(tm, as_torch(kappa), as_torch(f), method=method,
                          **kw)
             assert rel_err(tu, ju) <= PARITY
-    ju = j_solve(jm, jnp.asarray(kappa), jnp.asarray(f),
-                 bc_values=jnp.asarray(bc))
+    ju = jax.jit(lambda k, f, bc: j_solve(jm, k, f, bc_values=bc))(
+        jnp.asarray(kappa), jnp.asarray(f), jnp.asarray(bc))
     tu = t_solve(tm, as_torch(kappa), as_torch(f), bc_values=as_torch(bc))
     assert rel_err(tu, ju) <= PARITY
 
 
 def test_facade_gradients_2d():
-    jm = JMesh.rectangle(5, 5, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.rectangle, 5, 5, dtype=jnp.float64)
     tm = port_mesh(jm)
     rng = np.random.default_rng(2)
     k = 1.0 + rng.random(jm.n_elements)
@@ -129,8 +133,8 @@ def test_facade_gradients_2d():
     def jloss(k_, f_):
         return jnp.sum(jnp.asarray(w) * j_solve(jm, k_, f_))
 
-    jgk, jgf = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(k),
-                                               jnp.asarray(f))
+    jgk, jgf = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jnp.asarray(k),
+                                                        jnp.asarray(f))
     tk_, tf_ = as_torch(k).requires_grad_(), as_torch(f).requires_grad_()
     (as_torch(w) * t_solve(tm, tk_, tf_)).sum().backward()
     assert rel_err(tk_.grad, jgk) <= PARITY
@@ -141,7 +145,7 @@ def test_facade_gradients_2d():
 def test_solve_poisson_batched_2d(mode):
     """The fixed-trip kernel route (value and κ gradient) and the batched
     fallthrough with per-scenario dots, against JAX."""
-    jm = JMesh.rectangle(6, 6, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.rectangle, 6, 6, dtype=jnp.float64)
     tm = port_mesh(jm)
     rng = np.random.default_rng(3)
     B = 3
@@ -160,7 +164,8 @@ def test_solve_poisson_batched_2d(mode):
                       **kw)
         return jnp.sum(u ** 2), u
 
-    (_, ju), jg = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(k))
+    (_, ju), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        jnp.asarray(k))
     tk_ = as_torch(k).requires_grad_()
     tu = t_solve_b(tm, tk_, as_torch(f),
                    bc_values=None if bc is None else as_torch(bc), **kw)

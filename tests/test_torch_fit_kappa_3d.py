@@ -17,7 +17,7 @@ from difffe_tpu.mesh import FEMesh as JMesh
 from difffe_tpu_torch.inverse import _build_loop_3d, fit_kappa as t_fit
 from difffe_tpu_torch.ops.kernels import stencil3d_cg_kernel as tk
 from difffe_tpu_torch.solver import solve_poisson_batched as t_solve_b
-from torch_parity import as_torch, port_mesh, rel_err
+from torch_parity import as_torch, jax_mesh, port_mesh, rel_err
 
 torch.set_num_threads(1)
 
@@ -29,7 +29,7 @@ def _workload(B=4, seed=6):
     """tests/test_facade_routing.py's 3D fit_kappa workload in f64: shared
     f = 10·sin(πx)sin(πy)sin(πz), κ_true = 1.2 + 0.6·U(0,1) per tet,
     u_data from the fixed-trip batched solve."""
-    jm = JMesh.box(NX, NY, NZ, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.box, NX, NY, NZ, dtype=jnp.float64)
     tm = port_mesh(jm)
     f = np.broadcast_to(10.0 * np.prod(np.sin(np.pi * np.asarray(jm.nodes)),
                                        axis=1), (B, jm.n_nodes)).copy()

@@ -22,7 +22,7 @@ from difffe_tpu_torch.ops import assembly as tasm
 from difffe_tpu_torch.ops import tridiag as ttri
 from difffe_tpu_torch.solver import solve_poisson as t_solve
 from difffe_tpu_torch.solver import solve_poisson_batched as t_solve_b
-from torch_parity import as_torch, port_mesh, rel_err
+from torch_parity import as_torch, jax_mesh, port_mesh, rel_err
 
 torch.set_num_threads(1)
 
@@ -32,7 +32,8 @@ TIGHT = dict(rtol=1e-12, atol=1e-14)    # same f64 algorithm, other order
 
 def _meshes(n=12, nonuniform=False, bc=(0.4, -0.1)):
     """A JAX line mesh and its port through the numpy converter."""
-    jm = JMesh.line(n, bc_left=bc[0], bc_right=bc[1], dtype=jnp.float64)
+    jm = jax_mesh(JMesh.line, n, bc_left=bc[0], bc_right=bc[1],
+                  dtype=jnp.float64)
     if nonuniform:
         xs = np.asarray(jm.nodes)[:, 0] ** 1.5
         jm = dataclasses.replace(jm, nodes=jnp.asarray(xs[:, None]))
@@ -60,8 +61,8 @@ def test_port_imports_no_jax():
                                   (17, (0.4, -0.1)), (8, (None, 1.5)),
                                   (8, (2.0, None))])
 def test_line_fields_match(n, bc):
-    jm = JMesh.line(n, x_left=-0.5, x_right=2.0, bc_left=bc[0],
-                    bc_right=bc[1], dtype=jnp.float64)
+    jm = jax_mesh(JMesh.line, n, x_left=-0.5, x_right=2.0, bc_left=bc[0],
+                  bc_right=bc[1], dtype=jnp.float64)
     tm = TMesh.line(n, x_left=-0.5, x_right=2.0, bc_left=bc[0],
                     bc_right=bc[1], dtype=F64, device="cpu")
     np.testing.assert_allclose(tm.nodes.numpy(), np.asarray(jm.nodes),
@@ -156,7 +157,8 @@ def test_tridiag_solve_and_matvec_values():
     rng = np.random.default_rng(3)
     d, e, F = _spd_bands(rng, 5, 23)
     u_t = ttri.tridiag_solve(as_torch(d), as_torch(e), as_torch(F))
-    u_j = jtri.tridiag_solve(jnp.asarray(d), jnp.asarray(e), jnp.asarray(F))
+    u_j = jax.jit(jtri.tridiag_solve)(jnp.asarray(d), jnp.asarray(e),
+                                      jnp.asarray(F))
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), **TIGHT)
     np.testing.assert_allclose(
         ttri.tridiag_matvec(as_torch(d), as_torch(e), u_t).numpy(), F,
@@ -171,7 +173,7 @@ def test_tridiag_solve_grads_match_jax():
     def jloss(d, e, F):
         return jnp.sum(jnp.asarray(w) * jtri.tridiag_solve(d, e, F) ** 2)
 
-    jg = jax.grad(jloss, argnums=(0, 1, 2))(
+    jg = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
         jnp.asarray(d), jnp.asarray(e), jnp.asarray(F))
     ts = [as_torch(a).requires_grad_() for a in (d, e, F)]
     (as_torch(w) * ttri.tridiag_solve(*ts) ** 2).sum().backward()
@@ -192,11 +194,17 @@ def test_solve_poisson_tridiag_bc_elimination():
     td, te = tasm.assemble_tridiag_1d(tm, as_torch(k))
     tF = tasm.assemble_load(tm, as_torch(f))
     for bc in (None, bv):
-        u_j = jtri.solve_poisson_tridiag(jm, jd, je, jF, bc_values=bc)
+        u_j = jax.jit(lambda d, e, F: jtri.solve_poisson_tridiag(
+            jm, d, e, F, bc_values=bc))(jd, je, jF)
         u_t = ttri.solve_poisson_tridiag(tm, td, te, tF, bc_values=bc)
         np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), **TIGHT)
-    with pytest.raises(NotImplementedError, match="K2, slice B"):
-        ttri.solve_poisson_tridiag(tm, td, te, tF, backend="pallas")
+        # the kernel backend (its plain version on the CPU) solves the
+        # same eliminated bands
+        u_k = ttri.solve_poisson_tridiag(tm, td, te, tF, backend="pallas",
+                                         bc_values=bc)
+        np.testing.assert_allclose(u_k.numpy(), np.asarray(u_j), **TIGHT)
+    with pytest.raises(NotImplementedError, match="slice B"):
+        ttri.solve_poisson_tridiag(tm, td, te, tF, backend="spike")
 
 
 @pytest.mark.parametrize("kappa_kind", ["shared_field", "per_scenario_scalar",
@@ -210,7 +218,8 @@ def test_facade_batched_matches_jax(kappa_kind):
          "batched_field": 1 + rng.random((B, jm.n_elements)),
          "node_field": 1 + rng.random(jm.n_nodes)}[kappa_kind]
     f = rng.standard_normal((B, jm.n_nodes))
-    u_j = j_solve_b(jm, jnp.asarray(k), jnp.asarray(f), method="tridiag")
+    u_j = jax.jit(lambda k, f: j_solve_b(jm, k, f, method="tridiag"))(
+        jnp.asarray(k), jnp.asarray(f))
     u_t = t_solve_b(tm, as_torch(k), as_torch(f), method="tridiag")
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), **TIGHT)
 
@@ -220,13 +229,14 @@ def test_facade_unbatched_and_grads():
     rng = np.random.default_rng(7)
     k = 1 + rng.random(jm.n_elements)
     f = rng.standard_normal(jm.n_nodes)
-    u_j = j_solve(jm, jnp.asarray(k), jnp.asarray(f))
+    u_j, jg = jax.jit(lambda kk: (
+        j_solve(jm, kk, jnp.asarray(f)),
+        jax.grad(lambda k2: jnp.sum(j_solve(jm, k2, jnp.asarray(f)) ** 2))(
+            kk)))(jnp.asarray(k))
     kt = as_torch(k).requires_grad_()
     u_t = t_solve(tm, kt, as_torch(f))
     np.testing.assert_allclose(u_t.detach().numpy(), np.asarray(u_j),
                                **TIGHT)
-    jg = jax.grad(lambda kk: jnp.sum(j_solve(jm, kk, jnp.asarray(f)) ** 2))(
-        jnp.asarray(k))
     (u_t ** 2).sum().backward()
     np.testing.assert_allclose(kt.grad.numpy(), np.asarray(jg), rtol=1e-11,
                                atol=1e-14)
@@ -240,16 +250,20 @@ def test_facade_rules_and_unported_routes():
     u = t_solve_b(tm, torch.full((7,), 2.0, dtype=F64), f,
                   kappa_batched=True)
     np.testing.assert_allclose(
-        u.numpy(), np.asarray(j_solve_b(jm, jnp.full((7,), 2.0),
-                                        jnp.ones((7, 8)),
-                                        kappa_batched=True)), **TIGHT)
-    for method in ("tridiag_pallas", "dense", "lu", "cg"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            t_solve(tm, 1.0, f[0], method=method)
+        u.numpy(), np.asarray(jax.jit(lambda k, f: j_solve_b(
+            jm, k, f, kappa_batched=True))(jnp.full((7,), 2.0),
+                                           jnp.ones((7, 8)))), **TIGHT)
+    u = t_solve(tm, 1.0, f[0])
+    for method in ("tridiag_pallas", "dense", "lu"):
+        np.testing.assert_allclose(t_solve(tm, 1.0, f[0], method=method),
+                                   u, rtol=1e-12, atol=1e-14)
+    with pytest.raises(NotImplementedError, match="slice C item 14"):
+        t_solve(tm, 1.0, f[0], method="cg")
     with pytest.raises(ValueError, match="structured-grid metadata"):
         t_solve(tm, 1.0, f[0], method="stencil")
-    with pytest.raises(NotImplementedError, match="slice B"):
-        t_solve(tm, 1.0, f[0], neumann=torch.zeros(8, dtype=F64))
+    np.testing.assert_allclose(
+        t_solve(tm, 1.0, f[0], neumann=torch.zeros(8, dtype=F64)), u,
+        rtol=0, atol=0)
     with pytest.raises(ValueError, match="Unknown method"):
         t_solve(tm, 1.0, f[0], method="nope")
     free = TMesh.line(7, bc_left=None, bc_right=None, dtype=F64,

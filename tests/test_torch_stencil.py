@@ -18,7 +18,7 @@ from difffe_tpu_torch.mesh import FEMesh as TMesh
 from difffe_tpu_torch.ops import pcg as tpcg
 from difffe_tpu_torch.ops import stencil as ts
 from difffe_tpu_torch.solver import solve_poisson as t_solve
-from torch_parity import as_torch, port_grid, port_mesh, rel_err
+from torch_parity import as_torch, jax_mesh, port_grid, port_mesh, rel_err
 
 torch.set_num_threads(1)
 
@@ -50,7 +50,7 @@ def _fields(n=6, m=5, B=None, seed=0):
          bc_value=0.7),
 ], ids=["4x4", "6x5", "offset"])
 def test_rectangle_matches_jax(args):
-    jm = JMesh.rectangle(dtype=jnp.float64, **args)
+    jm = jax_mesh(JMesh.rectangle, dtype=jnp.float64, **args)
     tm = TMesh.rectangle(dtype=F64, device="cpu", **args)
     np.testing.assert_allclose(tm.nodes.numpy(), np.asarray(jm.nodes),
                                rtol=1e-15, atol=1e-15)
@@ -212,8 +212,8 @@ def test_solve_poisson_structured_value_and_grads(batched):
         u = js.solve_poisson_structured(jg, (kl_, ku_), f_, g_)
         return jnp.sum(jnp.asarray(w) * u), u
 
-    (_, ju), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3),
-                                         has_aux=True)(
+    (_, ju), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2, 3), has_aux=True))(
         *map(jnp.asarray, (kl, ku, f, g)))
     targs = [as_torch(a).requires_grad_() for a in (kl, ku, f, g)]
     tu = ts.solve_poisson_structured(tg, tuple(targs[:2]), *targs[2:])
@@ -227,11 +227,12 @@ def test_solve_poisson_structured_value_and_grads(batched):
 def test_double_backward_matches_jax():
     """Second derivative of a misfit through the 2D facade (the apply_inv
     backward recurses into itself, as the JAX custom VJP does)."""
-    jm = JMesh.rectangle(6, 6, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.rectangle, 6, 6, dtype=jnp.float64)
     tm = port_mesh(jm)
     x, y = np.asarray(jm.nodes).T
     f = 2 * np.pi ** 2 * np.sin(np.pi * x) * np.sin(np.pi * y)
-    ud = 0.5 * np.asarray(j_solve(jm, 2.0, jnp.asarray(f)))
+    ud = 0.5 * np.asarray(jax.jit(lambda f: j_solve(jm, 2.0, f))(
+        jnp.asarray(f)))
 
     def jloss(lk):
         u = j_solve(jm, jnp.exp(lk), jnp.asarray(f))
@@ -242,7 +243,6 @@ def test_double_backward_matches_jax():
             ).mean()
     (g1,) = torch.autograd.grad(loss, lk, create_graph=True)
     (g2,) = torch.autograd.grad(g1, lk)
-    assert float(g1.detach()) == pytest.approx(float(jax.grad(jloss)(0.3)),
-                                               rel=1e-8)
-    assert float(g2) == pytest.approx(
-        float(jax.grad(jax.grad(jloss))(0.3)), rel=1e-7)
+    jg1, jg2 = jax.jit(jax.value_and_grad(jax.grad(jloss)))(0.3)
+    assert float(g1.detach()) == pytest.approx(float(jg1), rel=1e-8)
+    assert float(g2) == pytest.approx(float(jg2), rel=1e-7)

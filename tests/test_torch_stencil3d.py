@@ -19,7 +19,7 @@ from difffe_tpu_torch.ops import stencil3d as ts
 from difffe_tpu_torch.ops.assembly import element_family
 from difffe_tpu_torch.solver import solve_poisson as t_solve
 from difffe_tpu_torch.solver import solve_poisson_batched as t_solve_b
-from torch_parity import as_torch, port_grid, port_mesh, rel_err
+from torch_parity import as_torch, jax_mesh, port_grid, port_mesh, rel_err
 
 torch.set_num_threads(1)
 
@@ -52,7 +52,7 @@ def _fields(nx=4, ny=3, nz=5, B=None, seed=0):
          z_range=(0.5, 1.0), bc_value=0.7),
 ], ids=["3x4x2", "1x2x3", "offset"])
 def test_box_matches_jax(args):
-    jm = JMesh.box(dtype=jnp.float64, **args)
+    jm = jax_mesh(JMesh.box, dtype=jnp.float64, **args)
     tm = TMesh.box(dtype=F64, device="cpu", **args)
     np.testing.assert_allclose(tm.nodes.numpy(), np.asarray(jm.nodes),
                                rtol=1e-15, atol=1e-15)
@@ -78,14 +78,14 @@ def test_stencil3d_coefficients(batched, kappa_layout):
     if kappa_layout == "cube":
         k = k.reshape(k.shape[:-1] + (5, 3, 4, 6))
     got = ts.stencil3d_coefficients(tg, as_torch(k))
-    want = js.stencil3d_coefficients(jg, jnp.asarray(k))
+    want, jk6, jedges = jax.jit(lambda k: (
+        js.stencil3d_coefficients(jg, k), js.kappa_to_cube(jg, k),
+        js.edge_coefficients(jg, js.kappa_to_cube(jg, k))))(jnp.asarray(k))
     assert got.shape == want.shape
     assert rel_err(got, want) <= EXACT
     k6 = ts.kappa_to_cube(tg, as_torch(k))
-    np.testing.assert_array_equal(
-        k6.numpy(), np.asarray(js.kappa_to_cube(jg, jnp.asarray(k))))
-    for a, b in zip(ts.edge_coefficients(tg, k6),
-                    js.edge_coefficients(jg, jnp.asarray(k6.numpy()))):
+    np.testing.assert_array_equal(k6.numpy(), np.asarray(jk6))
+    for a, b in zip(ts.edge_coefficients(tg, k6), jedges):
         assert a.shape == b.shape
         assert rel_err(a, b) <= EXACT
 
@@ -98,29 +98,35 @@ def test_stencil3d_operators():
     u = rng.standard_normal(f.shape)
     lam = rng.standard_normal(f.shape)
     C = ts.stencil3d_coefficients(tg, as_torch(k))
-    jC = js.stencil3d_coefficients(jg, jnp.asarray(k))
-    assert rel_err(ts.stencil3d_apply(C, as_torch(u)),
-                   js.stencil3d_apply(jC, jnp.asarray(u))) <= EXACT
-    for off in ts.OFFSETS3:
+
+    @jax.jit
+    def jax_side(k, u, f, lam):
+        jC = js.stencil3d_coefficients(jg, k)
+        return (js.stencil3d_apply(jC, u),
+                [js._shift3d(u, *off) for off in ts.OFFSETS3],
+                js.load_box(jg, f), js.stencil3d_kappa_grad(jg, lam, u))
+
+    j_apply, j_shifts, j_load, j_kgrad = jax_side(
+        *map(jnp.asarray, (k, u, f, lam)))
+    assert rel_err(ts.stencil3d_apply(C, as_torch(u)), j_apply) <= EXACT
+    for off, j_shift in zip(ts.OFFSETS3, j_shifts):
         assert rel_err(ts._shift3d(as_torch(u), *off) + 1.0,
-                       js._shift3d(jnp.asarray(u), *off) + 1.0) <= EXACT
-    assert rel_err(ts.load_box(tg, as_torch(f)),
-                   js.load_box(jg, jnp.asarray(f))) <= EXACT
+                       j_shift + 1.0) <= EXACT
+    assert rel_err(ts.load_box(tg, as_torch(f)), j_load) <= EXACT
     assert rel_err(ts.stencil3d_kappa_grad(tg, as_torch(lam), as_torch(u)),
-                   js.stencil3d_kappa_grad(jg, jnp.asarray(lam),
-                                           jnp.asarray(u))) <= EXACT
+                   j_kgrad) <= EXACT
     np.testing.assert_array_equal(
         ts.boundary_mask_box(tg, F64).numpy(),
         np.asarray(js.boundary_mask_box(jg, jnp.float64)))
     # unbatched κ against batched states: cotangents reduce to κ's shape;
     # a cube-shaped κ keeps its layout
+    j_vjp = jax.jit(lambda kk, f, g, u, lam: js.residual_vjp_manual_3d(
+        jg, kk, f, g, u, lam))
     for kk in (k[0], k[0].reshape(5, 3, 4, 6), k):
         got = ts.residual_vjp_manual_3d(tg, as_torch(kk), as_torch(f),
                                         as_torch(g), as_torch(u),
                                         as_torch(lam))
-        want = js.residual_vjp_manual_3d(jg, jnp.asarray(kk), jnp.asarray(f),
-                                         jnp.asarray(g), jnp.asarray(u),
-                                         jnp.asarray(lam))
+        want = j_vjp(*map(jnp.asarray, (kk, f, g, u, lam)))
         for a, b in zip(got, want):
             assert a.shape == b.shape
             assert rel_err(a, b) <= EXACT
@@ -136,9 +142,8 @@ def test_solve_poisson_structured_3d_value_and_grads(batched):
         u = js.solve_poisson_structured_3d(jg, k_, f_, g_)
         return jnp.sum(jnp.asarray(w) * u), u
 
-    (_, ju), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
-                                         has_aux=True)(
-        *map(jnp.asarray, (k, f, g)))
+    (_, ju), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True))(*map(jnp.asarray, (k, f, g)))
     targs = [as_torch(a).requires_grad_() for a in (k, f, g)]
     tu = ts.solve_poisson_structured_3d(tg, *targs)
     (as_torch(w) * tu).sum().backward()
@@ -160,8 +165,8 @@ def test_batched_solve_matches_jax_batch_minor():
                                                        40)
             return jnp.sum(jnp.asarray(w) * u), u
 
-        (_, ju), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
-                                             has_aux=True)(
+        (_, ju), jgrads = jax.jit(jax.value_and_grad(
+            jloss, argnums=(0, 1, 2), has_aux=True))(
             *map(jnp.asarray, (k, f, gg)))
         targs = [as_torch(a).requires_grad_() for a in (k, f, gg)]
         tu = ts.solve_poisson_structured_3d_batched(tg, *targs, 0.0, 40)
@@ -172,9 +177,9 @@ def test_batched_solve_matches_jax_batch_minor():
             assert rel_err(t.grad, j) <= SOLVE
     solve = ts.choose_3d_path(tg, 3)
     assert rel_err(solve(as_torch(k), as_torch(f), as_torch(g), 0.0, 40),
-                   js.choose_3d_path(jg, 128)(jnp.asarray(k), jnp.asarray(f),
-                                              jnp.asarray(g), 0.0, 40)) \
-        <= SOLVE
+                   jax.jit(lambda k, f, g: js.choose_3d_path(jg, 128)(
+                       k, f, g, 0.0, 40))(jnp.asarray(k), jnp.asarray(f),
+                                          jnp.asarray(g))) <= SOLVE
     with pytest.raises(ValueError, match="kappa"):
         ts.solve_poisson_structured_3d_batched(tg, as_torch(k[0]),
                                                as_torch(f), as_torch(g))
@@ -192,10 +197,11 @@ def test_kappa_mse_grad_step_3d_matches_jax(warm):
     ud = 0.05 * np.random.default_rng(9).standard_normal(f.shape)
     jk, tk = jnp.asarray(k), as_torch(k)
     jstate = tstate = None
+    jstep = jax.jit(lambda k, st: js.kappa_mse_grad_step_3d(
+        jg, k, jnp.asarray(f), jnp.asarray(g), jnp.asarray(ud), 24,
+        warm_state=st, return_state=True))
     for _ in range(3):
-        jl, jgk, jstate = js.kappa_mse_grad_step_3d(
-            jg, jk, jnp.asarray(f), jnp.asarray(g), jnp.asarray(ud), 24,
-            warm_state=jstate if warm else None, return_state=True)
+        jl, jgk, jstate = jstep(jk, jstate if warm else None)
         tl, tgk, tstate = ts.kappa_mse_grad_step_3d(
             tg, tk, as_torch(f), as_torch(g), as_torch(ud), 24,
             warm_state=tstate if warm else None, return_state=True)
@@ -227,7 +233,7 @@ def test_double_backward_matches_jax():
     """Second derivative of a misfit through the 3D facade (the
     apply_inv_3d backward recurses into itself, as the JAX custom VJP
     does; tests/test_facade_routing.py's Hessian check)."""
-    jm = JMesh.box(3, 2, 2, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.box, 3, 2, 2, dtype=jnp.float64)
     tm = port_mesh(jm)
     f = np.ones(jm.n_nodes)
     ud = t_solve(tm, 2.0, as_torch(f)).numpy()
@@ -241,14 +247,14 @@ def test_double_backward_matches_jax():
             ).mean()
     (g1,) = torch.autograd.grad(loss, lk, create_graph=True)
     (g2,) = torch.autograd.grad(g1, lk)
-    jg1, jg2 = jax.value_and_grad(jax.grad(jloss))(0.3)
+    jg1, jg2 = jax.jit(jax.value_and_grad(jax.grad(jloss)))(0.3)
     assert float(g1.detach()) == pytest.approx(float(jg1), rel=1e-6)
     assert float(g2) == pytest.approx(float(jg2), rel=1e-6)
 
 
 @pytest.mark.parametrize("kappa_kind", ["scalar", "element", "node"])
 def test_facade_solve_poisson_3d(kappa_kind):
-    jm = JMesh.box(3, 2, 4, bc_value=0.4, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.box, 3, 2, 4, bc_value=0.4, dtype=jnp.float64)
     tm = port_mesh(jm)
     rng = np.random.default_rng(1)
     kappa = {"scalar": np.float64(1.7),
@@ -258,13 +264,14 @@ def test_facade_solve_poisson_3d(kappa_kind):
     bc = 0.2 * rng.standard_normal(jm.n_nodes)
     for kw in ({}, {"cg_tol": 0.0, "cg_maxiter": 30}):
         # JAX's 'auto' resolves to 'stencil' on a box
-        ju = j_solve(jm, jnp.asarray(kappa), jnp.asarray(f), **kw)
+        ju = jax.jit(lambda k, f: j_solve(jm, k, f, **kw))(
+            jnp.asarray(kappa), jnp.asarray(f))
         for method in ("auto", "stencil"):
             tu = t_solve(tm, as_torch(kappa), as_torch(f), method=method,
                          **kw)
             assert rel_err(tu, ju) <= FACADE
-    ju = j_solve(jm, jnp.asarray(kappa), jnp.asarray(f),
-                 bc_values=jnp.asarray(bc))
+    ju = jax.jit(lambda k, f, bc: j_solve(jm, k, f, bc_values=bc))(
+        jnp.asarray(kappa), jnp.asarray(f), jnp.asarray(bc))
     tu = t_solve(tm, as_torch(kappa), as_torch(f), bc_values=as_torch(bc))
     assert rel_err(tu, ju) <= FACADE
 
@@ -276,7 +283,7 @@ def test_solve_poisson_batched_3d(mode):
     """The batched box routes, value and κ gradient, against JAX: its
     vmapped per-scenario solves below B = 128 and its batch-minor solve at
     B = 130 (where B is neither n_nodes nor n_elements)."""
-    jm = JMesh.box(3, 2, 2, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.box, 3, 2, 2, dtype=jnp.float64)
     tm = port_mesh(jm)
     rng = np.random.default_rng(3)
     B = 130 if mode == "batch_minor" else 3
@@ -297,7 +304,8 @@ def test_solve_poisson_batched_3d(mode):
                       **kw)
         return jnp.sum(u ** 2), u
 
-    (_, ju), jg = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(k))
+    (_, ju), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        jnp.asarray(k))
     tk_ = as_torch(k).requires_grad_()
     tu = t_solve_b(tm, tk_, as_torch(f),
                    bc_values=None if bc is None else as_torch(bc), **kw)
@@ -310,7 +318,7 @@ def test_solve_poisson_batched_3d(mode):
 def test_natural_bcs_on_a_box_raise():
     """The 3D stencil path takes the factory Dirichlet boundary only; the
     port keeps the JAX package's ValueError."""
-    jm = JMesh.box(3, 2, 2, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.box, 3, 2, 2, dtype=jnp.float64)
     tm = port_mesh(jm)
     f = np.ones(jm.n_nodes)
     nm = np.zeros(jm.n_nodes)

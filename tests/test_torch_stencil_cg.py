@@ -57,8 +57,8 @@ def test_solve_structured_kernel_value_and_grad(block_b):
         u = jk.solve_structured_pallas(jg, (kl_, ku_), f_, g_, iters, block_b)
         return jnp.sum(jnp.asarray(w) * u), u
 
-    (_, ju), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3),
-                                         has_aux=True)(*_j(kl, ku, f, g))
+    (_, ju), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2, 3), has_aux=True))(*_j(kl, ku, f, g))
     targs = _t(kl, ku, f, g, grad=True)
     tu = tk.solve_structured_kernel(tg, tuple(targs[:2]), *targs[2:],
                                     iters=iters, block_b=block_b)
@@ -71,7 +71,8 @@ def test_solve_structured_kernel_value_and_grad(block_b):
 
 def test_solve_structured_kernel_unbatched():
     jg, tg, kl, f, g, _ = _problem(6, seed=4, g_nonzero=True)
-    ju = jk.solve_structured_pallas(jg, _j(kl, kl), *_j(f, g), 40, 1)
+    ju = jax.jit(lambda klu, f, g: jk.solve_structured_pallas(
+        jg, klu, f, g, 40, 1))(_j(kl, kl), *_j(f, g))
     tu = tk.solve_structured_kernel(tg, _t(kl, kl), *_t(f, g), iters=40,
                                     block_b=1)
     assert tu.shape == ju.shape
@@ -101,16 +102,17 @@ def test_grad_step_cold_then_warm(two_launch):
     """Cold step, then the state threaded through three warm steps with
     SGD updates of κ between them; every return against JAX's."""
     jg, tg, kl, f, g, ud = _problem(8, B=3, seed=6, g_nonzero=True)
-    jstep = (jk.kappa_mse_step_2d_two_launch if two_launch
-             else jk.fused_kappa_mse_step_2d)
+    jstep_ = (jk.kappa_mse_step_2d_two_launch if two_launch
+              else jk.fused_kappa_mse_step_2d)
     tstep = (tk.kappa_mse_step_2d_two_launch if two_launch
              else tk.fused_kappa_mse_step_2d)
     jkl, jku, tkl, tku = *_j(kl, kl), *_t(kl, kl)
     jstate = tstate = None
+    jstep = jax.jit(lambda klu, st: jstep_(
+        jg, klu, *_j(f, g, ud), iters=24, block_b=1, warm_state=st,
+        return_state=True))
     for _ in range(4):
-        jlp, (jgl, jgu), ju, jstate = jstep(
-            jg, (jkl, jku), *_j(f, g, ud), iters=24, block_b=1,
-            warm_state=jstate, return_state=True)
+        jlp, (jgl, jgu), ju, jstate = jstep((jkl, jku), jstate)
         tlp, (tgl, tgu), tu, tstate = tstep(
             tg, (tkl, tku), *_t(f, g, ud), iters=24, block_b=1,
             warm_state=tstate, return_state=True)
@@ -126,8 +128,10 @@ def test_grad_step_cold_then_warm(two_launch):
 
 def test_fused_step_unbatched_nonzero_g_and_default_scale():
     jg, tg, kl, f, g, ud = _problem(8, seed=7, g_nonzero=True)
-    jlp, (jgl, jgu), ju = jk.fused_kappa_mse_step_2d(
-        jg, _j(kl, 2 * kl), *_j(f, g, 0.9 * ud), iters=40, block_b=1)
+    jlp, (jgl, jgu), ju = jax.jit(lambda klu, f, g, ud: (
+        jk.fused_kappa_mse_step_2d(jg, klu, f, g, ud, iters=40,
+                                   block_b=1)))(_j(kl, 2 * kl),
+                                                *_j(f, g, 0.9 * ud))
     tlp, (tgl, tgu), tu = tk.fused_kappa_mse_step_2d(
         tg, _t(kl, 2 * kl), *_t(f, g, 0.9 * ud), iters=40, block_b=1)
     assert tu.shape == ju.shape == (9, 9)

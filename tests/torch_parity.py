@@ -21,9 +21,21 @@ def _f64(x) -> np.ndarray:
 
 
 def rel_err(a, b) -> float:
-    """max|a − b| / max|b| in float64, for torch, numpy or JAX arrays."""
+    """max|a − b| / max|b| in float64, for torch, numpy or JAX arrays (0
+    for two empty arrays)."""
     a, b = _f64(a), _f64(b)
+    if a.size == 0 and b.size == 0:
+        return 0.0
     return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def jax_mesh(factory, *args, **kw):
+    """A ``difffe_tpu`` mesh from one compiled call of ``factory`` (e.g.
+    ``JMesh.box``): the factories' eager ops would each compile on first
+    use, which costs seconds per mesh shape."""
+    import jax
+
+    return jax.jit(lambda: factory(*args, **kw))()
 
 
 def port_grid(jax_grid):
