@@ -87,8 +87,35 @@ K2 (batched PCR tridiagonal solve, ``method="tridiag_pallas"``):
     ``recover_kappa_field`` at B = 1024 and 65 536, and a
     ``torch.profiler`` split of one call.
 
+The fused 1D grad-step path (examples/production_training_demo.py's
+production κ-recovery loop: scalar κ per scenario on ``FEMesh.line(30)``,
+B = 262 144, 300 SGD steps), kernels K5a/K5b (PCR with factor replay),
+K6 (Thomas) and K7 (dense products with W = Ã⁻¹):
+
+17. each new kernel against its plain version on the card, n ∈ {2, 13,
+    31, 129, 257} nodes for K5a/K5b/K6 and {2, 13, 31, 136} for K7 (137
+    checks its route to K5a), B ∈ {7, 1000, 2^20} (2^20 for n ≤ 31),
+    shared and streamed F, zero and nonzero Dirichlet values, f32 and bf16
+    storage, K7 versions 1-3 with refine ∈ {0, 2, 3}: f32 by the rule of
+    phase 7, f64 within 1e-10 relative;
+18. the main path: ``difffe_tpu_torch.production.sgd_loop`` at the demo's
+    defaults (300 K7 launches and no other launch of the new kernels; the
+    loss falls 10³×; the final κ within 1e-3 relative of the same loop on
+    the plain version);
+19. the other workloads, each gated on its gradient against autograd
+    through the 'tridiag' route on a B = 4096 slice fed the same
+    quantized data (1e-4 in f32, 1e-2 with bf16 storage): bench_full.py's
+    K7 row (B = 2^21, v3 refine 2, bf16 u_data, shared F) and K5a row
+    (B = 2^20, streamed F), and scripts/probe_thomas.py's per-element
+    workload on K5b and K6 (n = 30 elements, B = 2^21, shared F, f32 and
+    bf16);
+20. chained timing of each new kernel at its phase 18/19 workload against
+    its plain version, host time of the phase-18 loop, a
+    ``torch.profiler`` split of one loop, and the registers and spills of
+    the new kernels from the ``-Xptxas -v`` build log.
+
 Each path's launch counts are set to 0 just before its main-path phases
-(4-5, 8, 11, 14) and read just after; comparisons and timing do not
+(4-5, 8, 11, 14, 18) and read just after; comparisons and timing do not
 count.  The
 third-to-last line is one JSON object describing each kernel, with its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -182,9 +209,11 @@ def log(*args):
 
 
 def rel_err(a, b):
+    """max|a − b| / max|b|; 0 where a equals b (two zero arrays too)."""
     if a.numel() == 0 and b.numel() == 0:
         return 0.0
-    return float((a - b).abs().max() / b.abs().max())
+    d = float((a - b).abs().max())
+    return 0.0 if d == 0.0 else d / float(b.abs().max())
 
 
 def bound(ops, nbytes):
@@ -1212,6 +1241,432 @@ def run_facade_1d(torch, dev, card):
                         library_ms)
 
 
+N_PROD = 30             # the production demo's FEMesh.line(30)
+BATCH_PROD = 262144      # its default batch
+BATCH_BENCH = 2 ** 21    # bench_full.py's K7 row, probe_thomas.py's batch
+BATCH_K5A = 2 ** 20      # bench_full.py's K5a row
+BATCH_GATE = 4096        # the bench/probe gates' slice
+FUSED_NS = (2, 13, 31, 129, 257)         # phase 17: K5a/K5b/K6 nodes
+K7_NS = (2, 13, 31, 136)                 # 137 checks the route to K5a
+FUSED_BIG = 2 ** 20      # phase 17's largest batch, for n <= 31
+FUSED_BS = (7, 1000, FUSED_BIG)
+K7_BODIES = ((1, 3), (2, 3), (3, 0), (3, 2), (3, 3))   # (version, refine)
+FUSED_SOURCES = {"k5a": "difffe_tpu_torch/csrc/fused_grad_pcr.cu",
+                 "k5b": "difffe_tpu_torch/csrc/fused_grad_pcr.cu",
+                 "k6": "difffe_tpu_torch/csrc/fused_grad_thomas.cu",
+                 "k7": "difffe_tpu_torch/csrc/fused_grad_mxu.cu"}
+FUSED_REPLACES = {
+    "k5a": "difffe_tpu/ops/pallas/fused_grad_kernel.py:123 (_fused_pallas)",
+    "k5b": "difffe_tpu/ops/pallas/fused_grad_kernel.py:312 "
+           "(_general_pallas)",
+    "k6": "difffe_tpu/ops/pallas/fused_grad_thomas_kernel.py:149 "
+          "(_thomas_pallas)",
+    "k7": "difffe_tpu/ops/pallas/fused_grad_mxu_kernel.py:282 (_mxu_pallas)"}
+FUSED_NAMES = {"k5a": "fused_pcr_scalar", "k5b": "fused_pcr_general",
+               "k6": "fused_thomas", "k7": "fused_mxu"}
+
+
+def fused_ops(name, n, version=2, refine=0):
+    """Operations of one scenario's step, counted from the kernel sources
+    (a division, an exp and a fused multiply-add count as one, two for the
+    multiply-add): K5 per row 22 + 18 per sweep (K5a: assembly 8, sweeps
+    14, the u/loss/adjoint seed 5, replay 4, λ 1, contraction 8) or 34 + 18
+    per sweep (K5b: assembly 20, the gradient 7 more); K6 47 a row (the
+    factorization and u substitution 23, back 2, loss and λ 10, λ back and
+    the gradient 12); K7 2n² a product, 12 a row around them and 7 a row
+    per refinement pass."""
+    steps = max(1, math.ceil(math.log2(n)))
+    if name == "k5a":
+        return n * (22 + 18 * steps)
+    if name == "k5b":
+        return n * (34 + 18 * steps)
+    if name == "k6":
+        return 47 * n
+    passes = refine if version == 3 else 0
+    return 2 * (1 + passes) * 2 * n * n + 2 * passes * 7 * n + 12 * n + 3
+
+
+def fused_bytes(name, n, store=4, shared_f=False, kappa_item=4):
+    """Bytes one scenario's step must move: κ (log κ, or n − 1 element
+    values) in, u_data and a streamed F in, loss and the gradient (1 or
+    n − 1 values) out."""
+    kap = kappa_item if name in ("k5a", "k7") else kappa_item * (n - 1)
+    out = 4 + (4 if name in ("k5a", "k7") else 4 * (n - 1))
+    return kap + n * store + (0 if shared_f else n * store) + out
+
+
+def fused_plain(name, mesh, scale, version=2, refine=3):
+    """The plain version of a fused step as a function of (κ, F, u_data)
+    stored as the wrapper stores them."""
+    from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
+    from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
+    from difffe_tpu_torch.ops.kernels import fused_grad_thomas_kernel as k6
+
+    if name == "k5a":
+        cols = k5.scalar_columns(mesh)
+        return lambda a, F, ud: k5._k5a_plain(a, F, ud, cols, scale)
+    if name == "k7":
+        cols, W = k5.scalar_columns(mesh), k7.mxu_inverse(mesh)
+        return lambda a, F, ud: k7._k7_plain(a, F, ud, cols, W, scale,
+                                             version, refine)
+    cols, inv_h = k5.general_constants(mesh)
+    pl = k5._k5b_plain if name == "k5b" else k6._k6_plain
+    return lambda a, F, ud: pl(a, F, ud, cols, inv_h, scale)
+
+
+def fused_kernel(name, mesh, scale, version=2, refine=3, block_lanes=None):
+    """The public wrapper of a fused step as a function of (κ, F, u_data);
+    bf16-stored planes pass through with ``operand_dtype`` bf16."""
+    from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
+    from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
+    from difffe_tpu_torch.ops.kernels import fused_grad_thomas_kernel as k6
+    import torch
+
+    def op(ud):
+        return torch.bfloat16 if ud.dtype == torch.bfloat16 else None
+
+    bl = {} if block_lanes is None else {"block_lanes": block_lanes}
+    if name == "k5a":
+        return lambda a, F, ud: k5.fused_kappa_mse_step(mesh, a, F, ud,
+                                                        scale=scale, **bl)
+    if name == "k7":
+        return lambda a, F, ud: k7.fused_kappa_mse_step_mxu(
+            mesh, a, F, ud, scale=scale, operand_dtype=op(ud),
+            version=version, refine=refine, **bl)
+    fn = (k5.fused_kappa_mse_step_general_pcr if name == "k5b"
+          else k6.fused_kappa_mse_step_general)
+    return lambda a, F, ud: fn(mesh, a, F, ud, scale=scale,
+                               operand_dtype=op(ud), **bl)
+
+
+def fused_launches():
+    from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
+    from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
+    from difffe_tpu_torch.ops.kernels import fused_grad_thomas_kernel as k6
+
+    return {**k5.launches, **k6.launches, **k7.launches}
+
+
+def reset_fused_launches():
+    from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
+    from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
+    from difffe_tpu_torch.ops.kernels import fused_grad_thomas_kernel as k6
+
+    for mod in (k5, k6, k7):
+        for key in mod.launches:
+            mod.launches[key] = 0
+
+
+def fused_operands(torch, dev, n, B, gen, bc, shared_f, bf16):
+    """f32 and f64 meshes and f64 operands: log κ, per-element κ, the load
+    (shared (n,) or (B, n)) of a perturbed sin(πx) + 1 and observations
+    of a random κ field; ``bf16`` marks the planes to store half-width."""
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.ops.assembly import assemble_load
+    from difffe_tpu_torch.solver import solve_poisson_batched
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    meshes = [FEMesh.line(n - 1, bc_left=bc[0], bc_right=bc[1], dtype=dt,
+                          device=dev) for dt in (torch.float32, torch.float64)]
+    x = meshes[1].nodes[:, 0]
+    f = (torch.sin(math.pi * x) + 1.0) * (
+        1.0 + 0.2 * torch.rand(B, 1, generator=gen, **f64))
+    with torch.no_grad():
+        ud = solve_poisson_batched(
+            meshes[1], 1.0 + torch.rand(B, n - 1, generator=gen, **f64), f,
+            method="tridiag")
+    F = assemble_load(meshes[1], f)
+    F = F[0] if shared_f else F
+    lk = 0.3 * torch.randn(B, generator=gen, **f64)
+    ke = 1.0 + torch.rand(B, n - 1, generator=gen, **f64)
+    return meshes, lk, ke, F, ud
+
+
+def check_fused(torch, name, meshes, lk, ke, F, ud, bf16, version=2,
+                refine=3):
+    """Phase 17's comparison of one case; returns the f32 kernel's max
+    abs error on the gradient against the f64 plain version."""
+    B, n = ud.shape
+    scale = 2.0 / (B * n)
+    kap = lk if name in ("k5a", "k7") else ke
+    m32, m64 = meshes
+    # the stored planes, quantized once from the f32 data
+    F32, ud32 = F.float(), ud.float()
+    if bf16:
+        ud32 = ud32.bfloat16()
+        F32 = F32 if F.ndim == 1 else F32.bfloat16()
+
+    def wide(t, dt):
+        return t if t.dtype == torch.bfloat16 else t.to(dt)
+
+    args32 = (kap.float(), F32, ud32)
+    k = fused_kernel(name, m32, scale, version, refine)(*args32)
+    p32 = fused_plain(name, m32, scale, version, refine)(*args32)
+    p64 = fused_plain(name, m64, scale, version, refine)(
+        kap, wide(F32, torch.float64), wide(ud32, torch.float64))
+    what = (f"phase 17 {name} n={n} B={B} "
+            f"F={'shared' if F.ndim == 1 else 'plane'} "
+            f"{'bf16' if bf16 else 'f32'} v{version} r{refine}")
+    for label, a, b, c in zip(("loss", "grad"), k, p32, p64):
+        check_rule(name, a, b, c, f"{what} {label}")
+    k64 = fused_kernel(name, m64, scale, version, refine)(
+        kap, wide(F32, torch.float64), wide(ud32, torch.float64))
+    for label, a, c in zip(("loss", "grad"), k64, p64):
+        e = rel_err(a, c)
+        if not e <= 1e-10:
+            raise AssertionError(f"{what} {label} f64: rel err {e:.3e}")
+    return float((k[1].double() - p64[1]).abs().max())
+
+
+def fused_gate(torch, name, mesh, grad, kap, f, ud_q, what, limit):
+    """The bench/probe gate: the step's gradient (scale 2/n) on the first
+    BATCH_GATE scenarios against autograd through the 'tridiag' route fed
+    the same (quantized) observations."""
+    from difffe_tpu_torch.solver import solve_poisson_batched
+
+    sl = slice(0, BATCH_GATE)
+    k = kap[sl].detach().clone().requires_grad_()
+    kap_arg = torch.exp(k) if name in ("k5a", "k7") else k
+    u = solve_poisson_batched(mesh, kap_arg, f[sl], method="tridiag",
+                              kappa_batched=True)
+    ((u - ud_q[sl].float()) ** 2).mean(dim=-1).sum().backward()
+    gate = rel_err(grad[sl], k.grad)
+    log(f"phase 19 {what}: gradient gate rel={gate:.3e} (limit {limit})")
+    if not gate <= limit:
+        raise AssertionError(f"{what}: gate {gate:.3e} > {limit}")
+
+
+def ptxas_report(names):
+    """One line per compiled kernel whose mangled name holds one of
+    ``names``: its registers and spills, from the build's -Xptxas -v
+    log."""
+    from difffe_tpu_torch.ops.kernels import _build
+
+    lines = _build.library_path().with_suffix(".log").read_text().splitlines()
+    current, stats = None, {}
+    for line in lines:
+        if "Compiling entry function" in line:
+            current = line.split("'")[1]
+        elif current and any(k in current for k in names):
+            if "spill" in line or "Used" in line:
+                stats.setdefault(current, []).append(
+                    line.split(":", 1)[-1].strip())
+    mangled = list(stats)
+    try:        # demangled names where binutils' c++filt is installed
+        shown = subprocess.run(["c++filt"], input="\n".join(mangled),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        shown = [s.split(">(")[0].split("::")[-1] + ">" for s in shown]
+    except (OSError, subprocess.CalledProcessError):
+        shown = mangled
+    return [f"  {name}: {'; '.join(stats[m])}"
+            for name, m in zip(shown, mangled)]
+
+
+def run_fused_1d(torch, dev, card):
+    """Phases 17-20; returns the K5a, K5b, K6 and K7 entries of the kernels
+    line."""
+    from difffe_tpu_torch import production
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.ops.assembly import assemble_load
+    from difffe_tpu_torch.solver import solve_poisson_batched
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    # -- phase 17: every new kernel against its plain version
+    t0 = time.perf_counter()
+    max_abs = {k: 0.0 for k in FUSED_SOURCES}
+    for name in ("k5a", "k5b", "k6", "k7"):
+        cases = 0
+        for n in (K7_NS if name == "k7" else FUSED_NS):
+            for B in (b for b in FUSED_BS if b < FUSED_BIG or n <= 31):
+                combos = [(bc, shared_f, bf16)
+                          for bc in ((0.0, 0.0), (0.3, -0.2))
+                          for shared_f in (False, True)
+                          for bf16 in ((False,) if name == "k5a"
+                                       else (False, True))]
+                if B == FUSED_BIG:    # two of them at the largest batch
+                    combos = [c for c in combos if c[1] != c[2]][:2]
+                for bc, shared_f, bf16 in combos:
+                    meshes, lk, ke, F, ud = fused_operands(
+                        torch, dev, n, B, gen, bc, shared_f, bf16)
+                    bodies = ((2, 3),)
+                    if name == "k7":
+                        bodies = (K7_BODIES if B < FUSED_BIG
+                                  else ((2, 3), (3, 2)))
+                    for version, refine in bodies:
+                        e = check_fused(torch, name, meshes, lk, ke, F, ud,
+                                        bf16, version, refine)
+                        cases += 1
+                        if n == N_PROD + 1:
+                            max_abs[name] = max(max_abs[name], e)
+                    del meshes, lk, ke, F, ud
+            torch.cuda.empty_cache()
+        log(f"phase 17 {name}: {cases} cases within the gates (f32 by the "
+            f"rule of phase 7, f64 within 1e-10)")
+    reset_fused_launches()
+    m137, lk, _, F, ud = fused_operands(torch, dev, 137, 64, gen, (0.0, 0.0),
+                                        False, False)
+    fused_kernel("k7", m137[0], 1.0, 3, 2)(lk.float(), F.float(), ud.float())
+    routed = fused_launches()
+    log(f"phase 17 K7 at n=137 routes to K5a: launches {routed}")
+    if routed["k5a"] != 1 or routed["k7"] != 0:
+        raise AssertionError(f"the n > 136 route launched {routed}")
+    log(f"phase 17 kernel vs plain: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 18: the main path, the production loop at its defaults
+    mesh = production.production_mesh()
+    if mesh.device.type != dev.type:
+        raise AssertionError(f"production_mesh() put the mesh on "
+                             f"{mesh.device}")
+    g0 = torch.Generator(device=dev).manual_seed(0)
+    k_true = 1.0 + 2.0 * torch.rand(BATCH_PROD, generator=g0, device=dev)
+    F, u_data = production.production_data(mesh, k_true)
+    reset_fused_launches()
+    t0 = time.perf_counter()
+    lk, losses = production.sgd_loop(mesh, F, u_data)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    main_path = fused_launches()
+    hist = [float(v) for v in losses]
+    err = float((torch.exp(lk) - k_true).abs().max())
+    log(f"phase 18 production loop: B={BATCH_PROD} {production.STEPS} steps "
+        f"lr={production.LR}: loss {hist[0]:.6e} {hist[1]:.6e} "
+        f"{hist[2]:.6e} ... {hist[-3]:.6e} {hist[-2]:.6e} {hist[-1]:.6e} "
+        f"({hist[0] / hist[-1]:.1f}x); max |kappa - kappa_true| "
+        f"{err:.3e} ({t_loop:.3f} s with the first-call set-up)")
+    log(f"fused 1D main-path launches: {main_path}")
+    if main_path != {"k5a": 0, "k5b": 0, "k6": 0, "k7": production.STEPS}:
+        raise AssertionError(f"main-path launches {main_path}")
+    if not hist[-1] * 1e3 <= hist[0]:
+        raise AssertionError("the loss fell less than 1e3x")
+    plain_step = fused_plain("k7", mesh, 2.0 / mesh.n_nodes)
+    lk_p, losses_p = production.sgd_loop(
+        mesh, F, u_data, step=lambda m, a, F_, ud_, **kw: plain_step(
+            a, F_, ud_))
+    dk = rel_err(torch.exp(lk), torch.exp(lk_p))
+    log(f"phase 18 final kappa against the loop on the plain version: rel "
+        f"err {dk:.3e} (plain loss {float(losses_p[0]):.6e} -> "
+        f"{float(losses_p[-1]):.6e})")
+    if not dk <= 1e-3:
+        raise AssertionError(f"kappa differs from the plain loop: {dk:.3e}")
+
+    # -- phase 19: the other workloads, gated
+    n = N_PROD + 1
+    x = mesh.nodes[:, 0]
+    fv = torch.sin(math.pi * x) + 1.0
+    Fs = assemble_load(mesh, fv)
+    gb = torch.Generator(device=dev).manual_seed(19)
+    kB = 1.0 + 2.0 * torch.rand(BATCH_BENCH, generator=gb, device=dev)
+    fB = fv.expand(BATCH_BENCH, n)
+    with torch.no_grad():
+        udB = solve_poisson_batched(mesh, kB, fB, method="tridiag",
+                                    kappa_batched=True)
+    scale = 2.0 / n
+    work = {}
+    # bench_full.py's K7 row: v3 refine 2, bf16 u_data, shared F
+    ud_q = udB.bfloat16()
+    lk0 = torch.zeros(BATCH_BENCH, device=dev)
+    work["k7_bench"] = (fused_kernel("k7", mesh, scale, 3, 2, 8192),
+                        fused_plain("k7", mesh, scale, 3, 2), lk0, Fs, ud_q)
+    # bench_full.py's K5a row: B = 2^20, streamed F
+    F1 = assemble_load(mesh, fB[:BATCH_K5A])
+    work["k5a"] = (fused_kernel("k5a", mesh, scale, block_lanes=512),
+                   fused_plain("k5a", mesh, scale), lk0[:BATCH_K5A], F1,
+                   udB[:BATCH_K5A])
+    # probe_thomas.py: per-element κ, shared F, block_lanes 512
+    ke_true = 1.0 + torch.rand(BATCH_BENCH, N_PROD, generator=gb, device=dev)
+    with torch.no_grad():
+        udE = solve_poisson_batched(mesh, ke_true, fB, method="tridiag")
+    ke0 = 1.0 + 0.3 * torch.rand(BATCH_BENCH, N_PROD, generator=gb,
+                                 device=dev)
+    for name in ("k5b", "k6"):
+        for store in ("f32", "bf16"):
+            ud_s = udE if store == "f32" else udE.bfloat16()
+            work[f"{name}_{store}"] = (
+                fused_kernel(name, mesh, scale, block_lanes=512),
+                fused_plain(name, mesh, scale), ke0, Fs, ud_s)
+    for what, (kern, _, kap, F_, ud_) in work.items():
+        name = what.split("_")[0]
+        reset_fused_launches()
+        lp, gk = kern(kap, F_, ud_)
+        torch.cuda.synchronize()
+        if fused_launches()[name] != 1:
+            raise AssertionError(f"{what}: launches {fused_launches()}")
+        if not bool(torch.isfinite(gk).all() and torch.isfinite(lp).all()):
+            raise AssertionError(f"{what}: non-finite outputs")
+        f_gate = fB if F_.ndim == 1 else fB[:F_.shape[0]]
+        fused_gate(torch, name, mesh, gk, kap, f_gate, ud_,
+                   f"{what} B={kap.shape[0]}",
+                   1e-2 if ud_.dtype == torch.bfloat16 else GATE_TOL)
+    del udB, udE, ke_true, ud_q
+    torch.cuda.empty_cache()
+
+    # -- phase 20: timing, host time, profile, registers
+    ms = {}
+    for what, (kern, plain, kap, F_, ud_) in work.items():
+        # chained: each step's κ (log κ for K5a/K7) is the last one's
+        # minus 1e-3 times its gradient, so κ stays near its start
+        ms[what] = best = timed_pair(
+            lambda a: a - 1e-3 * kern(a, F_, ud_)[1],
+            lambda a: a - 1e-3 * plain(a, F_, ud_)[1], kap, 4)
+        B = kap.shape[0]
+        log(f"phase 20 {what}: kernel {best['kernel']:.4f} ms, plain "
+            f"{best['plain']:.4f} ms (B={B}, n={n}); kernel "
+            f"{B / best['kernel'] * 1e3:.6e} grad-solves/s [{card}]")
+    kern_p = fused_kernel("k7", mesh, scale, 2, 3, 1024)
+    plain_p = fused_plain("k7", mesh, scale, 2, 3)
+    ms["k7"] = best = timed_pair(
+        lambda a: a - production.LR * kern_p(a, F, u_data)[1],
+        lambda a: a - production.LR * plain_p(a, F, u_data)[1],
+        torch.zeros(BATCH_PROD, device=dev), 4)
+    log(f"phase 20 k7 (phase-18 workload, v2, streamed F): kernel "
+        f"{best['kernel']:.4f} ms, plain {best['plain']:.4f} ms "
+        f"(B={BATCH_PROD}, n={n}) [{card}]")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        production.sgd_loop(mesh, F, u_data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"phase 20 production loop host time, {production.STEPS} steps, "
+        f"B={BATCH_PROD}: " + ", ".join(f"{t:.4f}" for t in times)
+        + f" s; {BATCH_PROD * production.STEPS / min(times):.6e} "
+        f"grad-solves/s [{card}]")
+    profile_split(torch, lambda: production.sgd_loop(mesh, F, u_data),
+                  "phase 20", card, what=f"production loop (B={BATCH_PROD})")
+    log("phase 20 -Xptxas -v of the new kernels:")
+    for line in ptxas_report(("fused_pcr_kernel", "thomas_kernel",
+                              "mxu_kernel")):
+        log(line)
+
+    shapes = {
+        "k7": (BATCH_PROD, fused_ops("k7", n, 2), fused_bytes("k7", n)),
+        "k5a": (BATCH_K5A, fused_ops("k5a", n), fused_bytes("k5a", n)),
+        "k5b": (BATCH_BENCH, fused_ops("k5b", n),
+                fused_bytes("k5b", n, shared_f=True)),
+        "k6": (BATCH_BENCH, fused_ops("k6", n),
+               fused_bytes("k6", n, shared_f=True)),
+    }
+    b_ms, b_by = bound(BATCH_BENCH * fused_ops("k7", n, 3, 2),
+                       BATCH_BENCH * fused_bytes("k7", n, 2, True))
+    log(f"phase 20 k7 bench row bound {b_ms:.4f} ms ({b_by}); kernel "
+        f"{ms['k7_bench']['kernel']:.4f} ms [{card}]")
+    entries = []
+    for name in ("k5a", "k5b", "k6", "k7"):
+        B, ops, nbytes = shapes[name]
+        key = name if name in ("k5a", "k7") else f"{name}_f32"
+        b_ms, b_by = bound(B * ops, B * nbytes)
+        log(f"phase 20 {name} bound {b_ms:.4f} ms ({b_by}) at B={B}: "
+            f"{B * ops / 1e9:.3f} GFLOP, {B * nbytes / 1e6:.1f} MB [{card}]")
+        entries.append(kernel_entry(
+            FUSED_NAMES[name], FUSED_SOURCES[name], FUSED_REPLACES[name],
+            main_path[name], max_abs[name], ms[key]["kernel"],
+            ms[key]["plain"], B * ops, B * nbytes))
+    return entries
+
+
 def timeit_chained_min(fn, x0, length=4):
     """Best chained ms per call of one function."""
     from difffe_tpu_torch.utils.profiling import timeit_chained
@@ -1263,6 +1718,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.append(run_facade_1d(torch, dev, card))
     log(f"1D facade path, phases 13-16: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels += run_fused_1d(torch, dev, card)
+    log(f"fused 1D path, phases 17-20: {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -25,7 +25,11 @@ Ported so far:
   (ops/solve.py), point Neumann/Robin terms, ``DifferentiableFESolver``,
   ``recover_kappa_scalar``, ``recover_kappa_field``, ``fit_kappa``'s
   generic Adam route, ``PhysicsLoss`` (losses.py) and ``NeuralPDE``
-  (models/neural.py).
+  (models/neural.py);
+* slice G, the fused 1D grad-step kernels — K5a/K5b
+  (ops/kernels/fused_grad_kernel.py), K6 (fused_grad_thomas_kernel.py)
+  and K7 (fused_grad_mxu_kernel.py), hand-written CUDA — and the
+  production κ-recovery loop on K7 (production.py).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"`` in the mesh factories).

@@ -56,6 +56,11 @@ class FEMesh:
     bc_mask: torch.Tensor
     bc_values: torch.Tensor
     grid: Optional[object] = None
+    # what kernel wrappers derive from the mesh, built at their first call
+    # (ops/kernels/fused_grad_kernel.mesh_constants); a mesh made by
+    # dataclasses.replace starts empty
+    derived: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     # ---------------------------------------------------------------- queries
 

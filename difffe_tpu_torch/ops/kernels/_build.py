@@ -29,8 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)
 
-_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-    ctypes.c_longlong
+_P, _I, _F, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong, ctypes.c_double
 # C entry points: name -> argtypes (every pointer and the stream as void*)
 _SIGNATURES = {
     "difffe_cf_step": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
@@ -47,7 +47,18 @@ _SIGNATURES = {
                              _I, _I, _F, _I, _P],
     "difffe_tridiag_pcr_max_rows": [_I],
     "difffe_tridiag_pcr": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I, _P],
+    "difffe_fused_pcr_workspace": [_I, _I, _I, _I],
+    "difffe_fused_pcr": [_I, _P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _D, _D, _I, _P],
+    "difffe_thomas_workspace": [_I, _I, _I, _I],
+    "difffe_fused_thomas": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P,
+                            _I, _I, _I, _D, _D, _I, _P],
+    "difffe_fused_mxu": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P, _I,
+                         _I, _I, _I, _I, _D, _I, _P],
 }
+# entry points that return a count, not a CUDA error code
+_RESTYPES = {"difffe_fused_pcr_workspace": _L,
+             "difffe_thomas_workspace": _L}
 
 
 def sources() -> list[Path]:
@@ -126,5 +137,5 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib

@@ -268,8 +268,15 @@ class _SolveStructuredKernel(torch.autograd.Function):
         return u
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, gbar):
+        # first order only, as the JAX custom VJP: refuse a graph of this
+        # backward (create_graph) outright, since one that skipped λ's
+        # dependence on κ would give wrong second derivatives without a word
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "the K3a route (solve_structured_kernel) is differentiable "
+                "once: its backward takes no create_graph; use "
+                "solve_poisson_structured for higher derivatives")
         grid, iters, block_b, B = ctx.cfg
         C, D, Minv = ctx.prepared
         kl, ku, f, g, u = ctx.saved_tensors

@@ -11,10 +11,14 @@ import math
 import pytest
 import torch
 
+from difffe_tpu_torch import production
 from difffe_tpu_torch.inverse import fit_kappa
 from difffe_tpu_torch.mesh import FEMesh
 from difffe_tpu_torch.ops.assembly import assemble_load
 from difffe_tpu_torch.ops.kernels import fused_grad_cf_kernel as tk
+from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
+from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
+from difffe_tpu_torch.ops.kernels import fused_grad_thomas_kernel as k6
 from difffe_tpu_torch.ops.kernels import stencil3d_cg_kernel as k4
 from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
 from difffe_tpu_torch.ops.kernels import tridiag_kernel as k2
@@ -35,8 +39,7 @@ CHAIN_TOL = 1e-4    # the same over a 32-step chain
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the K1, K2, K3 and K4 kernels have "
-                    "no CPU mode")
+        pytest.skip("needs a CUDA card: the K1-K7 kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -477,3 +480,206 @@ def test_k2_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     big = torch.ones(1, n, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="shared"):
         k2.tridiag_solve_kernel(4 * big, -big[:, 1:], big)
+
+
+def test_second_order_refusals_on_the_card(cuda):
+    """K3a's and K4a's routes refuse a graph of their backward, as K2's."""
+    f32 = dict(dtype=torch.float32, device=cuda)    # the kernels' dtype
+    grid = StructuredGrid.unit(6, 6)
+    kl = (1.0 + torch.rand(2, 6, 6, **f32)).requires_grad_()
+    u = sk.solve_structured_kernel(grid, (kl, kl), torch.ones(2, 7, 7, **f32),
+                                   torch.zeros(7, 7, **f32), iters=8)
+    misfit = u.sum() + kl.square().sum()
+    with pytest.raises(NotImplementedError, match="differentiable once"):
+        torch.autograd.grad(misfit, kl, create_graph=True)
+    grid3 = StructuredGrid3.unit(3, 3, 3)
+    k = (1.0 + torch.rand(2, grid3.n_elements, **f32)).requires_grad_()
+    u = k4.solve_structured_kernel_3d(grid3, k, torch.ones(2, 4, 4, 4, **f32),
+                                      torch.zeros(4, 4, 4, **f32), iters=4)
+    misfit = u.sum() + k.square().sum()
+    with pytest.raises(NotImplementedError, match="differentiable once"):
+        torch.autograd.grad(misfit, k, create_graph=True)
+    (g,) = torch.autograd.grad(misfit, k)
+    assert torch.isfinite(g).all()
+
+
+# ---------------------------------------------------------------------------
+# K5a, K5b, K6, K7: the fused 1D grad steps, against their plain versions:
+# f32 by the rule of the K3 tests, f64 within 1e-10 relative.
+# ---------------------------------------------------------------------------
+
+FUSED = ("k5a", "k5b", "k6", "k7")
+
+
+def _fused_inputs(dev, ne, B, seed, bc, bf16, shared_f):
+    """f32 meshes and operands as the kernels store them, and the f64
+    mesh: log κ, per-element κ, load F (shared (n,) or (B, n)) and
+    observations of a random κ field, f32 or bf16 storage."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    mesh64 = FEMesh.line(ne, bc_left=bc[0], bc_right=bc[1],
+                         dtype=torch.float64, device=dev)
+    mesh32 = FEMesh.line(ne, bc_left=bc[0], bc_right=bc[1],
+                         dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = mesh64.nodes[:, 0]
+    f = (torch.sin(math.pi * x) + 1.0) * (
+        1.0 + 0.2 * torch.rand(B, 1, generator=gen, **f64))
+    ud = solve_poisson_batched(
+        mesh64, 1.0 + torch.rand(B, ne, generator=gen, **f64), f,
+        method="tridiag").float()
+    F = assemble_load(mesh64, f).float()
+    F = F[0] if shared_f else F
+    lk = (0.3 * torch.randn(B, generator=gen, **f64)).float()
+    ke = (1.0 + torch.rand(B, ne, generator=gen, **f64)).float()
+    if bf16:
+        ud = ud.bfloat16()
+        F = F if shared_f else F.bfloat16()
+    return mesh32, mesh64, lk, ke, F, ud
+
+
+def _fused_run(name, mesh, plain_meshes, lk, ke, F, ud, version=2,
+               refine=3):
+    """The kernel's outputs on ``mesh`` and the plain version's on each of
+    ``plain_meshes`` (operands widened to each mesh's dtype)."""
+    B, n = ud.shape
+    scale = 2.0 / (B * n)
+    op = torch.bfloat16 if ud.dtype == torch.bfloat16 else None
+
+    def to(t, m):
+        return t if t.dtype == torch.bfloat16 else t.to(m.dtype)
+
+    if name in ("k5a", "k7"):
+        kap = lk
+        if name == "k5a":
+            kern = k5.fused_kappa_mse_step(mesh, lk, F, ud)
+        else:
+            kern = k7.fused_kappa_mse_step_mxu(mesh, lk, F, ud,
+                                               operand_dtype=op,
+                                               version=version, refine=refine)
+
+        def plain(m, a, F_, u_):
+            cols = k5.scalar_columns(m)
+            if name == "k5a":
+                return k5._k5a_plain(a, F_, u_, cols, scale)
+            return k7._k7_plain(a, F_, u_, cols, k7.mxu_inverse(m), scale,
+                                version, refine)
+    else:
+        kap = ke
+        fn, pl = ((k5.fused_kappa_mse_step_general_pcr, k5._k5b_plain)
+                  if name == "k5b" else
+                  (k6.fused_kappa_mse_step_general, k6._k6_plain))
+        kern = fn(mesh, ke, F, ud, operand_dtype=op)
+
+        def plain(m, a, F_, u_):
+            return pl(a, F_, u_, *k5.general_constants(m), scale)
+
+    return kern, [plain(m, kap.to(m.dtype), to(F, m), to(ud, m))
+                  for m in plain_meshes]
+
+
+def _launch_count(name):
+    mod = {"k5a": k5, "k5b": k5, "k6": k6, "k7": k7}[name]
+    return mod.launches[name]
+
+
+@pytest.mark.parametrize("ne", [1, 12, 30, 128])
+@pytest.mark.parametrize("name", FUSED)
+def test_fused_step_matches_plain(cuda, name, ne):
+    """Each storage (f32 and, but for K5a, bf16) and F (streamed and
+    shared) in f32 by the rule, then the f64 kernel within 1e-10."""
+    ne = min(ne, k7.MXU_MAX_NODES - 1) if name == "k7" else ne
+    bc = (0.3, -0.2) if ne in (12, 128) else (0.0, 0.0)
+    before = _launch_count(name)
+    runs = 0
+    for bf16 in ((False,) if name == "k5a" else (False, True)):
+        for shared_f in (False, True):
+            mesh32, mesh64, lk, ke, F, ud = _fused_inputs(
+                cuda, ne, 1000, ne + 7 * runs, bc, bf16, shared_f)
+            kern, (p32, p64) = _fused_run(name, mesh32, (mesh32, mesh64), lk,
+                                          ke, F, ud)
+            runs += 1
+            for a, b, c in zip(kern, p32, p64):
+                assert a.shape == c.shape and a.dtype == torch.float32
+                ok, errs = _within_rule(a, b, c)
+                assert ok, (bf16, shared_f, errs)
+            kern64, (q64,) = _fused_run(name, mesh64, (mesh64,), lk.double(),
+                                        ke.double(), F.double(), ud.double())
+            runs += 1
+            for a, c in zip(kern64, q64):
+                assert rel_err(a, c) <= 1e-10
+    torch.cuda.synchronize()
+    assert _launch_count(name) == before + runs
+
+
+@pytest.mark.parametrize("version,refine", [(1, 3), (2, 3), (3, 0), (3, 2),
+                                            (3, 3)])
+def test_k7_versions_match_plain(cuda, version, refine):
+    mesh32, mesh64, lk, ke, F, ud = _fused_inputs(cuda, 30, 1000, 3,
+                                                  (0.3, -0.2), True, True)
+    kern, (p32, p64) = _fused_run("k7", mesh32, (mesh32, mesh64), lk, ke, F,
+                                  ud, version, refine)
+    for a, b, c in zip(kern, p32, p64):
+        ok, errs = _within_rule(a, b, c)
+        assert ok, errs
+
+
+def test_fused_steps_without_a_shared_memory_fit(cuda):
+    """n = 2001 in f64: K5b keeps its sweep factors and K6 its rows in a
+    global workspace."""
+    mesh = FEMesh.line(2000, bc_left=0.3, bc_right=-0.2, dtype=torch.float64,
+                       device=cuda)
+    _, _, lk, ke, F, ud = _fused_inputs(cuda, 2000, 5, 1, (0.3, -0.2), False,
+                                        False)
+    for name in ("k5b", "k6"):
+        kern, (q,) = _fused_run(name, mesh, (mesh,), lk.double(), ke.double(),
+                                F.double(), ud.double())
+        for a, c in zip(kern, q):
+            assert rel_err(a, c) <= 1e-10, name
+
+
+def test_k7_routes_large_meshes_to_k5a(cuda):
+    mesh = FEMesh.line(150, dtype=torch.float32, device=cuda)
+    _, _, lk, _, F, ud = _fused_inputs(cuda, 150, 64, 2, (0.0, 0.0), False,
+                                       False)
+    before = (k5.launches["k5a"], k7.launches["k7"])
+    lp, gk = k7.fused_kappa_mse_step_mxu(mesh, lk, F, ud, version=3)
+    assert (k5.launches["k5a"], k7.launches["k7"]) == (before[0] + 1,
+                                                       before[1])
+    assert torch.isfinite(gk).all() and lp.shape == (64,)
+
+
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    mesh = FEMesh.line(10, dtype=torch.float32, device=cuda)
+    ke = torch.ones(4, 10, device=cuda)
+    with pytest.raises(TypeError, match="float16"):
+        k6.fused_kappa_mse_step_general(mesh, ke, torch.ones(11, device=cuda),
+                                        torch.ones(4, 11, device=cuda),
+                                        operand_dtype=torch.float16)
+    half = FEMesh.line(10, dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        k7.fused_kappa_mse_step_mxu(half, torch.zeros(4, device=cuda),
+                                    torch.ones(11, device=cuda),
+                                    torch.ones(4, 11, device=cuda))
+
+
+def test_production_loop_runs_on_k7(cuda):
+    """The production loop, 40 steps at B = 2048: one K7 launch a step,
+    and the final κ within 1e-3 of the same loop on the plain version."""
+    mesh = production.production_mesh()
+    assert mesh.device.type == "cuda"
+    k_true = 1.0 + 2.0 * torch.rand(
+        2048, generator=torch.Generator(device=cuda).manual_seed(0),
+        device=cuda)
+    F, ud = production.production_data(mesh, k_true)
+    before = dict(k7.launches)
+    lk, losses = production.sgd_loop(mesh, F, ud, steps=40)
+    torch.cuda.synchronize()
+    assert k7.launches["k7"] == before["k7"] + 40
+    cols, W = k5.scalar_columns(mesh), k7.mxu_inverse(mesh)
+
+    def plain(m, lk_, F_, ud_, scale, block_lanes, version):
+        return k7._k7_plain(lk_, F_, ud_, cols, W, scale, version, 3)
+
+    lk_p, losses_p = production.sgd_loop(mesh, F, ud, steps=40, step=plain)
+    assert float(losses[-1]) < 1e-2 * float(losses[0])
+    assert rel_err(torch.exp(lk), torch.exp(lk_p)) <= 1e-3

@@ -203,3 +203,26 @@ def test_block_b_checks_and_no_launch_on_cpu():
     tk.fused_kappa_mse_step_3d_kernel(tg, *_t(k, f, g, ud), iters=4)
     tk.solve_structured_kernel_3d(tg, *_t(k, f, g), iters=4)
     assert tk.launches == before        # the plain CPU path launches none
+
+
+def test_second_order_raises_in_both_packages():
+    """A Hessian product through K4a's route, the misfit linear in u with a
+    second κ path (as tests/test_torch_stencil_cg.py): both packages
+    refuse a second derivative instead of dropping λ's dependence on κ."""
+    jg, tg, k, f, g, _ = _problem(B=2, seed=12)
+    w = np.random.default_rng(13).standard_normal(f.shape)
+
+    def jmisfit(k_):
+        u = jk.solve_structured_pallas_3d(jg, k_, *_j(f, g), 4, 1)
+        return jnp.sum(jnp.asarray(w) * u) + jnp.sum(k_ ** 2)
+
+    with pytest.raises(NotImplementedError):
+        jax.jit(jax.grad(lambda k_: jnp.sum(jax.grad(jmisfit)(k_))))(
+            jnp.asarray(k))
+    tkap = as_torch(k).requires_grad_()
+    u = tk.solve_structured_kernel_3d(tg, tkap, *_t(f, g), iters=4)
+    misfit = (as_torch(w) * u).sum() + (tkap ** 2).sum()
+    with pytest.raises(NotImplementedError, match="differentiable once"):
+        torch.autograd.grad(misfit, tkap, create_graph=True)
+    (gk,) = torch.autograd.grad(misfit, tkap)
+    assert gk.shape == tkap.shape and not gk.requires_grad

@@ -171,3 +171,28 @@ def test_choose_2d_path_and_block_b():
     before = dict(tk.launches)
     tk.fused_kappa_mse_step_2d(tg, _t(kl, kl), *_t(f, g, ud), iters=4)
     assert tk.launches == before        # the plain CPU path launches none
+
+
+def test_second_order_raises_in_both_packages():
+    """A Hessian product through K3a's route: the misfit is linear in u (its
+    cotangent needs no grad) and has a second κ path, so a backward that
+    kept no graph would hand back a Hessian that drops λ's dependence on κ
+    without a word.  Both packages refuse instead."""
+    jg, tg, kl, f, g, _ = _problem(4, B=2, seed=12)
+    w = np.random.default_rng(13).standard_normal(f.shape)
+
+    def jmisfit(kl_):
+        u = jk.solve_structured_pallas(jg, (kl_, kl_), *_j(f, g), 8, 1)
+        return jnp.sum(jnp.asarray(w) * u) + jnp.sum(kl_ ** 2)
+
+    with pytest.raises(NotImplementedError):
+        jax.jit(jax.grad(lambda k: jnp.sum(jax.grad(jmisfit)(k))))(
+            jnp.asarray(kl))
+    tkl = as_torch(kl).requires_grad_()
+    u = tk.solve_structured_kernel(tg, (tkl, tkl), *_t(f, g), iters=8,
+                                   block_b=1)
+    misfit = (as_torch(w) * u).sum() + (tkl ** 2).sum()
+    with pytest.raises(NotImplementedError, match="differentiable once"):
+        torch.autograd.grad(misfit, tkl, create_graph=True)
+    (gk,) = torch.autograd.grad(misfit, tkl)
+    assert gk.shape == tkl.shape and not gk.requires_grad

@@ -22,11 +22,12 @@ def _f64(x) -> np.ndarray:
 
 def rel_err(a, b) -> float:
     """max|a − b| / max|b| in float64, for torch, numpy or JAX arrays (0
-    for two empty arrays)."""
+    for two empty arrays, and for two equal ones, zeros included)."""
     a, b = _f64(a), _f64(b)
     if a.size == 0 and b.size == 0:
         return 0.0
-    return float(np.abs(a - b).max() / np.abs(b).max())
+    d = float(np.abs(a - b).max())
+    return 0.0 if d == 0.0 else d / float(np.abs(b).max())
 
 
 def jax_mesh(factory, *args, **kw):
