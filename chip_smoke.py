@@ -94,14 +94,15 @@ K6 (Thomas) and K7 (dense products with W = Ã⁻¹):
 
 17. each new kernel against its plain version on the card, n ∈ {2, 13,
     31, 129, 257} nodes for K5a/K5b/K6 and {2, 13, 31, 136} for K7 (137
-    checks its route to K5a), B ∈ {7, 1000, 2^20} (2^20 for n ≤ 31),
+    checks its route to K5a), B ∈ {7, 1000, 2^20} (2^20 for n ≤ 31, with
+    K7's main-path storage, streamed f32 planes, among its cases),
     shared and streamed F, zero and nonzero Dirichlet values, f32 and bf16
     storage, K7 versions 1-3 with refine ∈ {0, 2, 3}: f32 by the rule of
     phase 7, f64 within 1e-10 relative;
 18. the main path: ``difffe_tpu_torch.production.sgd_loop`` at the demo's
     defaults (300 K7 launches and no other launch of the new kernels; the
-    loss falls 10³×; the final κ within 1e-3 relative of the same loop on
-    the plain version);
+    loss falls 10³×; the final κ and the mean loss of every step within
+    1e-3 relative of the same loop on the plain version);
 19. the other workloads, each gated on its gradient against autograd
     through the 'tridiag' route on a B = 4096 slice fed the same
     quantized data (1e-4 in f32, 1e-2 with bf16 storage): bench_full.py's
@@ -1485,8 +1486,10 @@ def run_fused_1d(torch, dev, card):
                           for shared_f in (False, True)
                           for bf16 in ((False,) if name == "k5a"
                                        else (False, True))]
-                if B == FUSED_BIG:    # two of them at the largest batch
-                    combos = [c for c in combos if c[1] != c[2]][:2]
+                if B == FUSED_BIG:    # two of them at the largest batch,
+                    # and for K7 the main path's streamed f32 planes too
+                    combos = ([c for c in combos if c[1] != c[2]][:2]
+                              + combos[:1] * (name == "k7"))
                 for bc, shared_f, bf16 in combos:
                     meshes, lk, ke, F, ud = fused_operands(
                         torch, dev, n, B, gen, bc, shared_f, bf16)
@@ -1545,11 +1548,17 @@ def run_fused_1d(torch, dev, card):
         mesh, F, u_data, step=lambda m, a, F_, ud_, **kw: plain_step(
             a, F_, ud_))
     dk = rel_err(torch.exp(lk), torch.exp(lk_p))
-    log(f"phase 18 final kappa against the loop on the plain version: rel "
-        f"err {dk:.3e} (plain loss {float(losses_p[0]):.6e} -> "
+    dl = float(((losses.double() - losses_p.double()).abs()
+                / losses_p.double().abs()).max())
+    log(f"phase 18 against the loop on the plain version: final kappa rel "
+        f"err {dk:.3e}, mean loss of each step rel err at most {dl:.3e} "
+        f"(plain loss {float(losses_p[0]):.6e} -> "
         f"{float(losses_p[-1]):.6e})")
     if not dk <= 1e-3:
         raise AssertionError(f"kappa differs from the plain loop: {dk:.3e}")
+    if not dl <= 1e-3:
+        raise AssertionError(f"a step's loss differs from the plain loop's: "
+                             f"{dl:.3e}")
 
     # -- phase 19: the other workloads, gated
     n = N_PROD + 1

@@ -13,7 +13,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
 
@@ -56,27 +60,49 @@ __device__ __forceinline__ T load(const S* p, long long i) {
   return static_cast<T>(stored(p[i]));
 }
 
-// The most dynamic shared memory one block may use on this device (0 when
-// the device cannot be queried).
+constexpr int kMaxDevices = 64;
+
+// The most dynamic shared memory one block may use on the current device
+// (0 when the device cannot be queried), asked once per device.
 inline int smem_optin_bytes() {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  static std::atomic<int> cached[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 0;
+  if (dev < kMaxDevices) {
+    const int known = cached[dev].load(std::memory_order_relaxed);
+    if (known > 0) return known;
+  }
+  int bytes = 0;
   if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev) != cudaSuccess)
     return 0;
+  if (dev < kMaxDevices) cached[dev].store(bytes, std::memory_order_relaxed);
   return bytes;
 }
 
-// Launch `kernel` with `smem` bytes of dynamic shared memory on `stream`
-// after raising the kernel's shared-memory limit; returns
-// cudaGetLastError().
+// Launch `kernel` with `smem` bytes of dynamic shared memory on `stream`;
+// returns cudaGetLastError().  Above the default 48 KB the kernel's limit
+// is raised on the current device, once for each kernel, device and larger
+// size.
 template <typename Kernel, typename... Args>
 int launch_with_smem(Kernel kernel, int blocks, int threads, size_t smem,
                      cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  if (smem > 48 * 1024) {
+    static std::mutex mu;
+    static std::map<std::pair<const void*, int>, size_t> raised;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> lock(mu);
+    size_t& limit = raised[{reinterpret_cast<const void*>(kernel), dev}];
+    if (smem > limit) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      limit = smem;
+    }
+  }
   kernel<<<blocks, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }

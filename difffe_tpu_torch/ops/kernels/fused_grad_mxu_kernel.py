@@ -18,8 +18,9 @@ bodies of the JAX module are kept as ``version``:
   products; here every product is full float32, and the passes repair
   the float32 rounding of W instead: each residual is formed in float64
   and rounded once (mixed-precision refinement), so the passes converge
-  to the solution of the float32 system; a float32 residual would add
-  rounding noise of the size it removes.
+  to the solution of the float32 system; a float32 residual, as the TPU
+  body forms it, would add rounding noise of the size it removes
+  (``difffe_tpu_torch/probes/k7_residual.py`` measures both on the card).
 
 The CUDA kernel (``csrc/fused_grad_mxu.cu``) holds W in shared memory and
 runs one scenario per thread; the plain PyTorch version below, taken only

@@ -23,7 +23,7 @@ from __future__ import annotations
 import math
 import sys
 import time
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
@@ -54,41 +54,36 @@ def production_data(mesh: FEMesh, k_true: torch.Tensor):
 
 
 def sgd_loop(mesh: FEMesh, F: torch.Tensor, u_data: torch.Tensor,
-             steps: int = STEPS, lr: float = LR,
-             log_k0: Optional[torch.Tensor] = None,
-             step: Callable = fused_kappa_mse_step_mxu):
-    """``steps`` SGD steps on log κ from ``log_k0`` (zeros by default),
-    each one call of ``step`` (the K7 wrapper's signature).  Returns
-    (log κ (B,), the mean loss part of every step (steps,))."""
+             steps: int = STEPS, step: Callable = fused_kappa_mse_step_mxu):
+    """``steps`` SGD steps on log κ from zero, each one call of ``step``
+    (the K7 wrapper's signature).  Returns (log κ (B,), the mean loss part
+    of every step (steps,))."""
     B = u_data.shape[0]
     lanes = 1024 if B % 1024 == 0 else 128
     scale = 2.0 / mesh.n_nodes
-    lk = (torch.zeros(B, dtype=mesh.dtype, device=mesh.device)
-          if log_k0 is None else log_k0)
+    lk = torch.zeros(B, dtype=mesh.dtype, device=mesh.device)
     losses = []
     for _ in range(steps):
         loss_parts, g = step(mesh, lk, F, u_data, scale=scale,
                              block_lanes=lanes, version=2)
-        lk = lk - lr * g
+        lk = lk - LR * g
         losses.append(loss_parts.mean())
     return lk, torch.stack(losses)
 
 
-def main(batch: int = BATCH, steps: int = STEPS, device=None):
-    mesh = production_mesh(device)
+def main(batch: int = BATCH, steps: int = STEPS):
+    mesh = production_mesh()
     gen = torch.Generator(device=mesh.device).manual_seed(0)
     k_true = 1.0 + 2.0 * torch.rand(batch, generator=gen, device=mesh.device)
     F, u_data = production_data(mesh, k_true)
     sgd_loop(mesh, F, u_data, steps)              # first run builds
-    if mesh.device.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     lk, losses = sgd_loop(mesh, F, u_data, steps)
     err = float((torch.exp(lk) - k_true).abs().max())
     dt = time.perf_counter() - t0
-    where = (torch.cuda.get_device_name(mesh.device)
-             if mesh.device.type == "cuda" else "cpu")
-    print(f"{batch} scenarios x {steps} fused grad steps on {where}: "
+    print(f"{batch} scenarios x {steps} fused grad steps on "
+          f"{torch.cuda.get_device_name(mesh.device)}: "
           f"{dt:.3f} s ({batch * steps / dt:,.0f} grad-solves/s)")
     print(f"loss {float(losses[0]):.3e} -> {float(losses[-1]):.3e}")
     print(f"max |kappa - kappa_true| after {steps} SGD steps: {err:.2e}")

@@ -76,8 +76,10 @@ def _port_inputs(tm, f, ud, log_k, dtype=torch.float64):
 @pytest.fixture(scope="module")
 def jax_kernels():
     """K5a and K7 (versions 1-3, shared F, bf16 u_data) of the JAX package
-    in interpret mode, f64, 12 elements, nonzero Dirichlet, B = 7."""
+    in interpret mode, f64, 12 elements, nonzero Dirichlet, B = 7; and K7
+    version 3 in f32 (refine 2 and 3) on the same data."""
     jm, tm = _meshes(12, BC)
+    jm32, tm32 = _meshes(12, BC, torch.float32)
     f, ud, lk = _data(12, 7, seed=0, bc=BC)
 
     def run(f, ud, lk):
@@ -91,10 +93,17 @@ def jax_kernels():
             jm, lk, F[0], ud, block_lanes=128)
         out["bf16"] = jk7.fused_kappa_mse_step_mxu(
             jm, lk, F[0], ud, block_lanes=128, operand_dtype=jnp.bfloat16)
+        f32 = [a.astype(jnp.float32) for a in (f, ud, lk)]
+        F32 = jassemble_load(jm32, f32[0])
+        for r in (2, 3):
+            out[f"v3_f32_r{r}"] = jk7.fused_kappa_mse_step_mxu(
+                jm32, f32[2], F32, f32[1], block_lanes=128, version=3,
+                refine=r)
         return out
 
     ref = jax.jit(run)(*map(jnp.asarray, (f, ud, lk)))
-    return tm, _port_inputs(tm, f, ud, lk), ref
+    return (tm, _port_inputs(tm, f, ud, lk), ref,
+            (tm32, _port_inputs(tm32, f, ud, lk, torch.float32)))
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +120,7 @@ def xla_refs():
 
 
 def test_k5a_matches_jax_kernel(jax_kernels):
-    tm, (lk, F, ud), ref = jax_kernels
+    tm, (lk, F, ud), ref, _ = jax_kernels
     lp, gk = k5.fused_kappa_mse_step(tm, lk, F, ud)
     assert lp.shape == gk.shape == (7,)
     assert rel_err(lp, ref["k5a"][0]) <= PARITY
@@ -120,7 +129,7 @@ def test_k5a_matches_jax_kernel(jax_kernels):
 
 @pytest.mark.parametrize("case", ["v1", "v2", "v3", "shared", "bf16"])
 def test_k7_matches_jax_kernel(jax_kernels, case):
-    tm, (lk, F, ud), ref = jax_kernels
+    tm, (lk, F, ud), ref, _ = jax_kernels
     kw = {"v1": dict(version=1, refine=2), "v2": dict(version=2),
           "v3": dict(version=3, refine=2), "shared": {},
           "bf16": dict(operand_dtype=torch.bfloat16)}[case]
@@ -129,6 +138,20 @@ def test_k7_matches_jax_kernel(jax_kernels, case):
     assert lp.dtype == gk.dtype == torch.float64
     assert rel_err(lp, ref[case][0]) <= K7_JAX_KERNEL
     assert rel_err(gk, ref[case][1]) <= K7_JAX_KERNEL
+
+
+@pytest.mark.parametrize("refine", [2, 3])
+def test_k7_v3_f32_matches_jax_kernel(jax_kernels, refine):
+    """f32 version 3 against the JAX kernel's f32 version 3, at the JAX
+    tests' kernel-against-kernel tolerance: the port forms each refinement
+    residual in float64, the JAX body in float32, and the two agree to
+    within float32 rounding."""
+    _, _, ref, (tm, (lk, F, ud)) = jax_kernels
+    lp, gk = k7.fused_kappa_mse_step_mxu(tm, lk, F, ud, version=3,
+                                         refine=refine)
+    assert lp.dtype == gk.dtype == torch.float32
+    assert rel_err(lp, ref[f"v3_f32_r{refine}"][0]) < 1e-4
+    assert rel_err(gk, ref[f"v3_f32_r{refine}"][1]) < 1e-4
 
 
 @pytest.mark.parametrize("step", ["k5a", "k7v1", "k7v2", "k7v3"])

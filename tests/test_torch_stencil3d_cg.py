@@ -1,8 +1,11 @@
 """Parity of the plain versions of kernels K4a/K4b (the CPU path of
 ``ops/kernels/stencil3d_cg_kernel.py``) with the JAX package's Pallas
 whole-CG 3D kernels, run in interpret mode on the same numpy inputs (f64),
-on a non-cubic (nx, ny, nz) = (4, 3, 5) box with B = 3 scenarios."""
+on a non-cubic (nx, ny, nz) = (4, 3, 5) box with B = 3 scenarios.  The
+JAX side runs under ``jax.jit``, each function compiled once per launch
+shape and shared by the cases (eager calls compile every op)."""
 
+import functools
 import math
 
 import jax
@@ -27,11 +30,16 @@ BF16 = 1e-3
 NX, NY, NZ = 4, 3, 5
 
 
+@functools.cache
+def _jgrid():
+    return JGrid3.unit(NX, NY, NZ, (0.0, 1.0), (0.0, 0.75), (0.0, 1.25))
+
+
 def _problem(B=3, seed=0, g_nonzero=False):
     """Per-tet κ, forcing, Dirichlet values and observations as numpy
     f64 (B = None: one unbatched scenario)."""
     rng = np.random.default_rng(seed)
-    jg = JGrid3.unit(NX, NY, NZ, (0.0, 1.0), (0.0, 0.75), (0.0, 1.25))
+    jg = _jgrid()
     zs, ys, xs = (np.linspace(0.0, 1.0, n + 1) for n in (NZ, NY, NX))
     Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
     bump = np.sin(math.pi * X) * np.sin(math.pi * Y) * np.sin(math.pi * Z)
@@ -51,6 +59,26 @@ def _t(*arrays, grad=False):
     return [as_torch(a).requires_grad_(grad) for a in arrays]
 
 
+@functools.cache
+def _jsolve_value_and_grad(block_b):
+    """(Σ w·u, u) and its (κ, f, g) gradients through JAX's K4a route."""
+    def jloss(k_, f_, g_, w_):
+        u = jk.solve_structured_pallas_3d(_jgrid(), k_, f_, g_, ITERS,
+                                          block_b)
+        return jnp.sum(w_ * u), u
+    return jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                      has_aux=True))
+
+
+@functools.cache
+def _jfused_step():
+    """JAX's K4b step with its state, cold (state None) or warm."""
+    return jax.jit(lambda k_, f_, g_, ud_, state:
+                   jk.fused_kappa_mse_step_3d_pallas(
+                       _jgrid(), k_, f_, g_, ud_, iters=ITERS,
+                       warm_state=state, return_state=True))
+
+
 def _unfold(jx, B):
     """JAX's padded (Bp, Dz, HWp) kernel plane → (B, Dz, H, W)."""
     Dz, H, W = NZ + 1, NY + 1, NX + 1
@@ -62,15 +90,9 @@ def _unfold(jx, B):
 def test_solve_structured_kernel_3d_value_and_grad(block_b, g_nonzero):
     """Value and (κ, f, g) gradients of a weighted sum of u through K4a's
     plain version, against JAX's custom VJP through its kernel."""
-    jg, tg, k, f, g, _ = _problem(seed=1, g_nonzero=g_nonzero)
+    _, tg, k, f, g, _ = _problem(seed=1, g_nonzero=g_nonzero)
     w = np.random.default_rng(2).standard_normal(f.shape)
-
-    def jloss(k_, f_, g_):
-        u = jk.solve_structured_pallas_3d(jg, k_, f_, g_, ITERS, block_b)
-        return jnp.sum(jnp.asarray(w) * u), u
-
-    (_, ju), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
-                                         has_aux=True)(*_j(k, f, g))
+    (_, ju), jgrads = _jsolve_value_and_grad(block_b)(*_j(k, f, g, w))
     targs = _t(k, f, g, grad=True)
     tu = tk.solve_structured_kernel_3d(tg, *targs, iters=ITERS,
                                        block_b=block_b)
@@ -83,7 +105,8 @@ def test_solve_structured_kernel_3d_value_and_grad(block_b, g_nonzero):
 
 def test_solve_structured_kernel_3d_unbatched():
     jg, tg, k, f, g, _ = _problem(B=None, seed=4, g_nonzero=True)
-    ju = jk.solve_structured_pallas_3d(jg, *_j(k, f, g), 40, 1)
+    ju = jax.jit(lambda k_, f_, g_: jk.solve_structured_pallas_3d(
+        jg, k_, f_, g_, 40, 1))(*_j(k, f, g))
     tu = tk.solve_structured_kernel_3d(tg, *_t(k, f, g), iters=40)
     assert tu.shape == ju.shape == (NZ + 1, NY + 1, NX + 1)
     assert rel_err(tu, ju) <= PARITY
@@ -92,7 +115,9 @@ def test_solve_structured_kernel_3d_unbatched():
 def test_prepare3_and_fold_match_jax():
     jg, tg, k, f, g, _ = _problem(seed=5, g_nonzero=True)
     C, D, b, Minv, x0, B = tk._prepare3(tg, *_t(k, f, g))
-    jC, jD, jb, jM, jx0, jB, HW = jk._prepare3(jg, *_j(k, f, g))
+    jC, jD, jb, jM, jx0, jB, HW = jax.jit(
+        lambda k_, f_, g_: jk._prepare3(jg, k_, f_, g_))(*_j(k, f, g))
+    jB, HW = int(jB), int(HW)
     assert B == jB == 3 and HW == (NY + 1) * (NX + 1)
     assert rel_err(C, jC) <= PARITY
     assert D.shape == (7, 3, NZ + 1, NY + 1, NX + 1)
@@ -103,7 +128,8 @@ def test_prepare3_and_fold_match_jax():
     m = np.ones((NZ + 1, NY + 1, NX + 1))
     m[1:-1, 1:-1, 1:-1] = 0.0
     assert rel_err(tk._fold_bc_planes_3d(C, as_torch(m)),
-                   jk._fold_bc_planes_3d(jC, jnp.asarray(m))) <= PARITY
+                   jax.jit(jk._fold_bc_planes_3d)(jC, jnp.asarray(m))) \
+        <= PARITY
 
 
 @pytest.mark.parametrize("g_nonzero", [False, True], ids=["g0", "g"])
@@ -111,13 +137,11 @@ def test_fused_step_cold_then_warm(g_nonzero):
     """A cold K4b step, then the state threaded through two warm steps
     with SGD updates of κ between them; loss parts, ∂κ, u and the state
     against JAX's at every step."""
-    jg, tg, k, f, g, ud = _problem(seed=6, g_nonzero=g_nonzero)
+    _, tg, k, f, g, ud = _problem(seed=6, g_nonzero=g_nonzero)
     jkap, tkap = jnp.asarray(k), as_torch(k)
     jstate = tstate = None
     for _ in range(3):
-        jlp, jgk, ju, jstate = jk.fused_kappa_mse_step_3d_pallas(
-            jg, jkap, *_j(f, g, ud), iters=ITERS, warm_state=jstate,
-            return_state=True)
+        jlp, jgk, ju, jstate = _jfused_step()(jkap, *_j(f, g, ud), jstate)
         tlp, tgk, tu, tstate = tk.fused_kappa_mse_step_3d_kernel(
             tg, tkap, *_t(f, g, ud), iters=ITERS, warm_state=tstate,
             return_state=True)
@@ -132,8 +156,10 @@ def test_fused_step_cold_then_warm(g_nonzero):
 
 def test_fused_step_unbatched_and_default_scale():
     jg, tg, k, f, g, ud = _problem(B=None, seed=7, g_nonzero=True)
-    jlp, jgk, ju = jk.fused_kappa_mse_step_3d_pallas(
-        jg, *_j(k, f, g, 0.9 * ud), iters=24)
+    jlp, jgk, ju = jax.jit(lambda k_, f_, g_, ud_:
+                           jk.fused_kappa_mse_step_3d_pallas(
+                               jg, k_, f_, g_, ud_, iters=24))(
+        *_j(k, f, g, 0.9 * ud))
     tlp, tgk, tu = tk.fused_kappa_mse_step_3d_kernel(
         tg, *_t(k, f, g, 0.9 * ud), iters=24)
     assert tu.shape == ju.shape == (NZ + 1, NY + 1, NX + 1)
@@ -149,12 +175,13 @@ def test_bf16_coefficient_storage_matches_jax():
     jg, tg, k, f, g, ud = _problem(seed=8)
     w = np.random.default_rng(9).standard_normal(f.shape)
 
-    def jloss(k_):
-        u = jk.solve_structured_pallas_3d(jg, k_, *_j(f, g), 32, 1,
+    def jloss(k_, f_, g_):
+        u = jk.solve_structured_pallas_3d(jg, k_, f_, g_, 32, 1,
                                           jnp.bfloat16)
         return jnp.sum(jnp.asarray(w) * u), u
 
-    (_, ju), jgk = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(k))
+    (_, ju), jgk = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        *_j(k, f, g))
     tkap = as_torch(k).requires_grad_()
     tu = tk.solve_structured_kernel_3d(tg, tkap, *_t(f, g), iters=32,
                                        operand_dtype=torch.bfloat16)
@@ -162,8 +189,11 @@ def test_bf16_coefficient_storage_matches_jax():
     assert tu.dtype == torch.float64
     assert rel_err(tu, ju) <= BF16
     assert rel_err(tkap.grad, jgk) <= BF16
-    jlp, jgk2, _ = jk.fused_kappa_mse_step_3d_pallas(
-        jg, *_j(k, f, g, ud), iters=32, operand_dtype=jnp.bfloat16)
+    jlp, jgk2, _ = jax.jit(lambda k_, f_, g_, ud_:
+                           jk.fused_kappa_mse_step_3d_pallas(
+                               jg, k_, f_, g_, ud_, iters=32,
+                               operand_dtype=jnp.bfloat16))(
+        *_j(k, f, g, ud))
     tlp, tgk2, _ = tk.fused_kappa_mse_step_3d_kernel(
         tg, *_t(k, f, g, ud), iters=32, operand_dtype=torch.bfloat16)
     assert rel_err(tlp, jlp) <= BF16 and rel_err(tgk2, jgk2) <= BF16

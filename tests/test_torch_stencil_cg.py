@@ -82,7 +82,10 @@ def test_solve_structured_kernel_unbatched():
 def test_prepare_and_fold_match_jax():
     jg, tg, kl, f, g, _ = _problem(6, B=3, seed=5, g_nonzero=True)
     C, D, b, Minv, x0, B = tk._prepare(tg, _t(kl, 2 * kl), *_t(f, g))
-    jC, jD, jb, jM, jx0, jB, W = jk._prepare(jg, _j(kl, 2 * kl), *_j(f, g))
+    jC, jD, jb, jM, jx0, jB, W = jax.jit(
+        lambda klu, f_, g_: jk._prepare(jg, klu, f_, g_))(
+        _j(kl, 2 * kl), *_j(f, g))
+    jB, W = int(jB), int(W)
     assert B == jB == 3 and W == 7
     assert rel_err(C, jC) <= PARITY
     for t, j in ((D, jD[:, :, :, :W]), (b, jb[:, :, :W]),
@@ -93,7 +96,8 @@ def test_prepare_and_fold_match_jax():
     m[0, :] = m[-1, :] = m[:, 0] = m[:, -1] = 1.0
     folded = tk._fold_bc_planes(C, as_torch(m))
     assert folded.shape == (7, 3, 7, 7)
-    assert rel_err(folded, jk._fold_bc_planes(jC, jnp.asarray(m))) <= PARITY
+    assert rel_err(folded, jax.jit(jk._fold_bc_planes)(
+        jC, jnp.asarray(m))) <= PARITY
 
 
 @pytest.mark.parametrize("two_launch", [False, True],
