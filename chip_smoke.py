@@ -115,18 +115,49 @@ K6 (Thomas) and K7 (dense products with W = Ã⁻¹):
     ``torch.profiler`` split of one loop, and the registers and spills of
     the new kernels from the ``-Xptxas -v`` build log.
 
+The general-mesh path (κ-field inversion on a perturbed triangulation
+without a grid, scripts/probe_unstructured.py's workload: 64 × 64 quads
+split in two, interior nodes moved by U(±0.3h), 4225 nodes, 8192
+triangles, B = 256 scenarios), kernel K8 (the masked edge-ELL operator,
+the port of the TPU gather probe P1):
+
+21. K8 against its plain version on the card: P1's own shapes (n = 256,
+    8 indices a row, B = 8, unit weights, no diagonal, no mask) also
+    against u[idx].sum(1), the 64² triangulation (6 neighbour slots) at
+    B = 256, a perturbed 16³ box (14 slots) at B = 128 and a random
+    Dirichlet mask at B = 7: f32 by the rule of phase 7, f64 within 1e-12;
+22. the main path: u_data from the fixed-trip batched ELL solve (256
+    iterations), ``fit_kappa`` through the public entry point for 100 Adam
+    steps at its defaults (iters 128, lr 0.05): the path must be
+    'generic_ell_batchminor', the loss finite and the converged misfit
+    below half the first step's, and K8 launched (256 + 2) + 100 × (2 ×
+    128 + 3) + (256 + 2) times; the κ gradient of the batched MSE through
+    ``solve_poisson_cg_ell_batched`` (K8 forward and adjoint) held against
+    the same solve on the plain version by the rule of phase 7; 10 steps
+    on a perturbed 16³ box at B = 128; and ``fit_kappa`` on line meshes
+    the K1 kernel does not take (``FEMesh.line(300)`` in f32 and a float64
+    line), which must take the torch closed form with a falling loss and
+    no K1 launch;
+23. chained timing of K8 against its plain version, its bound and
+    ``torch.sparse.mm`` with the 0/1 adjacency in CSR (P1's unweighted
+    function) at 64², B = 256 and on a perturbed 256² triangulation at
+    B = 128 (66 049 nodes); host time of ``fit_kappa`` and a
+    ``torch.profiler`` split of a 10-step call.
+
 Each path's launch counts are set to 0 just before its main-path phases
-(4-5, 8, 11, 14, 18) and read just after; comparisons and timing do not
-count.  The
+(4-5, 8, 11, 14, 18, 22) and read just after; comparisons and timing do
+not count.  The
 third-to-last line is one JSON object describing each kernel, with its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (H100 SXM, fp32 outside the tensor cores).  The
 second-to-last line is the card's name and power limit; the last line is
 the ``ok`` JSON.
 
-Run: ``python3 chip_smoke.py`` from the repository root.
+Run: ``python3 chip_smoke.py [--seed N]`` from the repository root (the
+seed of the general-mesh path's node perturbation and data; default 0).
 """
 
+import argparse
 import json
 import math
 import subprocess
@@ -203,6 +234,24 @@ JAX_K2 = "difffe_tpu/ops/pallas/tridiag_kernel.py"
 # alpha, gamma (a negation and a division each) 4, a', c' 2, b', r' 8; one
 # division per row after the last sweep
 K2_OPS_PER_ROW_SWEEP = 14
+
+
+N_GEN = 64              # scripts/probe_unstructured.py's 64² triangulation
+BATCH_GEN = 256
+STEPS_GEN = 100
+ELL_ITERS = 128          # fit_kappa's edge-ELL default
+UDATA_ITERS = 256        # the u_data solve and the eval solve
+N_GEN_BIG = 256          # phase 23's larger triangulation
+BATCH_GEN_BIG = 128
+N_BOX_GEN = 16           # phase 21/22's perturbed box
+BATCH_BOX_GEN = 128
+K8_SOURCE = "difffe_tpu_torch/csrc/ell_apply.cu"
+P1_PROBE = "scripts/probe_mosaic_gather.py"
+# K8 operations per output value and neighbour slot, counted from
+# csrc/ell_apply.cu: p_j = 1 − m_j, p_j·v_j, the multiply-add (2); and per
+# output value p_i, p_i·v_i, diag·(p_i v_i), m_i·v_i, p_i·acc and the sum
+K8_OPS_PER_SLOT = 4
+K8_OPS_PER_VALUE = 6
 
 
 def log(*args):
@@ -1676,6 +1725,319 @@ def run_fused_1d(torch, dev, card):
     return entries
 
 
+def general_mesh(torch, dev, cells, dtype, seed):
+    """A factory rectangle or box on the unit square or cube with its
+    interior nodes moved by U(±0.3h) along each axis (h = 1/cells) from
+    ``seed``, built without a grid: the stencil routes would ignore moved
+    nodes."""
+    import numpy as np
+    from difffe_tpu_torch.mesh import FEMesh
+
+    f64 = torch.float64
+    base = (FEMesh.rectangle(*cells, dtype=f64, device="cpu")
+            if len(cells) == 2 else FEMesh.box(*cells, dtype=f64,
+                                               device="cpu"))
+    nodes = base.nodes.numpy().copy()
+    inner = base.bc_mask.numpy() < 0.5
+    rng = np.random.default_rng(seed)
+    nodes[inner] += rng.uniform(-0.3, 0.3, nodes[inner].shape) / np.asarray(
+        cells, np.float64)
+    return FEMesh.from_arrays(nodes, base.elements.numpy(),
+                              base.bc_mask.numpy(), base.bc_values.numpy(),
+                              device=dev, dtype=dtype)
+
+
+def k8_case(torch, mesh, B, gen, dtype):
+    """K8 operands (nbr, W, diag, m) of a mesh's tables at B scenarios of
+    per-element κ = 1 + U(0, 1)."""
+    from difffe_tpu_torch.ops.unstructured import build_ell, ell_weights_bm
+
+    ell = build_ell(mesh)
+    ke = 1.0 + torch.rand(mesh.n_elements, B, generator=gen, dtype=dtype,
+                          device=mesh.device)
+    W, diag = ell_weights_bm(mesh, ell, ke)
+    return ell, W, diag
+
+
+def k8_bound(n, Dn, B, item=4):
+    """(operations, bytes) of one K8 application."""
+    ops = n * B * (K8_OPS_PER_SLOT * Dn + K8_OPS_PER_VALUE)
+    nbytes = (n * Dn * B + 3 * n * B + n) * item + 4 * n * Dn
+    return ops, nbytes
+
+
+def reset_all_launches():
+    """Every kernel wrapper's launch count, set to 0; returns the dicts."""
+    from difffe_tpu_torch.ops.kernels import (ell_kernel, fused_grad_cf_kernel,
+                                              fused_grad_kernel,
+                                              fused_grad_mxu_kernel,
+                                              fused_grad_thomas_kernel,
+                                              stencil3d_cg_kernel,
+                                              stencil_cg_kernel,
+                                              tridiag_kernel)
+
+    counts = {}
+    for mod in (fused_grad_cf_kernel, tridiag_kernel, stencil_cg_kernel,
+                stencil3d_cg_kernel, fused_grad_kernel,
+                fused_grad_thomas_kernel, fused_grad_mxu_kernel, ell_kernel):
+        for key in mod.launches:
+            mod.launches[key] = 0
+        counts[mod.__name__.rsplit(".", 1)[1]] = mod.launches
+    return counts
+
+
+def check_only(counts, expected, what):
+    """Raise unless the launches since the reset are exactly ``expected``
+    ({module: {kernel: n}}; every other count 0)."""
+    for mod, d in counts.items():
+        for key, got in d.items():
+            want = expected.get(mod, {}).get(key, 0)
+            if got != want:
+                raise AssertionError(f"{what}: {mod}.{key} launched {got} "
+                                     f"times, expected {want}")
+
+
+def run_general(torch, dev, card, seed):
+    """Phases 21-23; returns the K8 entry of the kernels line."""
+    from difffe_tpu_torch import (build_ell, fit_kappa,
+                                  solve_poisson_cg_ell_batched)
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.ops import unstructured
+    from difffe_tpu_torch.ops.assembly import assemble_load
+    from difffe_tpu_torch.ops.kernels import ell_kernel as k8
+    from difffe_tpu_torch.solver import solve_poisson_batched
+
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+
+    # -- phase 21: K8 against its plain version
+    t0 = time.perf_counter()
+    n, D, B = 256, 8, 8                 # P1's VMEM array and index table
+    nbr = torch.randint(0, n, (n, D), generator=gen, device=dev,
+                        dtype=torch.int32)
+    cases = [("P1 n=256 D=8 B=8", nbr, torch.ones(n, D, B, dtype=f64,
+                                                  device=dev),
+              torch.zeros(n, B, dtype=f64, device=dev),
+              torch.zeros(n, dtype=f64, device=dev))]
+    mesh64 = general_mesh(torch, dev, (N_GEN, N_GEN), f64, seed)
+    ell, W, diag = k8_case(torch, mesh64, BATCH_GEN, gen, f64)
+    cases.append((f"{N_GEN}² triangulation B={BATCH_GEN}", ell.nbr, W, diag,
+                   mesh64.bc_mask))
+    mask = (torch.rand(mesh64.n_nodes, generator=gen, device=dev) < 0.3
+            ).to(f64)
+    cases.append((f"{N_GEN}² random mask B=7", ell.nbr,
+                  W[..., :7].contiguous(), diag[:, :7].contiguous(), mask))
+    box = general_mesh(torch, dev, (N_BOX_GEN,) * 3, f64, seed)
+    ellb, Wb, db = k8_case(torch, box, BATCH_BOX_GEN, gen, f64)
+    cases.append((f"{N_BOX_GEN}³ box B={BATCH_BOX_GEN}", ellb.nbr, Wb, db,
+                  box.bc_mask))
+    max_abs = 0.0
+    for tag, nbr_, W_, d_, m_ in cases:
+        v = torch.randn(nbr_.shape[0], W_.shape[2], generator=gen, dtype=f64,
+                        device=dev)
+        y64 = k8.ell_apply(nbr_, W_, d_, v, m_)
+        p64 = k8.ell_apply_plain(nbr_, W_, d_, v, m_)
+        a32 = [t.to(f32) for t in (W_, d_, v, m_)]
+        y32 = k8.ell_apply(nbr_, *a32)
+        p32 = k8.ell_apply_plain(nbr_, *a32)
+        torch.cuda.synchronize()
+        e64 = rel_err(y64, p64)
+        if not e64 <= 1e-12:
+            raise AssertionError(f"phase 21 {tag}: f64 rel err {e64:.3e}")
+        ek, ep = check_rule("K8", y32, p32, p64, f"phase 21 {tag}")
+        extra = ""
+        if tag.startswith("P1"):
+            want = v[nbr_.long()].sum(dim=1)
+            e_p1 = rel_err(y64, want)
+            if not e_p1 <= 1e-12:
+                raise AssertionError(f"phase 21 {tag}: vs u[idx].sum(1) "
+                                     f"{e_p1:.3e}")
+            extra = f", f64 vs u[idx].sum(1) {e_p1:.3e}"
+        if tag.startswith(f"{N_GEN}² triangulation"):
+            max_abs = float((y32.double() - p64).abs().max())
+        log(f"phase 21 K8 {tag} (Dn={nbr_.shape[1]}): f64 rel err "
+            f"{e64:.3e}; f32 kernel {ek:.3e} vs plain {ep:.3e}{extra}")
+    del cases, W, diag, Wb, db
+    torch.cuda.empty_cache()
+    log(f"phase 21 K8 vs plain: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 22: the main path
+    mesh = general_mesh(torch, dev, (N_GEN, N_GEN), f32, seed)
+    if mesh.grid is not None or (mesh.n_nodes, mesh.n_elements) != (
+            (N_GEN + 1) ** 2, 2 * N_GEN ** 2):
+        raise AssertionError(f"phase 22 mesh: {mesh}")
+    Bm = BATCH_GEN
+    k_true = 1.0 + torch.rand(Bm, mesh.n_elements, generator=gen,
+                              device=dev)
+    x = mesh.nodes
+    f = (2 * math.pi ** 2 * torch.sin(math.pi * x[:, 0])
+         * torch.sin(math.pi * x[:, 1])).expand(Bm, mesh.n_nodes)
+    t0 = time.perf_counter()
+    ell = build_ell(mesh)
+    log(f"phase 22 build_ell {mesh}: {time.perf_counter() - t0:.2f} s, "
+        f"Dn={ell.nbr.shape[1]}, T={ell.edge_w.shape[2]}, "
+        f"Di={ell.wdiag.shape[1]}")
+    FB = assemble_load(mesh, f)
+    counts = reset_all_launches()
+    with torch.no_grad():
+        u_data = solve_poisson_cg_ell_batched(mesh, ell, k_true, FB, 0.0,
+                                              UDATA_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kappa, info = fit_kappa(mesh, f, u_data, steps=STEPS_GEN)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    main_launches = counts["ell_kernel"]["ell_apply"]
+    want = (2 * (UDATA_ITERS + 2)
+            + STEPS_GEN * (2 * ELL_ITERS + 3))
+    check_only(counts, {"ell_kernel": {"ell_apply": want}}, "phase 22")
+    hist = info["loss_history"]
+    if info["path"] != "generic_ell_batchminor":
+        raise AssertionError(f"phase 22 path {info['path']}")
+    if not bool(torch.isfinite(hist).all() and torch.isfinite(kappa).all()):
+        raise AssertionError("phase 22: non-finite loss or κ")
+    loss0 = float(hist[0])
+    if not info["eval_loss"] < 0.5 * loss0:
+        raise AssertionError(f"phase 22: eval_loss {info['eval_loss']:.3e} "
+                             f"not below half of {loss0:.3e}")
+    log(f"phase 22 fit_kappa {STEPS_GEN} Adam steps, B={Bm}, iters "
+        f"{info['iters']}: path {info['path']}, loss {loss0:.6e} → "
+        f"{float(hist[-1]):.6e}, eval_loss {info['eval_loss']:.6e} "
+        f"({loss0 / info['eval_loss']:.1f}× lower); K8 launches "
+        f"{main_launches} (= 2 × ({UDATA_ITERS} + 2) + {STEPS_GEN} × "
+        f"(2 × {ELL_ITERS} + 3)), no other kernel; max |κ − κ_true| "
+        f"{float((kappa - k_true).abs().max()):.3e}; {t_fit:.3f} s, "
+        f"{t_fit / STEPS_GEN * 1e3:.3f} ms a step [{card}]")
+
+    # the κ gradient at fit_kappa's start (κ = 1) through K8 forward and
+    # adjoint against the plain version (the same solve with K8's plain
+    # version swapped in)
+    mesh_d = general_mesh(torch, dev, (N_GEN, N_GEN), f64, seed)
+    ell_d = build_ell(mesh_d)
+
+    def grad_through(m_, ell_, dt, plain):
+        k = torch.ones_like(k_true, dtype=dt).requires_grad_()
+        if plain:
+            unstructured._k8 = k8.ell_apply_plain
+        try:
+            u = solve_poisson_cg_ell_batched(m_, ell_, k, FB.to(dt), 0.0,
+                                             ELL_ITERS)
+            ((u - u_data.to(dt)) ** 2).mean().backward()
+        finally:
+            unstructured._k8 = k8.ell_apply
+        return u.detach(), k.grad
+
+    kern = grad_through(mesh, ell, f32, False)
+    p32 = grad_through(mesh, ell, f32, True)
+    p64 = grad_through(mesh_d, ell_d, f64, True)
+    for name, a, b, c in zip(("u", "κ gradient"), kern, p32, p64):
+        ek, ep = check_rule("K8", a, b, c, f"phase 22 {name}")
+        log(f"phase 22 {name} at κ = 1 through the batched ELL solve "
+            f"({ELL_ITERS} iterations): kernel {ek:.3e} vs plain f32 {ep:.3e} from the "
+            f"f64 plain run")
+    del mesh_d, ell_d, kern, p32, p64
+
+    boxm = general_mesh(torch, dev, (N_BOX_GEN,) * 3, f32, seed)
+    Bb = BATCH_BOX_GEN
+    xb = boxm.nodes
+    fb = (3 * math.pi ** 2 * torch.sin(math.pi * xb[:, 0])
+          * torch.sin(math.pi * xb[:, 1])
+          * torch.sin(math.pi * xb[:, 2])).expand(Bb, boxm.n_nodes)
+    kb = 1.0 + torch.rand(Bb, boxm.n_elements, generator=gen, device=dev)
+    with torch.no_grad():
+        ub = solve_poisson_cg_ell_batched(boxm, build_ell(boxm), kb,
+                                          assemble_load(boxm, fb), 0.0,
+                                          UDATA_ITERS)
+    _, info_b = fit_kappa(boxm, fb, ub, steps=10)
+    hb = info_b["loss_history"]
+    if info_b["path"] != "generic_ell_batchminor" or not (
+            bool(torch.isfinite(hb).all()) and float(hb[-1]) < float(hb[0])):
+        raise AssertionError(f"phase 22 box: {info_b['path']}, {hb}")
+    log(f"phase 22 fit_kappa 10 steps on a perturbed {N_BOX_GEN}³ box "
+        f"({boxm.n_nodes} nodes, {boxm.n_elements} tets), B={Bb}: loss "
+        f"{float(hb[0]):.6e} → {float(hb[-1]):.6e}, eval_loss "
+        f"{info_b['eval_loss']:.6e}")
+
+    for n_el, dt in ((300, f32), (30, f64)):
+        line = FEMesh.line(n_el, dtype=dt)
+        Bl = 1024
+        fl = (torch.sin(math.pi * line.nodes[:, 0]) + 1.0).expand(
+            Bl, n_el + 1)
+        kl = 1.0 + 2.0 * torch.rand(Bl, n_el, generator=gen, device=dev,
+                                    dtype=dt)
+        ul = solve_poisson_batched(line, kl, fl, method="tridiag")
+        counts = reset_all_launches()
+        _, info_l = fit_kappa(line, fl, ul, steps=128)
+        torch.cuda.synchronize()
+        check_only(counts, {}, f"phase 22 line({n_el}) {dt}")
+        hl = info_l["loss_history"]
+        if info_l["path"] != "cf_torch" or not (
+                bool(torch.isfinite(hl).all())
+                and bool(torch.all(hl[1:] < hl[:-1]))
+                and info_l["eval_loss"] < float(hl[0])):
+            raise AssertionError(f"phase 22 line({n_el}) {dt}: "
+                                 f"{info_l['path']}, {hl}")
+        log(f"phase 22 fit_kappa on FEMesh.line({n_el}) {dt}, B={Bl}, 128 "
+            f"steps: path {info_l['path']} (no K1 launch), loss "
+            f"{float(hl[0]):.6e} → {float(hl[-1]):.6e}, eval_loss "
+            f"{info_l['eval_loss']:.6e}")
+
+    # -- phase 23: timing
+    ms = {}
+    lib = {}
+    for cells, Bt in (((N_GEN, N_GEN), BATCH_GEN),
+                      ((N_GEN_BIG, N_GEN_BIG), BATCH_GEN_BIG)):
+        t0 = time.perf_counter()
+        m_ = mesh if cells[0] == N_GEN else general_mesh(torch, dev, cells,
+                                                         f32, seed)
+        ell_, W_, d_ = k8_case(torch, m_, Bt, gen, f32)
+        # scaled to a contraction, so chained values stay bounded (the
+        # work is the same)
+        rho = float((W_.abs().sum(dim=1) + d_.abs()).max())
+        W_, d_ = W_ / rho, d_ / rho
+        nbr_, mk = ell_.nbr, m_.bc_mask
+        v0 = torch.randn(m_.n_nodes, Bt, generator=gen, device=dev)
+        best = timed_pair(lambda c: k8.ell_apply(nbr_, W_, d_, c, mk),
+                          lambda c: k8.ell_apply_plain(nbr_, W_, d_, c, mk),
+                          v0, 8)
+        Dn = nbr_.shape[1]
+        valid = (torch.arange(Dn, device=dev) == 0) | (nbr_ != 0)
+        rows = torch.arange(m_.n_nodes, device=dev)[:, None].expand(
+            -1, Dn)[valid]
+        A = torch.sparse_coo_tensor(
+            torch.stack([rows, nbr_.long()[valid]]),
+            torch.full((int(valid.sum()),), 1.0 / Dn, device=dev),
+            (m_.n_nodes, m_.n_nodes)).coalesce().to_sparse_csr()
+        t_lib = timeit_chained_min(lambda c: torch.sparse.mm(A, c), v0,
+                                   length=8)
+        ops, nbytes = k8_bound(m_.n_nodes, Dn, Bt)
+        b_ms, b_by = bound(ops, nbytes)
+        key = f"{cells[0]}²"
+        ms[key], lib[key] = best, t_lib
+        log(f"phase 23 K8 at {key} ({m_.n_nodes} nodes, Dn={Dn}), B={Bt}, "
+            f"f32: kernel {best['kernel']:.4f} ms, plain "
+            f"{best['plain']:.4f} ms, torch.sparse.mm (CSR 0/1 adjacency, "
+            f"{int(valid.sum())} entries) {t_lib:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); kernel "
+            f"{nbytes / best['kernel'] / 1e6:.1f} GB/s; set-up "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        del ell_, W_, d_, A, v0
+        torch.cuda.empty_cache()
+    log(f"phase 23 fit_kappa host time, {STEPS_GEN} steps at {N_GEN}², "
+        f"B={Bm}: {t_fit:.4f} s, {t_fit / STEPS_GEN * 1e3:.3f} ms a step, "
+        f"{Bm * STEPS_GEN / t_fit:.6e} grad-solves/s [{card}]")
+    profile_split(torch, lambda: fit_kappa(mesh, f, u_data, steps=10,
+                                           eval_final=False),
+                  "phase 23", card, what=f"fit_kappa (10 steps, B={Bm})")
+
+    ops, nbytes = k8_bound(mesh.n_nodes, ell.nbr.shape[1], Bm)
+    key = f"{N_GEN}²"
+    return kernel_entry("ell_apply", K8_SOURCE,
+                        f"{P1_PROBE}:29 (try_kernel → pallas_call :31)",
+                        main_launches, max_abs, ms[key]["kernel"],
+                        ms[key]["plain"], ops, nbytes, lib[key])
+
+
 def timeit_chained_min(fn, x0, length=4):
     """Best chained ms per call of one function."""
     from difffe_tpu_torch.utils.profiling import timeit_chained
@@ -1684,6 +2046,11 @@ def timeit_chained_min(fn, x0, length=4):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the general-mesh path's perturbation "
+                             "and data")
+    seed = parser.parse_args().seed
     import torch
 
     if not torch.cuda.is_available():
@@ -1731,6 +2098,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += run_fused_1d(torch, dev, card)
     log(f"fused 1D path, phases 17-20: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.append(run_general(torch, dev, card, seed))
+    log(f"general-mesh path, phases 21-23: {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -29,7 +29,15 @@ Ported so far:
 * slice G, the fused 1D grad-step kernels — K5a/K5b
   (ops/kernels/fused_grad_kernel.py), K6 (fused_grad_thomas_kernel.py)
   and K7 (fused_grad_mxu_kernel.py), hand-written CUDA — and the
-  production κ-recovery loop on K7 (production.py).
+  production κ-recovery loop on K7 (production.py);
+* slice E, general meshes — the generic P1 triangle/tetrahedron
+  assembly with tensor κ (ops/assembly.py), matrix-free CG with its
+  implicit adjoint (ops/cg.py), edge Neumann/Robin terms, the edge-ELL
+  gather operator and its solves (ops/unstructured.py: ``build_ell``,
+  ``solve_poisson_cg_ell``, ``solve_poisson_cg_ell_batched``) with the
+  hand-written CUDA kernel K8 (ops/kernels/ell_kernel.py), the
+  ``dense``/``lu``/``cg`` routes on any mesh, and ``fit_kappa``'s
+  generic routes.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"`` in the mesh factories).
@@ -57,6 +65,9 @@ __all__ = [
     "solve_poisson_structured_3d_batched",
     "choose_3d_path",
     "choose_3d_grad_step",
+    "build_ell",
+    "solve_poisson_cg_ell",
+    "solve_poisson_cg_ell_batched",
 ]
 
 _STENCIL3D = ("StructuredGrid3", "solve_poisson_structured_3d",
@@ -88,6 +99,10 @@ def __getattr__(name):
     if name in _STENCIL3D:
         from .ops import stencil3d
         return getattr(stencil3d, name)
+    if name in ("build_ell", "solve_poisson_cg_ell",
+                "solve_poisson_cg_ell_batched"):
+        from .ops import unstructured
+        return getattr(unstructured, name)
     if name == "kappa_sgd_chain_cf":
         from .ops.kernels.fused_grad_cf_kernel import kappa_sgd_chain_cf
         return kappa_sgd_chain_cf

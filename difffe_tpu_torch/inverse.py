@@ -13,11 +13,13 @@ loss history stays on the device until the loop ends.
 On a ``FEMesh.line`` mesh (Dirichlet at both ends) ``fit_kappa``'s loop is
 SGD on κ with exact closed-form solves:
 
-* shared forcing → the K1 chain (ops/kernels/fused_grad_cf_kernel.py), 32
-  SGD steps per launch with κ held on the chip
-  (``info["path"] == "cf_chain_kernel"``);
-* per-scenario forcings → the torch closed form of ops/cf1d.py
-  (``info["path"] == "cf_torch"``).
+* shared forcing on a float32 mesh of at most ``MAX_ROWS`` (256) nodes →
+  the K1 chain (ops/kernels/fused_grad_cf_kernel.py), 32 SGD steps per
+  launch with κ held on the chip (``info["path"] == "cf_chain_kernel"``);
+* per-scenario forcings, and the meshes K1 does not take (more nodes,
+  another dtype) → the torch closed form of ops/cf1d.py
+  (``info["path"] == "cf_torch"``), decided from the mesh on every
+  device.
 
 On a ``FEMesh.rectangle`` mesh with its factory boundary the loop is SGD
 on the per-triangle κ planes, one fixed-trip warm-started gradient step
@@ -30,14 +32,17 @@ one K4b launch (ops/kernels/stencil3d_cg_kernel.py,
 ``info["path"] == "stencil3d_kernel"``); the final eval solve is one K4a
 launch.
 
-Any other line mesh takes the generic Adam field recovery
-(``recover_kappa_field``, ``info["path"] == "generic_adam"``).  Every
-other route of the JAX dispatcher raises ``NotImplementedError`` naming
-the slice that ports it.
+Any other 2D/3D mesh (no grid, or a replaced Dirichlet mask) with
+B ≥ 128 scenarios takes Adam on log κ through the batch-minor edge-ELL CG
+(ops/unstructured.py: every forward and adjoint CG iteration one launch of
+kernel K8; ``info["path"] == "generic_ell_batchminor"``).  Any other mesh
+takes the generic Adam field recovery (``recover_kappa_field``,
+``info["path"] == "generic_adam"``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -56,14 +61,15 @@ def fit_kappa(mesh: FEMesh, f, u_data, steps: int = 100,
 
     f, u_data : (B, n_nodes) batched forcings and observations (a single
         (n_nodes,) scenario is promoted to B = 1).
-    steps : SGD steps.  lr : SGD learning rate (1D and 2D default 30.0
-        with a per-scenario scale; 3D default 100·B/256, its loss being a
-        mean over the batch).  kappa0 : starting κ, broadcast to
-        (B, n_elements); default 1.
+    steps : optimizer steps.  lr : SGD learning rate (1D and 2D default
+        30.0 with a per-scenario scale; 3D default 100·B/256, its loss
+        being a mean over the batch); Adam's on the generic routes
+        (default 0.05).  kappa0 : starting κ, broadcast to (B, n_elements);
+        default 1.
     iters, warm : override the per-step CG iteration count (2D default
         32/8/4 by grid side ≤64/≤128/larger, 3D 32/100 by box side
-        ≤16/larger) and warm-start policy (default True in 2D, False in
-        3D).  block_b : passed to the 2D kernels (see
+        ≤16/larger, the edge-ELL route 128) and warm-start policy (default
+        True in 2D, False in 3D).  block_b : passed to the 2D kernels (see
         ops/kernels/stencil_cg_kernel.py; 1 above 64² grids).
     eval_final : run one exact solve at the final κ and report the mean
         squared misfit as ``info["eval_loss"]``.
@@ -78,10 +84,12 @@ def fit_kappa(mesh: FEMesh, f, u_data, steps: int = 100,
     grid = mesh.grid
     if grid is not None:
         # the structured loops assume the factory full-boundary Dirichlet
-        # mask; a replaced mask takes the generic routes
+        # mask; a replaced mask takes the generic routes, whose solves
+        # then assemble the mesh as it is
         from .solver import _mask_is_factory
         if not _mask_is_factory(mesh):
             grid = None
+            mesh = dataclasses.replace(mesh, grid=None)
 
     if mesh.dim == 1:
         from .ops.cf1d import mesh_supports_cf
@@ -90,10 +98,12 @@ def fit_kappa(mesh: FEMesh, f, u_data, steps: int = 100,
                                  eval_final)
         return _fit_kappa_generic(mesh, f, u_data, steps, lr, eval_final)
     if grid is None:
-        raise NotImplementedError(
-            "fit_kappa on a mesh without structured-grid metadata (or with "
-            "a non-factory Dirichlet mask) takes the generic edge-ELL/Adam "
-            "routes, not ported yet (slice E: general meshes)")
+        if f.shape[0] >= 128:
+            # the batch-minor edge-ELL CG once the batch fills the minor
+            # axis (the JAX package's measured boundary)
+            return _fit_kappa_ell(mesh, f, u_data, steps, lr, kappa0, iters,
+                                  eval_final)
+        return _fit_kappa_generic(mesh, f, u_data, steps, lr, eval_final)
     if mesh.dim == 2:
         return _fit_kappa_2d(mesh, grid, f, u_data, steps, lr, kappa0,
                              iters, warm, block_b, eval_final)
@@ -311,7 +321,8 @@ def _fit_kappa_1d(mesh, f, u_data, steps, lr, kappa0, eval_final):
     """1D per-element inversion on exact closed-form solves."""
     from .ops.assembly import assemble_load
     from .ops.cf1d import kappa_mse_step_cf, solve_poisson_cf_batched
-    from .ops.kernels.fused_grad_cf_kernel import (cf_packed_operands,
+    from .ops.kernels.fused_grad_cf_kernel import (chain_takes,
+                                                   cf_packed_operands,
                                                    cf_unpack)
 
     B = f.shape[0]
@@ -326,7 +337,9 @@ def _fit_kappa_1d(mesh, f, u_data, steps, lr, kappa0, eval_final):
                               device=mesh.device).expand(B, ne)
 
     f_shared = B == 1 or bool((f == f[:1]).all().item())
-    if f_shared:
+    # K1 takes float32 planes of at most MAX_ROWS rows; every other line
+    # mesh takes the torch closed form, whatever the device
+    if f_shared and chain_takes(mesh):
         Fs = assemble_load(mesh, f[0])
         bl = 2048 if B >= 2048 else 512
         keT, aux = cf_packed_operands(mesh, ke0, Fs, u_data, block_lanes=bl)
@@ -336,7 +349,7 @@ def _fit_kappa_1d(mesh, f, u_data, steps, lr, kappa0, eval_final):
         kappa = cf_unpack(keT, aux)
         path = "cf_chain_kernel"
     else:
-        FB = assemble_load(mesh, f)
+        FB = assemble_load(mesh, f[0] if f_shared else f)
         kappa, hist = ke0, []
         for _ in range(steps):
             lp, g = kappa_mse_step_cf(mesh, kappa, FB, u_data, scale=scale)
@@ -449,9 +462,50 @@ def recover_kappa_field(mesh: FEMesh, f, u_data, adam_steps: int = 500,
     return torch.exp(log_k.detach()), hist
 
 
+def _fit_kappa_ell(mesh, f, u_data, steps, lr, kappa0, iters, eval_final):
+    """Adam on log κ (optax's defaults, lr 0.05) through the fixed-trip
+    batch-minor edge-ELL CG (``iters`` 128 a solve); the converged check
+    runs max(2·iters, 256) iterations."""
+    from .ops.assembly import assemble_load
+    from .ops.unstructured import build_ell, solve_poisson_cg_ell_batched
+
+    B, ne = f.shape[0], mesh.n_elements
+    iters = 128 if iters is None else iters
+    lr = 0.05 if lr is None else lr
+    ell = build_ell(mesh)
+    FB = assemble_load(mesh, f)
+    if kappa0 is None:
+        log_k = torch.zeros((B, ne), dtype=mesh.dtype, device=mesh.device)
+    else:
+        log_k = torch.log(torch.as_tensor(
+            kappa0, dtype=mesh.dtype, device=mesh.device).expand(B, ne))
+    log_k = log_k.clone().requires_grad_()
+    opt = _adam([log_k], lr)
+    hist = []
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        u = solve_poisson_cg_ell_batched(mesh, ell, torch.exp(log_k), FB,
+                                         0.0, iters)
+        loss = ((u - u_data) ** 2).mean()
+        loss.backward()
+        opt.step()
+        hist.append(loss.detach())
+    hist = torch.stack(hist) if hist else log_k.new_zeros(0)
+    kappa = torch.exp(log_k.detach())
+    info = {"path": "generic_ell_batchminor", "iters": iters, "warm": None,
+            "loss_history": hist, "eval_loss": None}
+    if eval_final:
+        with torch.no_grad():
+            u = solve_poisson_cg_ell_batched(mesh, ell, kappa, FB, 0.0,
+                                             max(2 * iters, 256))
+            info["eval_loss"] = float(((u - u_data) ** 2).mean())
+    return kappa, info
+
+
 def _fit_kappa_generic(mesh, f, u_data, steps, lr, eval_final):
-    """The generic Adam field recovery, for line meshes the closed-form
-    chain does not take (``info["path"] == "generic_adam"``)."""
+    """The generic Adam field recovery (``info["path"] ==
+    "generic_adam"``): line meshes the closed-form chain does not take,
+    and 2D/3D meshes without a grid at B < 128."""
     kappa, hist = recover_kappa_field(mesh, f, u_data, adam_steps=steps,
                                       lr=lr if lr is not None else 0.05)
     info = {"path": "generic_adam", "iters": None, "warm": None,

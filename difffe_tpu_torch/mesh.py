@@ -259,15 +259,18 @@ class FEMesh:
                                              z_range))
 
     @classmethod
-    def line_p2(cls, *args, **kwargs) -> "FEMesh":
-        raise NotImplementedError(
-            "FEMesh.line_p2 is not ported yet (slice B, next PR: "
-            "ops/p2.py)")
+    def line_p2(cls, n_elements: int = 10, **kw) -> "FEMesh":
+        """Quadratic (P2) 1D mesh: 2N+1 nodes, elements (2i, 2i+1, 2i+2);
+        the keywords of :meth:`line`.  See ops/p2.py."""
+        from .ops.p2 import line_p2
+        return line_p2(n_elements, **kw)
 
     @classmethod
-    def rectangle_p2(cls, *args, **kwargs) -> "FEMesh":
-        raise NotImplementedError(
-            "FEMesh.rectangle_p2 is not ported yet (slice E: ops/p2.py)")
+    def rectangle_p2(cls, nx: int = 4, ny: int = 4, **kw) -> "FEMesh":
+        """Quadratic (P2) 2D triangulated grid (6-node triangles, no grid
+        metadata); the keywords of :meth:`rectangle`.  See ops/p2.py."""
+        from .ops.p2 import rectangle_p2
+        return rectangle_p2(nx, ny, **kw)
 
     # ------------------------------------------------------------------ misc
 

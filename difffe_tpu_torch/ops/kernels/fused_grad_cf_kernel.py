@@ -60,6 +60,19 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def packed_rows(n_nodes: int) -> int:
+    """Rows N of the packed planes for a mesh of ``n_nodes`` nodes."""
+    return _round_up(max(n_nodes, 8), 8)
+
+
+def chain_takes(mesh) -> bool:
+    """True when the CUDA K1 kernel takes this mesh's planes: float32 and
+    at most ``MAX_ROWS`` packed rows (the kernel's documented limits;
+    ``fit_kappa`` routes every other line mesh to the torch closed form)."""
+    return (mesh.dtype == torch.float32
+            and packed_rows(mesh.n_nodes) <= MAX_ROWS)
+
+
 def _check_via(cumsum_via: str):
     if cumsum_via not in ("mxu", "vpu"):
         raise ValueError(f"cumsum_via must be 'mxu' or 'vpu', got "
@@ -263,7 +276,7 @@ def cf_packed_operands(mesh, kappa_e, F, u_data, block_lanes: int = 512,
     kappa_e = torch.as_tensor(kappa_e, dtype=dtype, device=dev)
     B, ne = kappa_e.shape
     n = mesh.n_nodes
-    N = _round_up(max(n, 8), 8)
+    N = packed_rows(n)
     Bp = _round_up(max(B, block_lanes), block_lanes)
     cols = _cf_constants(mesh, F, dtype, N)
     u_data = torch.as_tensor(u_data, device=dev)

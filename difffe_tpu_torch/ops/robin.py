@@ -1,14 +1,13 @@
-"""Robin (third-kind) boundary conditions κ∂u/∂n + αu = r: the 1D point
-form.
+"""Robin (third-kind) boundary conditions κ∂u/∂n + αu = r.
 
-PyTorch counterpart of the point part of ``difffe_tpu/ops/robin.py``.  The
-Robin boundary adds ∮αuv ds to the stiffness and ∮rv ds to the load, kept
-as a COO triplet (rows, cols, vals) plus a load vector; α and r stay
+PyTorch counterpart of ``difffe_tpu/ops/robin.py``.  The Robin boundary
+adds ∮αuv ds to the stiffness and ∮rv ds to the load, kept as a COO
+triplet (rows, cols, vals) plus a load vector; α and r stay
 differentiable and may carry leading scenario-batch axes.  The 1D point
 form is diagonal-only, so it folds into the tridiagonal routes
-(``robin_diag``) as well as the dense ones (``robin_matrix_dense``).  The
-2D edge form (``robin_edges``) raises ``NotImplementedError`` naming the
-slice that ports it.
+(``robin_diag``) as well as the dense ones (``robin_matrix_dense``); the
+2D edge form is symmetric and feeds the dense routes and the matrix-free
+CG (``robin_apply``, ``robin_diag``).
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ import dataclasses
 import torch
 
 from ..mesh import FEMesh
+from .neumann import edge_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +54,33 @@ def robin_point(mesh: FEMesh, node: int, alpha, r) -> RobinBC:
 
 
 def robin_edges(mesh: FEMesh, edges, alpha, r_nodal) -> RobinBC:
-    raise NotImplementedError(
-        "2D edge Robin terms are not ported yet (slice C item 14: the "
-        "generalized-mask stencil solver; general meshes: slice E)")
+    """2D Robin over boundary edges (i, j): per P1 edge of length L the
+    boundary mass α·L/6·[[2,1],[1,2]] and the consistent load
+    L/6·[2r_i + r_j, r_i + 2r_j].  ``alpha``: scalar, per-edge (E,), or
+    batched (…, E) / (…, 1); ``r_nodal``: (…, n_nodes)."""
+    opts = dict(dtype=mesh.dtype, device=mesh.device)
+    edges = edge_index(mesh, edges)
+    E = edges.shape[0]
+    alpha = torch.as_tensor(alpha, **opts)
+    alpha = alpha.expand((E,) if alpha.ndim == 0
+                         else alpha.shape[:-1] + (E,))
+    r_nodal = torch.as_tensor(r_nodal, **opts)
+    i, j = edges[:, 0], edges[:, 1]
+    L = torch.linalg.vector_norm(mesh.nodes[j] - mesh.nodes[i], dim=-1)
+    m_diag = alpha * L / 3.0      # 2·L/6
+    m_off = alpha * L / 6.0
+    rows = torch.cat([i, j, i, j])
+    cols = torch.cat([i, j, j, i])
+    vals = torch.cat([m_diag, m_diag, m_off, m_off], dim=-1)
+    ri, rj = r_nodal[..., i], r_nodal[..., j]
+    lead = torch.broadcast_shapes(alpha.shape[:-1], r_nodal.shape[:-1])
+    load = torch.zeros(lead + (mesh.n_nodes,), **opts)
+    load = load.index_add(-1, i, (L / 6.0 * (2.0 * ri + rj)).expand(
+        lead + (E,)))
+    load = load.index_add(-1, j, (L / 6.0 * (ri + 2.0 * rj)).expand(
+        lead + (E,)))
+    return RobinBC(rows=rows, cols=cols,
+                   vals=vals.expand(lead + vals.shape[-1:]), load=load)
 
 
 def robin_matrix_dense(mesh: FEMesh, rb: RobinBC) -> torch.Tensor:

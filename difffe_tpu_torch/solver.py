@@ -1,4 +1,4 @@
-"""Solve −∇·(κ∇u) = f with Dirichlet BCs: the 1D and structured facade.
+"""Solve −∇·(κ∇u) = f with Dirichlet BCs: the differentiable facade.
 
 PyTorch counterpart of the ported subset of ``difffe_tpu/solver.py``:
 ``solve_poisson``, ``solve_poisson_batched`` with the JAX package's
@@ -7,8 +7,12 @@ PyTorch counterpart of the ported subset of ``difffe_tpu/solver.py``:
 * on 1D line meshes, the PCR tridiagonal solver (ops/tridiag.py), as
   elementwise sweeps (``method="tridiag"``) or on kernel K2
   (``method="tridiag_pallas"``, ops/kernels/tridiag_kernel.py), with
-  point Neumann loads and point Robin terms; or the dense Cholesky / LU
-  solves of ops/solve.py (``method="dense"`` / ``"lu"``);
+  point Neumann loads and point Robin terms;
+* on any mesh, the dense Cholesky / LU solves of ops/solve.py over the
+  generic assembly (``method="dense"`` / ``"lu"``) and the matrix-free
+  Jacobi-PCG of ops/cg.py (``method="cg"``), with scalar, field or tensor
+  κ, edge Neumann loads and edge Robin terms; ``method="auto"`` picks
+  dense up to 4096 nodes and cg above on meshes without a grid;
 * the structured stencil solver (ops/stencil.py) on ``FEMesh.rectangle``
   meshes with their factory Dirichlet boundary, and for fixed-trip batched
   solves (``cg_tol=0``, ``cg_maxiter ≤ 256``) the whole-CG kernel K3a
@@ -19,12 +23,14 @@ PyTorch counterpart of the ported subset of ``difffe_tpu/solver.py``:
   whole-CG kernel K4a (ops/kernels/stencil3d_cg_kernel.py), forward and
   adjoint.
 
-Every route not ported yet raises ``NotImplementedError`` naming the
-slice that ports it.
+Natural BCs and non-factory Dirichlet masks on rectangle meshes (the
+generalized-mask stencil solver) raise ``NotImplementedError`` naming the
+slice that ports them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -32,18 +38,13 @@ import numpy as np
 import torch
 
 from .mesh import FEMesh
+from .ops import cg as _cg
 from .ops import tridiag as _tridiag
 from .ops.assembly import (assemble_load, assemble_stiffness_dense,
                            assemble_tridiag_1d, element_family,
                            is_tensor_kappa, kappa_on_elements)
 from .ops.solve import solve_dense
 
-_UNPORTED_METHODS = {
-    "cg": "method='cg' is not ported yet (slice C item 14: ops/cg.py)",
-}
-_DENSE_2D = ("method='dense'/'lu' on 2D/3D meshes needs the generic P1 "
-             "triangle and tetrahedron assembly, not ported yet (slice E: "
-             "ops/assembly.py)")
 _NATURAL_2D = ("Neumann/Robin terms and non-factory Dirichlet masks on "
                "rectangle meshes take the generalized-mask stencil solver, "
                "not ported yet (slice C item 14: ops/stencil_natural.py)")
@@ -158,10 +159,8 @@ def _natural_1d(mesh: FEMesh, d, F, neumann, robin):
 
 
 def _dense_route(mesh: FEMesh, method, kappa, f, bc_values, neumann, robin):
-    """The dense routes on 1D meshes: 'dense' (Cholesky) and 'lu', one
-    factorization per scenario, batched over the leading axes."""
-    if mesh.dim != 1:
-        raise NotImplementedError(_DENSE_2D)
+    """The dense routes: 'dense' (Cholesky) and 'lu', one factorization
+    per scenario, batched over the leading axes."""
     K = assemble_stiffness_dense(mesh, kappa)
     F = assemble_load(mesh, f)
     if neumann is not None:
@@ -173,6 +172,22 @@ def _dense_route(mesh: FEMesh, method, kappa, f, bc_values, neumann, robin):
     return solve_dense(mesh, K, F,
                        factor="cholesky" if method == "dense" else "lu",
                        bc_values=bc_values)
+
+
+def _cg_route(mesh: FEMesh, kappa, f, cg_tol, cg_maxiter, bc_values,
+              neumann, robin):
+    """The matrix-free PCG route, batched over the leading axes of κ, f,
+    the Dirichlet values and the Neumann/Robin terms (per-scenario dots:
+    the scenarios are independent solves)."""
+    F = assemble_load(mesh, f)
+    if neumann is not None:
+        F = F + torch.as_tensor(neumann, dtype=mesh.dtype, device=mesh.device)
+    if bc_values is not None:
+        mesh = dataclasses.replace(mesh, bc_values=bc_values)
+    if robin is not None:
+        return _cg.solve_poisson_cg_robin(mesh, kappa, F, robin, cg_tol,
+                                          cg_maxiter)
+    return _cg.solve_poisson_cg(mesh, kappa, F, cg_tol, cg_maxiter)
 
 
 def _tridiag_route(mesh: FEMesh, method, kappa, f, bc_values, neumann,
@@ -201,13 +216,7 @@ def _require_stencil(mesh: FEMesh):
             "method='stencil' requires structured-grid metadata (a mesh "
             "built by FEMesh.rectangle or FEMesh.box whose Dirichlet set is "
             "the factory boundary); general meshes take method='cg' or "
-            "'dense' (slice E)")
-
-
-def _unknown_or_unported(method: str):
-    if method in _UNPORTED_METHODS:
-        raise NotImplementedError(_UNPORTED_METHODS[method])
-    raise ValueError(f"Unknown method {method!r}")
+            "'dense'")
 
 
 def solve_poisson(mesh: FEMesh, kappa, f, method: str = "auto",
@@ -216,18 +225,25 @@ def solve_poisson(mesh: FEMesh, kappa, f, method: str = "auto",
                   neumann=None, robin=None) -> torch.Tensor:
     """Solve −∇·(κ∇u) = f on ``mesh`` with its Dirichlet BCs.
 
-    kappa : scalar, (n_elements,) or (n_nodes,) diffusion coefficient.
+    kappa : scalar, (n_elements,) or (n_nodes,) diffusion coefficient; on
+        2D/3D P1 meshes also a diffusion tensor (d, d), (n_elements, d, d)
+        or (n_nodes, d, d) for the 'dense'/'lu'/'cg' routes ('auto' sends
+        it there).
     f : (n_nodes,) nodal forcing values.
-    method : 'auto' | 'tridiag' | 'tridiag_pallas' | 'dense' | 'lu' (1D)
-        | 'stencil' (rectangle and box meshes) are ported; 'cg', and
-        'dense'/'lu' on 2D/3D meshes, raise NotImplementedError.
-    cg_tol, cg_maxiter : the stencil route's CG policy (``_cg_policy``).
+    method : 'auto' | 'tridiag' | 'tridiag_pallas' (1D) | 'dense' | 'lu' |
+        'cg' | 'stencil' (rectangle and box meshes).  'auto' takes tridiag
+        on 1D chains, the stencil solvers on rectangle/box meshes (isotropic
+        κ), dense up to 4096 nodes and cg above otherwise.
+    cg_tol, cg_maxiter : the CG policy of the 'cg' and stencil routes
+        (``_cg_policy``).
     bc_values : optional (n_nodes,) override of the Dirichlet values.
     neumann : optional (n_nodes,) natural-BC load (ops/neumann.py), added
-        to F before Dirichlet elimination (1D routes).
-    robin : optional ops/robin.RobinBC (1D point Robin: every 1D route).
+        to F before Dirichlet elimination.
+    robin : optional ops/robin.RobinBC (1D point Robin: every 1D route;
+        edge Robin: 'dense', 'lu', 'cg').
 
-    Returns u (n_nodes,), differentiable wrt kappa, f and bc_values.
+    Returns u (n_nodes,), differentiable wrt kappa, f and bc_values, and on
+    the 'dense'/'lu'/'cg' routes wrt the node coordinates.
     """
     f = torch.as_tensor(f, dtype=mesh.dtype, device=mesh.device)
     natural = neumann is not None or robin is not None
@@ -250,9 +266,13 @@ def solve_poisson(mesh: FEMesh, kappa, f, method: str = "auto",
         return _solve_stencil(mesh, kappa, f, cg_tol, cg_maxiter,
                               neumann=neumann, robin=robin,
                               bc_values=bc_values)
+    if method == "cg":
+        cg_tol, cg_maxiter = _cg_policy(mesh, cg_tol, cg_maxiter)
+        return _cg_route(mesh, kappa, f, cg_tol, cg_maxiter, bc_values,
+                         neumann, robin)
     if method in ("dense", "lu"):
         return _dense_route(mesh, method, kappa, f, bc_values, neumann, robin)
-    _unknown_or_unported(method)
+    raise ValueError(f"Unknown method {method!r}")
 
 
 def _kappa_batched(mesh, kappa, kappa_batched, batch_sizes) -> bool:
@@ -300,10 +320,12 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
     package's batch-minor solve).
 
     On line meshes the 'tridiag' and 'tridiag_pallas' routes solve the
-    whole batch as one batched band solve, and 'dense'/'lu' as one batched
-    factorization (the JAX package ``vmap``s one solve per scenario there).
-    Point Neumann loads (B, n) and Robin terms with batched α / r are
-    scenario axes too.
+    whole batch as one batched band solve.  On any mesh 'dense'/'lu' solve
+    it as one batched factorization and 'cg' as one batched PCG with
+    per-scenario dots (the JAX package ``vmap``s one solve per scenario
+    there; a tol-gated batch runs until every scenario has converged, and
+    the converged ones keep iterating).  Neumann loads (B, n) and Robin
+    terms with batched α / r are scenario axes too.
     """
     _check_kw(kw)
     dt, dev = mesh.dtype, mesh.device
@@ -354,9 +376,14 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
     if method in ("tridiag", "tridiag_pallas"):
         return _tridiag_route(mesh, method, kappa, f, bc_values, nm, rb,
                               batched=True)
+    if method == "cg":
+        cg_tol, cg_maxiter = _cg_policy(mesh, kw.get("cg_tol"),
+                                        kw.get("cg_maxiter"))
+        return _cg_route(mesh, kappa, f, cg_tol, cg_maxiter, bc_values, nm,
+                         rb)
     if method in ("dense", "lu"):
         return _dense_route(mesh, method, kappa, f, bc_values, nm, rb)
-    _unknown_or_unported(method)
+    raise ValueError(f"Unknown method {method!r}")
 
 
 def _solve_batched_kernel(mesh, kappa, f, bc_values, iters):

@@ -21,14 +21,16 @@ from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
 from difffe_tpu_torch.ops.kernels import fused_grad_thomas_kernel as k6
 from difffe_tpu_torch.ops.kernels import stencil3d_cg_kernel as k4
 from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
+from difffe_tpu_torch.ops.kernels import ell_kernel as k8
 from difffe_tpu_torch.ops.kernels import tridiag_kernel as k2
+from difffe_tpu_torch.ops import unstructured as tun
 from difffe_tpu_torch.ops import tridiag as ttri
 from difffe_tpu_torch.ops.stencil import StructuredGrid, residual_vjp_manual
 from difffe_tpu_torch.ops.stencil3d import (StructuredGrid3,
                                             residual_vjp_manual_3d)
 from difffe_tpu_torch.solver import solve_poisson_batched
 from difffe_tpu_torch.utils.profiling import timeit_chained
-from torch_parity import rel_err
+from torch_parity import perturbed_nodes, rel_err
 
 pytestmark = pytest.mark.cuda
 
@@ -683,3 +685,161 @@ def test_production_loop_runs_on_k7(cuda):
     lk_p, losses_p = production.sgd_loop(mesh, F, ud, steps=40, step=plain)
     assert float(losses[-1]) < 1e-2 * float(losses[0])
     assert rel_err(torch.exp(lk), torch.exp(lk_p)) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# K8: the masked edge-ELL operator of the general-mesh CG (P1's gather-sum
+# at unit weights).  f32 by the rule of the whole-CG kernels, f64 within
+# 1e-12 of the plain version run on the card.
+# ---------------------------------------------------------------------------
+
+
+def _general_mesh(dev, cells, dtype=torch.float64, seed=0):
+    """A factory rectangle or box with its interior nodes moved by
+    U(±0.3h), as a mesh without a grid."""
+    base = (FEMesh.rectangle(*cells, dtype=torch.float64, device="cpu")
+            if len(cells) == 2 else
+            FEMesh.box(*cells, dtype=torch.float64, device="cpu"))
+    nodes = perturbed_nodes(base.nodes.numpy(), base.bc_mask.numpy(), cells,
+                            seed=seed)
+    return FEMesh.from_arrays(nodes, base.elements.numpy(),
+                              base.bc_mask.numpy(), base.bc_values.numpy(),
+                              device=dev, dtype=dtype)
+
+
+def _k8_operands(dev, case, B):
+    g = torch.Generator(device=dev).manual_seed(B)
+    if case == "p1":
+        n, D = 256, 8
+        nbr = torch.randint(0, n, (n, D), generator=g, device=dev,
+                            dtype=torch.int32)
+        W = torch.ones(n, D, B, dtype=torch.float64, device=dev)
+        diag = torch.zeros(n, B, dtype=torch.float64, device=dev)
+        m = torch.zeros(n, dtype=torch.float64, device=dev)
+    else:
+        mesh = _general_mesh(dev, (16, 16) if case != "tet" else (6, 6, 6))
+        ell = tun.build_ell(mesh)
+        ke = 1.0 + torch.rand(mesh.n_elements, B, generator=g, device=dev,
+                              dtype=torch.float64)
+        W, diag = tun.ell_weights_bm(mesh, ell, ke)
+        nbr, m = ell.nbr, mesh.bc_mask
+        if case == "mask":
+            m = (torch.rand(mesh.n_nodes, generator=g, device=dev) < 0.3
+                 ).double()
+    v = torch.randn(nbr.shape[0], B, generator=g, device=dev,
+                    dtype=torch.float64)
+    return nbr, W, diag, v, m
+
+
+@pytest.mark.parametrize("case,B", [("p1", 8), ("tri", 64), ("tet", 32),
+                                    ("mask", 7)])
+def test_k8_matches_plain(cuda, case, B):
+    nbr, W, diag, v, m = _k8_operands(cuda, case, B)
+    before = k8.launches["ell_apply"]
+    y64 = k8.ell_apply(nbr, W, diag, v, m)
+    p64 = k8.ell_apply_plain(nbr, W, diag, v, m)
+    args32 = [t.float() for t in (W, diag, v, m)]
+    y32 = k8.ell_apply(nbr, *args32)
+    p32 = k8.ell_apply_plain(nbr, *args32)
+    torch.cuda.synchronize()
+    assert k8.launches["ell_apply"] == before + 2
+    assert rel_err(y64, p64) <= 1e-12
+    ok, errs = _within_rule(y32, p32, p64)
+    assert ok, errs
+    if case == "p1":
+        assert rel_err(y64, v[nbr.long()].sum(dim=1)) <= 1e-12
+
+
+def test_k8_rejects_what_it_does_not_take(cuda):
+    nbr, W, diag, v, m = _k8_operands(cuda, "p1", 8)
+    with pytest.raises(ValueError, match="int32"):
+        k8.ell_apply(nbr.long(), W, diag, v, m)
+    with pytest.raises(ValueError, match="contiguous"):
+        k8.ell_apply(nbr, W, diag, v.t().contiguous().t(), m)
+    with pytest.raises(ValueError, match="dtype"):
+        k8.ell_apply(nbr, W.float(), diag, v, m)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        k8.ell_apply(nbr, W.half(), diag.half(), v.half(), m.half())
+
+
+def _ell_solve_grad(dev, dtype, iters, B):
+    """u and the κ gradient of the batched ELL solve's MSE on a perturbed
+    12² mesh, and the K8 launches it made."""
+    mesh = _general_mesh(dev, (12, 12), dtype=dtype, seed=1)
+    ell = tun.build_ell(mesh)
+    g = torch.Generator().manual_seed(3)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, dtype=torch.float64).to(
+            dev, dtype)
+
+    k = (1.0 + rand(B, mesh.n_elements)).requires_grad_()
+    F, ud = 0.01 * rand(B, mesh.n_nodes), 0.01 * rand(B, mesh.n_nodes)
+    before = k8.launches["ell_apply"]
+    u = tun.solve_poisson_cg_ell_batched(mesh, ell, k, F, 0.0, iters)
+    ((u - ud) ** 2).mean().backward()
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return (u.detach().cpu(), k.grad.cpu()), \
+        k8.launches["ell_apply"] - before
+
+
+def test_ell_batched_gradient_on_k8(cuda):
+    """The batched ELL solve and its κ gradient on the card (K8 forward
+    and adjoint, 2·iters + 3 launches) against the same solve on CPU
+    tensors (the plain version): f64 within 1e-10; f32 by the rule, with
+    the plain f32 and f64 runs on the CPU."""
+    iters, B = 64, 32
+    ref64, _ = _ell_solve_grad("cpu", torch.float64, iters, B)
+    ref32, _ = _ell_solve_grad("cpu", torch.float32, iters, B)
+    for dtype in (torch.float64, torch.float32):
+        got, launched = _ell_solve_grad(cuda, dtype, iters, B)
+        assert launched == 2 * iters + 3
+        for a, p32, p64 in zip(got, ref32, ref64):
+            if dtype == torch.float64:
+                assert rel_err(a, p64) <= 1e-10
+            else:
+                ok, errs = _within_rule(a, p32, p64)
+                assert ok, errs
+
+
+def test_fit_kappa_on_line_meshes_k1_does_not_take(cuda):
+    """F1: more than MAX_ROWS nodes in f32, and float64, take the torch
+    closed form; no K1 launch, a falling loss."""
+    for n, dtype in ((300, torch.float32), (30, torch.float64)):
+        mesh = FEMesh.line(n, dtype=dtype, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(n)
+        B = 256
+        f = (torch.sin(torch.pi * mesh.nodes[:, 0]) + 1.0).expand(B, n + 1)
+        ud = solve_poisson_batched(
+            mesh, 1.0 + 2.0 * torch.rand(B, n, generator=g, device=cuda,
+                                         dtype=dtype), f, method="tridiag")
+        before = dict(tk.launches)
+        kappa, info = fit_kappa(mesh, f, ud, steps=40)
+        assert info["path"] == "cf_torch"
+        assert tk.launches == before
+        hist = info["loss_history"]
+        assert torch.isfinite(kappa).all() and kappa.dtype == dtype
+        assert torch.all(hist[1:] < hist[:-1])
+        assert info["eval_loss"] < float(hist[0])
+
+
+def test_fit_kappa_ell_route_launches_k8(cuda):
+    mesh = _general_mesh(cuda, (8, 8), dtype=torch.float32, seed=2)
+    B, steps, iters = 128, 4, 16
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = mesh.nodes
+    f = (2 * math.pi ** 2 * torch.sin(math.pi * x[:, 0])
+         * torch.sin(math.pi * x[:, 1])).expand(B, -1)
+    ell = tun.build_ell(mesh)
+    kt = 1.0 + torch.rand(B, mesh.n_elements, generator=g, device=cuda)
+    ud = tun.solve_poisson_cg_ell_batched(mesh, ell, kt,
+                                          assemble_load(mesh, f), 0.0, 256)
+    before = k8.launches["ell_apply"]
+    kappa, info = fit_kappa(mesh, f, ud, steps=steps, iters=iters)
+    torch.cuda.synchronize()
+    assert info["path"] == "generic_ell_batchminor"
+    assert k8.launches["ell_apply"] == before + steps * (2 * iters + 3) \
+        + 256 + 2
+    assert torch.isfinite(kappa).all()
+    assert info["eval_loss"] < float(info["loss_history"][0])

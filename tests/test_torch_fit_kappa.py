@@ -60,7 +60,10 @@ def _problem(n=20, B=12, per_scenario_f=False, seed=0):
 
 
 @pytest.mark.parametrize("per_scenario_f,steps,path,n_hist", [
-    (False, 40, "cf_chain_kernel", 2),     # one launch of 32 + one of 8
+    # float64: K1 takes float32 planes only, so the shared forcing takes
+    # the torch closed form too, against the JAX chain of one launch of
+    # 32 steps and one of 8
+    (False, 40, "cf_torch", 40),
     (True, 30, "cf_torch", 30),
 ])
 def test_fit_kappa_matches_jax(jax_vpu_chain, per_scenario_f, steps, path,
@@ -70,13 +73,17 @@ def test_fit_kappa_matches_jax(jax_vpu_chain, per_scenario_f, steps, path,
                                  steps=steps)
     k_t, info_t = t_fit(tm, as_torch(f), as_torch(ud), steps=steps)
     assert info_t["path"] == path
-    assert info_j["path"] == {"cf_chain_kernel": "cf_chain_pallas",
-                              "cf_torch": "cf_xla"}[path]
+    assert info_j["path"] == ("cf_xla" if per_scenario_f
+                              else "cf_chain_pallas")
     assert set(info_t) == set(info_j)
     assert info_t["loss_history"].shape == (n_hist,)
     assert k_t.shape == (12, jm.n_elements)
     assert rel_err(k_t, k_j) <= PARITY
-    assert rel_err(info_t["loss_history"], info_j["loss_history"]) <= PARITY
+    hist_t = info_t["loss_history"]
+    if not per_scenario_f:
+        # the chain reports the loss of each launch's last inner step
+        hist_t = hist_t[[31, 39]]
+    assert rel_err(hist_t, info_j["loss_history"]) <= PARITY
     assert abs(info_t["eval_loss"] - info_j["eval_loss"]) <= \
         PARITY * info_j["eval_loss"]
     hist = info_t["loss_history"]
@@ -104,11 +111,14 @@ def test_fit_kappa_unported_routes_raise():
     _, info = t_fit(tm.with_dirichlet([5], 0.0), as_torch(f), as_torch(ud),
                     steps=2)
     assert info["path"] == "generic_adam"
-    tri = TMesh.from_arrays(np.array([[0., 0.], [1., 0.], [0., 1.]]),
-                            np.array([[0, 1, 2]]), np.ones(3), np.zeros(3),
+    # a triangle mesh without a grid: the generic routes (slice E)
+    tri = TMesh.from_arrays(np.array([[0., 0.], [1., 0.], [0., 1.],
+                                      [0.4, 0.3]]),
+                            np.array([[0, 1, 3], [1, 2, 3], [2, 0, 3]]),
+                            np.array([1., 1., 1., 0.]), np.zeros(4),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="slice E"):
-        t_fit(tri, torch.ones(3), torch.zeros(3), steps=2)
+    _, info = t_fit(tri, torch.ones(4), torch.zeros(4), steps=2)
+    assert info["path"] == "generic_adam"
 
 
 def test_bench_workload_small_batch(jax_vpu_chain):

@@ -180,9 +180,9 @@ def test_unported_2d_routes_raise():
     tm = port_mesh(jm)
     f = torch.ones(tm.n_nodes, dtype=torch.float64)
     eye = torch.eye(2, dtype=torch.float64)
-    # tensor κ leaves the stencil route for the generic assembly
-    with pytest.raises(NotImplementedError, match="slice"):
-        t_solve(tm, eye, f)
+    u_stencil = t_solve(tm, 1.0, f)
+    # tensor κ leaves the stencil route for the generic assembly (dense)
+    assert rel_err(t_solve(tm, eye, f), u_stencil) <= 1e-12
     with pytest.raises(ValueError, match="tensor-valued"):
         t_solve(tm, eye, f, method="stencil")
     with pytest.raises(NotImplementedError, match="slice C item 14"):
@@ -197,11 +197,15 @@ def test_unported_2d_routes_raise():
         t_solve(pinned, 1.0, f)
     with pytest.raises(NotImplementedError, match="slice C item 14"):
         t_solve_b(pinned, 1.0, f.expand(2, -1), cg_tol=0.0, cg_maxiter=8)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        t_fit(pinned, f, f, steps=2)
-    # with_dirichlet drops the grid: the generic routes, not ported yet
-    with pytest.raises(NotImplementedError, match="slice"):
-        t_solve(tm.with_dirichlet([6], 0.1), 1.0, f)
+    # fit_kappa drops the grid of a replaced mask: the generic routes
+    _, info = t_fit(pinned, f, f, steps=2)
+    assert info["path"] == "generic_adam"
+    # with_dirichlet drops the grid: the generic routes (slice E)
+    u_pin = t_solve(tm.with_dirichlet([6], 0.1), 1.0, f)
+    assert abs(float(u_pin[6]) - 0.1) <= 1e-14
+    assert rel_err(u_pin, t_solve(tm.with_dirichlet([6], 0.1), 1.0, f,
+                                  method="cg")) <= 1e-9
+    # the generic methods solve the stencil route's system
     for method in ("dense", "lu", "cg"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            t_solve(tm, 1.0, f, method=method)
+        assert rel_err(t_solve(tm, 1.0, f, method=method), u_stencil) \
+            <= 1e-9

@@ -100,8 +100,17 @@ def test_from_arrays_converter(nonuniform):
 
 @pytest.mark.parametrize("factory", ["line_p2", "rectangle_p2"])
 def test_unported_factories_raise(factory):
-    with pytest.raises(NotImplementedError, match="slice"):
-        getattr(TMesh, factory)(4, 4)
+    # ported with ops/p2.py (slice E): the same arrays as the JAX factory
+    args = (4,) if factory == "line_p2" else (4, 3)
+    jm = jax_mesh(getattr(JMesh, factory), *args, dtype=jnp.float64)
+    tm = getattr(TMesh, factory)(*args, dtype=F64, device="cpu")
+    assert tm.grid is None
+    # linspace may round the last bit differently in the two packages
+    np.testing.assert_allclose(tm.nodes.numpy(), np.asarray(jm.nodes),
+                               rtol=0, atol=1e-15)
+    for name in ("elements", "bc_mask", "bc_values"):
+        np.testing.assert_array_equal(getattr(tm, name).numpy(),
+                                      np.asarray(getattr(jm, name)))
 
 
 @pytest.mark.parametrize("kind", ["scalar", "element", "node", "batched"])
@@ -131,20 +140,24 @@ def test_assemble_load_and_bands(nonuniform):
     jd, je = jasm.assemble_tridiag_1d(jm, jnp.asarray(k))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), **TIGHT)
     np.testing.assert_allclose(te.numpy(), np.asarray(je), **TIGHT)
-    with pytest.raises(NotImplementedError, match="slice"):
+    assert tasm.element_family(TMesh.from_arrays(
+        np.zeros((6, 2)), np.array([[0, 1, 2, 3, 4, 5]]), np.ones(6),
+        np.zeros(6), device="cpu")) == "p2_tri"
+    with pytest.raises(NotImplementedError, match="unsupported"):
         tasm.element_family(TMesh.from_arrays(
-            np.zeros((6, 2)), np.array([[0, 1, 2, 3, 4, 5]]), np.ones(6),
-            np.zeros(6), device="cpu"))
+            np.zeros((4, 2)), np.array([[0, 1, 2, 3]]), np.ones(4),
+            np.zeros(4), device="cpu"))
     tet = TMesh.from_arrays(np.zeros((4, 3)), np.array([[0, 1, 2, 3]]),
                             np.ones(4), np.zeros(4), device="cpu")
     assert tasm.element_family(tet) == "p1_tet"
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tasm.assemble_load(tet, np.zeros(4))
+    # the generic assembly (slice E): degenerate elements add nothing
+    assert torch.all(tasm.assemble_load(tet, np.ones(4)) == 0)
     tri = TMesh.from_arrays(np.zeros((3, 2)), np.array([[0, 1, 2]]),
                             np.ones(3), np.zeros(3), device="cpu")
     assert tasm.element_family(tri) == "p1_tri"
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tasm.assemble_load(tri, torch.ones(3, dtype=F64))
+    assert torch.all(tasm.assemble_load(tri, torch.ones(3, dtype=F64)) == 0)
+    with pytest.raises(ValueError, match="P1 line"):
+        tasm.assemble_tridiag_1d(tri, 1.0)
 
 
 def _spd_bands(rng, B, n):
@@ -254,11 +267,9 @@ def test_facade_rules_and_unported_routes():
             jm, k, f, kappa_batched=True))(jnp.full((7,), 2.0),
                                            jnp.ones((7, 8)))), **TIGHT)
     u = t_solve(tm, 1.0, f[0])
-    for method in ("tridiag_pallas", "dense", "lu"):
+    for method in ("tridiag_pallas", "dense", "lu", "cg"):
         np.testing.assert_allclose(t_solve(tm, 1.0, f[0], method=method),
                                    u, rtol=1e-12, atol=1e-14)
-    with pytest.raises(NotImplementedError, match="slice C item 14"):
-        t_solve(tm, 1.0, f[0], method="cg")
     with pytest.raises(ValueError, match="structured-grid metadata"):
         t_solve(tm, 1.0, f[0], method="stencil")
     np.testing.assert_allclose(

@@ -259,29 +259,39 @@ def test_differentiable_fe_solver_matches_jax():
 def test_named_errors_of_what_stays_unported():
     mesh = _line(6)
     f = torch.ones(7, dtype=F64)
-    with pytest.raises(NotImplementedError, match="slice C item 14"):
-        t_solve(mesh, 1.0, f, method="cg")
+    # method='cg' (slice E): the matrix-free PCG solves the band system
+    assert rel_err(t_solve(mesh, 1.0, f, method="cg"),
+                   t_solve(mesh, 1.0, f)) <= 1e-12
     with pytest.raises(ValueError, match="Unknown method"):
         t_solve(mesh, 1.0, f, method="nope")
     rect = TMesh.rectangle(3, 3, dtype=F64, device="cpu")
+    f16 = torch.ones(16, dtype=F64)
     for method in ("dense", "lu"):
-        with pytest.raises(NotImplementedError, match="slice E"):
-            t_solve(rect, 1.0, torch.ones(16, dtype=F64), method=method)
-        with pytest.raises(NotImplementedError, match="slice E"):
-            t_solve_b(rect, 1.0, torch.ones(2, 16, dtype=F64),
-                      method=method)
+        # the generic assembly (slice E) solves the stencil's system
+        assert rel_err(t_solve(rect, 1.0, f16, method=method),
+                       t_solve(rect, 1.0, f16)) <= 1e-12
+        assert rel_err(t_solve_b(rect, 1.0, f16.expand(2, 16),
+                                 method=method)[1],
+                       t_solve(rect, 1.0, f16)) <= 1e-12
     for method in ("tridiag", "tridiag_pallas"):
         with pytest.raises(ValueError, match="requires a 1D mesh"):
-            t_solve(rect, 1.0, torch.ones(16, dtype=F64), method=method)
+            t_solve(rect, 1.0, f16, method=method)
     edge = trob.RobinBC(rows=torch.tensor([0, 1]), cols=torch.tensor([1, 0]),
                         vals=torch.ones(2, dtype=F64),
                         load=torch.zeros(7, dtype=F64))
     with pytest.raises(ValueError, match="diagonal-only"):
         t_solve(mesh, 1.0, f, method="tridiag_pallas", robin=edge)
-    for fn, args in ((trob.robin_edges, (rect, None, 1.0, None)),
-                     (tneu.edge_flux_load, (rect, None, None)),
-                     (tneu.boundary_edges, (rect,))):
-        with pytest.raises(NotImplementedError, match="slice C item 14"):
-            fn(*args)
-    with pytest.raises(NotImplementedError, match="slice B, next PR"):
-        TMesh.line_p2(4)
+    # the 2D edge helpers (slice E) on the rectangle's boundary
+    edges = tneu.boundary_edges(rect)
+    assert edges.shape == (12, 2)
+    assert abs(float(tneu.edge_flux_load(rect, edges, f16).sum()) - 4.0) \
+        <= 1e-12
+    rb = trob.robin_edges(rect, edges, 1.0, f16)
+    assert abs(float(rb.vals.sum()) - 4.0) <= 1e-12
+    # P2 lines (ops/p2.py) solve −u″ = 2 exactly, off the band routes
+    p2 = TMesh.line_p2(4, dtype=F64, device="cpu")
+    x2 = p2.nodes[:, 0]
+    assert rel_err(t_solve(p2, 1.0, 2.0 * torch.ones_like(x2)),
+                   x2 * (1 - x2)) <= 1e-12
+    with pytest.raises(ValueError, match="pentadiagonal"):
+        t_solve(p2, 1.0, torch.ones_like(x2), method="tridiag")

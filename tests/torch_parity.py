@@ -59,3 +59,31 @@ def port_mesh(jax_mesh, **kw) -> FEMesh:
                               np.asarray(jax_mesh.bc_mask),
                               np.asarray(jax_mesh.bc_values),
                               grid=port_grid(jax_mesh.grid), **kw)
+
+
+def perturbed_nodes(nodes, bc_mask, cells, jitter=0.3, seed=0):
+    """Node coordinates (numpy f64) of a unit rectangle or box with its
+    interior nodes moved by U(±jitter·h) along each axis, h = 1/cells."""
+    nodes = np.array(nodes, np.float64)
+    inner = np.asarray(bc_mask) < 0.5
+    rng = np.random.default_rng(seed)
+    h = 1.0 / np.asarray(cells, np.float64)
+    nodes[inner] += rng.uniform(-jitter, jitter, nodes[inner].shape) * h
+    return nodes
+
+
+def general_meshes(factory, *cells, jitter=0.3, seed=0, dtype=None):
+    """(JAX mesh, port mesh) of a ``difffe_tpu`` factory mesh
+    (``JMesh.rectangle`` / ``JMesh.box``) whose interior nodes are moved
+    (``perturbed_nodes``), built with ``grid=None`` on both sides:
+    ``dataclasses.replace(mesh, nodes=...)`` would keep the grid, and the
+    stencil routes would ignore the moved nodes."""
+    import jax.numpy as jnp
+
+    jm = jax_mesh(factory, *cells, dtype=dtype or jnp.float64)
+    nodes = perturbed_nodes(np.asarray(jm.nodes), np.asarray(jm.bc_mask),
+                            cells, jitter, seed)
+    jg = type(jm)(jnp.asarray(nodes, jm.dtype), jm.elements, jm.bc_mask,
+                  jm.bc_values)
+    assert jg.grid is None
+    return jg, port_mesh(jg)
