@@ -41,7 +41,7 @@ import torch
 from ..mesh import FEMesh
 from .assembly import kappa_on_elements, local_stiffness
 from .cg import _IFTSolve, jacobi
-from .kernels.ell_kernel import ell_apply as _k8
+from .kernels.ell_kernel import ell_apply as _k8, ell_apply_plain
 from .pcg import pcg
 from .solve import apply_dirichlet_operator, dirichlet_rhs
 
@@ -200,8 +200,9 @@ def ell_weights_bm(mesh: FEMesh, ell: ELL, keB: torch.Tensor):
 
 def ell_apply_bm(ell: ELL, W: torch.Tensor, diag: torch.Tensor,
                  u: torch.Tensor) -> torch.Tensor:
-    """K·u of batch-minor state, u (n, B) → (n, B), unmasked."""
-    return diag * u + (W * u[ell.nbr]).sum(dim=1)
+    """K·u of batch-minor state, u (n, B) → (n, B), unmasked: K8's plain
+    version with no mask."""
+    return ell_apply_plain(ell.nbr, W, diag, u, u.new_zeros(u.shape[0]))
 
 
 def _ell_bm_prep(mesh: FEMesh, kappa, F):
