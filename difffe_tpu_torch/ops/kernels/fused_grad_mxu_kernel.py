@@ -27,8 +27,10 @@ runs one scenario per thread; the plain PyTorch version below, taken only
 for CPU tensors, uses ``torch.matmul``.  Meshes above ``MXU_MAX_NODES``
 nodes go to kernel K5a (``fused_grad_kernel.fused_kappa_mse_step``), as in
 the JAX module.  The TPU's probe-only ablation switches (``_V2_PRECISION``,
-``_V2_SKIP_MATMUL``) test its matrix unit's precision and have no
-counterpart here.  Not differentiable: it is the gradient step.
+``_V2_SKIP_MATMUL``) are not carried over: K7's ablations, the port of the
+TPU probe ``scripts/probe_mxu_kernel.py``, are kernels of their own
+(``difffe_tpu_torch/probes/k7_ablation.py``, ``csrc/k7_ablation.cu``).
+Not differentiable: it is the gradient step.
 """
 
 from __future__ import annotations
