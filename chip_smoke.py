@@ -2211,6 +2211,7 @@ def run_ablation(torch, dev, card):
     Wt = k7.mxu_inverse(mesh).T
     Wt = (Wt / Wt.abs().sum(0).max()).contiguous()   # a contraction
     cublas = {}
+    tf32_before = torch.backends.cuda.matmul.allow_tf32
     for label, x0, w in (("f32", X, Wt), ("tf32", X, Wt),
                          ("bf16", X.bfloat16(), Wt.bfloat16())):
         torch.backends.cuda.matmul.allow_tf32 = label == "tf32"
@@ -2219,7 +2220,7 @@ def run_ablation(torch, dev, card):
                 lambda c: torch.matmul(c, w), x0, length=ab.STEPS,
                 repeats=3).min_s * 1e3
         finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = tf32_before
     log(f"phase 24 cuBLAS torch.matmul(X, W.T), X ({B}, {n}), W ({n}, {n}): "
         + ", ".join(f"{k} {t:.4f} ms" for k, t in cublas.items())
         + f" [{card}]")
