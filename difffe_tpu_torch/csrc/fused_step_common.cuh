@@ -62,9 +62,10 @@ __device__ __forceinline__ T load(const S* p, long long i) {
 
 constexpr int kMaxDevices = 64;
 
-// The most dynamic shared memory one block may use on the current device
-// (0 when the device cannot be queried), asked once per device.
-inline int smem_optin_bytes() {
+// The device attribute `Attr` of the current device (0 when the device
+// cannot be queried), asked once per device and attribute.
+template <cudaDeviceAttr Attr>
+inline int device_attribute() {
   static std::atomic<int> cached[kMaxDevices];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 0;
@@ -72,12 +73,16 @@ inline int smem_optin_bytes() {
     const int known = cached[dev].load(std::memory_order_relaxed);
     if (known > 0) return known;
   }
-  int bytes = 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  if (dev < kMaxDevices) cached[dev].store(bytes, std::memory_order_relaxed);
-  return bytes;
+  int value = 0;
+  if (cudaDeviceGetAttribute(&value, Attr, dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices) cached[dev].store(value, std::memory_order_relaxed);
+  return value;
+}
+
+// The most dynamic shared memory one block may use on the current device
+// (0 when the device cannot be queried).
+inline int smem_optin_bytes() {
+  return device_attribute<cudaDevAttrMaxSharedMemoryPerBlockOptin>();
 }
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory on `stream`;

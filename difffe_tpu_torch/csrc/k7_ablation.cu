@@ -79,8 +79,10 @@
 // kappa, u_data, loss, gradient): 155 MB, 0.046 ms at 3.35 TB/s; A and F
 // do 2 * 2 n^2 + 12 n + 3 operations a scenario, 0.132 ms at 67 TFLOP/s
 // f32, so they are bound by operations; B and C put the products on the
-// tensor cores, B's three passes at 495 TFLOP/s TF32 (0.061 ms with the
-// row work at 67), C's one at 989 bf16, which leaves C bound by bytes.
+// tensor cores, which run beside the f32 pipes, so their operations take
+// the larger of the products' time and the row work's (0.012 ms at 67):
+// B's three passes at 495 TFLOP/s TF32, 0.049 ms, leave B bound by
+// operations; C's one at 989 bf16, 0.008 ms, leaves C bound by bytes.
 
 #include "fused_step_common.cuh"
 
@@ -578,22 +580,6 @@ tc_kernel(const float* __restrict__ lk, long long sL,
 // launch
 // ---------------------------------------------------------------------------
 
-inline int sm_count() {
-  static std::atomic<int> cached[kMaxDevices];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 0;
-  if (dev < kMaxDevices) {
-    const int known = cached[dev].load(std::memory_order_relaxed);
-    if (known > 0) return known;
-  }
-  int sms = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-      cudaSuccess)
-    return 0;
-  if (dev < kMaxDevices) cached[dev].store(sms, std::memory_order_relaxed);
-  return sms;
-}
-
 template <typename T, typename TU>
 int launch_t(int variant, const void* lk, long long sL, const void* F,
              const void* ud, long long sU, const void* cols, const void* W,
@@ -628,7 +614,9 @@ int launch_t(int variant, const void* lk, long long sL, const void* F,
     // B, C: a warp a tile of 16 scenarios, grid-stride over the tiles
     const long long tiles = (static_cast<long long>(B) + 15) / 16;
     const long long need = (tiles + kBlock / 32 - 1) / (kBlock / 32);
-    const long long cap = 16LL * (sm_count() > 0 ? sm_count() : 132);
+    const int sms = device_attribute<cudaDevAttrMultiProcessorCount>();
+    if (sms <= 0) return cudaErrorInvalidDevice;
+    const long long cap = 16LL * sms;
     const int tc_blocks = static_cast<int>(need < cap ? need : cap);
     auto kern = variant == kB
                     ? (np == 16 ? tc_kernel<TU, kB, 2> : tc_kernel<TU, kB, 4>)
@@ -646,20 +634,20 @@ int launch_t(int variant, const void* lk, long long sL, const void* F,
 // (n,); u_data (B, n) rows with unit stride along n and batch stride sU,
 // stored as the compute type (u_code 0) or bf16 (1); cols the (8, n)
 // unit-kappa block; W (n, n) row-major.  Writes loss (B,) and grad (B,).
-// float32, or float64 when `is_double` (D, E, F and A1 only).  `pad` is the
-// padded size NP, 16 or 32, or 0 for the least that holds n.  Returns
+// float32, or float64 when `is_double` (D, E, F and A1 only).  B, C and F
+// pad n to NP = 16 or 32, the least that holds it.  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for what
 // the kernels do not take.
 extern "C" int difffe_k7_ablation(int variant, const void* lk, long long sL,
                                   const void* F, const void* ud,
                                   long long sU, int u_code, const void* cols,
                                   const void* W, void* loss, void* grad,
-                                  int B, int n, int pad, double scale,
+                                  int B, int n, double scale,
                                   int is_double, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int np = pad != 0 ? pad : (n <= 16 ? 16 : 32);
+  const int np = n <= 16 ? 16 : 32;
   if (variant < kB || variant > kA1 || B < 1 || n < 1 || n > kMaxNodes ||
-      (np != 16 && np != 32) || n > np || u_code < 0 || u_code > 1 ||
+      u_code < 0 || u_code > 1 ||
       (is_double && (variant == kB || variant == kC)))
     return cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;

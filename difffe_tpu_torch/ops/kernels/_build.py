@@ -57,7 +57,7 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _D, _I, _P],
     "difffe_ell_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "difffe_k7_ablation": [_I, _P, _L, _P, _P, _L, _I, _P, _P, _P, _P, _I,
-                           _I, _I, _D, _I, _P],
+                           _I, _D, _I, _P],
 }
 # entry points that return a count, not a CUDA error code
 _RESTYPES = {"difffe_fused_pcr_workspace": _L,

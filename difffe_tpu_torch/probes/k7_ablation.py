@@ -160,9 +160,8 @@ def rule_slack(variant: str, n: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _launch(variant: str, log_k, F, ud, cols, W, scale: float, pad: int = 0):
-    """One launch of ``variant``'s kernel; ``pad`` forces the padded size
-    (16 or 32; 0 takes the least that holds n)."""
+def _launch(variant: str, log_k, F, ud, cols, W, scale: float):
+    """One launch of ``variant``'s kernel."""
     from ..ops.kernels._build import load_library
 
     dtype, dev = log_k.dtype, log_k.device
@@ -183,7 +182,7 @@ def _launch(variant: str, log_k, F, ud, cols, W, scale: float, pad: int = 0):
         rc = lib.difffe_k7_ablation(
             _CODES[variant], lk.data_ptr(), sL, F.data_ptr(), ud.data_ptr(),
             sU, u_code, cols.data_ptr(), W.data_ptr(), loss.data_ptr(),
-            grad.data_ptr(), B, n, int(pad), float(scale),
+            grad.data_ptr(), B, n, float(scale),
             int(dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
