@@ -28,27 +28,34 @@ structured-grid config of BASELINE.json, B = 4096 scenarios), kernels K3a
 
 7. K3a and K3b against their plain versions on the card at 8² (B = 7),
    64² (B = 4096) and 256² (B = 64), cold and warm, zero and nonzero
-   Dirichlet values.  f32 CG amplifies summation-order differences, so the
-   kernel is held against the plain version run in f64 on the card: its
-   relative max error on x, λ and the κ gradient may be at most twice the
-   f32 plain version's error against the same f64 run, plus 1e-6;
+   Dirichlet values, K3b on the route its plan picks (printed with C and
+   the bytes a block) and on the workspace route (the first design)
+   forced, two launches equal bit for bit.  f32 CG amplifies
+   summation-order differences, so the kernel is held against the plain
+   version run in f64 on the card: its relative max error on x, λ and the
+   κ gradient may be at most twice the f32 plain version's error against
+   the same f64 run, plus 1e-6;
 8. the main path: u_data from the fixed-trip batched solve (K3a),
    ``fit_kappa`` for 100 steps at lr = 300 (one K3b launch each; the
    converged misfit must fall below half the first step's), and the κ
    gradient of Σu² through the fixed-trip batched solve (K3a forward and
    adjoint) held against the plain version by the rule of phase 7;
-9. chained timing of K3b and K3a against their plain versions, host time of
-   ``fit_kappa`` and a ``torch.profiler`` split of one call.
+9. chained timing of K3b and K3a against their plain versions; K3b on its
+   plan's route against the workspace route in turns, at every cluster
+   size that fits, and at twice the iterations (one CG iteration's time);
+   host time of ``fit_kappa`` and a ``torch.profiler`` split of one call.
 
 The 3D path (κ-field inversion on ``FEMesh.box(32, 32, 32)``, B = 128
 scenarios, the README's 32³ configuration at the κ-safe 100 iterations),
 kernels K4a (whole-CG solve) and K4b (forward + MSE cotangent + adjoint CG):
 
 10. K4a and K4b against their plain versions on the card at (nx, ny, nz) =
-    (4, 4, 4) B = 5, (12, 9, 6) B = 7, 16³ B = 256 (CG vectors in shared
-    memory) and 32³ B = 128 (global workspace), cold and warm, zero and
-    nonzero Dirichlet values, and at 16³ with bf16 coefficient storage, by
-    the rule of phase 7;
+    (4, 4, 4) B = 5, (12, 9, 6) B = 7, 16³ B = 256, 32³ B = 128 and 48³
+    B = 2, cold and warm, zero and nonzero Dirichlet values, and at 16³
+    with bf16 coefficient storage, by the rule of phase 7; K4b on the
+    route its plan picks (printed; 48³ takes the workspace route) and,
+    where that is the cluster route, on the workspace route forced, two
+    launches equal bit for bit;
 11. the main path: u_data from the fixed-trip batched solve (one K4a
     launch), ``fit_kappa`` with its default policy (100 steps of one K4b
     launch, 100 cold iterations each, then one K4a eval launch) at
@@ -56,7 +63,8 @@ kernels K4a (whole-CG solve) and K4b (forward + MSE cotangent + adjoint CG):
     the κ gradient of Σu²
     through the fixed-trip batched solve (K4a forward and adjoint) held by
     the rule of phase 7;
-12. chained timing of K4b and K4a against their plain versions, host time
+12. chained timing of K4b and K4a against their plain versions; K4b on
+    its plan's route against the workspace route as in phase 9; host time
     of ``fit_kappa`` (at its default lr, whose misfit it logs) with and
     without its eval solve, and a ``torch.profiler`` split of one call.
 
@@ -238,7 +246,7 @@ K4A_ITERS = 400          # the u_data solve and K4a's timed workload
 LR_3D = 1e7
 # phase 10: (nx, ny, nz, B); the non-cubic grids catch a transposed axis
 K4_CASES = ((4, 4, 4, 5), (12, 9, 6, 7), (16, 16, 16, 256),
-            (N_3D, N_3D, N_3D, BATCH_3D))
+            (N_3D, N_3D, N_3D, BATCH_3D), (48, 48, 48, 2))
 K4_SOURCE = "difffe_tpu_torch/csrc/stencil3d_cg.cu"
 JAX_K4 = "difffe_tpu/ops/pallas/stencil3d_cg_kernel.py"
 # K4 operations per node per CG iteration (stencil3d_cg_kernel.py:159):
@@ -547,18 +555,91 @@ def profile_split(torch, fn, label, card, what="fit_kappa"):
         log(f"  {t:9.2f} ms {100 * t / busy:5.1f}% x{count:<5d} {key[:90]}")
 
 
+def plan_text(plan):
+    """A K3b/K4b plan as one log phrase."""
+    if plan.route == "workspace":
+        return ("route workspace (one block a scenario, CG vectors in a "
+                "global workspace)")
+    return (f"route cluster, C = {plan.cluster}, {plan.block_bytes} bytes "
+            f"a block, {plan.threads} threads, {plan.blocks_per_sm} blocks "
+            f"an SM by shared memory")
+
+
+def workspace_route(launch, nodes):
+    """The K3b/K4b wrapper ``launch`` pinned to the workspace route."""
+    from difffe_tpu_torch.ops.kernels.stencil_cg_kernel import workspace_plan
+
+    ws = workspace_plan(nodes)
+    return lambda *args: launch(*args, plan=ws)
+
+
+def route_timing(label, launch, operands, state0, iters, shape, planes,
+                 item, B, capacity, card, length):
+    """K3b or K4b at the main path's workload on both routes, in one run:
+    the plan's route against the workspace route (the first design) in
+    turns (workspace, plan, plan, workspace), every cluster size whose
+    block fits, and the plan's route at twice the iterations, whose
+    difference gives one CG iteration's time.  ``launch(D, b, Minv, x0,
+    lam0, ud, scale, iters, plan=)`` is the wrapper, ``operands`` (D, b,
+    Minv, ud, scale), ``capacity(C, threads)`` the card's clusters at once.
+    Logs; returns (plan ms, workspace ms)."""
+    from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
+    from difffe_tpu_torch.utils.profiling import timeit_chained
+
+    D, b, Minv, ud, scale = operands
+    nodes, limit = math.prod(shape), sk.smem_optin(0)
+    plan = sk.cluster_plan(nodes, planes, item, limit)
+
+    def timed(p, n_iters=iters):
+        return timeit_chained(
+            lambda s: launch(D, b, Minv, *s, ud, scale, n_iters, plan=p),
+            state0, length=length, repeats=2).min_s * 1e3
+
+    best = {"plan": float("inf"), "workspace": float("inf")}
+    for which in ("workspace", "plan", "plan", "workspace"):
+        p = plan if which == "plan" else sk.workspace_plan(nodes)
+        best[which] = min(best[which], timed(p))
+    where = f"{'x'.join(map(str, shape))} nodes, B={B}, 2 x {iters} iters"
+    log(f"{label} at {where}: the plan's route ({plan_text(plan)}) "
+        f"{best['plan']:.4f} ms, the workspace route (the first design) "
+        f"{best['workspace']:.4f} ms, {best['workspace'] / best['plan']:.2f}"
+        f"x [{card}]")
+    sizes = []
+    for c in sk.CLUSTER_SIZES:
+        try:
+            p = sk.cluster_layout(nodes, planes, item, c, limit)
+        except ValueError:
+            continue
+        sizes.append(f"C={c} ({p.threads} threads, {p.block_bytes} B, "
+                     f"{capacity(c, p.threads)} clusters at once) "
+                     f"{timed(p):.4f} ms")
+    log(f"{label} by cluster size at {where}: " + "; ".join(sizes)
+        + f" [{card}]")
+    if plan.route == "cluster":
+        twice = timed(plan, 2 * iters)
+        active = capacity(plan.cluster, plan.threads)
+        waves = -(-B // active)
+        per = (twice - best["plan"]) / (2 * iters) * 1e3
+        log(f"{label} one CG iteration (2 x {2 * iters} iters {twice:.4f} "
+            f"ms less 2 x {iters}, over {2 * iters}): {per:.3f} µs a launch; "
+            f"{active} clusters at once, {waves} waves: {per / waves:.3f} µs "
+            f"a cluster [{card}]")
+    return best["plan"], best["workspace"]
+
+
 def run_2d(torch, dev, card):
     """Phases 7-9; returns the K3 entries of the kernels line."""
     from difffe_tpu_torch import fit_kappa
     from difffe_tpu_torch.mesh import FEMesh
     from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
+    from difffe_tpu_torch.ops.kernels._build import load_library
     from difffe_tpu_torch.ops.stencil import (StructuredGrid,
                                               kappa_lu_from_elements,
                                               residual_vjp_manual)
     from difffe_tpu_torch.solver import solve_poisson_batched
 
     f64 = torch.float64
-    max_abs = {"cg": 0.0, "cg2": 0.0}
+    max_abs = {"cg": 0.0, "cg2": 0.0, "cg2_workspace": 0.0}
 
     def problem(n, B, g_nonzero, seed):
         grid = StructuredGrid.unit(n, n)
@@ -592,27 +673,45 @@ def run_2d(torch, dev, card):
             kl, ku = kl - LR * gl, ku - LR * gu
         return out
 
-    # -- phase 7: K3a and K3b against their plain versions
+    # -- phase 7: K3a and K3b against their plain versions; K3b on its
+    # plan's route and on the workspace route (the first design) forced
     t0 = time.perf_counter()
+    lib = load_library()
     for n, B in K3_CASES:
+        plan = sk.cluster_plan((n + 1) ** 2, 5, 4, sk.smem_optin(0))
+        active = (lib.difffe_stencil_cg2_clusters(
+            n + 1, n + 1, plan.cluster, plan.threads) if plan.cluster else 0)
+        log(f"phase 7 K3b plan at {n}²: {plan_text(plan)}, {active} "
+            f"clusters at once")
+        ws = workspace_route(sk._launch_cg2, (n + 1) ** 2)
         for g_nonzero in (False, True):
             grid, arrays = problem(n, B, g_nonzero, seed=n + B + g_nonzero)
             runs = [k3b_steps(grid, arrays, dt, cg2) for dt, cg2 in (
-                (torch.float32, sk._cg2), (torch.float32, sk._cg2_plain),
-                (f64, sk._cg2_plain))]
+                (torch.float32, sk._cg2), (torch.float32, ws),
+                (torch.float32, sk._cg2_plain), (f64, sk._cg2_plain))]
+            again = k3b_steps(grid, arrays, torch.float32, sk._cg2, steps=1)
+            if not all(torch.equal(again[0][k], runs[0][0][k])
+                       for k in ("x", "lam")):
+                raise AssertionError(f"phase 7 K3b n={n} B={B}: two "
+                                     f"launches differ")
             worst = {}
-            for step, (k, p, q) in enumerate(zip(*runs)):
+            for step, (k, w, p, q) in enumerate(zip(*runs)):
                 for key in ("x", "lam", "grad"):
-                    ek, ep = check_rule("K3b", k[key], p[key], q[key],
-                                   f"n={n} B={B} step {step} {key}")
-                    worst[key] = max(worst.get(key, (0, 0)), (ek, ep))
-                    max_abs["cg2"] = max(max_abs["cg2"], float(
-                        (k[key] - q[key]).abs().max()))
+                    for name, out in (("cg2", k), ("cg2_workspace", w)):
+                        ek, ep = check_rule(
+                            f"K3b {name}", out[key], p[key], q[key],
+                            f"n={n} B={B} step {step} {key}")
+                        worst[name, key] = max(worst.get((name, key), (0, 0)),
+                                               (ek, ep))
+                        max_abs[name] = max(max_abs[name], float(
+                            (out[key] - q[key]).abs().max()))
             log(f"phase 7 K3b n={n} B={B} g={'nonzero' if g_nonzero else 0}"
-                f" cold+3 warm: worst (kernel, f32 plain) rel err vs f64: "
-                + " ".join(f"{k}=({a:.2e}, {b:.2e})"
-                           for k, (a, b) in worst.items()))
-            del runs
+                f" cold+3 warm: worst (kernel, f32 plain) rel err vs f64 on "
+                f"the plan's route and the workspace route; two launches "
+                f"equal bit for bit: " + " ".join(
+                    f"{k}{'' if r == 'cg2' else ' ws'}=({a:.2e}, {b:.2e})"
+                    for (r, k), (a, b) in worst.items()))
+            del runs, again
             sols = {}
             for name, dt, cg in (("kernel", torch.float32, sk._cg),
                                  ("f32", torch.float32, sk._cg_plain),
@@ -672,8 +771,9 @@ def run_2d(torch, dev, card):
     if info["iters"] != K3B_ITERS or info["warm"] is not True:
         raise AssertionError(f"iteration policy {info['iters']}, "
                              f"warm={info['warm']}")
-    if main_path["cg2"] != STEPS_2D:
-        raise AssertionError(f"K3b launches {main_path['cg2']}")
+    if main_path["cg2"] != STEPS_2D or main_path["cg2_workspace"]:
+        raise AssertionError(f"K3b launches {main_path}: {STEPS_2D} on the "
+                             f"cluster route expected")
     if main_path["cg"] < 1:
         raise AssertionError("K3a was not launched by the path")
     if kappa.shape != (BATCH_2D, ne) or not bool(
@@ -727,6 +827,10 @@ def run_2d(torch, dev, card):
             f"{best['plain']:.4f} ms/launch ({N_2D}², B={BATCH_2D}, "
             f"{solves} x {iters} iters; kernel "
             f"{BATCH_2D / best['kernel'] * 1e3:.6e} scenarios/s) [{card}]")
+    _, ms["cg2_workspace"] = route_timing(
+        "phase 9 K3b", sk._launch_cg2, (D, b, Minv, ud, scale), state0,
+        K3B_ITERS, (H, W), 5, 4, BATCH_2D,
+        lambda c, t: lib.difffe_stencil_cg2_clusters(H, W, c, t), card, 3)
 
     def fit(**kw):
         return fit_kappa(mesh, f, u_data, steps=STEPS_2D, lr=LR_2D, **kw)
@@ -760,6 +864,11 @@ def run_2d(torch, dev, card):
                      ms["cg2"]["plain"],
                      K3_OPS_PER_NODE_ITER * n_nodes * K3B_ITERS * 2,
                      12 * n_nodes * 4),
+        kernel_entry("stencil_cg2_workspace", K3_SOURCE, f"{JAX_K3}:412",
+                     main_path["cg2_workspace"], max_abs["cg2_workspace"],
+                     ms["cg2_workspace"], ms["cg2"]["plain"],
+                     K3_OPS_PER_NODE_ITER * n_nodes * K3B_ITERS * 2,
+                     12 * n_nodes * 4),
     ]
 
 
@@ -768,13 +877,16 @@ def run_3d(torch, dev, card):
     from difffe_tpu_torch import fit_kappa
     from difffe_tpu_torch.mesh import FEMesh
     from difffe_tpu_torch.ops.kernels import stencil3d_cg_kernel as tk
+    from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
+    from difffe_tpu_torch.ops.kernels._build import load_library
     from difffe_tpu_torch.ops.stencil3d import (StructuredGrid3,
                                                 residual_vjp_manual_3d)
     from difffe_tpu_torch.solver import solve_poisson_batched
 
     f64 = torch.float64
     bf16 = torch.bfloat16
-    max_abs = {"cg3": 0.0, "cg3_2": 0.0}
+    max_abs = {"cg3": 0.0, "cg3_2": 0.0, "cg3_2_workspace": 0.0}
+    lib = load_library()
 
     def problem(nx, ny, nz, B, g_nonzero, seed):
         grid = StructuredGrid3.unit(nx, ny, nz)
@@ -820,10 +932,21 @@ def run_3d(torch, dev, card):
             k = k - lr * gk
         return out
 
-    # -- phase 10: K4a and K4b against their plain versions
+    # -- phase 10: K4a and K4b against their plain versions; K4b on its
+    # plan's route and, where that is the cluster route, on the workspace
+    # route (the first design) forced
     t0 = time.perf_counter()
     for nx, ny, nz, B in K4_CASES:
         storages = (None, bf16) if nx == 16 else (None,)
+        nodes = (nx + 1) * (ny + 1) * (nz + 1)
+        for od in storages:
+            plan = sk.cluster_plan(nodes, 7, 2 if od else 4, sk.smem_optin(0))
+            active = (lib.difffe_stencil3d_cg2_clusters(
+                nz + 1, ny + 1, nx + 1, plan.cluster, plan.threads,
+                int(od is not None)) if plan.cluster else 0)
+            log(f"phase 10 K4b plan at {nx}x{ny}x{nz}"
+                f"{' bf16' if od else ''}: {plan_text(plan)}, {active} "
+                f"clusters at once")
         for g_nonzero in (False, True):
             grid, arrays = problem(nx, ny, nz, B, g_nonzero,
                                    seed=nx * ny * nz + B + g_nonzero)
@@ -831,24 +954,44 @@ def run_3d(torch, dev, card):
                 tag = (f"{nx}x{ny}x{nz} B={B} "
                        f"g={'nonzero' if g_nonzero else 0}"
                        f"{' bf16' if od else ''}")
-                runs = [k4b_steps(grid, arrays, dt, cg, od) for dt, cg in (
-                    (torch.float32, tk._cg3_2),
-                    (torch.float32, tk._cg3_2_plain),
-                    (f64, tk._cg3_2_plain))]
+                plan = sk.cluster_plan(nodes, 7, 2 if od else 4,
+                                       sk.smem_optin(0))
+                kernels = {"cg3_2" if plan.cluster else "cg3_2_workspace":
+                           tk._cg3_2}
+                if plan.cluster:
+                    kernels["cg3_2_workspace"] = workspace_route(
+                        tk._launch_cg3_2, nodes)
+                runs = [k4b_steps(grid, arrays, torch.float32, cg, od)
+                        for cg in kernels.values()]
+                runs += [k4b_steps(grid, arrays, dt, tk._cg3_2_plain, od)
+                         for dt in (torch.float32, f64)]
+                again = k4b_steps(grid, arrays, torch.float32, tk._cg3_2,
+                                  od, steps=1)
+                if not all(torch.equal(again[0][k], runs[0][0][k])
+                           for k in ("x", "lam")):
+                    raise AssertionError(f"phase 10 K4b {tag}: two launches "
+                                         f"differ")
                 worst = {}
-                for step, (kk, p, q) in enumerate(zip(*runs)):
+                for step, outs in enumerate(zip(*runs)):
+                    p, q = outs[-2:]
                     for key in ("x", "lam", "grad"):
-                        ek, ep = check_rule("K4b", kk[key], p[key], q[key],
-                                            f"{tag} step {step} {key}")
-                        worst[key] = max(worst.get(key, (0, 0)), (ek, ep))
-                        if od is None:      # the main path's f32 storage
-                            max_abs["cg3_2"] = max(max_abs["cg3_2"], float(
-                                (kk[key] - q[key]).abs().max()))
+                        for name, kk in zip(kernels, outs):
+                            ek, ep = check_rule(
+                                f"K4b {name}", kk[key], p[key], q[key],
+                                f"{tag} step {step} {key}")
+                            worst[name, key] = max(
+                                worst.get((name, key), (0, 0)), (ek, ep))
+                            if od is None:  # the main path's f32 storage
+                                max_abs[name] = max(max_abs[name], float(
+                                    (kk[key] - q[key]).abs().max()))
                 log(f"phase 10 K4b {tag} cold+2 warm: worst (kernel, f32 "
-                    f"plain) rel err vs f64: " + " ".join(
-                        f"{k}=({a:.2e}, {b:.2e})"
-                        for k, (a, b) in worst.items()))
-                del runs
+                    f"plain) rel err vs f64 on the plan's route"
+                    + (" and the workspace route" if plan.cluster else "")
+                    + "; two launches equal bit for bit: " + " ".join(
+                        f"{k}{' ws' if r == 'cg3_2_workspace' else ''}="
+                        f"({a:.2e}, {b:.2e})"
+                        for (r, k), (a, b) in worst.items()))
+                del runs, again
                 sols = {}
                 for name, dt, cg in (("kernel", torch.float32, tk._cg3),
                                      ("f32", torch.float32, tk._cg3_plain),
@@ -911,7 +1054,7 @@ def run_3d(torch, dev, card):
         raise AssertionError(f"iteration policy {info['iters']}, "
                              f"warm={info['warm']}")
     # u_data, the eval solve, the gradient's forward and adjoint
-    if main_path != {"cg3": 4, "cg3_2": STEPS_3D}:
+    if main_path != {"cg3": 4, "cg3_2": STEPS_3D, "cg3_2_workspace": 0}:
         raise AssertionError(f"K4 launches {main_path}")
     if not bool(torch.isfinite(hist).all()):
         raise AssertionError("fit_kappa's loss history is not finite")
@@ -964,6 +1107,12 @@ def run_3d(torch, dev, card):
             f"{best['plain']:.4f} ms/launch ({N_3D}³, B={BATCH_3D}, "
             f"{solves} x {iters} iters; kernel "
             f"{BATCH_3D / best['kernel'] * 1e3:.6e} scenarios/s) [{card}]")
+    Dz, H, W = grid.node_shape
+    _, ms["cg3_2_workspace"] = route_timing(
+        "phase 12 K4b", tk._launch_cg3_2, (D, b, Minv, ud, scale), state0,
+        K4B_ITERS, (Dz, H, W), 7, 4, BATCH_3D,
+        lambda c, t: lib.difffe_stencil3d_cg2_clusters(Dz, H, W, c, t, 0),
+        card, 2)
     del D, b, Minv, x0, state0
     torch.cuda.empty_cache()
     # the shared-memory route at the README's other 3D size: 16³, B = 256,
@@ -1014,6 +1163,12 @@ def run_3d(torch, dev, card):
         kernel_entry("stencil3d_cg2", K4_SOURCE, f"{JAX_K4}:368",
                      main_path["cg3_2"], max_abs["cg3_2"],
                      ms["cg3_2"]["kernel"], ms["cg3_2"]["plain"],
+                     K4_OPS_PER_NODE_ITER * n_nodes * K4B_ITERS * 2,
+                     14 * n_nodes * 4),
+        kernel_entry("stencil3d_cg2_workspace", K4_SOURCE, f"{JAX_K4}:368",
+                     main_path["cg3_2_workspace"],
+                     max_abs["cg3_2_workspace"], ms["cg3_2_workspace"],
+                     ms["cg3_2"]["plain"],
                      K4_OPS_PER_NODE_ITER * n_nodes * K4B_ITERS * 2,
                      14 * n_nodes * 4),
     ]

@@ -5,40 +5,51 @@
 // _cg3_pallas (K4a, one fixed-trip solve) and _cg3_2_kernel_tb behind
 // _cg3_2_pallas (K4b, forward solve, MSE cotangent, adjoint solve).  The
 // operator is the BC-folded 7-point stencil D0..D6 of a (Dz, H, W) node box,
-// A v = sum_k D_k * shift(v, OFFSETS3[k]); the CG body (algorithm, freeze
-// rule, dots) is cg_common.cuh's, shared with the 2D kernels K3.
-//
-// Design.  One thread block per scenario; its threads stride over the
-// Dz*H*W nodes in x-fastest order, so every plane read is coalesced.  The
-// TPU folded the box to (Dz, H*W) and shifted it with six maskless rolls
-// whose wrap-around met zero coefficients or lane padding; here nothing is
+// A v = sum_k D_k * shift(v, OFFSETS3[k]); the algorithm, freeze rule and
+// dots are cg_common.cuh's, shared with the 2D kernels K3.  The TPU folded
+// the box to (Dz, H*W) and shifted it with six maskless rolls whose
+// wrap-around met zero coefficients or lane padding; here nothing is
 // padded, and each of the six neighbour reads is guarded by the node's
 // (z, y, x), which the thread advances without division (a read outside
 // the box would be an illegal address).  Plane offsets are 64-bit
-// (7 * B * 33^3 floats at the main path).  The CG vectors x, r, p and Ap
-// live in dynamic shared memory when 4*n floats fit the block's opt-in limit
-// (n <= ~14,500 nodes: 16^3 runs there), else in a global workspace of 4*n
-// floats per scenario that the wrapper allocates (32^3: 575 KB a scenario).
-// The coefficient planes and Minv are read from device memory (through
-// L1/L2) in every iteration; they may be stored as bf16 (CT =
-// __nv_bfloat16), upcast at each load, with all arithmetic, the right-hand
-// side, the state and the outputs in f32.
+// (7 * B * 33^3 floats at the main path).  The coefficient planes and Minv
+// may be stored as bf16 (CT = __nv_bfloat16), upcast at each load, with all
+// arithmetic, the right-hand side, the state and the outputs in f32.
+//
+// K4b has two routes, which the wrapper's plan picks from the shape and
+// the stored type:
+//
+// * cluster (cg_cluster.cuh): one thread-block cluster of C blocks a
+//   scenario holds the scenario's 7 planes, Minv and CG state in shared
+//   memory (44 B a node in f32, 28 B in bf16) and registers for the whole
+//   launch, so its loop reads no device memory; neighbours in another
+//   block's range are read through DSMEM.  It takes boxes of up to
+//   16 * 8 * 640 = 81,920 nodes (42^3; the main path's 32^3 at C = 8).
+// * workspace (cg_common.cuh, the first design, shared with K4a): one
+//   thread block a scenario, the CG vectors in dynamic shared memory when
+//   4*n floats fit (n <= ~14,500 nodes) else in a global workspace of 4*n
+//   floats a scenario that the wrapper allocates; the planes and Minv are
+//   read from device memory (through L1/L2) in every iteration.  The plan
+//   sends only boxes past the cluster route's reach here (43^3 and up).
 //
 // Bound.  At the main path's workload (32^3 box, B = 128, 100 iterations,
 // two solves) the work is 24 operations per node per iteration (7-point
 // apply 13, two dots 4, x/r/p updates 6, Jacobi 1), 2.2e10 = 0.33 ms at
 // 67 TFLOP/s fp32, against 14 (B, 33^3) f32 planes moved once (0.26 GB,
-// 0.077 ms at 3.35 TB/s): bound by operations.  With B = 128 blocks on 132
-// SMs each SM runs one scenario, so the pace is one SM's memory traffic
-// (the 8 coefficient planes re-read every iteration) and the four block
-// barriers per iteration; a cluster or several blocks per scenario is the
-// next step.
+// 0.077 ms at 3.35 TB/s): bound by operations.  The first design ran one
+// scenario an SM (B = 128 blocks on 132 SMs) and re-read the 8 coefficient
+// planes and streamed x, r, p and Ap through its workspace in every
+// iteration (~80 B a node); the cluster route spreads a scenario over C
+// SMs' shared memory and is bound by its shared-memory traffic (~80 B a
+// node and iteration), its instructions and the latency of its two dots
+// an iteration.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "cg_cluster.cuh"
 #include "cg_common.cuh"
 
 namespace {
@@ -170,8 +181,9 @@ int launch(const void* D, const void* b, const void* minv, const void* x0,
 
 }  // namespace
 
-// Floats of global workspace one scenario needs on a (Dz, H, W) box: 0 when
-// the CG vectors fit in shared memory, else 4*Dz*H*W.
+// Floats of global workspace one scenario needs on a (Dz, H, W) box on
+// the first design (K4a; K4b's workspace route): 0 when the CG vectors fit
+// in shared memory, else 4*Dz*H*W.
 extern "C" int difffe_stencil3d_cg_work(int Dz, int H, int W) {
   const long long need = static_cast<long long>(kVecs) * Dz * H * W;
   return need <= smem_optin_floats() ? 0 : static_cast<int>(need);
@@ -195,16 +207,42 @@ extern "C" int difffe_stencil3d_cg(const void* D, const void* b,
                               work, B, Dz, H, W, iters, 0.f, stream);
 }
 
+// K4b.  `cluster` > 0 takes the cluster route with clusters of that many
+// blocks of `threads` threads (work must be null); 0 takes the workspace
+// route (the first design; `threads` unused).
 extern "C" int difffe_stencil3d_cg2(const void* D, const void* b,
                                     const void* minv, const void* x0,
                                     const void* lam0, const void* ud,
                                     void* x_out, void* lam_out, void* work,
                                     int B, int Dz, int H, int W, int iters,
-                                    float scale, int bf16, void* stream) {
+                                    float scale, int bf16, int cluster,
+                                    int threads, void* stream) {
+  if (cluster > 0) {
+    if (work != nullptr) return cudaErrorInvalidValue;
+    if (bf16)
+      return launch_cluster_cg<__nv_bfloat16, 7, true>(
+          D, b, minv, x0, lam0, ud, x_out, lam_out, B, Dz, H, W, iters, scale,
+          cluster, threads, stream);
+    return launch_cluster_cg<float, 7, true>(D, b, minv, x0, lam0, ud, x_out,
+                                             lam_out, B, Dz, H, W, iters,
+                                             scale, cluster, threads, stream);
+  }
   if (bf16)
     return launch<__nv_bfloat16, true>(D, b, minv, x0, lam0, ud, x_out,
                                        lam_out, work, B, Dz, H, W, iters,
                                        scale, stream);
   return launch<float, true>(D, b, minv, x0, lam0, ud, x_out, lam_out, work,
                              B, Dz, H, W, iters, scale, stream);
+}
+
+// K4b's cluster route: how many clusters of `cluster` blocks of `threads`
+// threads the card holds at once on a (Dz, H, W) box (0: none; < 0: minus
+// a CUDA error).
+extern "C" int difffe_stencil3d_cg2_clusters(int Dz, int H, int W,
+                                             int cluster, int threads,
+                                             int bf16) {
+  if (bf16)
+    return cluster_capacity<__nv_bfloat16, 7, true>(Dz, H, W, cluster,
+                                                    threads);
+  return cluster_capacity<float, 7, true>(Dz, H, W, cluster, threads);
 }

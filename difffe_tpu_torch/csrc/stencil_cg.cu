@@ -5,31 +5,42 @@
 // behind _cg_pallas (K3a, one fixed-trip solve) and _cg2_kernel_tb behind
 // _cg2_pallas (K3b, forward solve, MSE cotangent, adjoint solve).  The
 // operator is the BC-folded 5-point stencil D0..D4 of an (H, W) node grid,
-// A v = sum_k D_k * shift(v, OFFSETS[k]); the CG body (algorithm, freeze
-// rule, dots) is cg_common.cuh's, shared with the 3D kernels K4.
+// A v = sum_k D_k * shift(v, OFFSETS[k]); the algorithm, freeze rule and
+// dots are cg_common.cuh's, shared with the 3D kernels K4.
 //
-// Design.  One thread block per scenario; its threads stride over the H*W
-// nodes, so every plane read is coalesced along a row.  The CG vectors x,
-// r, p and Ap live in dynamic shared memory when 4*H*W floats fit the
-// block's opt-in limit (H*W <= 14,500 nodes: the 64^2 grid of the main
-// path, 16.5 KB a plane), else in a global workspace of 4*H*W floats per
-// scenario that the wrapper allocates.  The coefficient planes and Minv are
-// read from device memory (through L1/L2) in every iteration.  Neighbour
-// reads are guarded at the grid's edges (no reliance on zero coefficients)
-// and plane offsets are 64-bit.
+// K3b has two routes, which the wrapper's plan picks from the shape:
+//
+// * cluster (cg_cluster.cuh): one thread-block cluster of C blocks a
+//   scenario holds the scenario's 5 planes, Minv and CG state in shared
+//   memory (36 B a node) and registers for the whole launch, so its loop
+//   reads no device memory; neighbours in another block's range are read
+//   through DSMEM.  It takes grids of up to 16 * 8 * 640 = 81,920 nodes
+//   (285^2; 256^2 at C = 16, the main path's 64^2 at C = 1).
+// * workspace (cg_common.cuh, the first design, shared with K3a): one
+//   thread block a scenario, the CG vectors in dynamic shared memory when
+//   4*H*W floats fit (H*W <= 14,500 nodes) else in a global workspace of
+//   4*H*W floats a scenario that the wrapper allocates; the planes and Minv
+//   are read from device memory in every iteration.  The plan sends only
+//   grids past the cluster route's reach here.
+//
+// Neighbour reads are guarded at the grid's edges (no reliance on zero
+// coefficients) and plane offsets are 64-bit.
 //
 // Bound.  At the main path's workload (64^2 grid, B = 4096, 32 iterations,
 // two solves) the work is ~20 flop per node per iteration, 2.2e10 flop =
 // 0.33 ms at 67 TFLOP/s fp32, against 0.83 GB of inputs and outputs
-// (0.25 ms at 3.35 TB/s): the function is bound by operations.  This first
-// design re-reads the 5 planes and Minv (24 B a node) from L2 or device
-// memory in every iteration, so it is bound in practice by that traffic;
-// keeping them on the chip (registers or shared memory) is later work.
+// (0.25 ms at 3.35 TB/s): the function is bound by operations.  The first
+// design re-read the 5 planes and Minv (24 B a node) from L2 or device
+// memory in every iteration and was bound by that traffic; the cluster
+// route moves each byte of device memory once and is bound by its
+// shared-memory traffic (~64 B a node and iteration), its instructions and
+// the latency of its two dots an iteration.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "cg_cluster.cuh"
 #include "cg_common.cuh"
 
 namespace {
@@ -137,11 +148,22 @@ int launch(const void* D, const void* b, const void* minv, const void* x0,
 
 }  // namespace
 
-// Floats of global workspace one scenario needs on an (H, W) grid: 0 when
-// the CG vectors fit in shared memory, else 4*H*W.
+// Floats of global workspace one scenario needs on an (H, W) grid on the
+// first design (K3a; K3b's workspace route): 0 when the CG vectors fit in
+// shared memory, else 4*H*W.
 extern "C" int difffe_stencil_cg_work(int H, int W) {
   const long long need = static_cast<long long>(kVecs) * H * W;
   return need <= smem_optin_floats() ? 0 : static_cast<int>(need);
+}
+
+// Shared memory one block may opt in to on the current device, in bytes.
+extern "C" int difffe_smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return bytes;
 }
 
 // Every entry returns cudaGetLastError() after the launch (0 on success).
@@ -156,12 +178,29 @@ extern "C" int difffe_stencil_cg(const void* D, const void* b,
                        B, H, W, iters, 0.f, stream);
 }
 
+// K3b.  `cluster` > 0 takes the cluster route with clusters of that many
+// blocks of `threads` threads (work must be null); 0 takes the workspace
+// route (the first design; `threads` unused).
 extern "C" int difffe_stencil_cg2(const void* D, const void* b,
                                   const void* minv, const void* x0,
                                   const void* lam0, const void* ud,
                                   void* x_out, void* lam_out, void* work,
                                   int B, int H, int W, int iters, float scale,
-                                  void* stream) {
+                                  int cluster, int threads, void* stream) {
+  if (cluster > 0) {
+    if (work != nullptr) return cudaErrorInvalidValue;
+    return launch_cluster_cg<float, 5, true>(D, b, minv, x0, lam0, ud, x_out,
+                                             lam_out, B, 1, H, W, iters,
+                                             scale, cluster, threads, stream);
+  }
   return launch<true>(D, b, minv, x0, lam0, ud, x_out, lam_out, work, B, H, W,
                       iters, scale, stream);
+}
+
+// K3b's cluster route: how many clusters of `cluster` blocks of `threads`
+// threads the card holds at once on an (H, W) grid (0: none; < 0: minus a
+// CUDA error).
+extern "C" int difffe_stencil_cg2_clusters(int H, int W, int cluster,
+                                           int threads) {
+  return cluster_capacity<float, 5, true>(1, H, W, cluster, threads);
 }

@@ -39,12 +39,15 @@ _SIGNATURES = {
     "difffe_stencil_cg_work": [_I, _I],
     "difffe_stencil_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "difffe_stencil_cg2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _F, _P],
+                           _I, _F, _I, _I, _P],
+    "difffe_stencil_cg2_clusters": [_I, _I, _I, _I],
+    "difffe_smem_optin": [],
     "difffe_stencil3d_cg_work": [_I, _I, _I],
     "difffe_stencil3d_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P],
     "difffe_stencil3d_cg2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _F, _I, _P],
+                             _I, _I, _F, _I, _I, _I, _P],
+    "difffe_stencil3d_cg2_clusters": [_I, _I, _I, _I, _I, _I],
     "difffe_tridiag_pcr_max_rows": [_I],
     "difffe_tridiag_pcr": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I, _P],
     "difffe_fused_pcr_workspace": [_I, _I, _I, _I],

@@ -8,9 +8,11 @@ layout are identically zero for isotropic per-triangle κ and never enter.
 
 Each solve has two implementations behind one wrapper:
 
-* the CUDA kernels in ``csrc/stencil_cg.cu`` (one thread block per
-  scenario, CG vectors in shared memory or a global workspace), launched
-  for CUDA tensors;
+* the CUDA kernels in ``csrc/stencil_cg.cu``, launched for CUDA tensors:
+  K3a one thread block per scenario (CG vectors in shared memory or a
+  global workspace); K3b on the route :func:`cluster_plan` picks from the
+  shape, one thread-block cluster per scenario with the whole two-solve CG
+  in shared memory, or K3a's design past the cluster's reach;
 * the plain PyTorch versions below (the same per-scenario fixed-trip PCG
   with the same freeze rule), taken only for CPU tensors, and the
   reference the kernels are checked against.
@@ -31,6 +33,8 @@ back unchanged as ``warm_state``.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -46,8 +50,9 @@ from ..stencil import (
     stencil_coefficients,
 )
 
-#: Kernel launches made by the wrappers, by kernel ("cg" K3a, "cg2" K3b).
-launches = {"cg": 0, "cg2": 0}
+#: Kernel launches made by the wrappers, by kernel: "cg" K3a, "cg2" K3b on
+#: the cluster route, "cg2_workspace" K3b on the workspace route.
+launches = {"cg": 0, "cg2": 0, "cg2_workspace": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +141,143 @@ def _workspace(lib, B, H, W, device):
     return torch.empty(B * per, dtype=torch.float32, device=device)
 
 
+# ---------------------------------------------------------------------------
+# The two-solve kernels' plan (K3b here, K4b in stencil3d_cg_kernel.py)
+# ---------------------------------------------------------------------------
+
+#: Blocks a cluster may have on the cluster route (16 is non-portable).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+#: Nodes one thread of a cluster-route block holds at most, and threads a
+#: block has at most (csrc/cg_cluster.cuh's kNodesPerThread and
+#: kClusterMaxThreads: a thread keeps x, r and Ap in registers).
+NODES_PER_THREAD = 8
+MAX_THREADS = 640
+# static shared memory of a cluster-route block (cg_cluster.cuh's
+# kClusterStaticBytes): two 32-float reduction buffers, two 16-float tables
+# of published partials, two 8-byte mbarriers
+_CLUSTER_STATIC_BYTES = 4 * (2 * 32 + 2 * 16) + 2 * 8
+# shared bytes a node on the cluster route beside its planes: p (two
+# buffers) and r in f32
+_VEC_BYTES = 12
+# the hardware keeps 1 KB of an SM's shared memory for each resident block,
+# and an SM holds a block's opt-in limit plus that 1 KB (H100: 233 472 =
+# 232 448 + 1024 bytes)
+_SMEM_RESERVED = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """How K3b or K4b runs one shape.
+
+    ``route`` is ``"cluster"`` (``csrc/cg_cluster.cuh``: a cluster of
+    ``cluster`` blocks of ``threads`` threads a scenario, rank k owning
+    nodes ``[k·chunk, min(nodes, (k+1)·chunk))`` with their planes, M⁻¹ and
+    CG vectors in ``block_bytes`` of shared memory, ``blocks_per_sm`` such
+    blocks to an SM) or ``"workspace"`` (``csrc/cg_common.cuh``'s one block
+    a scenario, the CG vectors in a global workspace; ``cluster`` 0)."""
+    route: str
+    nodes: int
+    cluster: int
+    chunk: int
+    block_bytes: int
+    blocks_per_sm: int
+    threads: int
+
+    def ranges(self) -> list:
+        """Each rank's node range [lo, hi), in rank order."""
+        return [(min(self.nodes, k * self.chunk),
+                 min(self.nodes, (k + 1) * self.chunk))
+                for k in range(self.cluster)]
+
+
+def cluster_layout(nodes: int, planes: int, itemsize: int, cluster: int,
+                   smem_limit: int) -> ClusterPlan:
+    """The cluster route at ``cluster`` blocks a scenario for ``nodes``
+    nodes, ``planes`` coefficient planes plus M⁻¹ of ``itemsize`` bytes,
+    on a card whose blocks may opt in to ``smem_limit`` bytes of shared
+    memory.  A block takes up to 640 threads (the kernel's bound, which
+    leaves a thread 96 registers) when one block fills an SM's shared
+    memory, else up to 320 (so that two fit an SM's 64k registers), and as
+    few as hold its nodes at the same count a thread, at most
+    ``NODES_PER_THREAD``.  Raises if a block does not fit."""
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster size {cluster} is not one of "
+                         f"{CLUSTER_SIZES}")
+    chunk = -(-nodes // cluster)
+    block = (chunk * (_VEC_BYTES + (planes + 1) * itemsize)
+             + _CLUSTER_STATIC_BYTES)
+    per_sm = (smem_limit + _SMEM_RESERVED) // (block + _SMEM_RESERVED)
+    per_thread = -(-chunk // (MAX_THREADS if per_sm == 1
+                              else MAX_THREADS // 2))
+    if block > smem_limit or per_thread > NODES_PER_THREAD:
+        raise ValueError(f"{nodes} nodes in clusters of {cluster}: "
+                         f"{block} bytes a block exceed the card's "
+                         f"{smem_limit}, or {per_thread} nodes a thread "
+                         f"exceed {NODES_PER_THREAD}")
+    threads = 32 * -(-chunk // (32 * per_thread))
+    return ClusterPlan("cluster", nodes, cluster, chunk, block, per_sm,
+                       threads)
+
+
+def cluster_plan(nodes: int, planes: int, itemsize: int,
+                 smem_limit: int) -> ClusterPlan:
+    """K3b's and K4b's route for a shape, from the shape alone.
+
+    The rule: the smallest cluster size whose block fits the card's
+    shared memory and its threads' registers; failing that (more than 16
+    blocks' worth: past 16 · 8 · 640 = 81 920 nodes, grids past 285²
+    and boxes past 42³), the workspace route.  The card
+    chose it: at 32³ f32 C = 8 (one block an SM) beat C = 16 (two blocks
+    an SM), and at 64² C = 1 beat C = 2 (PERF.md §5 has the times).
+    ``planes`` is 5 (K3b) or 7 (K4b), ``itemsize`` that of the stored
+    planes (4, or 2 for K4b's bf16 route)."""
+    for c in CLUSTER_SIZES:
+        try:
+            return cluster_layout(nodes, planes, itemsize, c, smem_limit)
+        except ValueError:
+            continue
+    return workspace_plan(nodes)
+
+
+def workspace_plan(nodes: int) -> ClusterPlan:
+    """The workspace route: cg_common.cuh's one block a scenario."""
+    return ClusterPlan("workspace", nodes, 0, nodes, 0, 0, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device_index: int) -> int:
+    """Shared memory a block may opt in to on the card, asked once a
+    device."""
+    from ._build import load_library
+
+    with torch.cuda.device(device_index):
+        return int(load_library().difffe_smem_optin())
+
+
+_SCHEDULABLE = set()
+
+
+def check_schedulable(query, key, plan: ClusterPlan, device) -> None:
+    """Ask the card once per shape, cluster size and device whether it can
+    hold a cluster of ``plan`` (``query(cluster, threads)`` is the kernel's
+    ``cudaOccupancyMaxActiveClusters``); raise if it cannot."""
+    key = (device.index, key, plan.cluster, plan.threads)
+    if key in _SCHEDULABLE:
+        return
+    with torch.cuda.device(device):
+        active = query(plan.cluster, plan.threads)
+    if active <= 0:
+        raise RuntimeError(
+            f"the card cannot schedule a cluster of {plan.cluster} blocks of "
+            f"{plan.threads} threads with {plan.block_bytes} bytes of shared "
+            f"memory each (cudaOccupancyMaxActiveClusters: {active})")
+    _SCHEDULABLE.add(key)
+
+
+def _plan_cg2(D, H, W, plan):
+    return plan or cluster_plan(H * W, 5, 4, smem_optin(D.device.index))
+
+
 def _launch_cg(D, b, Minv, x0, iters):
     from ._build import load_library
 
@@ -157,7 +299,11 @@ def _launch_cg(D, b, Minv, x0, iters):
     return out
 
 
-def _launch_cg2(D, b, Minv, x0, lam0, ud, scale, iters):
+def _launch_cg2(D, b, Minv, x0, lam0, ud, scale, iters,
+                plan: Optional[ClusterPlan] = None):
+    """K3b on ``plan``'s route (default :func:`cluster_plan`'s for the
+    shape; the tests and chip_smoke.py pass another to compare routes and
+    cluster sizes)."""
     from ._build import load_library
 
     B, H, W = _check_cuda_planes(D, (b, Minv, x0, lam0, ud))
@@ -166,17 +312,26 @@ def _launch_cg2(D, b, Minv, x0, lam0, ud, scale, iters):
     if B == 0:
         return x, lam
     lib = load_library()
-    work = _workspace(lib, B, H, W, D.device)
+    plan = _plan_cg2(D, H, W, plan)
+    work = None
+    if plan.route == "cluster":
+        check_schedulable(
+            lambda c, t: lib.difffe_stencil_cg2_clusters(H, W, c, t),
+            ("cg2", H, W), plan, D.device)
+    else:
+        work = _workspace(lib, B, H, W, D.device)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.difffe_stencil_cg2(
             D.data_ptr(), b.data_ptr(), Minv.data_ptr(), x0.data_ptr(),
             lam0.data_ptr(), ud.data_ptr(), x.data_ptr(), lam.data_ptr(),
             None if work is None else work.data_ptr(),
-            B, H, W, int(iters), float(scale), stream)
+            B, H, W, int(iters), float(scale), plan.cluster, plan.threads,
+            stream)
     if rc != 0:
-        raise RuntimeError(f"K3b stencil_cg2 launch failed: CUDA error {rc}")
-    launches["cg2"] += 1
+        raise RuntimeError(f"K3b stencil_cg2 launch failed ({plan.route} "
+                           f"route, cluster {plan.cluster}): CUDA error {rc}")
+    launches["cg2" if plan.route == "cluster" else "cg2_workspace"] += 1
     return x, lam
 
 
@@ -377,10 +532,13 @@ def choose_2d_path(grid: StructuredGrid, block_b: int = 1,
     launch), 'two_launch' (two K3a launches) or 'xla' (the plain-tensor
     solve of ops/stencil.py).
 
-    Always 'fused' on the card: K3b keeps its CG vectors in shared memory
-    up to ~14,500 nodes and in a global workspace beyond, so it takes every
-    grid a (B, H, W) float32 plane can hold (the TPU's VMEM budget, which
-    split the paths there, has no counterpart).  ``block_b`` and
+    Always 'fused' on the card: K3b keeps a scenario's whole CG in a
+    thread-block cluster's shared memory and registers up to 81 920
+    nodes (285²) and runs the first design, CG vectors in a global
+    workspace, beyond
+    (:func:`cluster_plan`), so it takes every grid a (B, H, W) float32
+    plane can hold (the TPU's VMEM budget, which split the paths there,
+    has no counterpart).  ``block_b`` and
     ``itemsize`` keep the JAX signature and do not change the answer.
     """
     _check_block_b(block_b)

@@ -168,22 +168,81 @@ def _k3b_steps(grid, arrays, dtype, cg2, iters, steps, lr=30.0):
     return out
 
 
-@pytest.mark.parametrize("n,B", [(8, 7), (64, 16), (256, 2)],
-                         ids=["8x8_B7", "64x64_B16", "256x256_B2"])
+def _forced(launch, plan):
+    """A K3b/K4b wrapper pinned to ``plan`` (a cluster size or a route the
+    plan would not pick for the shape)."""
+    return lambda *args: launch(*args, plan=plan)
+
+
+def _k3b_plans(n):
+    """Every K3b plan the card can run at an n² grid: each cluster size
+    whose block fits, then the workspace route."""
+    nodes, limit = (n + 1) ** 2, sk.smem_optin(torch.cuda.current_device())
+    plans = []
+    for c in sk.CLUSTER_SIZES:
+        try:
+            plans.append(sk.cluster_layout(nodes, 5, 4, c, limit))
+        except ValueError:
+            pass
+    return plans + [sk.workspace_plan(nodes)]
+
+
+_K3B_CASES = ([(8, 7, None), (64, 16, None)]
+              + [(64, 16, c) for c in (1, 2, 4, 8, 16, "workspace")]
+              + [(256, 2, None)])
+
+
+@pytest.mark.parametrize(
+    "n,B,forced", _K3B_CASES,
+    ids=[f"{n}x{n}_B{B}" + ("" if c is None else f"_C{c}" if c != "workspace"
+                            else "_workspace") for n, B, c in _K3B_CASES])
 @pytest.mark.parametrize("g_nonzero", [False, True], ids=["g0", "g"])
-def test_k3b_matches_plain_cold_and_warm(cuda, n, B, g_nonzero):
+def test_k3b_matches_plain_cold_and_warm(cuda, n, B, forced, g_nonzero):
+    """K3b on the plan's route, and at 64² on every cluster size that fits
+    and the workspace route, by the rule; 256² takes 16-block clusters; a
+    second run repeats the first bit for bit."""
     grid, arrays = _k3_problem(cuda, n, B, g_nonzero, seed=n + B)
-    before = sk.launches["cg2"]
-    kern = _k3b_steps(grid, arrays, torch.float32, sk._cg2, 32, 4)
+    plan = sk.cluster_plan((n + 1) ** 2, 5, 4, sk.smem_optin(cuda.index or 0))
+    if forced is not None:
+        plan = {p.cluster or "workspace": p for p in _k3b_plans(n)}[forced]
+    if n == 256:
+        assert (plan.route, plan.cluster) == ("cluster", 16)
+    count = "cg2" if plan.route == "cluster" else "cg2_workspace"
+    cg2 = _forced(sk._launch_cg2, plan)
+    before = sk.launches[count]
+    kern = _k3b_steps(grid, arrays, torch.float32, cg2, 32, 4)
+    again = _k3b_steps(grid, arrays, torch.float32, cg2, 32, 4)
     p32 = _k3b_steps(grid, arrays, torch.float32, sk._cg2_plain, 32, 4)
     p64 = _k3b_steps(grid, arrays, torch.float64, sk._cg2_plain, 32, 4)
     torch.cuda.synchronize()
-    assert sk.launches["cg2"] == before + 4
-    for step, (k, p, q) in enumerate(zip(kern, p32, p64)):
+    assert sk.launches[count] == before + 8
+    for step, (k, a, p, q) in enumerate(zip(kern, again, p32, p64)):
         for key in ("x", "lam", "grad"):
             assert torch.isfinite(k[key]).all()
+            assert torch.equal(k[key], a[key]), (step, key)
             ok, errs = _within_rule(k[key], p[key], q[key])
             assert ok, (step, key, errs)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_k3b_freezes_in_every_block_alike(cuda, cluster):
+    """At 8² CG reaches its noise floor long before 256 iterations: every
+    rank takes the same freeze decision (16 ranks of 6 nodes leave two
+    empty), so 256 and 400 iterations give the same bits, within the rule
+    of the plain version's frozen state."""
+    grid, arrays = _k3_problem(cuda, 8, 5, True, seed=11)
+    plan = sk.cluster_layout(81, 5, 4, cluster,
+                             sk.smem_optin(cuda.index or 0))
+    cg2 = _forced(sk._launch_cg2, plan)
+    kern = _k3b_steps(grid, arrays, torch.float32, cg2, 256, 1)[0]
+    longer = _k3b_steps(grid, arrays, torch.float32, cg2, 400, 1)[0]
+    p32 = _k3b_steps(grid, arrays, torch.float32, sk._cg2_plain, 256, 1)[0]
+    p64 = _k3b_steps(grid, arrays, torch.float64, sk._cg2_plain, 256, 1)[0]
+    torch.cuda.synchronize()
+    for key in ("x", "lam", "grad"):
+        assert torch.equal(kern[key], longer[key]), key
+        ok, errs = _within_rule(kern[key], p32[key], p64[key])
+        assert ok, (key, errs)
 
 
 @pytest.mark.parametrize("n,B,iters", [(8, 7, 64), (64, 16, 256),
@@ -300,23 +359,44 @@ def _k4b_steps(grid, arrays, dtype, cg3_2, iters, steps, operand_dtype=None):
     return out
 
 
-@pytest.mark.parametrize("n,B,bf16", [((12, 9, 6), 7, False),
-                                      ((12, 9, 6), 7, True),
-                                      ((32, 32, 32), 3, False)],
-                         ids=["12x9x6_B7", "12x9x6_B7_bf16", "32cube_B3"])
+_K4B_CASES = ([((12, 9, 6), 7, bf16, c) for bf16 in (False, True)
+               for c in (None, 1, 2, 4, 8, 16)]
+              + [((32, 32, 32), 3, False, None),
+                 ((48, 48, 48), 2, False, None)])
+
+
+@pytest.mark.parametrize(
+    "n,B,bf16,forced", _K4B_CASES,
+    ids=[("x".join(map(str, n)) if n[0] == 12 else f"{n[0]}cube")
+         + f"_B{B}" + ("_bf16" if bf16 else "")
+         + ("" if c is None else f"_C{c}") for n, B, bf16, c in _K4B_CASES])
 @pytest.mark.parametrize("g_nonzero", [False, True], ids=["g0", "g"])
-def test_k4b_matches_plain_cold_and_warm(cuda, n, B, bf16, g_nonzero):
+def test_k4b_matches_plain_cold_and_warm(cuda, n, B, bf16, forced,
+                                         g_nonzero):
+    """K4b on the plan's route, and at 12×9×6 on every cluster size, by
+    the rule; 32³ takes the cluster route, 48³ the workspace route; a
+    second run repeats the first bit for bit."""
     grid, arrays = _k4_problem(cuda, n, B, g_nonzero, seed=sum(n) + B)
     od = torch.bfloat16 if bf16 else None
-    before = k4.launches["cg3_2"]
-    kern = _k4b_steps(grid, arrays, torch.float32, k4._cg3_2, 48, 3, od)
+    nodes, item = math.prod(m + 1 for m in n), 2 if bf16 else 4
+    limit = sk.smem_optin(cuda.index or 0)
+    plan = (sk.cluster_plan(nodes, 7, item, limit) if forced is None
+            else sk.cluster_layout(nodes, 7, item, forced, limit))
+    if n[0] >= 32:
+        assert plan.route == ("cluster" if n[0] == 32 else "workspace")
+    count = "cg3_2" if plan.route == "cluster" else "cg3_2_workspace"
+    cg3_2 = _forced(k4._launch_cg3_2, plan)
+    before = k4.launches[count]
+    kern = _k4b_steps(grid, arrays, torch.float32, cg3_2, 48, 3, od)
+    again = _k4b_steps(grid, arrays, torch.float32, cg3_2, 48, 3, od)
     p32 = _k4b_steps(grid, arrays, torch.float32, k4._cg3_2_plain, 48, 3, od)
     p64 = _k4b_steps(grid, arrays, torch.float64, k4._cg3_2_plain, 48, 3, od)
     torch.cuda.synchronize()
-    assert k4.launches["cg3_2"] == before + 3
-    for step, (k, p, q) in enumerate(zip(kern, p32, p64)):
+    assert k4.launches[count] == before + 6
+    for step, (k, a, p, q) in enumerate(zip(kern, again, p32, p64)):
         for key in ("x", "lam", "grad"):
             assert torch.isfinite(k[key]).all()
+            assert torch.equal(k[key], a[key]), (step, key)
             ok, errs = _within_rule(k[key], p[key], q[key])
             assert ok, (step, key, errs)
 
