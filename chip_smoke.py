@@ -52,8 +52,8 @@ kernels K4a (whole-CG solve) and K4b (forward + MSE cotangent + adjoint CG):
 10. K4a and K4b against their plain versions on the card at (nx, ny, nz) =
     (4, 4, 4) B = 5, (12, 9, 6) B = 7, 16³ B = 256, 32³ B = 128 and 48³
     B = 2, cold and warm, zero and nonzero Dirichlet values, and at 16³
-    with bf16 coefficient storage, by the rule of phase 7; K4b on the
-    route its plan picks (printed; 48³ takes the workspace route) and,
+    with bf16 coefficient storage, by the rule of phase 7; both on the
+    route their plan picks (printed; 48³ takes the workspace route) and,
     where that is the cluster route, on the workspace route forced, two
     launches equal bit for bit;
 11. the main path: u_data from the fixed-trip batched solve (one K4a
@@ -62,11 +62,13 @@ kernels K4a (whole-CG solve) and K4b (forward + MSE cotangent + adjoint CG):
     lr = 1e7 (the converged misfit must fall below the first step's), and
     the κ gradient of Σu²
     through the fixed-trip batched solve (K4a forward and adjoint) held by
-    the rule of phase 7;
-12. chained timing of K4b and K4a against their plain versions; K4b on
-    its plan's route against the workspace route as in phase 9; host time
-    of ``fit_kappa`` (at its default lr, whose misfit it logs) with and
-    without its eval solve, and a ``torch.profiler`` split of one call.
+    the rule of phase 7, every launch on the cluster route;
+12. chained timing of K4b and K4a against their plain versions; each on
+    its plan's route against the workspace route (the first design) in
+    turns, at every cluster size that fits, and at twice the iterations;
+    host time of ``fit_kappa`` (at its default lr, whose misfit it logs)
+    with and without its eval solve, and a ``torch.profiler`` split of one
+    call.
 
 The 1D facade path (BASELINE.json config 2: per-element κ recovery on
 ``FEMesh.line(128)``, 1024 κ/forcing scenarios, adjoint gradients), kernel
@@ -126,32 +128,47 @@ K6 (Thomas) and K7 (dense products with W = Ã⁻¹):
 The general-mesh path (κ-field inversion on a perturbed triangulation
 without a grid, scripts/probe_unstructured.py's workload: 64 × 64 quads
 split in two, interior nodes moved by U(±0.3h), 4225 nodes, 8192
-triangles, B = 256 scenarios), kernel K8 (the masked edge-ELL operator,
-the port of the TPU gather probe P1):
+triangles, B = 256 scenarios), kernels K8 (the masked edge-ELL operator,
+the port of the TPU gather probe P1) and K8s (the whole fixed-trip ELL
+solve in one launch, one thread-block cluster a scenario):
 
 21. K8 against its plain version on the card: P1's own shapes (n = 256,
     8 indices a row, B = 8, unit weights, no diagonal, no mask) also
     against u[idx].sum(1), the 64² triangulation (6 neighbour slots) at
     B = 256, a perturbed 16³ box (14 slots) at B = 128 and a random
     Dirichlet mask at B = 7: f32 by the rule of phase 7, f64 within 1e-12;
+    K8s (128 iterations, f32) against its plain version by the rule of
+    phase 7 on a perturbed 8² triangulation at B = 7, the 64² one at
+    B = 256 and the 16³ box at B = 128, at every cluster size that fits
+    (the plan's choice printed), two launches equal bit for bit, a zero
+    right-hand side giving 0;
 22. the main path: u_data from the fixed-trip batched ELL solve (256
     iterations), ``fit_kappa`` through the public entry point for 100 Adam
     steps at its defaults (iters 128, lr 0.05): the path must be
     'generic_ell_batchminor', the loss finite and the converged misfit
-    below half the first step's, and K8 launched 100 × (2 × 128 + 3) +
-    (256 + 2) times in that call (the counts are set to 0 after the
-    u_data solve, just before it); the κ gradient of the batched MSE through
-    ``solve_poisson_cg_ell_batched`` (K8 forward and adjoint) held against
-    the same solve on the plain version by the rule of phase 7; 10 steps
-    on a perturbed 16³ box at B = 128; and ``fit_kappa`` on line meshes
-    the K1 kernel does not take (``FEMesh.line(300)`` in f32 and a float64
-    line), which must take the torch closed form with a falling loss and
-    no K1 launch;
+    below half the first step's, and, in that call (the counts are set
+    to 0 after the u_data solve, just before it), K8 launched 100 + 1
+    times (each step's and the eval solve's right-hand side) and K8s
+    2 × 100 + 1 times (each step's forward and adjoint solves, the eval
+    solve); the first step's loss and κ gradient (κ = 1) through
+    ``solve_poisson_cg_ell_batched`` on K8s and on the per-iteration
+    route (K8 an operator application), each held against the same solve
+    on the plain version by the rule of phase 7, and K8s against the
+    per-iteration route by the same rule; 10 steps on a perturbed 16³
+    box at B = 128; and ``fit_kappa`` on line meshes the K1 kernel does
+    not take (``FEMesh.line(300)`` in f32 and a float64 line), which must
+    take the torch closed form with a falling loss and no K1 launch;
 23. chained timing of K8 against its plain version, its bound and
     ``torch.sparse.mm`` with the 0/1 adjacency in CSR (P1's unweighted
     function) at 64², B = 256 and on a perturbed 256² triangulation at
-    B = 128 (66 049 nodes); host time of ``fit_kappa`` and a
-    ``torch.profiler`` split of a 10-step call.
+    B = 128 (66 049 nodes); K8s at the same shapes and on the 16³ box
+    at B = 128 on the plan's route
+    against the per-iteration route in turns, at every cluster size that
+    fits, at 0 iterations (the staging alone) and
+    at twice the iterations, with its bound and its plain version's time;
+    host time a step of ``fit_kappa`` on K8s (phase 22's call) and of a
+    10-step call on the per-iteration route, and a ``torch.profiler``
+    split of a 10-step call on K8s.
 
 The K7 ablation path (the TPU probe P2, scripts/probe_mxu_kernel.py,
 ported as ``difffe_tpu_torch/probes/k7_ablation.py``: K7 version 1 on
@@ -285,6 +302,13 @@ P1_PROBE = "scripts/probe_mosaic_gather.py"
 # output value p_i, p_i·v_i, diag·(p_i v_i), m_i·v_i, p_i·acc and the sum
 K8_OPS_PER_SLOT = 4
 K8_OPS_PER_VALUE = 6
+K8S_SOURCE = "difffe_tpu_torch/csrc/ell_cg.cu"
+JAX_ELL_CG = "difffe_tpu/ops/unstructured.py"
+# K8s operations, counted from csrc/ell_cg.cu and cg_cluster.cuh's loop: a
+# nonzero slot of a node's apply 2 (product, sum); a node and iteration 13
+# (diag·p and its sum 2, the two dots 4, the x, r and p updates 6, Jacobi 1)
+K8S_OPS_PER_SLOT = 2
+K8S_OPS_PER_NODE = 13
 
 
 def log(*args):
@@ -573,33 +597,33 @@ def workspace_route(launch, nodes):
     return lambda *args: launch(*args, plan=ws)
 
 
-def route_timing(label, launch, operands, state0, iters, shape, planes,
-                 item, B, capacity, card, length):
-    """K3b or K4b at the main path's workload on both routes, in one run:
-    the plan's route against the workspace route (the first design) in
-    turns (workspace, plan, plan, workspace), every cluster size whose
+def route_timing(label, call, state0, length, iters, solves, shape,
+                 planes, item, B, capacity, card):
+    """K3b, K4a or K4b at the main path's workload on both routes, in one
+    run: the plan's route against the workspace route (the first design)
+    in turns (workspace, plan, plan, workspace), every cluster size whose
     block fits, and the plan's route at twice the iterations, whose
-    difference gives one CG iteration's time.  ``launch(D, b, Minv, x0,
-    lam0, ud, scale, iters, plan=)`` is the wrapper, ``operands`` (D, b,
-    Minv, ud, scale), ``capacity(C, threads)`` the card's clusters at once.
-    Logs; returns (plan ms, workspace ms)."""
+    difference gives one CG iteration's time.  ``call(state, iters, plan)``
+    launches the wrapper once and returns the next state of a chain from
+    ``state0``; ``solves`` is 2 (K3b, K4b) or 1 (K4a); ``capacity(C,
+    threads)`` the card's clusters at once.  Logs; returns (plan ms,
+    workspace ms)."""
     from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
     from difffe_tpu_torch.utils.profiling import timeit_chained
 
-    D, b, Minv, ud, scale = operands
     nodes, limit = math.prod(shape), sk.smem_optin(0)
     plan = sk.cluster_plan(nodes, planes, item, limit)
 
     def timed(p, n_iters=iters):
-        return timeit_chained(
-            lambda s: launch(D, b, Minv, *s, ud, scale, n_iters, plan=p),
-            state0, length=length, repeats=2).min_s * 1e3
+        return timeit_chained(lambda s: call(s, n_iters, p), state0,
+                              length=length, repeats=2).min_s * 1e3
 
     best = {"plan": float("inf"), "workspace": float("inf")}
     for which in ("workspace", "plan", "plan", "workspace"):
         p = plan if which == "plan" else sk.workspace_plan(nodes)
         best[which] = min(best[which], timed(p))
-    where = f"{'x'.join(map(str, shape))} nodes, B={B}, 2 x {iters} iters"
+    where = (f"{'x'.join(map(str, shape))} nodes, B={B}, {solves} x {iters} "
+             f"iters")
     log(f"{label} at {where}: the plan's route ({plan_text(plan)}) "
         f"{best['plan']:.4f} ms, the workspace route (the first design) "
         f"{best['workspace']:.4f} ms, {best['workspace'] / best['plan']:.2f}"
@@ -619,11 +643,12 @@ def route_timing(label, launch, operands, state0, iters, shape, planes,
         twice = timed(plan, 2 * iters)
         active = capacity(plan.cluster, plan.threads)
         waves = -(-B // active)
-        per = (twice - best["plan"]) / (2 * iters) * 1e3
-        log(f"{label} one CG iteration (2 x {2 * iters} iters {twice:.4f} "
-            f"ms less 2 x {iters}, over {2 * iters}): {per:.3f} µs a launch; "
-            f"{active} clusters at once, {waves} waves: {per / waves:.3f} µs "
-            f"a cluster [{card}]")
+        per = (twice - best["plan"]) / (solves * iters) * 1e3
+        log(f"{label} one CG iteration ({solves} x {2 * iters} iters "
+            f"{twice:.4f} ms less {solves} x {iters}, over "
+            f"{solves * iters}): {per:.3f} µs a launch; {active} clusters "
+            f"at once, {waves} waves: {per / waves:.3f} µs a cluster "
+            f"[{card}]")
     return best["plan"], best["workspace"]
 
 
@@ -828,9 +853,10 @@ def run_2d(torch, dev, card):
             f"{solves} x {iters} iters; kernel "
             f"{BATCH_2D / best['kernel'] * 1e3:.6e} scenarios/s) [{card}]")
     _, ms["cg2_workspace"] = route_timing(
-        "phase 9 K3b", sk._launch_cg2, (D, b, Minv, ud, scale), state0,
-        K3B_ITERS, (H, W), 5, 4, BATCH_2D,
-        lambda c, t: lib.difffe_stencil_cg2_clusters(H, W, c, t), card, 3)
+        "phase 9 K3b", lambda s, n, p: sk._launch_cg2(
+            D, b, Minv, *s, ud, scale, n, plan=p), state0, 3, K3B_ITERS, 2,
+        (H, W), 5, 4, BATCH_2D,
+        lambda c, t: lib.difffe_stencil_cg2_clusters(H, W, c, t), card)
 
     def fit(**kw):
         return fit_kappa(mesh, f, u_data, steps=STEPS_2D, lr=LR_2D, **kw)
@@ -885,7 +911,8 @@ def run_3d(torch, dev, card):
 
     f64 = torch.float64
     bf16 = torch.bfloat16
-    max_abs = {"cg3": 0.0, "cg3_2": 0.0, "cg3_2_workspace": 0.0}
+    max_abs = {"cg3": 0.0, "cg3_workspace": 0.0, "cg3_2": 0.0,
+               "cg3_2_workspace": 0.0}
     lib = load_library()
 
     def problem(nx, ny, nz, B, g_nonzero, seed):
@@ -932,7 +959,7 @@ def run_3d(torch, dev, card):
             k = k - lr * gk
         return out
 
-    # -- phase 10: K4a and K4b against their plain versions; K4b on its
+    # -- phase 10: K4a and K4b against their plain versions, each on its
     # plan's route and, where that is the cluster route, on the workspace
     # route (the first design) forced
     t0 = time.perf_counter()
@@ -944,7 +971,7 @@ def run_3d(torch, dev, card):
             active = (lib.difffe_stencil3d_cg2_clusters(
                 nz + 1, ny + 1, nx + 1, plan.cluster, plan.threads,
                 int(od is not None)) if plan.cluster else 0)
-            log(f"phase 10 K4b plan at {nx}x{ny}x{nz}"
+            log(f"phase 10 K4a/K4b plan at {nx}x{ny}x{nz}"
                 f"{' bf16' if od else ''}: {plan_text(plan)}, {active} "
                 f"clusters at once")
         for g_nonzero in (False, True):
@@ -992,26 +1019,44 @@ def run_3d(torch, dev, card):
                         f"({a:.2e}, {b:.2e})"
                         for (r, k), (a, b) in worst.items()))
                 del runs, again
+                # K4a on the plan's route (the same plan as K4b's) and,
+                # where that is the cluster route, the workspace route
+                solvers = {"cg3" if plan.cluster else "cg3_workspace":
+                           tk._cg3}
+                if plan.cluster:
+                    solvers["cg3_workspace"] = workspace_route(
+                        tk._launch_cg3, nodes)
                 sols = {}
-                for name, dt, cg in (("kernel", torch.float32, tk._cg3),
-                                     ("f32", torch.float32, tk._cg3_plain),
-                                     ("f64", f64, tk._cg3_plain)):
+                for name, dt, cg in (
+                        *((r, torch.float32, cg)
+                          for r, cg in solvers.items()),
+                        ("f32", torch.float32, tk._cg3_plain),
+                        ("f64", f64, tk._cg3_plain)):
                     k, f, g, ud = (a.to(dt).contiguous() for a in arrays)
                     _, D, b, Minv, x0 = operands(grid, k, f, g, od)
                     sols[name] = (cg(D, b, Minv, x0, K4A_ITERS),
                                   cg(D, ud, Minv, torch.zeros_like(ud),
                                      K4A_ITERS))
-                errs = [check_rule("K4a", sols["kernel"][i], sols["f32"][i],
-                                   sols["f64"][i], f"{tag} solve {i}")
-                        for i in range(2)]
-                if od is None:
-                    max_abs["cg3"] = max(max_abs["cg3"], *(float(
-                        (sols["kernel"][i] - sols["f64"][i]).abs().max())
-                        for i in range(2)))
-                log(f"phase 10 K4a {tag} {K4A_ITERS} iters: (kernel, f32 "
-                    f"plain) rel err vs f64: solve {errs[0][0]:.2e}, "
-                    f"{errs[0][1]:.2e}; adjoint-style {errs[1][0]:.2e}, "
-                    f"{errs[1][1]:.2e}")
+                    if name in solvers and not torch.equal(
+                            cg(D, b, Minv, x0, K4A_ITERS), sols[name][0]):
+                        raise AssertionError(f"phase 10 K4a {tag} {name}: "
+                                             f"two launches differ")
+                errs = []
+                for name in solvers:
+                    for i in range(2):
+                        ek, ep = check_rule(
+                            f"K4a {name}", sols[name][i], sols["f32"][i],
+                            sols["f64"][i], f"{tag} solve {i}")
+                        errs.append(f"{name} {('solve', 'adjoint-style')[i]}"
+                                    f" ({ek:.2e}, {ep:.2e})")
+                        if od is None:
+                            max_abs[name] = max(max_abs[name], float(
+                                (sols[name][i] - sols["f64"][i]).abs()
+                                .max()))
+                log(f"phase 10 K4a {tag} {K4A_ITERS} iters, (kernel, f32 "
+                    f"plain) rel err vs f64 on the plan's route"
+                    + (" and the workspace route" if plan.cluster else "")
+                    + "; two launches equal bit for bit: " + ", ".join(errs))
                 del sols
             del arrays
             torch.cuda.empty_cache()
@@ -1054,7 +1099,8 @@ def run_3d(torch, dev, card):
         raise AssertionError(f"iteration policy {info['iters']}, "
                              f"warm={info['warm']}")
     # u_data, the eval solve, the gradient's forward and adjoint
-    if main_path != {"cg3": 4, "cg3_2": STEPS_3D, "cg3_2_workspace": 0}:
+    if main_path != {"cg3": 4, "cg3_workspace": 0, "cg3_2": STEPS_3D,
+                     "cg3_2_workspace": 0}:
         raise AssertionError(f"K4 launches {main_path}")
     if not bool(torch.isfinite(hist).all()):
         raise AssertionError("fit_kappa's loss history is not finite")
@@ -1109,10 +1155,17 @@ def run_3d(torch, dev, card):
             f"{BATCH_3D / best['kernel'] * 1e3:.6e} scenarios/s) [{card}]")
     Dz, H, W = grid.node_shape
     _, ms["cg3_2_workspace"] = route_timing(
-        "phase 12 K4b", tk._launch_cg3_2, (D, b, Minv, ud, scale), state0,
-        K4B_ITERS, (Dz, H, W), 7, 4, BATCH_3D,
+        "phase 12 K4b", lambda s, n, p: tk._launch_cg3_2(
+            D, b, Minv, *s, ud, scale, n, plan=p), state0, 2, K4B_ITERS, 2,
+        (Dz, H, W), 7, 4, BATCH_3D,
         lambda c, t: lib.difffe_stencil3d_cg2_clusters(Dz, H, W, c, t, 0),
-        card, 2)
+        card)
+    _, ms["cg3_workspace"] = route_timing(
+        "phase 12 K4a", lambda v, n, p: tk._launch_cg3(
+            D, b, Minv, v, n, plan=p), x0, 2, K4A_ITERS, 1, (Dz, H, W), 7,
+        4, BATCH_3D,
+        lambda c, t: lib.difffe_stencil3d_cg_clusters(Dz, H, W, c, t, 0),
+        card)
     del D, b, Minv, x0, state0
     torch.cuda.empty_cache()
     # the shared-memory route at the README's other 3D size: 16³, B = 256,
@@ -1158,6 +1211,11 @@ def run_3d(torch, dev, card):
         kernel_entry("stencil3d_cg", K4_SOURCE, f"{JAX_K4}:153",
                      main_path["cg3"], max_abs["cg3"], ms["cg3"]["kernel"],
                      ms["cg3"]["plain"],
+                     K4_OPS_PER_NODE_ITER * n_nodes * K4A_ITERS,
+                     11 * n_nodes * 4),
+        kernel_entry("stencil3d_cg_workspace", K4_SOURCE, f"{JAX_K4}:153",
+                     main_path["cg3_workspace"], max_abs["cg3_workspace"],
+                     ms["cg3_workspace"], ms["cg3"]["plain"],
                      K4_OPS_PER_NODE_ITER * n_nodes * K4A_ITERS,
                      11 * n_nodes * 4),
         kernel_entry("stencil3d_cg2", K4_SOURCE, f"{JAX_K4}:368",
@@ -1949,6 +2007,124 @@ def k8_bound(n, Dn, B, item=4):
     return ops, nbytes
 
 
+def k8s_bound(nbr, W, m, iters):
+    """(operations, bytes) of one K8s solve: the slots this data makes
+    nonzero (both ends free, a nonzero weight) and every node, each
+    iteration; W, diag, the right-hand side, nbr and m read once and x
+    written once."""
+    n, Dn, B = W.shape
+    free = m == 0
+    slots = int(((free[:, None] & free[nbr.long()])[..., None]
+                 & (W != 0)).sum())
+    ops = iters * (K8S_OPS_PER_SLOT * slots + K8S_OPS_PER_NODE * n * B)
+    nbytes = (n * Dn * B + 3 * n * B) * W.element_size() + 4 * n * Dn \
+        + m.element_size() * n
+    return ops, nbytes
+
+
+def ell_plans(n, Dn, limit):
+    """Every K8s plan that fits: each cluster size."""
+    from difffe_tpu_torch.ops.kernels import ell_kernel as k8
+    from difffe_tpu_torch.ops.kernels.stencil_cg_kernel import CLUSTER_SIZES
+
+    plans = []
+    for c in CLUSTER_SIZES:
+        try:
+            plans.append(k8.ell_cluster_layout(n, Dn, c, limit))
+        except ValueError:
+            pass
+    return plans
+
+
+def ell_plan_text(plan):
+    """A K8s plan as one log phrase."""
+    if plan.route == "per_iteration":
+        return "the per-iteration route (one K8 launch an application)"
+    return (f"C = {plan.cluster}, {plan.block_bytes} bytes a block, "
+            f"{plan.threads} threads")
+
+
+def forced_ell_route(route):
+    """``unstructured._ell_cg`` pinned to ``route``: "per_iteration" (K8 an
+    operator application) or "plain" (K8s's plain version, with K8's for
+    the right-hand side); returns a function that restores both."""
+    from difffe_tpu_torch.ops import unstructured
+    from difffe_tpu_torch.ops.kernels import ell_kernel as k8
+
+    saved = unstructured._k8, unstructured._ell_cg
+    if route == "plain":
+        unstructured._k8 = k8.ell_apply_plain
+        unstructured._ell_cg = k8.ell_cg_plain
+    else:
+        unstructured._ell_cg = lambda *a: k8.ell_cg(
+            *a, plan=k8.per_iteration_plan(a[0].shape[0]))
+
+    def restore():
+        unstructured._k8, unstructured._ell_cg = saved
+    return restore
+
+
+def ell_route_timing(torch, label, mesh, ell, W, d, B, gen, card, length):
+    """K8s at one shape, f32, ``ELL_ITERS`` iterations from a random masked
+    right-hand side, each solve's x the next one's right-hand side: the
+    plan's route against the per-iteration route in turns (per-iteration,
+    plan, plan, per-iteration), every cluster size that fits, the plan's
+    route at 0 iterations (the staging alone) and at
+    twice the iterations (one CG iteration's time), and the plain version.
+    Logs; returns (plan ms, per-iteration ms, plain ms, operations,
+    bytes)."""
+    from difffe_tpu_torch.ops.kernels import ell_kernel as k8
+    from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
+    from difffe_tpu_torch.ops.kernels._build import load_library
+
+    lib = load_library()
+    n, Dn = ell.nbr.shape
+    m, limit = mesh.bc_mask, sk.smem_optin(0)
+    plan = k8.ell_cluster_plan(n, Dn, 4, limit)
+    rhs = ((1.0 - m[:, None]) * torch.rand(n, B, generator=gen,
+                                           device=m.device)).contiguous()
+
+    def timed(p, iters=ELL_ITERS, chain=length):
+        return timeit_chained_min(
+            lambda v: k8.ell_cg(ell.nbr, W, d, m, v, 0.0, iters, plan=p),
+            rhs, chain)
+
+    best = {"plan": float("inf"), "per_iteration": float("inf")}
+    for which in ("per_iteration", "plan", "plan", "per_iteration"):
+        best[which] = min(best[which], timed(
+            plan if which == "plan" else k8.per_iteration_plan(n)))
+    plain = timeit_chained_min(
+        lambda v: k8.ell_cg_plain(ell.nbr, W, d, m, v, 0.0, ELL_ITERS), rhs,
+        2)
+    ops, nbytes = k8s_bound(ell.nbr, W, m, ELL_ITERS)
+    b_ms, b_by = bound(ops, nbytes)
+    where = f"{n} nodes, Dn={Dn}, B={B}, {ELL_ITERS} iters"
+    log(f"{label} at {where}: the plan's route ({ell_plan_text(plan)}) "
+        f"{best['plan']:.4f} ms, the per-iteration route "
+        f"{best['per_iteration']:.4f} ms, "
+        f"{best['per_iteration'] / best['plan']:.2f}x; plain "
+        f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {ops:.3e} "
+        f"operations, {nbytes / 1e6:.1f} MB) [{card}]")
+    sizes = []
+    for p in ell_plans(n, Dn, limit):
+        active = lib.difffe_ell_cg_clusters(n, Dn, p.cluster, p.threads)
+        sizes.append(f"C={p.cluster} ({p.threads} threads, {p.block_bytes} "
+                     f"B, {active} clusters at once) {timed(p):.4f} ms")
+    log(f"{label} by cluster size at {where}: " + "; ".join(sizes)
+        + f" [{card}]")
+    staging, twice = timed(plan, 0), timed(plan, 2 * ELL_ITERS)
+    active = lib.difffe_ell_cg_clusters(n, Dn, plan.cluster, plan.threads)
+    waves = -(-B // active)
+    per = (twice - best["plan"]) / ELL_ITERS * 1e3
+    log(f"{label} at 0 iterations (staging and the initial dot) "
+        f"{staging:.4f} ms, {100 * staging / best['plan']:.1f}% of the "
+        f"solve; one CG iteration ({2 * ELL_ITERS} iters {twice:.4f} ms "
+        f"less {ELL_ITERS}, over {ELL_ITERS}): {per:.3f} µs a launch; "
+        f"{active} clusters at once, {waves} waves: {per / waves:.3f} µs "
+        f"a cluster [{card}]")
+    return best["plan"], best["per_iteration"], plain, ops, nbytes
+
+
 def reset_all_launches():
     """Every kernel wrapper's launch count, set to 0; returns the dicts."""
     from difffe_tpu_torch.ops.kernels import (ell_kernel, fused_grad_cf_kernel,
@@ -1981,13 +2157,13 @@ def check_only(counts, expected, what):
 
 
 def run_general(torch, dev, card, seed):
-    """Phases 21-23; returns the K8 entry of the kernels line."""
+    """Phases 21-23; returns the K8 and K8s entries of the kernels line."""
     from difffe_tpu_torch import (build_ell, fit_kappa,
                                   solve_poisson_cg_ell_batched)
     from difffe_tpu_torch.mesh import FEMesh
-    from difffe_tpu_torch.ops import unstructured
     from difffe_tpu_torch.ops.assembly import assemble_load
     from difffe_tpu_torch.ops.kernels import ell_kernel as k8
+    from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
     from difffe_tpu_torch.solver import solve_poisson_batched
 
     f32, f64 = torch.float32, torch.float64
@@ -2044,6 +2220,46 @@ def run_general(torch, dev, card, seed):
     torch.cuda.empty_cache()
     log(f"phase 21 K8 vs plain: {time.perf_counter() - t0:.1f} s")
 
+    # K8s against its plain version at every plan that fits
+    t0 = time.perf_counter()
+    limit = sk.smem_optin(0)
+    max_abs_s = 0.0
+    for cells, Bs in (((8, 8), 7), ((N_GEN, N_GEN), BATCH_GEN),
+                      ((N_BOX_GEN,) * 3, BATCH_BOX_GEN)):
+        m_ = general_mesh(torch, dev, cells, f64, seed)
+        ell_, W_, d_ = k8_case(torch, m_, Bs, gen, f64)
+        mk = m_.bc_mask
+        rhs = (1.0 - mk[:, None]) * torch.rand(m_.n_nodes, Bs, generator=gen,
+                                               dtype=f64, device=dev)
+        rhs[:, Bs // 2] = 0.0
+        n_, Dn = ell_.nbr.shape
+        p64 = k8.ell_cg_plain(ell_.nbr, W_, d_, mk, rhs, 0.0, ELL_ITERS)
+        a32 = [t.to(f32).contiguous() for t in (W_, d_, mk, rhs)]
+        p32 = k8.ell_cg_plain(ell_.nbr, *a32, 0.0, ELL_ITERS)
+        plan = k8.ell_cluster_plan(n_, Dn, 4, limit)
+        tag = f"{'x'.join(map(str, cells))} B={Bs}"
+        errs = []
+        for p_ in ell_plans(n_, Dn, limit):
+            what = f"phase 21 K8s {tag} {ell_plan_text(p_)}"
+            x = k8.ell_cg(ell_.nbr, *a32, 0.0, ELL_ITERS, plan=p_)
+            if not torch.equal(x, k8.ell_cg(ell_.nbr, *a32, 0.0, ELL_ITERS,
+                                            plan=p_)):
+                raise AssertionError(f"{what}: two launches differ")
+            if x[:, Bs // 2].any():
+                raise AssertionError(f"{what}: the zero right-hand side "
+                                     f"gives a nonzero solution")
+            ek, ep = check_rule("K8s", x, p32, p64, what)
+            errs.append(f"C={p_.cluster} {ek:.2e}")
+            if cells[0] == N_GEN and p_ == plan:
+                max_abs_s = float((x.double() - p64).abs().max())
+        log(f"phase 21 K8s {tag} ({n_} nodes, Dn={Dn}, {ELL_ITERS} iters; "
+            f"plan {ell_plan_text(plan)}): rel err vs the f64 plain run, "
+            f"kernel " + ", ".join(errs) + f"; f32 plain {ep:.2e}; two "
+            f"launches equal bit for bit, the zero right-hand side 0")
+        del ell_, W_, d_, p64, p32, a32
+    torch.cuda.empty_cache()
+    log(f"phase 21 K8s vs plain: {time.perf_counter() - t0:.1f} s")
+
     # -- phase 22: the main path
     mesh = general_mesh(torch, dev, (N_GEN, N_GEN), f32, seed)
     if mesh.grid is not None or (mesh.n_nodes, mesh.n_elements) != (
@@ -2070,10 +2286,11 @@ def run_general(torch, dev, card, seed):
     kappa, info = fit_kappa(mesh, f, u_data, steps=STEPS_GEN)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
-    main_launches = counts["ell_kernel"]["ell_apply"]
-    # 2·iters + 3 a step, then the eval solve at max(2·iters, 256)
-    want = STEPS_GEN * (2 * ELL_ITERS + 3) + max(2 * ELL_ITERS, 256) + 2
-    check_only(counts, {"ell_kernel": {"ell_apply": want}}, "phase 22")
+    main_launches = dict(counts["ell_kernel"])
+    # a step: K8 for the right-hand side, K8s forward and adjoint; then the
+    # eval solve: one of each
+    want = {"ell_apply": STEPS_GEN + 1, "ell_cg": 2 * STEPS_GEN + 1}
+    check_only(counts, {"ell_kernel": want}, "phase 22")
     hist = info["loss_history"]
     if info["path"] != "generic_ell_batchminor":
         raise AssertionError(f"phase 22 path {info['path']}")
@@ -2086,39 +2303,44 @@ def run_general(torch, dev, card, seed):
     log(f"phase 22 fit_kappa {STEPS_GEN} Adam steps, B={Bm}, iters "
         f"{info['iters']}: path {info['path']}, loss {loss0:.6e} → "
         f"{float(hist[-1]):.6e}, eval_loss {info['eval_loss']:.6e} "
-        f"({loss0 / info['eval_loss']:.1f}× lower); K8 launches "
-        f"{main_launches} (= {STEPS_GEN} × (2 × {ELL_ITERS} + 3) + "
-        f"{max(2 * ELL_ITERS, 256)} + 2), no other kernel; max |κ − κ_true| "
+        f"({loss0 / info['eval_loss']:.1f}× lower); launches "
+        f"{main_launches} (K8 {STEPS_GEN} + 1, K8s 2 × {STEPS_GEN} + 1), "
+        f"no other kernel; max |κ − κ_true| "
         f"{float((kappa - k_true).abs().max()):.3e}; {t_fit:.3f} s, "
         f"{t_fit / STEPS_GEN * 1e3:.3f} ms a step [{card}]")
 
-    # the κ gradient at fit_kappa's start (κ = 1) through K8 forward and
-    # adjoint against the plain version (the same solve with K8's plain
-    # version swapped in)
+    # the first step's loss and κ gradient (κ = 1, fit_kappa's start) on
+    # K8s and on the per-iteration route, against the plain version (the
+    # same solve with the plain versions swapped in)
     mesh_d = general_mesh(torch, dev, (N_GEN, N_GEN), f64, seed)
     ell_d = build_ell(mesh_d)
 
-    def grad_through(m_, ell_, dt, plain):
+    def first_step(m_, ell_, dt, route):
         k = torch.ones_like(k_true, dtype=dt).requires_grad_()
-        if plain:
-            unstructured._k8 = k8.ell_apply_plain
+        restore = forced_ell_route(route) if route else (lambda: None)
         try:
             u = solve_poisson_cg_ell_batched(m_, ell_, k, FB.to(dt), 0.0,
                                              ELL_ITERS)
-            ((u - u_data.to(dt)) ** 2).mean().backward()
+            loss = ((u - u_data.to(dt)) ** 2).mean()
+            loss.backward()
         finally:
-            unstructured._k8 = k8.ell_apply
-        return u.detach(), k.grad
+            restore()
+        return u.detach(), loss.detach().reshape(1), k.grad
 
-    kern = grad_through(mesh, ell, f32, False)
-    p32 = grad_through(mesh, ell, f32, True)
-    p64 = grad_through(mesh_d, ell_d, f64, True)
-    for name, a, b, c in zip(("u", "κ gradient"), kern, p32, p64):
-        ek, ep = check_rule("K8", a, b, c, f"phase 22 {name}")
-        log(f"phase 22 {name} at κ = 1 through the batched ELL solve "
-            f"({ELL_ITERS} iterations): kernel {ek:.3e} vs plain f32 {ep:.3e} from the "
-            f"f64 plain run")
-    del mesh_d, ell_d, kern, p32, p64
+    runs = {r: first_step(mesh, ell, f32, r)
+            for r in (None, "per_iteration", "plain")}
+    p64 = first_step(mesh_d, ell_d, f64, "plain")
+    for i, name in enumerate(("u", "loss", "κ gradient")):
+        ek, ep = check_rule("K8s", runs[None][i], runs["plain"][i], p64[i],
+                            f"phase 22 {name}")
+        ei, _ = check_rule("K8", runs["per_iteration"][i], runs["plain"][i],
+                           p64[i], f"phase 22 {name}")
+        check_rule("K8s", runs[None][i], runs["per_iteration"][i], p64[i],
+                   f"phase 22 {name} against the per-iteration route")
+        log(f"phase 22 first step's {name} at κ = 1 ({ELL_ITERS} "
+            f"iterations): rel err vs the f64 plain run, K8s {ek:.3e}, the "
+            f"per-iteration route {ei:.3e}, plain f32 {ep:.3e}")
+    del mesh_d, ell_d, runs, p64
 
     boxm = general_mesh(torch, dev, (N_BOX_GEN,) * 3, f32, seed)
     Bb = BATCH_BOX_GEN
@@ -2166,14 +2388,20 @@ def run_general(torch, dev, card, seed):
             f"{info_l['eval_loss']:.6e}")
 
     # -- phase 23: timing
-    ms = {}
-    lib = {}
-    for cells, Bt in (((N_GEN, N_GEN), BATCH_GEN),
-                      ((N_GEN_BIG, N_GEN_BIG), BATCH_GEN_BIG)):
+    ms, lib, k8s = {}, {}, {}
+    for cells, Bt, length in (((N_GEN, N_GEN), BATCH_GEN, 8),
+                              ((N_BOX_GEN,) * 3, BATCH_BOX_GEN, 8),
+                              ((N_GEN_BIG, N_GEN_BIG), BATCH_GEN_BIG, 4)):
         t0 = time.perf_counter()
-        m_ = mesh if cells[0] == N_GEN else general_mesh(torch, dev, cells,
-                                                         f32, seed)
+        m_ = mesh if cells == (N_GEN, N_GEN) else general_mesh(
+            torch, dev, cells, f32, seed)
         ell_, W_, d_ = k8_case(torch, m_, Bt, gen, f32)
+        key = f"{cells[0]}{'²' if len(cells) == 2 else '³'}"
+        k8s[key] = ell_route_timing(torch, f"phase 23 K8s at {key}", m_,
+                                    ell_, W_, d_, Bt, gen, card, length)
+        if len(cells) == 3:     # K8 is timed on the triangulations
+            del ell_, W_, d_
+            continue
         # scaled to a contraction, so chained values stay bounded (the
         # work is the same)
         rho = float((W_.abs().sum(dim=1) + d_.abs()).max())
@@ -2195,7 +2423,6 @@ def run_general(torch, dev, card, seed):
                                    length=8)
         ops, nbytes = k8_bound(m_.n_nodes, Dn, Bt)
         b_ms, b_by = bound(ops, nbytes)
-        key = f"{cells[0]}²"
         ms[key], lib[key] = best, t_lib
         log(f"phase 23 K8 at {key} ({m_.n_nodes} nodes, Dn={Dn}), B={Bt}, "
             f"f32: kernel {best['kernel']:.4f} ms, plain "
@@ -2206,19 +2433,47 @@ def run_general(torch, dev, card, seed):
             f"{time.perf_counter() - t0:.1f} s [{card}]")
         del ell_, W_, d_, A, v0
         torch.cuda.empty_cache()
-    log(f"phase 23 fit_kappa host time, {STEPS_GEN} steps at {N_GEN}², "
-        f"B={Bm}: {t_fit:.4f} s, {t_fit / STEPS_GEN * 1e3:.3f} ms a step, "
-        f"{Bm * STEPS_GEN / t_fit:.6e} grad-solves/s [{card}]")
+
+    def fit10():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_kappa(mesh, f, u_data, steps=10, eval_final=False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    per_step = {"k8s": float("inf"), "per_iteration": float("inf")}
+    for route in ("per_iteration", "k8s", "k8s", "per_iteration"):
+        restore = (forced_ell_route(route) if route == "per_iteration"
+                   else (lambda: None))
+        try:
+            per_step[route] = min(per_step[route], fit10() / 10 * 1e3)
+        finally:
+            restore()
+    log(f"phase 23 fit_kappa host time at {N_GEN}², B={Bm}: {STEPS_GEN} "
+        f"steps on K8s with the eval solve (phase 22's call) {t_fit:.4f} "
+        f"s, {t_fit / STEPS_GEN * 1e3:.3f} ms a step, "
+        f"{Bm * STEPS_GEN / t_fit:.6e} grad-solves/s; 10 steps without it, "
+        f"in turns: K8s {per_step['k8s']:.3f} ms a step, the per-iteration "
+        f"route {per_step['per_iteration']:.3f} ms a step, "
+        f"{per_step['per_iteration'] / per_step['k8s']:.2f}x [{card}]")
     profile_split(torch, lambda: fit_kappa(mesh, f, u_data, steps=10,
                                            eval_final=False),
                   "phase 23", card, what=f"fit_kappa (10 steps, B={Bm})")
 
     ops, nbytes = k8_bound(mesh.n_nodes, ell.nbr.shape[1], Bm)
     key = f"{N_GEN}²"
-    return kernel_entry("ell_apply", K8_SOURCE,
-                        f"{P1_PROBE}:29 (try_kernel → pallas_call :31)",
-                        main_launches, max_abs, ms[key]["kernel"],
-                        ms[key]["plain"], ops, nbytes, lib[key])
+    ms_s, _, plain_s, ops_s, bytes_s = k8s[key]
+    return [
+        kernel_entry("ell_apply", K8_SOURCE,
+                     f"{P1_PROBE}:29 (try_kernel → pallas_call :31)",
+                     main_launches["ell_apply"], max_abs, ms[key]["kernel"],
+                     ms[key]["plain"], ops, nbytes, lib[key]),
+        kernel_entry("ell_cg", K8S_SOURCE,
+                     f"{P1_PROBE}:29 (try_kernel → pallas_call :31) with "
+                     f"the CG around it, {JAX_ELL_CG}:249",
+                     main_launches["ell_cg"], max_abs_s, ms_s, plain_s,
+                     ops_s, bytes_s),
+    ]
 
 
 ABL_NS = (13, 31)         # phase 24: nodes
@@ -2454,7 +2709,7 @@ def main() -> int:
     log(f"fused 1D path, phases 17-20: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    kernels.append(run_general(torch, dev, card, seed))
+    kernels += run_general(torch, dev, card, seed)
     log(f"general-mesh path, phases 21-23: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -35,7 +35,8 @@ Ported so far:
   implicit adjoint (ops/cg.py), edge Neumann/Robin terms, the edge-ELL
   gather operator and its solves (ops/unstructured.py: ``build_ell``,
   ``solve_poisson_cg_ell``, ``solve_poisson_cg_ell_batched``) with the
-  hand-written CUDA kernel K8 (ops/kernels/ell_kernel.py), the
+  hand-written CUDA kernels K8 (one operator application) and K8s (a
+  whole fixed-trip solve) (ops/kernels/ell_kernel.py), the
   ``dense``/``lu``/``cg`` routes on any mesh, and ``fit_kappa``'s
   generic routes.
 

@@ -1,7 +1,11 @@
-// The two-solve whole-CG body of K3b (stencil_cg.cu) and K4b
-// (stencil3d_cg.cu) on the H100: one thread-block cluster a scenario,
-// with the scenario's coefficient planes, Minv and CG state on the chip
-// (shared memory and registers) for the whole launch.
+// The whole-CG body of the cluster routes on the H100: one thread-block
+// cluster a scenario, with the scenario's operator, Minv and CG state on
+// the chip (shared memory and registers) for the whole launch.  Its users:
+// K3b (stencil_cg.cu) and K4b (stencil3d_cg.cu), two solves a launch; K4a
+// (stencil3d_cg.cu), one; K8s (ell_cg.cu), one solve of the edge-ELL
+// operator.  An operator type gives the loop its nodes, its Minv, its
+// apply and its initial residual: ClusterBox here (the BC-folded stencil of
+// a node box), ClusterEll in ell_cg.cu.
 //
 // Algorithm, freeze rule and two-solve form are cg_common.cuh's (see its
 // header); where the data lives and how a dot is summed differ.
@@ -15,7 +19,7 @@
 // min(n, (k+1)*chunk)), chunk = ceil(n / C), and each of its threads at most
 // kNodesPerThread of those nodes (node lo + t + j*threads for j = 0, 1, ...).
 // The rank stages its range's NP coefficient planes and Minv into dynamic
-// shared memory once, in the stored type CT (f32, or bf16 on K4b's bf16
+// shared memory once, in the stored type CT (f32, or bf16 on K4's bf16
 // route); a thread keeps x, r and Ap (then z) of its nodes in registers.
 // The CG loop reads no device memory.  Shared memory a block: chunk * (12 +
 // (NP + 1) * sizeof(CT)) bytes (p twice, r, the planes) and
@@ -27,11 +31,12 @@
 // neighbour in its own range from shared memory; at a neighbour at +-1, +-W
 // or +-HW in another rank's range it reads that rank's r, Minv and previous
 // p through DSMEM and forms the neighbour's p = Minv r + beta p_prev
-// itself, with the owner's own roundings, so it gets the owner's bits
-// without waiting for the owner to store them.  p is double-buffered,
-// so no rank overwrites a p another rank may still read.  Every read stays
-// guarded by the node's (z, y, x), as in cg_common's operators.  The 2D
-// operator is the 3D one with Dz = 1 and NP = 5 (its z terms never compile).
+// itself (cluster_remote_p), with the owner's own roundings, so it gets the
+// owner's bits without waiting for the owner to store them.  p is
+// double-buffered, so no rank overwrites a p another rank may still read.
+// Every read stays guarded by the node's (z, y, x), as in cg_common's
+// operators.  The 2D operator is the 3D one with Dz = 1 and NP = 5 (its z
+// terms never compile).
 //
 // Rounding.  Every product and sum is rounded on its own, in the plain
 // version's order (no contraction to fma), so a kernel run differs from
@@ -163,6 +168,22 @@ __device__ __forceinline__ float block_total(float v, float* red) {
   return s;
 }
 
+// p at node j of another rank of `chunk` nodes a rank: formed from that
+// rank's r, Minv and previous p (the buffers at the same offsets as this
+// rank's `rs`, `minv`, `prev`), as the owner forms it.
+template <typename CT>
+__device__ __forceinline__ float cluster_remote_p(int j, int chunk,
+                                                  float* rs, const CT* minv,
+                                                  float* prev, float beta) {
+  cgx::cluster_group cluster = cgx::this_cluster();
+  const int owner = j / chunk, o = j - owner * chunk;
+  const float r = cluster.map_shared_rank(rs, owner)[o];
+  const float m =
+      stored(cluster.map_shared_rank(const_cast<CT*>(minv), owner)[o]);
+  const float pp = cluster.map_shared_rank(prev, owner)[o];
+  return next_p(__fmul_rn(m, r), pp, beta);
+}
+
 // Dots over the cluster, summed in rank order (see the header).
 struct ClusterDots {
   float (*red)[32];
@@ -236,6 +257,16 @@ struct ClusterBox {
 
   __device__ __forceinline__ float minv(int q) const { return coef(NP, q); }
 
+  // r - (A x0) at the cursor's node, with x0 there x and at its neighbours
+  // read from the scenario's x0 in device memory.
+  __device__ __forceinline__ float residual0(const Cursor& c, int q, float r,
+                                             float x,
+                                             const float* __restrict__ x0)
+      const {
+    return __fsub_rn(r, stencil(c, q, x,
+                                [&](int d) { return __ldg(x0 + c.i + d); }));
+  }
+
   // (A v) at the cursor's node, with v there vq and at offset d nb(d), in
   // the order of OFFSETS / OFFSETS3:
   // (0,0,+1) (0,0,-1) (0,+1,0) (0,-1,0) [(+1,0,0) (-1,0,0)].
@@ -254,22 +285,8 @@ struct ClusterBox {
     return out;
   }
 
-  // p at node j of another rank: formed from that rank's r, Minv and
-  // previous p (the buffers at the same offsets as this rank's `rs`,
-  // `prev`), as the owner forms it.
-  __device__ __forceinline__ float remote_p(int j, float* rs, float* prev,
-                                            float beta) const {
-    cgx::cluster_group cluster = cgx::this_cluster();
-    const int owner = j / chunk, o = j - owner * chunk;
-    const float r = cluster.map_shared_rank(rs, owner)[o];
-    const float m = stored(cluster.map_shared_rank(
-        const_cast<CT*>(planes), owner)[NP * chunk + o]);
-    const float pp = cluster.map_shared_rank(prev, owner)[o];
-    return next_p(__fmul_rn(m, r), pp, beta);
-  }
-
   // (A p) at the cursor's node; p is `cur` on this rank, formed as
-  // remote_p on the others.
+  // cluster_remote_p on the others.
   __device__ __forceinline__ float apply(const Cursor& c, int q, float pq,
                                          float* cur, float* rs, float* prev,
                                          float beta) const {
@@ -278,16 +295,19 @@ struct ClusterBox {
       return stencil(c, q, pq, [&](int d) { return cur[q + d]; });
     return stencil(c, q, pq, [&](int d) {
       const int j = i + d;
-      return j >= lo && j < end ? cur[j - lo] : remote_p(j, rs, prev, beta);
+      return j >= lo && j < end
+                 ? cur[j - lo]
+                 : cluster_remote_p(j, chunk, rs, planes + NP * chunk,
+                                    prev, beta);
     });
   }
 };
 
 // One fixed-trip PCG solve over this rank's nodes.  On entry a thread's
 // x[] holds x0 at its nodes and r[] the right-hand side, and `x0` points at
-// the scenario's x0 in device memory (the initial residual reads the
-// neighbours there); on exit x[] holds the solution.  p0, p1 and rs are this
-// rank's shared vectors, indexed by q = node - lo.
+// the scenario's x0 in device memory (the operator's initial residual may
+// read the neighbours there); on exit x[] holds the solution.  p0, p1 and
+// rs are this rank's shared vectors, indexed by q = node - lo.
 template <int K, class Op>
 __device__ __forceinline__ void cluster_cg_solve(
     const Op& op, float (&x)[K], float (&r)[K], const float* __restrict__ x0,
@@ -301,9 +321,7 @@ __device__ __forceinline__ void cluster_cg_solve(
     for (int k = 0; k < K; ++k, op.next(c)) {
       if (c.i >= op.end) continue;
       const int q = c.i - op.lo;
-      const float ri = __fsub_rn(r[k], op.stencil(c, q, x[k], [&](int d) {
-        return __ldg(x0 + c.i + d);
-      }));
+      const float ri = op.residual0(c, q, r[k], x[k], x0);
       const float z = __fmul_rn(op.minv(q), ri);
       r[k] = ri;
       rs[q] = ri;
@@ -502,40 +520,25 @@ cudaLaunchConfig_t cluster_config(int blocks, int threads, size_t smem,
   return cfg;
 }
 
-// Launch the cluster kernel on B scenarios; returns the launch's error.
-template <typename CT, int NP, bool TWO_SOLVES>
-int launch_cluster_cg(const void* D, const void* b, const void* minv,
-                      const void* x0, const void* lam0, const void* ud,
-                      void* x_out, void* lam_out, int B, int Dz, int H,
-                      int W, int iters, float scale, int C, int threads,
-                      void* stream) {
-  ClusterBox<CT, NP> op;
-  if (!cluster_box(Dz, H, W, C, threads, op)) return cudaErrorInvalidValue;
-  const size_t smem = cluster_smem_bytes(op);
-  auto kern = cluster_cg_kernel<CT, NP, TWO_SOLVES>;
+// Launch `kern` on `blocks` blocks in clusters of C; returns the launch's
+// error.
+template <typename Kernel, typename... Args>
+int cluster_launch(Kernel kern, int blocks, int C, int threads, size_t smem,
+                   void* stream, Args... args) {
   cudaError_t e = cluster_kernel_ready(kern, smem, C);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(
-      B * C, threads, smem, static_cast<cudaStream_t>(stream), &attr, C);
-  e = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const CT*>(D), static_cast<const float*>(b),
-      static_cast<const CT*>(minv), static_cast<const float*>(x0),
-      static_cast<const float*>(lam0), static_cast<const float*>(ud),
-      static_cast<float*>(x_out), static_cast<float*>(lam_out), op,
-      static_cast<size_t>(B) * op.n, iters, scale);
+      blocks, threads, smem, static_cast<cudaStream_t>(stream), &attr, C);
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// Clusters of this shape the card can hold at once (>= 1), 0 when it can
-// hold none, or minus a CUDA error code.
-template <typename CT, int NP, bool TWO_SOLVES>
-int cluster_capacity(int Dz, int H, int W, int C, int threads) {
-  ClusterBox<CT, NP> op;
-  if (!cluster_box(Dz, H, W, C, threads, op)) return -cudaErrorInvalidValue;
-  const size_t smem = cluster_smem_bytes(op);
-  auto kern = cluster_cg_kernel<CT, NP, TWO_SOLVES>;
+// Clusters of C blocks of `kern` the card can hold at once (>= 1), 0 when
+// it can hold none, or minus a CUDA error code.
+template <typename Kernel>
+int cluster_capacity_of(Kernel kern, size_t smem, int C, int threads) {
   cudaError_t e = cluster_kernel_ready(kern, smem, C);
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchAttribute attr;
@@ -545,6 +548,36 @@ int cluster_capacity(int Dz, int H, int W, int C, int threads) {
   e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
   if (e != cudaSuccess) return -static_cast<int>(e);
   return clusters;
+}
+
+// Launch the cluster kernel on B scenarios; returns the launch's error.
+template <typename CT, int NP, bool TWO_SOLVES>
+int launch_cluster_cg(const void* D, const void* b, const void* minv,
+                      const void* x0, const void* lam0, const void* ud,
+                      void* x_out, void* lam_out, int B, int Dz, int H,
+                      int W, int iters, float scale, int C, int threads,
+                      void* stream) {
+  ClusterBox<CT, NP> op;
+  if (!cluster_box(Dz, H, W, C, threads, op)) return cudaErrorInvalidValue;
+  auto kern = cluster_cg_kernel<CT, NP, TWO_SOLVES>;
+  return cluster_launch(
+      kern, B * C, C, threads, cluster_smem_bytes(op), stream,
+      static_cast<const CT*>(D),
+      static_cast<const float*>(b), static_cast<const CT*>(minv),
+      static_cast<const float*>(x0), static_cast<const float*>(lam0),
+      static_cast<const float*>(ud), static_cast<float*>(x_out),
+      static_cast<float*>(lam_out), op, static_cast<size_t>(B) * op.n,
+      iters, scale);
+}
+
+// Clusters of this shape the card can hold at once (see
+// cluster_capacity_of).
+template <typename CT, int NP, bool TWO_SOLVES>
+int cluster_capacity(int Dz, int H, int W, int C, int threads) {
+  ClusterBox<CT, NP> op;
+  if (!cluster_box(Dz, H, W, C, threads, op)) return -cudaErrorInvalidValue;
+  auto kern = cluster_cg_kernel<CT, NP, TWO_SOLVES>;
+  return cluster_capacity_of(kern, cluster_smem_bytes(op), C, threads);
 }
 
 }  // namespace

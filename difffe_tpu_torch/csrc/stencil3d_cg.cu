@@ -16,8 +16,9 @@
 // may be stored as bf16 (CT = __nv_bfloat16), upcast at each load, with all
 // arithmetic, the right-hand side, the state and the outputs in f32.
 //
-// K4b has two routes, which the wrapper's plan picks from the shape and
-// the stored type:
+// K4a and K4b each have two routes, which the wrapper's plan picks from
+// the shape and the stored type (one plan for both: the one-solve and the
+// two-solve kernels hold the same bytes a block):
 //
 // * cluster (cg_cluster.cuh): one thread-block cluster of C blocks a
 //   scenario holds the scenario's 7 planes, Minv and CG state in shared
@@ -25,18 +26,21 @@
 //   launch, so its loop reads no device memory; neighbours in another
 //   block's range are read through DSMEM.  It takes boxes of up to
 //   16 * 8 * 640 = 81,920 nodes (42^3; the main path's 32^3 at C = 8).
-// * workspace (cg_common.cuh, the first design, shared with K4a): one
-//   thread block a scenario, the CG vectors in dynamic shared memory when
-//   4*n floats fit (n <= ~14,500 nodes) else in a global workspace of 4*n
-//   floats a scenario that the wrapper allocates; the planes and Minv are
-//   read from device memory (through L1/L2) in every iteration.  The plan
-//   sends only boxes past the cluster route's reach here (43^3 and up).
+//   K4a starts from any x0: the initial residual reads x0's neighbours
+//   from device memory.
+// * workspace (cg_common.cuh, the first design): one thread block a
+//   scenario, the CG vectors in dynamic shared memory when 4*n floats fit
+//   (n <= ~14,500 nodes) else in a global workspace of 4*n floats a
+//   scenario that the wrapper allocates; the planes and Minv are read from
+//   device memory (through L1/L2) in every iteration.  The plan sends only
+//   boxes past the cluster route's reach here (43^3 and up).
 //
 // Bound.  At the main path's workload (32^3 box, B = 128, 100 iterations,
 // two solves) the work is 24 operations per node per iteration (7-point
 // apply 13, two dots 4, x/r/p updates 6, Jacobi 1), 2.2e10 = 0.33 ms at
 // 67 TFLOP/s fp32, against 14 (B, 33^3) f32 planes moved once (0.26 GB,
-// 0.077 ms at 3.35 TB/s): bound by operations.  The first design ran one
+// 0.077 ms at 3.35 TB/s): bound by operations; K4a's eval solve (one
+// solve, 400 iterations, 11 planes) likewise.  The first design ran one
 // scenario an SM (B = 128 blocks on 132 SMs) and re-read the 8 coefficient
 // planes and streamed x, r, p and Ap through its workspace in every
 // iteration (~80 B a node); the cluster route spreads a scenario over C
@@ -194,11 +198,26 @@ extern "C" int difffe_stencil3d_cg_work(int Dz, int H, int W) {
 // bfloat16 when `bf16` is nonzero; every other plane is (B, Dz, H, W)
 // float32; all contiguous.  `work` is null or holds
 // difffe_stencil3d_cg_work(Dz, H, W) floats per scenario.
+//
+// K4a.  `cluster` > 0 takes the cluster route with clusters of that many
+// blocks of `threads` threads (work must be null); 0 takes the workspace
+// route (the first design; `threads` unused).
 extern "C" int difffe_stencil3d_cg(const void* D, const void* b,
                                    const void* minv, const void* x0,
                                    void* out, void* work, int B, int Dz,
                                    int H, int W, int iters, int bf16,
-                                   void* stream) {
+                                   int cluster, int threads, void* stream) {
+  if (cluster > 0) {
+    if (work != nullptr) return cudaErrorInvalidValue;
+    if (bf16)
+      return launch_cluster_cg<__nv_bfloat16, 7, false>(
+          D, b, minv, x0, nullptr, nullptr, out, nullptr, B, Dz, H, W, iters,
+          0.f, cluster, threads, stream);
+    return launch_cluster_cg<float, 7, false>(D, b, minv, x0, nullptr,
+                                              nullptr, out, nullptr, B, Dz, H,
+                                              W, iters, 0.f, cluster, threads,
+                                              stream);
+  }
   if (bf16)
     return launch<__nv_bfloat16, false>(D, b, minv, x0, nullptr, nullptr, out,
                                         nullptr, work, B, Dz, H, W, iters,
@@ -235,9 +254,18 @@ extern "C" int difffe_stencil3d_cg2(const void* D, const void* b,
                              B, Dz, H, W, iters, scale, stream);
 }
 
-// K4b's cluster route: how many clusters of `cluster` blocks of `threads`
-// threads the card holds at once on a (Dz, H, W) box (0: none; < 0: minus
-// a CUDA error).
+// K4a's and K4b's cluster routes: how many clusters of `cluster` blocks of
+// `threads` threads the card holds at once on a (Dz, H, W) box (0: none;
+// < 0: minus a CUDA error).
+extern "C" int difffe_stencil3d_cg_clusters(int Dz, int H, int W,
+                                            int cluster, int threads,
+                                            int bf16) {
+  if (bf16)
+    return cluster_capacity<__nv_bfloat16, 7, false>(Dz, H, W, cluster,
+                                                     threads);
+  return cluster_capacity<float, 7, false>(Dz, H, W, cluster, threads);
+}
+
 extern "C" int difffe_stencil3d_cg2_clusters(int Dz, int H, int W,
                                              int cluster, int threads,
                                              int bf16) {

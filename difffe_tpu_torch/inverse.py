@@ -34,8 +34,10 @@ launch.
 
 Any other 2D/3D mesh (no grid, or a replaced Dirichlet mask) with
 B ≥ 128 scenarios takes Adam on log κ through the batch-minor edge-ELL CG
-(ops/unstructured.py: every forward and adjoint CG iteration one launch of
-kernel K8; ``info["path"] == "generic_ell_batchminor"``).  Any other mesh
+(ops/unstructured.py: in float32 each forward and adjoint solve one launch
+of kernel K8s and the right-hand side one of K8, in float64 one K8 launch
+a CG iteration; ``info["path"] == "generic_ell_batchminor"``).  Any other
+mesh
 takes the generic Adam field recovery (``recover_kappa_field``,
 ``info["path"] == "generic_adam"``).
 """

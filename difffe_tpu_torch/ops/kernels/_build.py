@@ -44,7 +44,8 @@ _SIGNATURES = {
     "difffe_smem_optin": [],
     "difffe_stencil3d_cg_work": [_I, _I, _I],
     "difffe_stencil3d_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P],
+                            _I, _I, _P],
+    "difffe_stencil3d_cg_clusters": [_I, _I, _I, _I, _I, _I],
     "difffe_stencil3d_cg2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _F, _I, _I, _I, _P],
     "difffe_stencil3d_cg2_clusters": [_I, _I, _I, _I, _I, _I],
@@ -59,6 +60,8 @@ _SIGNATURES = {
     "difffe_fused_mxu": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P, _I,
                          _I, _I, _I, _I, _D, _I, _P],
     "difffe_ell_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "difffe_ell_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "difffe_ell_cg_clusters": [_I, _I, _I, _I],
     "difffe_k7_ablation": [_I, _P, _L, _P, _P, _L, _I, _P, _P, _P, _P, _I,
                            _I, _D, _I, _P],
 }

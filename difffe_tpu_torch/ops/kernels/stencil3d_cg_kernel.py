@@ -8,12 +8,12 @@ The Dirichlet elimination is folded into the stencil outside the kernel
 Each solve has two implementations behind one wrapper:
 
 * the CUDA kernels in ``csrc/stencil3d_cg.cu``, launched for CUDA
-  tensors: K4a one thread block per scenario (CG vectors in shared memory
-  or a global workspace); K4b on the route
+  tensors: K4a (one solve) and K4b (two) on the route
   :func:`~.stencil_cg_kernel.cluster_plan` picks from the shape and the
-  stored type, one thread-block cluster per scenario with the whole
-  two-solve CG in shared memory, or K4a's design past the cluster's
-  reach;
+  stored type, one thread-block cluster per scenario with the whole CG in
+  shared memory, or past the cluster's reach the first design (one thread
+  block per scenario, CG vectors in shared memory or a global
+  workspace);
 * the plain PyTorch versions below (the same per-scenario fixed-trip PCG
   with the same freeze rule, ``ops/pcg.py`` with per-scenario dots), taken
   only for CPU tensors, and the reference the kernels are checked against.
@@ -56,9 +56,10 @@ from ..stencil3d import (
 from .stencil_cg_kernel import (ClusterPlan, _check_block_b,
                                 check_schedulable, cluster_plan, smem_optin)
 
-#: Kernel launches made by the wrappers, by kernel: "cg3" K4a, "cg3_2" K4b
-#: on the cluster route, "cg3_2_workspace" K4b on the workspace route.
-launches = {"cg3": 0, "cg3_2": 0, "cg3_2_workspace": 0}
+#: Kernel launches made by the wrappers, by kernel and route: "cg3" K4a
+#: and "cg3_2" K4b on the cluster route, "cg3_workspace" and
+#: "cg3_2_workspace" on the workspace route.
+launches = {"cg3": 0, "cg3_workspace": 0, "cg3_2": 0, "cg3_2_workspace": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +132,30 @@ def _workspace(lib, B, Dz, H, W, device):
     return torch.empty(B * per, dtype=torch.float32, device=device)
 
 
-def _launch_cg3(D, b, Minv, x0, iters):
+def _plan_cg3(D, Dz, H, W, plan):
+    """K4a's and K4b's plan (their blocks hold the same bytes)."""
+    return plan or cluster_plan(Dz * H * W, 7, D.element_size(),
+                                smem_optin(D.device.index))
+
+
+def _ready(lib, D, B, Dz, H, W, plan, query):
+    """On the cluster route ask the card, once a shape, whether it can hold
+    ``plan``'s clusters (``query`` is the kernel's ``_clusters`` entry); on
+    the workspace route allocate the workspace.  Returns the workspace
+    (None on the cluster route, or when the vectors fit in shared
+    memory)."""
+    if plan.route != "cluster":
+        return _workspace(lib, B, Dz, H, W, D.device)
+    bf16 = int(D.dtype == torch.bfloat16)
+    check_schedulable(lambda c, t: query(Dz, H, W, c, t, bf16),
+                      (query.__name__, Dz, H, W, bf16), plan, D.device)
+    return None
+
+
+def _launch_cg3(D, b, Minv, x0, iters, plan: Optional[ClusterPlan] = None):
+    """K4a on ``plan``'s route (default :func:`cluster_plan`'s for the
+    shape and the stored type; the tests and chip_smoke.py pass another to
+    compare routes and cluster sizes)."""
     from ._build import load_library
 
     B, Dz, H, W = _check_cuda_planes(D, Minv, (b, x0))
@@ -139,22 +163,21 @@ def _launch_cg3(D, b, Minv, x0, iters):
     if B == 0:
         return out
     lib = load_library()
-    work = _workspace(lib, B, Dz, H, W, D.device)
+    plan = _plan_cg3(D, Dz, H, W, plan)
+    work = _ready(lib, D, B, Dz, H, W, plan,
+                  lib.difffe_stencil3d_cg_clusters)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.difffe_stencil3d_cg(
             D.data_ptr(), b.data_ptr(), Minv.data_ptr(), x0.data_ptr(),
             out.data_ptr(), None if work is None else work.data_ptr(),
-            B, Dz, H, W, int(iters), int(D.dtype == torch.bfloat16), stream)
+            B, Dz, H, W, int(iters), int(D.dtype == torch.bfloat16),
+            plan.cluster, plan.threads, stream)
     if rc != 0:
-        raise RuntimeError(f"K4a stencil3d_cg launch failed: CUDA error {rc}")
-    launches["cg3"] += 1
+        raise RuntimeError(f"K4a stencil3d_cg launch failed ({plan.route} "
+                           f"route, cluster {plan.cluster}): CUDA error {rc}")
+    launches["cg3" if plan.route == "cluster" else "cg3_workspace"] += 1
     return out
-
-
-def _plan_cg3_2(D, Dz, H, W, plan):
-    return plan or cluster_plan(Dz * H * W, 7, D.element_size(),
-                                smem_optin(D.device.index))
 
 
 def _launch_cg3_2(D, b, Minv, x0, lam0, ud, scale, iters,
@@ -170,24 +193,18 @@ def _launch_cg3_2(D, b, Minv, x0, lam0, ud, scale, iters,
     if B == 0:
         return x, lam
     lib = load_library()
-    bf16 = int(D.dtype == torch.bfloat16)
-    plan = _plan_cg3_2(D, Dz, H, W, plan)
-    work = None
-    if plan.route == "cluster":
-        check_schedulable(
-            lambda c, t: lib.difffe_stencil3d_cg2_clusters(Dz, H, W, c, t,
-                                                           bf16),
-            ("cg3_2", Dz, H, W, bf16), plan, D.device)
-    else:
-        work = _workspace(lib, B, Dz, H, W, D.device)
+    plan = _plan_cg3(D, Dz, H, W, plan)
+    work = _ready(lib, D, B, Dz, H, W, plan,
+                  lib.difffe_stencil3d_cg2_clusters)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.difffe_stencil3d_cg2(
             D.data_ptr(), b.data_ptr(), Minv.data_ptr(), x0.data_ptr(),
             lam0.data_ptr(), ud.data_ptr(), x.data_ptr(), lam.data_ptr(),
             None if work is None else work.data_ptr(),
-            B, Dz, H, W, int(iters), float(scale), bf16, plan.cluster,
-            plan.threads, stream)
+            B, Dz, H, W, int(iters), float(scale),
+            int(D.dtype == torch.bfloat16), plan.cluster, plan.threads,
+            stream)
     if rc != 0:
         raise RuntimeError(f"K4b stencil3d_cg2 launch failed ({plan.route} "
                            f"route, cluster {plan.cluster}): CUDA error {rc}")

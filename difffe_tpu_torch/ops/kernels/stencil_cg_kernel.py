@@ -167,14 +167,16 @@ _SMEM_RESERVED = 1024
 
 @dataclasses.dataclass(frozen=True)
 class ClusterPlan:
-    """How K3b or K4b runs one shape.
+    """How K3b, K4a, K4b or K8s runs one shape.
 
     ``route`` is ``"cluster"`` (``csrc/cg_cluster.cuh``: a cluster of
     ``cluster`` blocks of ``threads`` threads a scenario, rank k owning
     nodes ``[k·chunk, min(nodes, (k+1)·chunk))`` with their planes, M⁻¹ and
     CG vectors in ``block_bytes`` of shared memory, ``blocks_per_sm`` such
-    blocks to an SM) or ``"workspace"`` (``csrc/cg_common.cuh``'s one block
-    a scenario, the CG vectors in a global workspace; ``cluster`` 0)."""
+    blocks to an SM), ``"workspace"`` (K3b/K4a/K4b: ``csrc/cg_common.cuh``'s
+    one block a scenario, the CG vectors in a global workspace) or
+    ``"per_iteration"`` (K8s: one K8 launch an operator application);
+    ``cluster`` is 0 off the cluster route."""
     route: str
     nodes: int
     cluster: int

@@ -22,10 +22,13 @@ JAX package's order entry for entry, and live on ``mesh.device``.
 
 :func:`solve_poisson_cg_ell` (batch-leading, any leading axes) is plain
 torch on every device.  :func:`solve_poisson_cg_ell_batched` keeps the
-batch as the minor axis, (n, B), and applies the Dirichlet-eliminated
-operator m⊙v + P·K(P·v) of every forward and adjoint CG iteration as one
-launch of kernel K8 (ops/kernels/ell_kernel.py; its plain version on CPU
-tensors): (2·iters + 3) launches a gradient step.  Its backward writes
+batch as the minor axis, (n, B), and runs each forward and adjoint CG
+solve of the Dirichlet-eliminated operator m⊙v + P·K(P·v) through
+``ell_kernel.ell_cg`` (its plain version on CPU tensors): on the card a
+float32 fixed-trip solve is one launch of kernel K8s, and float64 or
+tol-gated solves take one launch of kernel K8 an operator application.
+The right-hand side F − K(m·g) is one more K8 launch, so a float32
+gradient step makes one K8 and two K8s launches.  Its backward writes
 the residual map's VJP out by hand as torch ops: λ times the gathered
 solution, then the scatter through ``edge_elem`` / ``inc_elem``.
 """
@@ -42,7 +45,7 @@ from ..mesh import FEMesh
 from .assembly import kappa_on_elements, local_stiffness
 from .cg import _IFTSolve, jacobi
 from .kernels.ell_kernel import ell_apply as _k8, ell_apply_plain
-from .pcg import pcg
+from .kernels.ell_kernel import ell_cg as _ell_cg
 from .solve import apply_dirichlet_operator, dirichlet_rhs
 
 
@@ -182,13 +185,8 @@ def solve_poisson_cg_ell(mesh: FEMesh, ell: ELL, kappa, F,
 
 
 # ---------------------------------------------------------------------------
-# Batch-minor batched solve: state (n, B), operator on kernel K8
+# Batch-minor batched solve: state (n, B), solves on kernels K8s and K8
 # ---------------------------------------------------------------------------
-
-
-def _bm_dot_nodes(u, v):
-    """Per-scenario inner product of (n, B) batch-minor CG state."""
-    return (u * v).sum(dim=0, keepdim=True)
 
 
 def ell_weights_bm(mesh: FEMesh, ell: ELL, keB: torch.Tensor):
@@ -229,9 +227,11 @@ def _ell_bm_prep(mesh: FEMesh, kappa, F):
 
 
 class _EllBatchedSolve(torch.autograd.Function):
-    """u (n, B) of the batch-minor fixed-trip or tol-gated PCG, each
-    operator application one K8 launch; backward: the adjoint PCG (K8
-    again), then the residual map's VJP written out (module note)."""
+    """u (n, B) of the batch-minor fixed-trip or tol-gated PCG on
+    ``ell_cg``'s route (one K8s launch, or one K8 launch an operator
+    application), after one K8 launch for the right-hand side; backward:
+    the adjoint PCG on the same route, then the residual map's VJP written
+    out (module note)."""
 
     @staticmethod
     def forward(ctx, keB, Fbm, g, mesh, ell, tol, maxiter):
@@ -244,8 +244,8 @@ class _EllBatchedSolve(torch.autograd.Function):
         # right-hand side P(F − K(m·g)): one more K8 launch, unmasked
         Kmg = _k8(ell.nbr, W, diag, mg.expand(Fbm.shape).contiguous(),
                   torch.zeros_like(m))
-        u = mg + _bm_pcg(ell, W, diag, m, (1.0 - m[:, None]) * (Fbm - Kmg),
-                         tol, maxiter)
+        u = mg + _ell_cg(ell.nbr, W, diag, m,
+                         (1.0 - m[:, None]) * (Fbm - Kmg), tol, maxiter)
         ctx.cfg = (mesh, ell, tol, maxiter)
         ctx.save_for_backward(u, W, diag, g)
         return u
@@ -261,7 +261,7 @@ class _EllBatchedSolve(torch.autograd.Function):
         m = mesh.bc_mask.contiguous()
         mc = m[:, None]
         p = 1.0 - mc
-        lam = _bm_pcg(ell, W, diag, m, gbar.contiguous(), tol, maxiter)
+        lam = _ell_cg(ell.nbr, W, diag, m, gbar.contiguous(), tol, maxiter)
         pl = p * lam
         g_ke = g_F = g_g = None
         if ctx.needs_input_grad[0]:
@@ -288,19 +288,6 @@ class _EllBatchedSolve(torch.autograd.Function):
         return g_ke, g_F, g_g, None, None, None, None
 
 
-def _bm_pcg(ell, W, diag, m, b, tol, maxiter):
-    """PCG from 0 on the eliminated batch-minor operator for the
-    right-hand side b (n, B), one K8 launch per application."""
-    mc = m[:, None]
-    p = 1.0 - mc
-    diagA = mc + p * diag
-    Minv = 1.0 / torch.where(diagA.abs() > 1e-30, diagA,
-                             torch.ones_like(diagA))
-    return pcg(lambda v: _k8(ell.nbr, W, diag, v.contiguous(), m), b,
-               lambda r: Minv * r, torch.zeros_like(b), tol, maxiter,
-               dot=_bm_dot_nodes)
-
-
 def solve_poisson_cg_ell_batched(mesh: FEMesh, ell: ELL, kappa, F,
                                  tol: float = 0.0,
                                  maxiter: Optional[int] = None
@@ -310,8 +297,9 @@ def solve_poisson_cg_ell_batched(mesh: FEMesh, ell: ELL, kappa, F,
     kappa: (B, n_elements) or (B, n_nodes) per-scenario fields, (B,)
     scalars, or one shared field; F: (B, n_nodes) assembled loads.
     Returns u (B, n_nodes), the same as :func:`solve_poisson_cg_ell` on
-    each scenario.  On the card every operator application of the forward
-    and adjoint CG is one K8 launch.  Differentiable once wrt κ, F and the
+    each scenario.  On the card a float32 fixed-trip (``tol = 0``) forward
+    or adjoint solve is one K8s launch; float64 and tol-gated solves launch
+    K8 once an operator application.  Differentiable once wrt κ, F and the
     Dirichlet values."""
     maxiter = mesh.n_nodes if maxiter is None else maxiter
     keB, Fbm = _ell_bm_prep(mesh, kappa, F)

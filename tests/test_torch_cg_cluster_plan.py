@@ -1,17 +1,24 @@
-"""K3b's and K4b's plan (``stencil_cg_kernel.cluster_plan``) on the CPU.
+"""The cluster routes' plans on the CPU: K3b's, K4a's and K4b's
+(``stencil_cg_kernel.cluster_plan``) and K8s's
+(``ell_kernel.ell_cluster_plan``).
 
-The plan is plain Python: which route a shape takes, how many blocks a
+A plan is plain Python: which route a shape takes, how many blocks a
 cluster has, what each block holds.  These cases run it on every shape
-``chip_smoke.py`` holds the kernels to (its K3_CASES and K4_CASES), with
-float32 and bfloat16 planes, at the H100's 232 448 bytes a block, and on
-shapes past the cluster route's reach.  No JAX, no card.
+``chip_smoke.py`` holds the kernels to (its K3_CASES and K4_CASES, and
+the general-mesh shapes of phases 21-23), with float32 and bfloat16
+planes, at the H100's 232 448 bytes a block, and on shapes past the
+cluster route's reach; K8s's plan also on float64 and tol-gated solves.
+No JAX, no card.
 """
 
 import importlib.util
 from pathlib import Path
 
 import pytest
+import torch
 
+from difffe_tpu_torch.ops.kernels import ell_kernel as k8
+from difffe_tpu_torch.ops.kernels import stencil3d_cg_kernel as k4
 from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
 
 LIMIT = 232_448          # H100: shared memory a block may opt in to
@@ -117,3 +124,80 @@ def test_layout_refuses_what_does_not_fit():
         sk.cluster_layout(33 ** 3, 7, 4, 4, LIMIT)
     with pytest.raises(ValueError, match="cluster size"):
         sk.cluster_layout(910, 7, 4, 3, LIMIT)
+
+
+@pytest.mark.parametrize("item", ITEMS, ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [(12, 9, 6), (32, 32, 32), (48, 48, 48)],
+                         ids=["12x9x6", "32cube", "48cube"])
+def test_k4a_takes_k4b_plan(monkeypatch, n, item):
+    """K4a (one solve) and K4b (two) share a plan: the same bytes a block;
+    32³ in f32 at C = 8, 48³ in f32 on the workspace route."""
+    monkeypatch.setattr(k4, "smem_optin", lambda index: LIMIT)
+    nx, ny, nz = n
+    D = torch.empty(7, 1, 1, 1, 1, dtype={4: torch.float32,
+                                           2: torch.bfloat16}[item])
+    plan = k4._plan_cg3(D, nz + 1, ny + 1, nx + 1, None)
+    nodes = (nx + 1) * (ny + 1) * (nz + 1)
+    assert plan == sk.cluster_plan(nodes, 7, item, LIMIT)
+    if item == 4 and n[0] >= 32:
+        assert (plan.route, plan.cluster) == (
+            ("cluster", 8) if n[0] == 32 else ("workspace", 0))
+    forced = sk.workspace_plan(nodes)
+    assert k4._plan_cg3(D, nz + 1, ny + 1, nx + 1, forced) is forced
+
+
+def _ell_bytes(nodes, Dn, c):
+    """A K8s block's shared memory, counted from csrc/ell_cg.cu: two p
+    buffers and r, Dn W slots, m + p·diag and M⁻¹ in f32 over
+    ceil(nodes / c) nodes, and the cluster body's static 400 bytes."""
+    chunk = -(-nodes // c)
+    return chunk * (12 + (Dn + 2) * 4) + 4 * (2 * 32 + 2 * 16) + 16
+
+
+# (nodes, Dn, C the plan must pick, name): the perturbed 8×8 and 64²
+# triangulations, the 16³ tet box (14 slots a node), 256² (phase 23)
+ELL_SHAPES = [(81, 6, 1, "8x8"), (65 ** 2, 6, 1, "64x64"),
+              (17 ** 3, 14, 2, "16cube_tets"), (257 ** 2, 6, 16, "256x256")]
+# past 16 blocks' worth (8 nodes a thread of 640 threads, or the bytes),
+# or more slots than the kernel's unrolled apply takes
+ELL_PAST = [(301 ** 2, 6, "300x300"), (41 ** 3, 14, "40cube_tets"),
+            (4913, 17, "17_slots")]
+
+
+@pytest.mark.parametrize("nodes,Dn,want,name", ELL_SHAPES,
+                         ids=[s[3] for s in ELL_SHAPES])
+def test_ell_plan_follows_its_rule(nodes, Dn, want, name):
+    plan = k8.ell_cluster_plan(nodes, Dn, 4, LIMIT)
+    assert (plan.route, plan.cluster) == ("cluster", want)
+    assert plan.block_bytes == _ell_bytes(nodes, Dn, want) <= LIMIT
+    assert all(_ell_bytes(nodes, Dn, c) > LIMIT
+               or -(-nodes // c) > 8 * 640
+               for c in sk.CLUSTER_SIZES if c < want)
+    assert plan.threads % 32 == 0 and plan.threads * 8 >= plan.chunk
+    assert plan.threads <= (640 if plan.blocks_per_sm == 1 else 320)
+    ranges = plan.ranges()
+    assert ranges[0][0] == 0 and ranges[-1][1] == nodes
+    # every larger cluster size that fits is laid out by the same count
+    for c in sk.CLUSTER_SIZES[sk.CLUSTER_SIZES.index(want):]:
+        layout = k8.ell_cluster_layout(nodes, Dn, c, LIMIT)
+        assert layout.block_bytes == _ell_bytes(nodes, Dn, c)
+
+
+@pytest.mark.parametrize("nodes,Dn,name", ELL_PAST,
+                         ids=[s[2] for s in ELL_PAST])
+def test_ell_shapes_past_reach_take_the_per_iteration_route(nodes, Dn,
+                                                             name):
+    plan = k8.ell_cluster_plan(nodes, Dn, 4, LIMIT)
+    assert plan == k8.per_iteration_plan(nodes)
+    assert (plan.route, plan.cluster) == ("per_iteration", 0)
+    if Dn > k8.ELL_MAX_SLOTS:
+        with pytest.raises(ValueError, match="slots"):
+            k8.ell_cluster_layout(nodes, Dn, 16, LIMIT)
+
+
+@pytest.mark.parametrize("itemsize,tol", [(8, 0.0), (4, 1e-6), (8, 1e-6)],
+                         ids=["f64", "f32_tol", "f64_tol"])
+def test_ell_float64_and_gated_solves_take_the_per_iteration_route(
+        itemsize, tol):
+    plan = k8.ell_cluster_plan(65 ** 2, 6, itemsize, LIMIT, tol)
+    assert plan == k8.per_iteration_plan(65 ** 2)

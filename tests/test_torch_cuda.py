@@ -427,6 +427,43 @@ def test_k4a_matches_plain(cuda, n, B, iters):
         assert ok, (i, errs)
 
 
+@pytest.mark.parametrize("n,B,forced", [((12, 9, 6), 7, c) for c in
+                                         (1, 2, 4, 8, 16, "workspace")]
+                         + [((32, 32, 32), 3, c) for c in
+                            (8, 16, "workspace")],
+                         ids=[f"12x9x6_C{c}" for c in (1, 2, 4, 8, 16)]
+                         + ["12x9x6_workspace"]
+                         + [f"32cube_C{c}" for c in (8, 16)]
+                         + ["32cube_workspace"])
+def test_k4a_matches_plain_on_every_route(cuda, n, B, forced):
+    """K4a forced to each cluster size that fits and to the workspace
+    route (the first design): by the rule from x0 = m·g and from 0, and
+    each route's launch counted as its own."""
+    grid, arrays = _k4_problem(cuda, n, B, True, seed=5 * sum(n) + B)
+    nodes = math.prod(m + 1 for m in n)
+    plan = (sk.workspace_plan(nodes) if forced == "workspace" else
+            sk.cluster_layout(nodes, 7, 4, forced,
+                              sk.smem_optin(cuda.index or 0)))
+    count = "cg3" if plan.route == "cluster" else "cg3_workspace"
+    cg3 = _forced(k4._launch_cg3, plan)
+    out = {}
+    before = k4.launches[count]
+    for name, dt, cg in (("kernel", torch.float32, cg3),
+                         ("f32", torch.float32, k4._cg3_plain),
+                         ("f64", torch.float64, k4._cg3_plain)):
+        k, f, g, ud = (a.to(dt).contiguous() for a in arrays)
+        _, D, b, Minv, x0, _ = k4._prepare3(grid, k, f, g)
+        out[name] = (cg(D, b, Minv, x0, 200),
+                     cg(D, ud, Minv, torch.zeros_like(ud), 200))
+    torch.cuda.synchronize()
+    assert k4.launches[count] == before + 2
+    for i in range(2):
+        assert torch.isfinite(out["kernel"][i]).all()
+        ok, errs = _within_rule(out["kernel"][i], out["f32"][i],
+                                out["f64"][i])
+        assert ok, (i, errs)
+
+
 def test_k4_wrappers_reject_what_the_kernels_do_not_take(cuda):
     grid, arrays = _k4_problem(cuda, (4, 3, 2), 3, False, seed=0)
     k, f, g, ud = (a.float().contiguous() for a in arrays)
@@ -454,7 +491,7 @@ def test_3d_routes_launch_k4(cuda):
                                     device=cuda)
     before = dict(k4.launches)
     ud = solve_poisson_batched(mesh, k_true, f, cg_tol=0.0, cg_maxiter=200)
-    assert k4.launches["cg3"] == before["cg3"] + 1
+    assert k4.launches["cg3"] == before["cg3"] + 1    # the cluster route
     k = torch.ones(B, mesh.n_elements, device=cuda, requires_grad=True)
     (solve_poisson_batched(mesh, k, f, cg_tol=0.0, cg_maxiter=64) ** 2
      ).sum().backward()
@@ -466,6 +503,8 @@ def test_3d_routes_launch_k4(cuda):
     assert info["iters"] == 32 and info["warm"] is False
     assert k4.launches["cg3_2"] == before["cg3_2"] + 40
     assert k4.launches["cg3"] == before["cg3"] + 4      # the eval solve
+    assert k4.launches["cg3_workspace"] == before["cg3_workspace"]
+    assert k4.launches["cg3_2_workspace"] == before["cg3_2_workspace"]
     assert torch.isfinite(kappa).all()
     assert info["eval_loss"] < float(info["loss_history"][0])
 
@@ -843,9 +882,128 @@ def test_k8_rejects_what_it_does_not_take(cuda):
         k8.ell_apply(nbr, W.half(), diag.half(), v.half(), m.half())
 
 
+# ---------------------------------------------------------------------------
+# K8s: the whole edge-ELL solve, one thread-block cluster a scenario,
+# against its plain version by the rule above at every cluster size.
+# ---------------------------------------------------------------------------
+
+_ELL_MESHES = {"tri8": (8, 8), "tri64": (64, 64), "tet16": (16, 16, 16),
+               "tri256": (256, 256)}
+
+
+def _ell_problem(dev, case, B):
+    """f64 K8s operands on a perturbed mesh: its tables, W and diag of
+    per-element κ = 1 + U(0, 1), the mask and a masked right-hand side
+    whose middle scenario (B > 1) is 0."""
+    cells = _ELL_MESHES[case]
+    mesh = _general_mesh(dev, cells, seed=len(cells))
+    ell = tun.build_ell(mesh)
+    g = torch.Generator(device=dev).manual_seed(B)
+    f64 = dict(dtype=torch.float64, device=dev)
+    ke = 1.0 + torch.rand(mesh.n_elements, B, generator=g, **f64)
+    W, diag = tun.ell_weights_bm(mesh, ell, ke)
+    m = mesh.bc_mask
+    b = (1.0 - m[:, None]) * torch.rand(mesh.n_nodes, B, generator=g, **f64)
+    if B > 1:
+        b[:, B // 2] = 0.0
+    return ell.nbr, W, diag, m, b.contiguous()
+
+
+def _ell_plans(nodes, Dn):
+    """Every K8s plan that fits: each cluster size."""
+    limit = sk.smem_optin(torch.cuda.current_device())
+    plans = []
+    for c in sk.CLUSTER_SIZES:
+        try:
+            plans.append(k8.ell_cluster_layout(nodes, Dn, c, limit))
+        except ValueError:
+            pass
+    return plans
+
+
+_ELL_CASES = [(c, B) for c in _ELL_MESHES for B in (1, 7, 256)]
+
+
+@pytest.mark.parametrize("case,B", _ELL_CASES,
+                         ids=[f"{c}_B{B}" for c, B in _ELL_CASES])
+def test_k8s_matches_plain_at_every_cluster_size(cuda, case, B):
+    """128 iterations: every plan by the rule, a second launch equal bit
+    for bit, the zero scenario 0 without NaN; the default plan is the
+    fewest blocks that fit."""
+    nbr, W, diag, m, b = _ell_problem(cuda, case, B)
+    n, Dn = nbr.shape
+    iters = 128
+    p64 = k8.ell_cg_plain(nbr, W, diag, m, b, 0.0, iters)
+    a32 = [t.float().contiguous() for t in (W, diag, m, b)]
+    p32 = k8.ell_cg_plain(nbr, *a32, 0.0, iters)
+    plans = _ell_plans(n, Dn)
+    default = k8.ell_cluster_plan(n, Dn, 4, sk.smem_optin(cuda.index or 0))
+    assert default == plans[0]
+    by_plan = {}
+    for plan in plans:
+        before = k8.launches["ell_cg"]
+        x = k8.ell_cg(nbr, *a32, 0.0, iters, plan=plan)
+        again = k8.ell_cg(nbr, *a32, 0.0, iters, plan=plan)
+        torch.cuda.synchronize()
+        assert k8.launches["ell_cg"] == before + 2
+        assert torch.equal(x, again), plan
+        ok, errs = _within_rule(x, p32, p64)
+        assert ok, (plan, errs)
+        if B > 1:
+            assert not x[:, B // 2].any()
+        by_plan[plan] = x
+    assert torch.equal(k8.ell_cg(nbr, *a32, 0.0, iters), by_plan[default])
+
+
+def test_k8s_routes_and_refusals(cuda):
+    """float64 and tol-gated solves take the per-iteration route (K8 once
+    an application); a forced cluster plan refuses them."""
+    nbr, W, diag, m, b = _ell_problem(cuda, "tri8", 7)
+    a32 = [t.float().contiguous() for t in (W, diag, m, b)]
+    before = dict(k8.launches)
+    x64 = k8.ell_cg(nbr, W, diag, m, b, 0.0, 16)
+    assert k8.launches["ell_apply"] == before["ell_apply"] + 17
+    assert k8.launches["ell_cg"] == before["ell_cg"]
+    assert rel_err(x64, k8.ell_cg_plain(nbr, W, diag, m, b, 0.0, 16)) \
+        <= 1e-12
+    k8.ell_cg(nbr, *a32, 1e-3, 16)
+    assert k8.launches["ell_cg"] == before["ell_cg"]
+    plan = k8.ell_cluster_plan(nbr.shape[0], nbr.shape[1], 4,
+                               sk.smem_optin(cuda.index or 0))
+    with pytest.raises(TypeError, match="float32"):
+        k8.ell_cg(nbr, W, diag, m, b, 0.0, 16, plan=plan)
+    with pytest.raises(ValueError, match="fixed-trip"):
+        k8.ell_cg(nbr, *a32, 1e-3, 16, plan=plan)
+    with pytest.raises(ValueError, match="cluster plan"):
+        k8.ell_cg(nbr, *a32, 0.0, 16,
+                  plan=k8.ell_cluster_layout(nbr.shape[0] + 1, nbr.shape[1],
+                                             1, sk.smem_optin(0)))
+    with pytest.raises(ValueError, match="contiguous"):
+        k8.ell_cg(nbr, a32[0], a32[1], a32[2],
+                  a32[3].t().contiguous().t(), 0.0, 16, plan=plan)
+
+
+def test_ell_gradient_on_k8s_against_the_per_iteration_route(cuda,
+                                                              monkeypatch):
+    """The f32 batched ELL solve and its κ gradient on K8s (the default)
+    and on the per-iteration route, each by the rule against the f64 plain
+    run; the per-iteration f32 run stands for the plain f32 run."""
+    iters, B = 64, 32
+    ref64, _ = _ell_solve_grad("cpu", torch.float64, iters, B)
+    k8s, launched = _ell_solve_grad(cuda, torch.float32, iters, B)
+    assert launched == {"ell_apply": 1, "ell_cg": 2}
+    monkeypatch.setattr(tun, "_ell_cg", lambda *a: k8.ell_cg(
+        *a, plan=k8.per_iteration_plan(a[0].shape[0])))
+    per_it, launched = _ell_solve_grad(cuda, torch.float32, iters, B)
+    assert launched == {"ell_apply": 2 * iters + 3, "ell_cg": 0}
+    for a, p32, p64 in zip(k8s, per_it, ref64):
+        ok, errs = _within_rule(a, p32, p64)
+        assert ok, errs
+
+
 def _ell_solve_grad(dev, dtype, iters, B):
     """u and the κ gradient of the batched ELL solve's MSE on a perturbed
-    12² mesh, and the K8 launches it made."""
+    12² mesh, and the K8 and K8s launches it made."""
     mesh = _general_mesh(dev, (12, 12), dtype=dtype, seed=1)
     ell = tun.build_ell(mesh)
     g = torch.Generator().manual_seed(3)
@@ -856,26 +1014,30 @@ def _ell_solve_grad(dev, dtype, iters, B):
 
     k = (1.0 + rand(B, mesh.n_elements)).requires_grad_()
     F, ud = 0.01 * rand(B, mesh.n_nodes), 0.01 * rand(B, mesh.n_nodes)
-    before = k8.launches["ell_apply"]
+    before = dict(k8.launches)
     u = tun.solve_poisson_cg_ell_batched(mesh, ell, k, F, 0.0, iters)
     ((u - ud) ** 2).mean().backward()
     if dev != "cpu":
         torch.cuda.synchronize()
     return (u.detach().cpu(), k.grad.cpu()), \
-        k8.launches["ell_apply"] - before
+        {key: k8.launches[key] - before[key] for key in before}
 
 
 def test_ell_batched_gradient_on_k8(cuda):
-    """The batched ELL solve and its κ gradient on the card (K8 forward
-    and adjoint, 2·iters + 3 launches) against the same solve on CPU
-    tensors (the plain version): f64 within 1e-10; f32 by the rule, with
-    the plain f32 and f64 runs on the CPU."""
+    """The batched ELL solve and its κ gradient on the card against the
+    same solve on CPU tensors (the plain version): f64 on the
+    per-iteration route (K8 forward and adjoint, 2·iters + 3 launches)
+    within 1e-10; f32 on K8s (one K8 launch for the right-hand side, one
+    K8s launch a solve) by the rule, with the plain f32 and f64 runs on
+    the CPU."""
     iters, B = 64, 32
     ref64, _ = _ell_solve_grad("cpu", torch.float64, iters, B)
     ref32, _ = _ell_solve_grad("cpu", torch.float32, iters, B)
     for dtype in (torch.float64, torch.float32):
         got, launched = _ell_solve_grad(cuda, dtype, iters, B)
-        assert launched == 2 * iters + 3
+        assert launched == ({"ell_apply": 2 * iters + 3, "ell_cg": 0}
+                            if dtype == torch.float64 else
+                            {"ell_apply": 1, "ell_cg": 2})
         for a, p32, p64 in zip(got, ref32, ref64):
             if dtype == torch.float64:
                 assert rel_err(a, p64) <= 1e-10
@@ -916,12 +1078,14 @@ def test_fit_kappa_ell_route_launches_k8(cuda):
     kt = 1.0 + torch.rand(B, mesh.n_elements, generator=g, device=cuda)
     ud = tun.solve_poisson_cg_ell_batched(mesh, ell, kt,
                                           assemble_load(mesh, f), 0.0, 256)
-    before = k8.launches["ell_apply"]
+    before = dict(k8.launches)
     kappa, info = fit_kappa(mesh, f, ud, steps=steps, iters=iters)
     torch.cuda.synchronize()
     assert info["path"] == "generic_ell_batchminor"
-    assert k8.launches["ell_apply"] == before + steps * (2 * iters + 3) \
-        + 256 + 2
+    # a step: K8 for the right-hand side, K8s forward and adjoint; the
+    # eval solve: one of each
+    assert k8.launches["ell_apply"] == before["ell_apply"] + steps + 1
+    assert k8.launches["ell_cg"] == before["ell_cg"] + 2 * steps + 1
     assert torch.isfinite(kappa).all()
     assert info["eval_loss"] < float(info["loss_history"][0])
 

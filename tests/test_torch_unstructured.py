@@ -31,6 +31,7 @@ from difffe_tpu_torch.inverse import fit_kappa as t_fit
 from difffe_tpu_torch.mesh import FEMesh as TMesh
 from difffe_tpu_torch.ops import assembly as tasm
 from difffe_tpu_torch.ops import cg as tcg
+from difffe_tpu_torch.ops import pcg as tpcg
 from difffe_tpu_torch.ops import unstructured as tun
 from difffe_tpu_torch.ops.kernels import ell_kernel as k8
 from difffe_tpu_torch.ops.kernels import fused_grad_cf_kernel as k1
@@ -198,6 +199,42 @@ def test_k8_wrapper_checks_shapes():
                      torch.zeros(4, 3, device="meta"),
                      torch.zeros(4, 3, device="meta"),
                      torch.zeros(4, device="meta"))
+
+
+def _today_bm_pcg(nbr, W, diag, m, b, tol, maxiter):
+    """The batch-minor PCG the batched ELL solve ran before K8s, restated:
+    ops/pcg.pcg from 0 with per-scenario dots, one K8 application (its
+    plain version on CPU tensors) an operator application."""
+    mc = m[:, None]
+    p = 1.0 - mc
+    diagA = mc + p * diag
+    Minv = 1.0 / torch.where(diagA.abs() > 1e-30, diagA,
+                             torch.ones_like(diagA))
+    return tpcg.pcg(lambda v: k8.ell_apply(nbr, W, diag, v.contiguous(), m),
+                    b, lambda r: Minv * r, torch.zeros_like(b), tol, maxiter,
+                    dot=lambda u, v: (u * v).sum(dim=0, keepdim=True))
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-4], ids=["fixed", "gated"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_cg_plain_is_the_per_iteration_pcg(case, dtype, tol):
+    """K8s's plain version (what the CPU runs) equals the PCG it replaced
+    bit for bit, with a zero right-hand side (frozen from the start) among
+    the scenarios; that scenario's solution is 0, with no NaN."""
+    _, tm, a, _, _ = case
+    ell = tun.build_ell(tm)
+    W, d = (t.to(dtype) for t in tun.ell_weights_bm(tm, ell, _t(a["kB"]).T))
+    m = tm.bc_mask.to(dtype)
+    b = (1.0 - m[:, None]) * _t(a["FB"]).T.to(dtype)
+    b[:, 2] = 0.0
+    b = b.contiguous()
+    before = dict(k8.launches)
+    x = k8.ell_cg(ell.nbr, W, d, m, b, tol, ITERS)
+    assert k8.launches == before           # CPU tensors: the plain version
+    want = _today_bm_pcg(ell.nbr, W, d, m, b, tol, ITERS)
+    assert x.dtype == dtype and torch.equal(x, want)
+    assert torch.equal(k8.ell_cg_plain(ell.nbr, W, d, m, b, tol, ITERS), want)
+    assert torch.isfinite(x).all() and not x[:, 2].any()
 
 
 def test_unbatched_solve_and_gradients(case):
