@@ -28,9 +28,9 @@ structured-grid config of BASELINE.json, B = 4096 scenarios), kernels K3a
 
 7. K3a and K3b against their plain versions on the card at 8² (B = 7),
    64² (B = 4096) and 256² (B = 64), cold and warm, zero and nonzero
-   Dirichlet values, K3b on the route its plan picks (printed with C and
-   the bytes a block) and on the workspace route (the first design)
-   forced, two launches equal bit for bit.  f32 CG amplifies
+   Dirichlet values, each on the route its plan picks (one plan for both,
+   printed with C and the bytes a block) and on the workspace route (the
+   first design) forced, two launches equal bit for bit.  f32 CG amplifies
    summation-order differences, so the kernel is held against the plain
    version run in f64 on the card: its relative max error on x, λ and the
    κ gradient may be at most twice the f32 plain version's error against
@@ -39,8 +39,9 @@ structured-grid config of BASELINE.json, B = 4096 scenarios), kernels K3a
    ``fit_kappa`` for 100 steps at lr = 300 (one K3b launch each; the
    converged misfit must fall below half the first step's), and the κ
    gradient of Σu² through the fixed-trip batched solve (K3a forward and
-   adjoint) held against the plain version by the rule of phase 7;
-9. chained timing of K3b and K3a against their plain versions; K3b on its
+   adjoint) held against the plain version by the rule of phase 7; the
+   3 K3a and 100 K3b launches all on the cluster route;
+9. chained timing of K3b and K3a against their plain versions; each on its
    plan's route against the workspace route in turns, at every cluster
    size that fits, and at twice the iterations (one CG iteration's time);
    host time of ``fit_kappa`` and a ``torch.profiler`` split of one call.
@@ -92,38 +93,52 @@ K2 (batched PCR tridiagonal solve, ``method="tridiag_pallas"``):
 15. the κ gradient of the batched MSE through K2 forward and adjoint
     against the 'tridiag' route (f32 by the rule of phase 7, f64 ≤ 1e-10);
 16. chained timing of K2 (forward, and forward + backward) at n = 129,
-    B = 65 536 against the plain version and ``torch.linalg.solve`` on the
-    densified systems (B = 8192, scaled), host time of
-    ``recover_kappa_field`` at B = 1024 and 65 536, and a
+    B = 1024 (the main path's) and 65 536 against the plain version and
+    ``torch.linalg.solve`` on the densified systems (at most B = 8192,
+    scaled), and a launch's own device time from the profiler (the
+    kernels line carries B = 1024's, where the chain is host-bound), host
+    time of ``recover_kappa_field`` at B = 1024 and 65 536, and a
     ``torch.profiler`` split of one call.
 
 The fused 1D grad-step path (examples/production_training_demo.py's
 production κ-recovery loop: scalar κ per scenario on ``FEMesh.line(30)``,
 B = 262 144, 300 SGD steps), kernels K5a/K5b (PCR with factor replay),
-K6 (Thomas) and K7 (dense products with W = Ã⁻¹):
+K6 (Thomas) and K7 (dense products with W = Ã⁻¹; its "tc" route on the
+tensor cores for float32 and n ≤ 32, its "fma" route, the first design,
+otherwise):
 
 17. each new kernel against its plain version on the card, n ∈ {2, 13,
     31, 129, 257} nodes for K5a/K5b/K6 and {2, 13, 31, 136} for K7 (137
     checks its route to K5a), B ∈ {7, 1000, 2^20} (2^20 for n ≤ 31, with
     K7's main-path storage, streamed f32 planes, among its cases),
     shared and streamed F, zero and nonzero Dirichlet values, f32 and bf16
-    storage, K7 versions 1-3 with refine ∈ {0, 2, 3}: f32 by the rule of
-    phase 7, f64 within 1e-10 relative;
+    storage, K7 versions 1-3 with refine ∈ {0, 2, 3}, for n ≤ 32 on both
+    routes (the "tc" route against the plain version with its products'
+    rounding, 3xTF32 or bf16, and two launches equal bit for bit): f32 by
+    the rule of phase 7 (bf16 products add 2^-8/n), f64 within 1e-10;
 18. the main path: ``difffe_tpu_torch.production.sgd_loop`` at the demo's
-    defaults (300 K7 launches and no other launch of the new kernels; the
-    loss falls 10³×; the final κ and the mean loss of every step within
-    1e-3 relative of the same loop on the plain version);
+    defaults (300 K7 launches, all on the "tc" route, and no other launch
+    of the new kernels; the loss falls 10³×; the final κ and the mean
+    loss of every step within 1e-3 relative of the same loop on the plain
+    version);
 19. the other workloads, each gated on its gradient against autograd
     through the 'tridiag' route on a B = 4096 slice fed the same
     quantized data (1e-4 in f32, 1e-2 with bf16 storage): bench_full.py's
-    K7 row (B = 2^21, v3 refine 2, bf16 u_data, shared F) and K5a row
-    (B = 2^20, streamed F), and scripts/probe_thomas.py's per-element
-    workload on K5b and K6 (n = 30 elements, B = 2^21, shared F, f32 and
-    bf16);
+    K7 row (B = 2^21, v3 refine 2, bf16 u_data, shared F), K7 versions 1,
+    2 and 3 at refine 3 with f32 storage, and K5a row (B = 2^20, streamed
+    F), and scripts/probe_thomas.py's per-element workload on K5b and K6
+    (n = 30 elements, B = 2^21, shared F, f32 and bf16); K7 version 3's
+    gradient error at refine 0-3 with bf16 and with single-pass TF32
+    products, f32 and bf16 storage (printed);
 20. chained timing of each new kernel at its phase 18/19 workload against
-    its plain version, host time of the phase-18 loop, a
-    ``torch.profiler`` split of one loop, and the registers and spills of
-    the new kernels from the ``-Xptxas -v`` build log.
+    its plain version, K7's two routes in turns at the production step
+    and the bench row with each route's bound and a launch's own device
+    time from the profiler (the kernels line carries it: the production
+    chain is host-bound on the "tc" route), the cuBLAS yardstick (two
+    products X Wᵀ at (262 144, 31) × (31, 31), f32 and TF32), host time of
+    the phase-18 loop and of one K7 wrapper call, a ``torch.profiler``
+    split of one loop, and the registers and spills of the new kernels
+    from the ``-Xptxas -v`` build log.
 
 The general-mesh path (κ-field inversion on a perturbed triangulation
 without a grid, scripts/probe_unstructured.py's workload: 64 × 64 quads
@@ -143,8 +158,10 @@ solve in one launch, one thread-block cluster a scenario):
     (the plan's choice printed), two launches equal bit for bit, a zero
     right-hand side giving 0;
 22. the main path: u_data from the fixed-trip batched ELL solve (256
-    iterations), ``fit_kappa`` through the public entry point for 100 Adam
-    steps at its defaults (iters 128, lr 0.05): the path must be
+    iterations) of a load assembled in torch's deterministic mode (so
+    the data repeat bit for bit between runs), ``fit_kappa`` through the
+    public entry point for 100 Adam steps at its defaults (iters 128, lr
+    0.05): the path must be
     'generic_ell_batchminor', the loss finite and the converged misfit
     below half the first step's, and, in that call (the counts are set
     to 0 after the u_data solve, just before it), K8 launched 100 + 1
@@ -173,23 +190,24 @@ solve in one launch, one thread-block cluster a scenario):
 The K7 ablation path (the TPU probe P2, scripts/probe_mxu_kernel.py,
 ported as ``difffe_tpu_torch/probes/k7_ablation.py``: K7 version 1 on
 ``FEMesh.line(30)``, B = 2^21, one shared load, bf16 u_data), variant A
-= K7 and the kernels of ``csrc/k7_ablation.cu``: B (3xTF32 tensor-core
-products), C (bf16 tensor-core products), D (one product), E (no
-shifts), F (register-blocked rows) and A1 (D and E's kernel with nothing
-ablated, their baseline):
+= K7's first design (its "fma" route) and the kernels of
+``csrc/k7_ablation.cu``: B (3xTF32 tensor-core products), C (bf16
+tensor-core products), D (one product), E (no shifts), F
+(register-blocked rows) and A1 (D and E's kernel with nothing ablated,
+their baseline):
 
 24. each variant against its plain version, n ∈ {13, 31}, B ∈ {1000,
     2^21}, zero and nonzero Dirichlet values, f32 and bf16 u_data: f32 by
     the rule of phase 7, f64 within 1e-10 for A, A1, D, E and F; F and A1
-    equal to A bit for bit (F pads 13 nodes to 16 rows, 31 to 32); then
-    the probe's path: its staging, each variant's gradient on an
-    8192-scenario slice against autograd through the PCR oracle on the
-    same bf16-quantized data (A, A1, B and F within 1e-4; C, D and E
-    printed), and P2's timing (30 chained steps, best of 3) with 121
-    launches of each variant (A's on K7) and no other; the plain
-    versions' time, the cuBLAS product X Wᵀ at (2^21, 31) × (31, 31)
-    in f32, TF32 and bf16 as the products' yardstick, and the registers
-    of the new kernels.
+    equal to A (K7's "fma" route, forced) bit for bit (F pads 13 nodes to
+    16 rows, 31 to 32); then the probe's path: its staging, each
+    variant's gradient on an 8192-scenario slice against autograd through
+    the PCR oracle on the same bf16-quantized data (A, A1, B and F within
+    1e-4; C, D and E printed), and P2's timing (30 chained steps, best of
+    3) with 121 launches of each variant (A's on K7's "fma" route) and no
+    other; the plain versions' time, the cuBLAS product X Wᵀ at
+    (2^21, 31) × (31, 31) in f32, TF32 and bf16 as the products'
+    yardstick, and the registers of the new kernels.
 
 Each path's launch counts are set to 0 just before its main-path phases
 (4-5, 8, 11, 14, 18, 22, 24's probe path) and read just after;
@@ -197,7 +215,8 @@ comparisons and timing outside those do not count.  The
 third-to-last line is one JSON object describing each kernel, with its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (H100 SXM, fp32 outside the tensor cores;
-tensor-core products at 495 TFLOP/s TF32 or 989 TFLOP/s bf16).  The
+tensor-core products at 495 TFLOP/s TF32 or 989 TFLOP/s bf16, float64 at
+34 TFLOP/s).  The
 second-to-last line is the card's name and power limit; the last line is
 the ``ok`` JSON.
 
@@ -243,6 +262,7 @@ PEAK_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 PEAK_TF32 = 495e12       # H100 SXM tensor cores, dense
 PEAK_BF16 = 989e12
+PEAK_F64 = 34e12         # H100 SXM float64 outside the tensor cores
 # K1 operations per element row per SGD step, counted from the three
 # passes of cf_kernel in csrc/fused_grad_cf.cu (a division counts as one):
 # 5 (S, T totals) + 21 (u, d, loss, P^λ, running sums) + 10 (gradient and
@@ -599,15 +619,16 @@ def workspace_route(launch, nodes):
 
 def route_timing(label, call, state0, length, iters, solves, shape,
                  planes, item, B, capacity, card):
-    """K3b, K4a or K4b at the main path's workload on both routes, in one
-    run: the plan's route against the workspace route (the first design)
-    in turns (workspace, plan, plan, workspace), every cluster size whose
+    """K3a, K3b, K4a or K4b at the main path's workload on both routes, in
+    one run: the plan's route against the workspace route (the first
+    design) in turns (workspace, plan, plan, workspace), every cluster size
+    whose
     block fits, and the plan's route at twice the iterations, whose
     difference gives one CG iteration's time.  ``call(state, iters, plan)``
     launches the wrapper once and returns the next state of a chain from
-    ``state0``; ``solves`` is 2 (K3b, K4b) or 1 (K4a); ``capacity(C,
-    threads)`` the card's clusters at once.  Logs; returns (plan ms,
-    workspace ms)."""
+    ``state0``; ``solves`` is 2 (K3b, K4b) or 1 (K3a, K4a);
+    ``capacity(C, threads)`` the card's clusters at once.  Logs; returns
+    (plan ms, workspace ms)."""
     from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
     from difffe_tpu_torch.utils.profiling import timeit_chained
 
@@ -664,7 +685,8 @@ def run_2d(torch, dev, card):
     from difffe_tpu_torch.solver import solve_poisson_batched
 
     f64 = torch.float64
-    max_abs = {"cg": 0.0, "cg2": 0.0, "cg2_workspace": 0.0}
+    max_abs = {"cg": 0.0, "cg_workspace": 0.0, "cg2": 0.0,
+               "cg2_workspace": 0.0}
 
     def problem(n, B, g_nonzero, seed):
         grid = StructuredGrid.unit(n, n)
@@ -706,7 +728,7 @@ def run_2d(torch, dev, card):
         plan = sk.cluster_plan((n + 1) ** 2, 5, 4, sk.smem_optin(0))
         active = (lib.difffe_stencil_cg2_clusters(
             n + 1, n + 1, plan.cluster, plan.threads) if plan.cluster else 0)
-        log(f"phase 7 K3b plan at {n}²: {plan_text(plan)}, {active} "
+        log(f"phase 7 K3a/K3b plan at {n}²: {plan_text(plan)}, {active} "
             f"clusters at once")
         ws = workspace_route(sk._launch_cg2, (n + 1) ** 2)
         for g_nonzero in (False, True):
@@ -737,25 +759,41 @@ def run_2d(torch, dev, card):
                     f"{k}{'' if r == 'cg2' else ' ws'}=({a:.2e}, {b:.2e})"
                     for (r, k), (a, b) in worst.items()))
             del runs, again
+            # K3a on the plan's route (K3b's plan) and on the workspace
+            # route (the first design) forced
+            solvers = {"cg" if plan.cluster else "cg_workspace": sk._cg}
+            if plan.cluster:
+                solvers["cg_workspace"] = workspace_route(sk._launch_cg,
+                                                          (n + 1) ** 2)
             sols = {}
-            for name, dt, cg in (("kernel", torch.float32, sk._cg),
-                                 ("f32", torch.float32, sk._cg_plain),
-                                 ("f64", f64, sk._cg_plain)):
+            for name, dt, cg in (
+                    *((r, torch.float32, cg) for r, cg in solvers.items()),
+                    ("f32", torch.float32, sk._cg_plain),
+                    ("f64", f64, sk._cg_plain)):
                 kl, ku, f, g, ud = (a.to(dt).contiguous() for a in arrays)
                 _, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), f, g)
                 sols[name] = (cg(D, b, Minv, x0, K3A_ITERS),
                               cg(D, ud, Minv, torch.zeros_like(ud),
                                  K3A_ITERS))
-            errs = [check_rule("K3a", sols["kernel"][i], sols["f32"][i],
-                          sols["f64"][i], f"n={n} B={B} solve {i}")
-                    for i in range(2)]
-            for i in range(2):
-                max_abs["cg"] = max(max_abs["cg"], float(
-                    (sols["kernel"][i] - sols["f64"][i]).abs().max()))
+                if name in solvers and not torch.equal(
+                        cg(D, b, Minv, x0, K3A_ITERS), sols[name][0]):
+                    raise AssertionError(f"phase 7 K3a n={n} B={B} {name}: "
+                                         f"two launches differ")
+            errs = []
+            for name in solvers:
+                for i in range(2):
+                    ek, ep = check_rule(f"K3a {name}", sols[name][i],
+                                        sols["f32"][i], sols["f64"][i],
+                                        f"n={n} B={B} solve {i}")
+                    errs.append(f"{name} {('solve', 'adjoint-style')[i]} "
+                                f"({ek:.2e}, {ep:.2e})")
+                    max_abs[name] = max(max_abs[name], float(
+                        (sols[name][i] - sols["f64"][i]).abs().max()))
             log(f"phase 7 K3a n={n} B={B} g={'nonzero' if g_nonzero else 0}"
-                f" {K3A_ITERS} iters: (kernel, f32 plain) rel err vs f64: "
-                f"solve {errs[0][0]:.2e}, {errs[0][1]:.2e}; adjoint-style "
-                f"{errs[1][0]:.2e}, {errs[1][1]:.2e}")
+                f" {K3A_ITERS} iters, (kernel, f32 plain) rel err vs f64 on "
+                f"the plan's route"
+                + (" and the workspace route" if plan.cluster else "")
+                + "; two launches equal bit for bit: " + ", ".join(errs))
             del sols, arrays
             torch.cuda.empty_cache()
     log(f"phase 7 kernel vs plain: {time.perf_counter() - t0:.1f} s")
@@ -799,8 +837,10 @@ def run_2d(torch, dev, card):
     if main_path["cg2"] != STEPS_2D or main_path["cg2_workspace"]:
         raise AssertionError(f"K3b launches {main_path}: {STEPS_2D} on the "
                              f"cluster route expected")
-    if main_path["cg"] < 1:
-        raise AssertionError("K3a was not launched by the path")
+    # the u_data solve, the gradient's forward and adjoint
+    if main_path["cg"] != 3 or main_path["cg_workspace"]:
+        raise AssertionError(f"K3a launches {main_path}: 3 on the cluster "
+                             f"route expected")
     if kappa.shape != (BATCH_2D, ne) or not bool(
             torch.isfinite(kappa).all()):
         raise AssertionError("fit_kappa's kappa is not finite of shape "
@@ -857,6 +897,11 @@ def run_2d(torch, dev, card):
             D, b, Minv, *s, ud, scale, n, plan=p), state0, 3, K3B_ITERS, 2,
         (H, W), 5, 4, BATCH_2D,
         lambda c, t: lib.difffe_stencil_cg2_clusters(H, W, c, t), card)
+    _, ms["cg_workspace"] = route_timing(
+        "phase 9 K3a", lambda v, n, p: sk._launch_cg(
+            D, b, Minv, v, n, plan=p), x0, 2, K3A_ITERS, 1, (H, W), 5, 4,
+        BATCH_2D, lambda c, t: lib.difffe_stencil_cg_clusters(H, W, c, t),
+        card)
 
     def fit(**kw):
         return fit_kappa(mesh, f, u_data, steps=STEPS_2D, lr=LR_2D, **kw)
@@ -883,6 +928,11 @@ def run_2d(torch, dev, card):
         kernel_entry("stencil_cg", K3_SOURCE, f"{JAX_K3}:191",
                      main_path["cg"], max_abs["cg"], ms["cg"]["kernel"],
                      ms["cg"]["plain"],
+                     K3_OPS_PER_NODE_ITER * n_nodes * K3A_ITERS,
+                     9 * n_nodes * 4),
+        kernel_entry("stencil_cg_workspace", K3_SOURCE, f"{JAX_K3}:191",
+                     main_path["cg_workspace"], max_abs["cg_workspace"],
+                     ms["cg_workspace"], ms["cg"]["plain"],
                      K3_OPS_PER_NODE_ITER * n_nodes * K3A_ITERS,
                      9 * n_nodes * 4),
         kernel_entry("stencil_cg2", K3_SOURCE, f"{JAX_K3}:412",
@@ -1458,48 +1508,60 @@ def run_facade_1d(torch, dev, card):
     if not e64 <= 1e-10:
         raise AssertionError(f"f64 κ gradient disagrees: {e64:.3e}")
 
-    # -- phase 16: timing at n = 129, f32
+    # -- phase 16: timing at n = 129, f32, at the main path's B = 1024 and
+    # at scripts/probe_tridiag.py's 65 536
     n = N_1D + 1
-    dB, eB = k2_bands(torch, "fem", n, BATCH_K2, gen, dev)
-    dB, eB = dB.float(), eB.float()
-    F0 = torch.randn(BATCH_K2, n, generator=gen, device=dev)
+    ms, k2 = {}, {}
+    for B in (BATCH_1D, BATCH_K2):
+        dB, eB = k2_bands(torch, "fem", n, B, gen, dev)
+        dB, eB = dB.float(), eB.float()
+        F0 = torch.randn(B, n, generator=gen, device=dev)
 
-    def fwd_bwd(solve):
-        def step(c):
-            dd = dB.detach().requires_grad_()
-            (gd,) = torch.autograd.grad(solve(dd, eB, c), dd,
-                                        grad_outputs=c)
-            return gd
-        return step
+        def fwd_bwd(solve):
+            def step(c):
+                dd = dB.detach().requires_grad_()
+                (gd,) = torch.autograd.grad(solve(dd, eB, c), dd,
+                                            grad_outputs=c)
+                return gd
+            return step
 
-    ms = {
-        "fwd": timed_pair(lambda c: tk.tridiag_solve_kernel(dB, eB, c),
-                          lambda c: ttri.tridiag_solve(dB, eB, c), F0, 4),
-        "fwd_bwd": timed_pair(fwd_bwd(tk.tridiag_solve_kernel),
-                              fwd_bwd(ttri.tridiag_solve), F0, 4),
-    }
-    T = (torch.diag_embed(dB[:BATCH_LIB]) + torch.diag_embed(eB[:BATCH_LIB], 1)
-         + torch.diag_embed(eB[:BATCH_LIB], -1))
-    t_lib = timeit_chained_min(
-        lambda c: torch.linalg.solve(T, c[..., None])[..., 0],
-        F0[:BATCH_LIB].contiguous())
-    library_ms = t_lib * BATCH_K2 / BATCH_LIB
-    steps = math.ceil(math.log2(n))
-    ops = BATCH_K2 * n * (K2_OPS_PER_ROW_SWEEP * steps + 1)
-    nbytes = (4 * n - 1) * BATCH_K2 * 4
-    b_ms, b_by = bound(ops, nbytes)
-    for name, what in (("fwd", "forward solve"),
-                       ("fwd_bwd", "forward + backward (2 K2 launches)")):
-        best = ms[name]
-        log(f"phase 16 K2 {what}: kernel {best['kernel']:.4f} ms, plain "
-            f"{best['plain']:.4f} ms (n={n}, B={BATCH_K2}, f32) [{card}]")
-    log(f"phase 16 K2 bound {b_ms:.4f} ms ({b_by}); kernel "
-        f"{nbytes / ms['fwd']['kernel'] / 1e6:.1f} GB/s of the "
-        f"{PEAK_BYTES / 1e12:.2f} TB/s peak; torch.linalg.solve on the "
-        f"densified systems {t_lib:.4f} ms at B={BATCH_LIB}, "
-        f"{library_ms:.4f} ms scaled to B={BATCH_K2} [{card}]")
-    del T, dB, eB, F0
-    torch.cuda.empty_cache()
+        ms[B] = {
+            "fwd": timed_pair(lambda c: tk.tridiag_solve_kernel(dB, eB, c),
+                              lambda c: ttri.tridiag_solve(dB, eB, c), F0,
+                              4),
+            "fwd_bwd": timed_pair(fwd_bwd(tk.tridiag_solve_kernel),
+                                  fwd_bwd(ttri.tridiag_solve), F0, 4),
+            # a launch's own time: at B = 1024 the chain is host-bound
+            "device": device_ms(
+                torch, lambda c: tk.tridiag_solve_kernel(dB, eB, c), F0, 20,
+                "pcr_kernel"),
+        }
+        lb = min(B, BATCH_LIB)
+        T = (torch.diag_embed(dB[:lb]) + torch.diag_embed(eB[:lb], 1)
+             + torch.diag_embed(eB[:lb], -1))
+        t_lib = timeit_chained_min(
+            lambda c: torch.linalg.solve(T, c[..., None])[..., 0],
+            F0[:lb].contiguous())
+        steps = math.ceil(math.log2(n))
+        ops = B * n * (K2_OPS_PER_ROW_SWEEP * steps + 1)
+        nbytes = (4 * n - 1) * B * 4
+        b_ms, b_by = bound(ops, nbytes)
+        k2[B] = (ops, nbytes, t_lib * B / lb)
+        for name, what in (("fwd", "forward solve"),
+                           ("fwd_bwd", "forward + backward (2 K2 launches)")):
+            best = ms[B][name]
+            log(f"phase 16 K2 {what}: kernel {best['kernel']:.4f} ms, plain "
+                f"{best['plain']:.4f} ms (n={n}, B={B}, f32) [{card}]")
+        log(f"phase 16 K2 forward solve a launch on the device (profiler): "
+            f"{ms[B]['device']:.4f} ms (n={n}, B={B}) [{card}]")
+        log(f"phase 16 K2 bound at B={B} {b_ms:.4f} ms ({b_by}); kernel "
+            f"{nbytes / ms[B]['device'] / 1e6:.1f} GB/s of the "
+            f"{PEAK_BYTES / 1e12:.2f} TB/s peak; torch.linalg.solve on the "
+            f"densified systems {t_lib:.4f} ms at B={lb}"
+            + (f", {t_lib * B / lb:.4f} ms scaled to B={B}" if lb < B
+               else "") + f" [{card}]")
+        del T, dB, eB, F0
+        torch.cuda.empty_cache()
 
     for B in (BATCH_1D, BATCH_K2):
         mB = FEMesh.line(N_1D, dtype=f32)
@@ -1525,10 +1587,13 @@ def run_facade_1d(torch, dev, card):
             method="tridiag_pallas"),
         "phase 16", card, what=f"recover_kappa_field (B={BATCH_1D})")
 
+    # the main path's shape: its 401 launches ran at B = 1024
+    ops, nbytes, library_ms = k2[BATCH_1D]
     return kernel_entry("tridiag_pcr", K2_SOURCE,
                         f"{JAX_K2}:80 (_pcr_pallas_padded), :161 "
                         f"(_pcr_pallas_T)", main_path["pcr"], max_abs,
-                        ms["fwd"]["kernel"], ms["fwd"]["plain"], ops, nbytes,
+                        ms[BATCH_1D]["device"],
+                        ms[BATCH_1D]["fwd"]["plain"], ops, nbytes,
                         library_ms)
 
 
@@ -1586,9 +1651,10 @@ def fused_bytes(name, n, store=4, shared_f=False, kappa_item=4):
     return kap + n * store + (0 if shared_f else n * store) + out
 
 
-def fused_plain(name, mesh, scale, version=2, refine=3):
+def fused_plain(name, mesh, scale, version=2, refine=3, products="exact"):
     """The plain version of a fused step as a function of (κ, F, u_data)
-    stored as the wrapper stores them."""
+    stored as the wrapper stores them; K7's with its products rounded as
+    ``products`` says."""
     from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
     from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
     from difffe_tpu_torch.ops.kernels import fused_grad_thomas_kernel as k6
@@ -1599,15 +1665,17 @@ def fused_plain(name, mesh, scale, version=2, refine=3):
     if name == "k7":
         cols, W = k5.scalar_columns(mesh), k7.mxu_inverse(mesh)
         return lambda a, F, ud: k7._k7_plain(a, F, ud, cols, W, scale,
-                                             version, refine)
+                                             version, refine, products)
     cols, inv_h = k5.general_constants(mesh)
     pl = k5._k5b_plain if name == "k5b" else k6._k6_plain
     return lambda a, F, ud: pl(a, F, ud, cols, inv_h, scale)
 
 
-def fused_kernel(name, mesh, scale, version=2, refine=3, block_lanes=None):
+def fused_kernel(name, mesh, scale, version=2, refine=3, block_lanes=None,
+                 plan=None):
     """The public wrapper of a fused step as a function of (κ, F, u_data);
-    bf16-stored planes pass through with ``operand_dtype`` bf16."""
+    bf16-stored planes pass through with ``operand_dtype`` bf16; K7 on
+    ``plan``'s route where given."""
     from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
     from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
     from difffe_tpu_torch.ops.kernels import fused_grad_thomas_kernel as k6
@@ -1623,7 +1691,7 @@ def fused_kernel(name, mesh, scale, version=2, refine=3, block_lanes=None):
     if name == "k7":
         return lambda a, F, ud: k7.fused_kappa_mse_step_mxu(
             mesh, a, F, ud, scale=scale, operand_dtype=op(ud),
-            version=version, refine=refine, **bl)
+            version=version, refine=refine, plan=plan, **bl)
     fn = (k5.fused_kappa_mse_step_general_pcr if name == "k5b"
           else k6.fused_kappa_mse_step_general)
     return lambda a, F, ud: fn(mesh, a, F, ud, scale=scale,
@@ -1673,14 +1741,31 @@ def fused_operands(torch, dev, n, B, gen, bc, shared_f, bf16):
     return meshes, lk, ke, F, ud
 
 
+def k7_products(n, version, plan=None):
+    """The products of K7's float32 route at n nodes (``plan`` or the
+    one k7_plan picks): the "tc" route's tensor-core rounding, else
+    exact."""
+    import torch
+    from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
+
+    route = plan or k7.k7_plan(torch.float32, n, version)
+    return k7.TC_PRODUCTS[version] if route == "tc" else "exact"
+
+
 def check_fused(torch, name, meshes, lk, ke, F, ud, bf16, version=2,
-                refine=3):
-    """Phase 17's comparison of one case; returns the f32 kernel's max
-    abs error on the gradient against the f64 plain version."""
+                refine=3, plan=None):
+    """Phase 17's comparison of one case (K7 on ``plan``'s route, against
+    the plain version with that route's products; on the "tc" route also
+    two launches bit for bit, elsewhere also the f64 kernel); returns the
+    f32 kernel's max abs error on the gradient against the f64 plain
+    version."""
+    from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
+
     B, n = ud.shape
     scale = 2.0 / (B * n)
     kap = lk if name in ("k5a", "k7") else ke
     m32, m64 = meshes
+    products = k7_products(n, version, plan) if name == "k7" else "exact"
     # the stored planes, quantized once from the f32 data
     F32, ud32 = F.float(), ud.float()
     if bf16:
@@ -1691,28 +1776,35 @@ def check_fused(torch, name, meshes, lk, ke, F, ud, bf16, version=2,
         return t if t.dtype == torch.bfloat16 else t.to(dt)
 
     args32 = (kap.float(), F32, ud32)
-    k = fused_kernel(name, m32, scale, version, refine)(*args32)
-    p32 = fused_plain(name, m32, scale, version, refine)(*args32)
-    p64 = fused_plain(name, m64, scale, version, refine)(
+    kern = fused_kernel(name, m32, scale, version, refine, plan=plan)
+    k = kern(*args32)
+    p32 = fused_plain(name, m32, scale, version, refine, products)(*args32)
+    p64 = fused_plain(name, m64, scale, version, refine, products)(
         kap, wide(F32, torch.float64), wide(ud32, torch.float64))
-    what = (f"phase 17 {name} n={n} B={B} "
-            f"F={'shared' if F.ndim == 1 else 'plane'} "
+    what = (f"phase 17 {name}{'' if plan is None else ' ' + plan} n={n} "
+            f"B={B} F={'shared' if F.ndim == 1 else 'plane'} "
             f"{'bf16' if bf16 else 'f32'} v{version} r{refine}")
     for label, a, b, c in zip(("loss", "grad"), k, p32, p64):
-        check_rule(name, a, b, c, f"{what} {label}")
-    k64 = fused_kernel(name, m64, scale, version, refine)(
-        kap, wide(F32, torch.float64), wide(ud32, torch.float64))
-    for label, a, c in zip(("loss", "grad"), k64, p64):
-        e = rel_err(a, c)
-        if not e <= 1e-10:
-            raise AssertionError(f"{what} {label} f64: rel err {e:.3e}")
+        check_rule(name, a, b, c, f"{what} {label}",
+                   k7.rule_slack(products, n))
+    if products != "exact":
+        if not all(torch.equal(a, b) for a, b in zip(kern(*args32), k)):
+            raise AssertionError(f"{what}: two launches differ")
+    else:
+        k64 = fused_kernel(name, m64, scale, version, refine)(
+            kap, wide(F32, torch.float64), wide(ud32, torch.float64))
+        for label, a, c in zip(("loss", "grad"), k64, p64):
+            e = rel_err(a, c)
+            if not e <= 1e-10:
+                raise AssertionError(f"{what} {label} f64: rel err {e:.3e}")
     return float((k[1].double() - p64[1]).abs().max())
 
 
 def fused_gate(torch, name, mesh, grad, kap, f, ud_q, what, limit):
     """The bench/probe gate: the step's gradient (scale 2/n) on the first
     BATCH_GATE scenarios against autograd through the 'tridiag' route fed
-    the same (quantized) observations."""
+    the same (quantized) observations; raises above ``limit`` (None: only
+    logs).  Returns the relative error."""
     from difffe_tpu_torch.solver import solve_poisson_batched
 
     sl = slice(0, BATCH_GATE)
@@ -1722,9 +1814,11 @@ def fused_gate(torch, name, mesh, grad, kap, f, ud_q, what, limit):
                               kappa_batched=True)
     ((u - ud_q[sl].float()) ** 2).mean(dim=-1).sum().backward()
     gate = rel_err(grad[sl], k.grad)
-    log(f"phase 19 {what}: gradient gate rel={gate:.3e} (limit {limit})")
-    if not gate <= limit:
+    log(f"phase 19 {what}: gradient gate rel={gate:.3e} "
+        + ("(not gated)" if limit is None else f"(limit {limit})"))
+    if limit is not None and not gate <= limit:
         raise AssertionError(f"{what}: gate {gate:.3e} > {limit}")
+    return gate
 
 
 def ptxas_report(names):
@@ -1747,11 +1841,81 @@ def ptxas_report(names):
         shown = subprocess.run(["c++filt"], input="\n".join(mangled),
                                capture_output=True, text=True,
                                check=True).stdout.splitlines()
-        shown = [s.split(">(")[0].split("::")[-1] + ">" for s in shown]
+        shown = [s.split(">(")[0].replace("(anonymous namespace)::", "")
+                 + ">" for s in shown]
     except (OSError, subprocess.CalledProcessError):
         shown = mangled
     return [f"  {name}: {'; '.join(stats[m])}"
             for name, m in zip(shown, mangled)]
+
+
+def k7_bound(route, n, B, version, refine, store=4, shared_f=False,
+             products=None):
+    """(operations, bytes, least seconds of the operations, rate label) of
+    K7's step on ``route`` at n nodes and B scenarios, by fused_ops'
+    count: 2n² a product, 2 (1 + passes) products, 12n + 3 row operations
+    and 7 float64 operations a row and refinement pass.  The float64
+    residual runs on the float64 pipes (34 TFLOP/s) beside the f32 pipes.
+    The "fma" route does its products and row work on the f32 pipes, one
+    after the other; the "tc" route its products on the tensor cores (TF32
+    495 TFLOP/s, three passes for 3xTF32; bf16 989) beside the row work,
+    so its operations take the largest of the three times."""
+    from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
+
+    passes = refine if version == 3 else 0
+    prod = 2 * (1 + passes) * 2 * n * n
+    row = 12 * n + 3
+    resid = 2 * passes * 7 * n
+    nbytes = B * fused_bytes("k7", n, store, shared_f)
+    ops = B * (prod + row + resid)
+    t_f64 = B * resid / PEAK_F64
+    if route == "fma":
+        return (ops, nbytes, max(B * (prod + row) / PEAK_FLOPS, t_f64),
+                "f32 67 TFLOP/s, float64 34")
+    products = products or k7.TC_PRODUCTS[version]
+    rate, label, mult = {"tf32x3": (PEAK_TF32, "3xTF32 at 495 TFLOP/s", 3),
+                         "tf32": (PEAK_TF32, "TF32 495 TFLOP/s", 1),
+                         "bf16": (PEAK_BF16, "bf16 989 TFLOP/s", 1)}[products]
+    t = max(B * mult * prod / rate, B * row / PEAK_FLOPS, t_f64)
+    return ops, nbytes, t, f"{label} beside f32 67, float64 34"
+
+
+def device_ms(torch, fn, x0, length, key):
+    """Mean device time in ms of a launch of the kernels whose name holds
+    ``key``, from torch.profiler over a chain of ``length`` calls of ``fn``
+    from ``x0`` (after a warm-up): the kernel's own time, without the gaps
+    a host-bound chain leaves between launches.  The trace may miss the
+    first few launches of a window (phase 20's profile records 297 of 300
+    K7 launches), so the mean is over those it holds, at least half."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = fn(x0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        x = x0
+        for _ in range(length):
+            x = fn(x)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and key in e.key]
+    count = sum(e.count for e in rows)
+    if not length // 2 <= count <= length:
+        raise AssertionError(f"profiled {count} launches of {key} in a "
+                             f"chain of {length}")
+    return sum(e.self_device_time_total for e in rows) / count / 1e3
+
+
+def timed_turns(fns, x0, length, order):
+    """Best chained ms per call of each function of ``fns`` (name ->
+    function), timed in ``order``."""
+    from difffe_tpu_torch.utils.profiling import timeit_chained
+
+    best = {k: float("inf") for k in fns}
+    for which in order:
+        t = timeit_chained(fns[which], x0, length=length, repeats=2)
+        best[which] = min(best[which], t.min_s * 1e3)
+    return best
 
 
 def run_fused_1d(torch, dev, card):
@@ -1760,16 +1924,22 @@ def run_fused_1d(torch, dev, card):
     from difffe_tpu_torch import production
     from difffe_tpu_torch.mesh import FEMesh
     from difffe_tpu_torch.ops.assembly import assemble_load
+    from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
+    from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
     from difffe_tpu_torch.solver import solve_poisson_batched
 
     gen = torch.Generator(device=dev).manual_seed(17)
 
-    # -- phase 17: every new kernel against its plain version
+    # -- phase 17: every new kernel against its plain version; K7 on both
+    # routes where n <= 32
     t0 = time.perf_counter()
-    max_abs = {k: 0.0 for k in FUSED_SOURCES}
+    max_abs = {k: 0.0 for k in (*FUSED_SOURCES, "k7_fma")}
     for name in ("k5a", "k5b", "k6", "k7"):
         cases = 0
         for n in (K7_NS if name == "k7" else FUSED_NS):
+            routes = [None]
+            if name == "k7":
+                routes = (["tc", "fma"] if n <= k7.TC_MAX_NODES else ["fma"])
             for B in (b for b in FUSED_BS if b < FUSED_BIG or n <= 31):
                 combos = [(bc, shared_f, bf16)
                           for bc in ((0.0, 0.0), (0.3, -0.2))
@@ -1788,22 +1958,27 @@ def run_fused_1d(torch, dev, card):
                         bodies = (K7_BODIES if B < FUSED_BIG
                                   else ((2, 3), (3, 2)))
                     for version, refine in bodies:
-                        e = check_fused(torch, name, meshes, lk, ke, F, ud,
-                                        bf16, version, refine)
-                        cases += 1
-                        if n == N_PROD + 1:
-                            max_abs[name] = max(max_abs[name], e)
+                        for plan in routes:
+                            e = check_fused(torch, name, meshes, lk, ke, F,
+                                            ud, bf16, version, refine, plan)
+                            cases += 1
+                            if n == N_PROD + 1:
+                                key = "k7_fma" if plan == "fma" else name
+                                max_abs[key] = max(max_abs[key], e)
                     del meshes, lk, ke, F, ud
             torch.cuda.empty_cache()
         log(f"phase 17 {name}: {cases} cases within the gates (f32 by the "
-            f"rule of phase 7, f64 within 1e-10)")
+            f"rule of phase 7, f64 within 1e-10"
+            + ("; n <= 32 on the tc route against the plain version with its "
+               "products and on the fma route; two tc launches equal bit "
+               "for bit" if name == "k7" else "") + ")")
     reset_fused_launches()
     m137, lk, _, F, ud = fused_operands(torch, dev, 137, 64, gen, (0.0, 0.0),
                                         False, False)
     fused_kernel("k7", m137[0], 1.0, 3, 2)(lk.float(), F.float(), ud.float())
     routed = fused_launches()
     log(f"phase 17 K7 at n=137 routes to K5a: launches {routed}")
-    if routed["k5a"] != 1 or routed["k7"] != 0:
+    if routed["k5a"] != 1 or routed["k7"] or routed["k7_fma"]:
         raise AssertionError(f"the n > 136 route launched {routed}")
     log(f"phase 17 kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
@@ -1829,8 +2004,10 @@ def run_fused_1d(torch, dev, card):
         f"({hist[0] / hist[-1]:.1f}x); max |kappa - kappa_true| "
         f"{err:.3e} ({t_loop:.3f} s with the first-call set-up)")
     log(f"fused 1D main-path launches: {main_path}")
-    if main_path != {"k5a": 0, "k5b": 0, "k6": 0, "k7": production.STEPS}:
-        raise AssertionError(f"main-path launches {main_path}")
+    if main_path != {"k5a": 0, "k5b": 0, "k6": 0, "k7": production.STEPS,
+                     "k7_fma": 0}:
+        raise AssertionError(f"main-path launches {main_path}: every step "
+                             f"on K7's tc route expected")
     if not hist[-1] * 1e3 <= hist[0]:
         raise AssertionError("the loss fell less than 1e3x")
     plain_step = fused_plain("k7", mesh, 2.0 / mesh.n_nodes)
@@ -1885,12 +2062,16 @@ def run_fused_1d(torch, dev, card):
             work[f"{name}_{store}"] = (
                 fused_kernel(name, mesh, scale, block_lanes=512),
                 fused_plain(name, mesh, scale), ke0, Fs, ud_s)
-    for what, (kern, _, kap, F_, ud_) in work.items():
+    # K7's other bodies on the tc route with f32 storage (gate 1e-4)
+    gates = {f"k7_v{v}r{r}_f32": (fused_kernel("k7", mesh, scale, v, r),
+                                  None, lk0, Fs, udB)
+             for v, r in ((1, 0), (2, 0), (3, 3))}
+    for what, (kern, _, kap, F_, ud_) in {**work, **gates}.items():
         name = what.split("_")[0]
         reset_fused_launches()
         lp, gk = kern(kap, F_, ud_)
         torch.cuda.synchronize()
-        if fused_launches()[name] != 1:
+        if fused_launches()[name] != 1 or fused_launches()["k7_fma"]:
             raise AssertionError(f"{what}: launches {fused_launches()}")
         if not bool(torch.isfinite(gk).all() and torch.isfinite(lp).all()):
             raise AssertionError(f"{what}: non-finite outputs")
@@ -1898,7 +2079,26 @@ def run_fused_1d(torch, dev, card):
         fused_gate(torch, name, mesh, gk, kap, f_gate, ud_,
                    f"{what} B={kap.shape[0]}",
                    1e-2 if ud_.dtype == torch.bfloat16 else GATE_TOL)
-    del udB, udE, ke_true, ud_q
+    # version 3's gradient error by refinement pass, with its bf16 products
+    # and with single-pass TF32 products (the fallback), f32 and bf16
+    # storage; the default products at refine 3 with f32 storage are gated
+    # above
+    cols, W = k5.scalar_columns(mesh), k7.mxu_inverse(mesh)
+    per_pass = {}
+    for products in ("bf16", "tf32"):
+        for store, ud_ in (("f32", udB), ("bf16", ud_q)):
+            for r in range(4):
+                _, gk = k7._launch_tc(lk0, Fs, ud_, cols, W, scale, 3, r,
+                                      products)
+                per_pass[products, store, r] = fused_gate(
+                    torch, "k7", mesh, gk, lk0, fB, ud_,
+                    f"k7 v3 {products} products r{r} {store} u_data "
+                    f"B={BATCH_BENCH}", None)
+    log("phase 19 K7 v3 gradient gate by refinement pass (r0..r3): "
+        + "; ".join(f"{p} {st}: " + ", ".join(
+            f"{per_pass[p, st, r]:.3e}" for r in range(4))
+            for p in ("bf16", "tf32") for st in ("f32", "bf16")))
+    del udE, ke_true, gates
     torch.cuda.empty_cache()
 
     # -- phase 20: timing, host time, profile, registers
@@ -1913,15 +2113,61 @@ def run_fused_1d(torch, dev, card):
         log(f"phase 20 {what}: kernel {best['kernel']:.4f} ms, plain "
             f"{best['plain']:.4f} ms (B={B}, n={n}); kernel "
             f"{B / best['kernel'] * 1e3:.6e} grad-solves/s [{card}]")
-    kern_p = fused_kernel("k7", mesh, scale, 2, 3, 1024)
-    plain_p = fused_plain("k7", mesh, scale, 2, 3)
-    ms["k7"] = best = timed_pair(
-        lambda a: a - production.LR * kern_p(a, F, u_data)[1],
-        lambda a: a - production.LR * plain_p(a, F, u_data)[1],
-        torch.zeros(BATCH_PROD, device=dev), 4)
-    log(f"phase 20 k7 (phase-18 workload, v2, streamed F): kernel "
-        f"{best['kernel']:.4f} ms, plain {best['plain']:.4f} ms "
-        f"(B={BATCH_PROD}, n={n}) [{card}]")
+    # K7 on both routes in turns at the phase 18/19 workloads: the
+    # production step (v2, streamed f32 F and u_data) and the bench row
+    k7_work = {"k7": (2, 0, torch.zeros(BATCH_PROD, device=dev), F, u_data,
+                      production.LR, 4, False),
+               "k7_bench": (3, 2, lk0, Fs, ud_q, 1e-3, 2, True)}
+    for what, (v, r, kap, F_, ud_, lr, store, shared) in k7_work.items():
+        fns = {route: (lambda a, kern=fused_kernel("k7", mesh, scale, v, r,
+                                                   plan=route):
+                       a - lr * kern(a, F_, ud_)[1])
+               for route in ("tc", "fma")}
+        plain = fused_plain("k7", mesh, scale, v, r)
+        fns["plain"] = lambda a: a - lr * plain(a, F_, ud_)[1]
+        best = timed_turns(fns, kap, 4,
+                           ("plain", "fma", "tc", "tc", "fma", "plain"))
+        B = kap.shape[0]
+        # each launch's own time: the production chain is host-bound on
+        # the tc route (phase 20's wrapper time and profile)
+        dev_ms = {route: device_ms(torch, fns[route], kap, 20, key)
+                  for route, key in (("tc", "tc_kernel"),
+                                     ("fma", "mxu_kernel"))}
+        ms[what] = {"kernel": dev_ms["tc"], "plain": best["plain"]}
+        ms[f"{what}_fma"] = dev_ms["fma"]
+        bounds = {route: k7_bound(route, n, B, v, r, store, shared)
+                  for route in ("tc", "fma")}
+        for route in ("tc", "fma"):
+            b_ms, b_by = bound(*bounds[route][:2], bounds[route][2])
+            log(f"phase 20 {what} on the {route} route (v{v} r{r}, B={B}, "
+                f"{'bf16' if store == 2 else 'f32'} u_data, "
+                f"{'shared' if shared else 'streamed'} F): "
+                f"{dev_ms[route]:.4f} ms a launch on the device (profiler), "
+                f"{best[route]:.4f} ms a chained step, bound {b_ms:.4f} ms "
+                f"({b_by}; operations at {bounds[route][3]}), "
+                f"{dev_ms[route] / b_ms:.2f}x bound [{card}]")
+        log(f"phase 20 {what} a launch on the device: tc "
+            f"{dev_ms['tc']:.4f} ms, fma {dev_ms['fma']:.4f} ms "
+            f"({dev_ms['fma'] / dev_ms['tc']:.2f}x); chained steps in turns: "
+            f"tc {best['tc']:.4f} ms, fma {best['fma']:.4f} ms, plain "
+            f"{best['plain']:.4f} ms [{card}]")
+    X = torch.randn(BATCH_PROD, n, generator=gen, device=dev)
+    Wt = k7.mxu_inverse(mesh).T
+    Wt = (Wt / Wt.abs().sum(0).max()).contiguous()   # a contraction
+    cublas = {}
+    tf32_before = torch.backends.cuda.matmul.allow_tf32
+    for label in ("f32", "tf32"):
+        torch.backends.cuda.matmul.allow_tf32 = label == "tf32"
+        try:
+            cublas[label] = timeit_chained_min(
+                lambda c: torch.matmul(torch.matmul(c, Wt), Wt), X)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    log(f"phase 20 cuBLAS yardstick, two products X W^T, X ({BATCH_PROD}, "
+        f"{n}), W ({n}, {n}) (not K7's function): "
+        + ", ".join(f"{k} {t:.4f} ms" for k, t in cublas.items())
+        + f" [{card}]")
+    del X
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1933,29 +2179,35 @@ def run_fused_1d(torch, dev, card):
         f"B={BATCH_PROD}: " + ", ".join(f"{t:.4f}" for t in times)
         + f" s; {BATCH_PROD * production.STEPS / min(times):.6e} "
         f"grad-solves/s [{card}]")
+    lk_w = torch.zeros(BATCH_PROD, device=dev)
+    for _ in range(3):
+        k7.fused_kappa_mse_step_mxu(mesh, lk_w, F, u_data, scale=scale)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        k7.fused_kappa_mse_step_mxu(mesh, lk_w, F, u_data, scale=scale)
+    t_host = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
+    log(f"phase 20 K7 wrapper host time a call (100 calls enqueued, no "
+        f"synchronize): {t_host:.1f} µs [{card}]")
     profile_split(torch, lambda: production.sgd_loop(mesh, F, u_data),
                   "phase 20", card, what=f"production loop (B={BATCH_PROD})")
     log("phase 20 -Xptxas -v of the new kernels:")
     for line in ptxas_report(("fused_pcr_kernel", "thomas_kernel",
-                              "mxu_kernel")):
+                              "fused_grad_mxu_cu")):
         log(line)
 
     shapes = {
-        "k7": (BATCH_PROD, fused_ops("k7", n, 2), fused_bytes("k7", n)),
         "k5a": (BATCH_K5A, fused_ops("k5a", n), fused_bytes("k5a", n)),
         "k5b": (BATCH_BENCH, fused_ops("k5b", n),
                 fused_bytes("k5b", n, shared_f=True)),
         "k6": (BATCH_BENCH, fused_ops("k6", n),
                fused_bytes("k6", n, shared_f=True)),
     }
-    b_ms, b_by = bound(BATCH_BENCH * fused_ops("k7", n, 3, 2),
-                       BATCH_BENCH * fused_bytes("k7", n, 2, True))
-    log(f"phase 20 k7 bench row bound {b_ms:.4f} ms ({b_by}); kernel "
-        f"{ms['k7_bench']['kernel']:.4f} ms [{card}]")
     entries = []
-    for name in ("k5a", "k5b", "k6", "k7"):
+    for name in ("k5a", "k5b", "k6"):
         B, ops, nbytes = shapes[name]
-        key = name if name in ("k5a", "k7") else f"{name}_f32"
+        key = name if name == "k5a" else f"{name}_f32"
         b_ms, b_by = bound(B * ops, B * nbytes)
         log(f"phase 20 {name} bound {b_ms:.4f} ms ({b_by}) at B={B}: "
             f"{B * ops / 1e9:.3f} GFLOP, {B * nbytes / 1e6:.1f} MB [{card}]")
@@ -1963,6 +2215,14 @@ def run_fused_1d(torch, dev, card):
             FUSED_NAMES[name], FUSED_SOURCES[name], FUSED_REPLACES[name],
             main_path[name], max_abs[name], ms[key]["kernel"],
             ms[key]["plain"], B * ops, B * nbytes))
+    # K7 at the production step's workload, on each route
+    for route, name, key in (("tc", "fused_mxu", "k7"),
+                             ("fma", "fused_mxu_fma", "k7_fma")):
+        ops, nbytes, ops_s, _ = k7_bound(route, n, BATCH_PROD, 2, 0)
+        entries.append(kernel_entry(
+            name, FUSED_SOURCES["k7"], FUSED_REPLACES["k7"], main_path[key],
+            max_abs[key], ms["k7"]["kernel"] if route == "tc"
+            else ms["k7_fma"], ms["k7"]["plain"], ops, nbytes, None, ops_s))
     return entries
 
 
@@ -2125,6 +2385,18 @@ def ell_route_timing(torch, label, mesh, ell, W, d, B, gen, card, length):
     return best["plan"], best["per_iteration"], plain, ops, nbytes
 
 
+def deterministic(torch, fn):
+    """``fn()`` with torch's deterministic algorithms on (``index_add``
+    without atomics), so that data built by a scatter repeat bit for bit
+    from run to run."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
 def reset_all_launches():
     """Every kernel wrapper's launch count, set to 0; returns the dicts."""
     from difffe_tpu_torch.ops.kernels import (ell_kernel, fused_grad_cf_kernel,
@@ -2276,7 +2548,9 @@ def run_general(torch, dev, card, seed):
     log(f"phase 22 build_ell {mesh}: {time.perf_counter() - t0:.2f} s, "
         f"Dn={ell.nbr.shape[1]}, T={ell.edge_w.shape[2]}, "
         f"Di={ell.wdiag.shape[1]}")
-    FB = assemble_load(mesh, f)
+    # the load's scatter-add in deterministic mode: with atomics its last
+    # bits, and so the data of every comparison below, moved between runs
+    FB = deterministic(torch, lambda: assemble_load(mesh, f))
     with torch.no_grad():
         u_data = solve_poisson_cg_ell_batched(mesh, ell, k_true, FB, 0.0,
                                               UDATA_ITERS)
@@ -2601,11 +2875,12 @@ def run_ablation(torch, dev, card):
     torch.cuda.synchronize()
     want = 1 + 4 * ab.STEPS
     log(f"K7 ablation main-path launches: {dict(ab.launches)}, "
-        f"k7 {k7.launches['k7']}")
+        f"k7 (fma route) {k7.launches['k7_fma']}")
     if ab.launches != {v: want for v in ab.launches}:
         raise AssertionError(f"phase 24 launches {ab.launches}, expected "
                              f"{want} each")
-    check_only(counts, {"fused_grad_mxu_kernel": {"k7": want}}, "phase 24")
+    check_only(counts, {"fused_grad_mxu_kernel": {"k7_fma": want}},
+               "phase 24")
 
     plain_ms = {v: ab.run_variant(v, mesh, st, plain=True)
                 for v in ab.VARIANTS}
@@ -2642,7 +2917,7 @@ def run_ablation(torch, dev, card):
                 ab.launches[v], max_abs[v], ms[v], plain_ms[v], ops, nbytes,
                 None, ops_s))
     log("phase 24 -Xptxas -v of the new kernels:")
-    for line in ptxas_report(("staged_kernel", "rows_kernel", "tc_kernel")):
+    for line in ptxas_report(("k7_ablation_cu",)):
         log(line)
     return entries
 

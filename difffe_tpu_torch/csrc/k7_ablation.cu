@@ -54,7 +54,8 @@
 // in K7, so F's outputs equal K7 version 1's bit for bit; the parallelism
 // comes from the independent rows.
 //
-// B, C: one warp a tile of 16 scenarios, on mma.sync.  A product is
+// B, C: one warp a tile of 16 scenarios, on mma.sync (the fragments and
+// products of mma_frag.cuh, which K7's "tc" route shares).  A product is
 // computed transposed, U^T (16 x NP) = X^T (16 x NP) W^T, so the
 // scenarios are the M rows, W^T is the B operand (held in registers for
 // the warp's life: 32 TF32 registers a pass at NP = 32, 16 for bf16) and
@@ -84,9 +85,10 @@
 // B's three passes at 495 TFLOP/s TF32, 0.049 ms, leave B bound by
 // operations; C's one at 989 bf16, 0.008 ms, leaves C bound by bytes.
 
-#include "fused_step_common.cuh"
-
 #include <cstdint>
+
+#include "fused_step_common.cuh"
+#include "mma_frag.cuh"
 
 namespace {
 
@@ -330,141 +332,9 @@ rows_kernel(const T* __restrict__ lk, long long sL, const T* __restrict__ F,
 // B and C: tensor-core products
 // ---------------------------------------------------------------------------
 
-constexpr uint32_t kTf32Mask = 0xffffe000u;
-
-__device__ __forceinline__ uint32_t tf32_bits(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r & kTf32Mask;
-}
-
-// x = hi + lo, each rounded to TF32 (lo from the exact f32 residual)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_bits(x);
-  lo = tf32_bits(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// W^T as the B operand of every (nn, kk) tile, in registers.  TF32 (B):
-// K tiles of 8 with K column q at row 8 kk + 2q and q + 4 at 8 kk + 2q + 1,
-// hi and lo parts; bf16 (C): K tiles of 16 in natural order.
-template <int V, int NT>
-struct WFrag {
-  static constexpr int NK = V == kB ? NT : NT / 2;
-  uint32_t hi[NT][NK][2];
-  uint32_t lo[V == kB ? NT : 1][V == kB ? NK : 1][2];
-
-  __device__ __forceinline__ void load(const float* __restrict__ Wg, int n,
-                                       int g, int q) {
-    auto w = [&](int i, int j) -> float {
-      return i < n && j < n ? Wg[i * n + j] : 0.0f;
-    };
-#pragma unroll
-    for (int nn = 0; nn < NT; ++nn) {
-      const int i = 8 * nn + g;
-#pragma unroll
-      for (int kk = 0; kk < NK; ++kk) {
-        if constexpr (V == kB) {
-          split_tf32(w(i, 8 * kk + 2 * q), hi[nn][kk][0], lo[nn][kk][0]);
-          split_tf32(w(i, 8 * kk + 2 * q + 1), hi[nn][kk][1], lo[nn][kk][1]);
-        } else {
-          const int j = 16 * kk + 2 * q;
-          hi[nn][kk][0] = bf16x2_bits(w(i, j), w(i, j + 1));
-          hi[nn][kk][1] = bf16x2_bits(w(i, j + 8), w(i, j + 9));
-        }
-      }
-    }
-  }
-};
-
-// acc[nn][e'] = (X^T W^T) of the warp's 16 scenarios, where the lane's
-// values v[nn][s][e] sit at scenario g + 8 s and row 8 nn + 2 q + e; acc
-// comes back in the same layout: acc[nn][2 s + e].  Each K tile's product
-// goes onto a zero accumulator and the tiles' partials are summed in f32,
-// rounded to nearest: one accumulator carried over the K tiles, added to
-// in the tensor cores' own rounding, missed phase 7's rule (chip_smoke) on
-// B's gradient.  B's two small passes (2^-11 of the result) share one
-// accumulator over the tiles.
-template <int V, int NT>
-__device__ __forceinline__ void product(const WFrag<V, NT>& wf,
-                                        const float (&v)[NT][2][2],
-                                        float (&acc)[NT][4]) {
-  float small[NT][4];
-#pragma unroll
-  for (int nn = 0; nn < NT; ++nn)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[nn][c] = small[nn][c] = 0.0f;
-  if constexpr (V == kB) {
-#pragma unroll
-    for (int kk = 0; kk < NT; ++kk) {
-      // A: a0 (scenario g, column q), a1 (g + 8, q), a2 (g, q + 4),
-      // a3 (g + 8, q + 4); columns q, q + 4 are rows 8 kk + 2q, + 1
-      uint32_t ahi[4], alo[4];
-      split_tf32(v[kk][0][0], ahi[0], alo[0]);
-      split_tf32(v[kk][1][0], ahi[1], alo[1]);
-      split_tf32(v[kk][0][1], ahi[2], alo[2]);
-      split_tf32(v[kk][1][1], ahi[3], alo[3]);
-#pragma unroll
-      for (int nn = 0; nn < NT; ++nn) {
-        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_tf32(small[nn], alo, wf.hi[nn][kk][0], wf.hi[nn][kk][1]);
-        mma_tf32(small[nn], ahi, wf.lo[nn][kk][0], wf.lo[nn][kk][1]);
-        mma_tf32(part, ahi, wf.hi[nn][kk][0], wf.hi[nn][kk][1]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[nn][c] = add(acc[nn][c], part[c]);
-      }
-    }
-#pragma unroll
-    for (int nn = 0; nn < NT; ++nn)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[nn][c] = add(small[nn][c], acc[nn][c]);
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      // A: a0 (g, columns 2q, 2q + 1), a1 (g + 8, the same), a2 (g,
-      // 2q + 8, 2q + 9), a3 (g + 8, the same) of rows 16 kk + column
-      const uint32_t a[4] = {
-          bf16x2_bits(v[2 * kk][0][0], v[2 * kk][0][1]),
-          bf16x2_bits(v[2 * kk][1][0], v[2 * kk][1][1]),
-          bf16x2_bits(v[2 * kk + 1][0][0], v[2 * kk + 1][0][1]),
-          bf16x2_bits(v[2 * kk + 1][1][0], v[2 * kk + 1][1][1])};
-#pragma unroll
-      for (int nn = 0; nn < NT; ++nn) {
-        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_bf16(part, a, wf.hi[nn][kk][0], wf.hi[nn][kk][1]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[nn][c] = add(acc[nn][c], part[c]);
-      }
-    }
-  }
-}
-
-// Sum over the four lanes of a group.
-__device__ __forceinline__ float group_sum(float v) {
-  v = add(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return add(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
+// B's and C's products (mma_frag.cuh)
+template <int V>
+constexpr Products kProducts = V == kB ? Products::kTf32x3 : Products::kBf16;
 
 template <typename TU, int V, int NT>
 __global__ void __launch_bounds__(kBlock)
@@ -483,7 +353,7 @@ tc_kernel(const float* __restrict__ lk, long long sL,
   __syncthreads();
 
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  WFrag<V, NT> wf;
+  WFrag<kProducts<V>, NT> wf;
   wf.load(Wg, n, g, q);
   const long long tiles = (static_cast<long long>(B) + 15) / 16;
   const long long warps = static_cast<long long>(gridDim.x) * (kBlock / 32);
@@ -516,7 +386,7 @@ tc_kernel(const float* __restrict__ lk, long long sL,
                               : 0.0f;
       }
     float acc[NT][4];
-    product<V, NT>(wf, v, acc);
+    product<kProducts<V>, NT>(wf, v, acc);
     float u[NT][2][2], lsum[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int nn = 0; nn < NT; ++nn)
@@ -532,7 +402,7 @@ tc_kernel(const float* __restrict__ lk, long long sL,
           lsum[s] = add(lsum[s], mul(d, d));
           v[nn][s][e] = mul(add(cs[0][i], mul(cs[1][i], kinv[s])), d);
         }
-    product<V, NT>(wf, v, acc);  // lambda
+    product<kProducts<V>, NT>(wf, v, acc);  // lambda
     float gsum[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int nn = 0; nn < NT; ++nn)

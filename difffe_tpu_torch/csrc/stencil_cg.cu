@@ -8,20 +8,23 @@
 // A v = sum_k D_k * shift(v, OFFSETS[k]); the algorithm, freeze rule and
 // dots are cg_common.cuh's, shared with the 3D kernels K4.
 //
-// K3b has two routes, which the wrapper's plan picks from the shape:
+// K3a and K3b each have two routes, which the wrapper's plan picks from the
+// shape (one plan for both, K3b's):
 //
 // * cluster (cg_cluster.cuh): one thread-block cluster of C blocks a
 //   scenario holds the scenario's 5 planes, Minv and CG state in shared
 //   memory (36 B a node) and registers for the whole launch, so its loop
 //   reads no device memory; neighbours in another block's range are read
 //   through DSMEM.  It takes grids of up to 16 * 8 * 640 = 81,920 nodes
-//   (285^2; 256^2 at C = 16, the main path's 64^2 at C = 1).
-// * workspace (cg_common.cuh, the first design, shared with K3a): one
-//   thread block a scenario, the CG vectors in dynamic shared memory when
-//   4*H*W floats fit (H*W <= 14,500 nodes) else in a global workspace of
-//   4*H*W floats a scenario that the wrapper allocates; the planes and Minv
-//   are read from device memory in every iteration.  The plan sends only
-//   grids past the cluster route's reach here.
+//   (285^2; 256^2 at C = 16, the main path's 64^2 at C = 1).  K3a starts
+//   from any x0: the initial residual reads x0's neighbours from device
+//   memory.
+// * workspace (cg_common.cuh, the first design): one thread block a
+//   scenario, the CG vectors in dynamic shared memory when 4*H*W floats
+//   fit (H*W <= 14,500 nodes) else in a global workspace of 4*H*W floats a
+//   scenario that the wrapper allocates; the planes and Minv are read from
+//   device memory in every iteration.  The plan sends only grids past the
+//   cluster route's reach here.
 //
 // Neighbour reads are guarded at the grid's edges (no reliance on zero
 // coefficients) and plane offsets are 64-bit.
@@ -29,12 +32,14 @@
 // Bound.  At the main path's workload (64^2 grid, B = 4096, 32 iterations,
 // two solves) the work is ~20 flop per node per iteration, 2.2e10 flop =
 // 0.33 ms at 67 TFLOP/s fp32, against 0.83 GB of inputs and outputs
-// (0.25 ms at 3.35 TB/s): the function is bound by operations.  The first
+// (0.25 ms at 3.35 TB/s): the function is bound by operations; K3a's
+// u_data solve (one solve, 256 iterations, 9 planes) likewise.  The first
 // design re-read the 5 planes and Minv (24 B a node) from L2 or device
-// memory in every iteration and was bound by that traffic; the cluster
-// route moves each byte of device memory once and is bound by its
-// shared-memory traffic (~64 B a node and iteration), its instructions and
-// the latency of its two dots an iteration.
+// memory in every iteration and was bound by that traffic (K3a at 64^2,
+// B = 4096: 403 MB an iteration); the cluster route moves each byte of
+// device memory once and is bound by its shared-memory traffic (~64 B a
+// node and iteration), its instructions and the latency of its two dots
+// an iteration.
 
 #include <cuda_runtime.h>
 
@@ -170,12 +175,31 @@ extern "C" int difffe_smem_optin() {
 // D is (5, B, H, W); every other plane is (B, H, W); all float32 and
 // contiguous.  `work` is null or holds difffe_stencil_cg_work(H, W) floats
 // per scenario.
+//
+// K3a.  `cluster` > 0 takes the cluster route with clusters of that many
+// blocks of `threads` threads (work must be null); 0 takes the workspace
+// route (the first design; `threads` unused).
 extern "C" int difffe_stencil_cg(const void* D, const void* b,
                                  const void* minv, const void* x0, void* out,
                                  void* work, int B, int H, int W, int iters,
-                                 void* stream) {
+                                 int cluster, int threads, void* stream) {
+  if (cluster > 0) {
+    if (work != nullptr) return cudaErrorInvalidValue;
+    return launch_cluster_cg<float, 5, false>(D, b, minv, x0, nullptr,
+                                              nullptr, out, nullptr, B, 1, H,
+                                              W, iters, 0.f, cluster, threads,
+                                              stream);
+  }
   return launch<false>(D, b, minv, x0, nullptr, nullptr, out, nullptr, work,
                        B, H, W, iters, 0.f, stream);
+}
+
+// K3a's cluster route: how many clusters of `cluster` blocks of `threads`
+// threads the card holds at once on an (H, W) grid (0: none; < 0: minus a
+// CUDA error).
+extern "C" int difffe_stencil_cg_clusters(int H, int W, int cluster,
+                                          int threads) {
+  return cluster_capacity<float, 5, false>(1, H, W, cluster, threads);
 }
 
 // K3b.  `cluster` > 0 takes the cluster route with clusters of that many

@@ -37,7 +37,9 @@ _SIGNATURES = {
     "difffe_cf_chain": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                         _I, _F, _P],
     "difffe_stencil_cg_work": [_I, _I],
-    "difffe_stencil_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "difffe_stencil_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P],
+    "difffe_stencil_cg_clusters": [_I, _I, _I, _I],
     "difffe_stencil_cg2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _F, _I, _I, _P],
     "difffe_stencil_cg2_clusters": [_I, _I, _I, _I],
@@ -59,6 +61,8 @@ _SIGNATURES = {
                             _I, _I, _I, _D, _D, _I, _P],
     "difffe_fused_mxu": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P, _I,
                          _I, _I, _I, _I, _D, _I, _P],
+    "difffe_fused_mxu_tc": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _D, _I, _P],
     "difffe_ell_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "difffe_ell_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "difffe_ell_cg_clusters": [_I, _I, _I, _I],

@@ -22,11 +22,26 @@ bodies of the JAX module are kept as ``version``:
   body forms it, would add rounding noise of the size it removes
   (``difffe_tpu_torch/probes/k7_residual.py`` measures both on the card).
 
-The CUDA kernel (``csrc/fused_grad_mxu.cu``) holds W in shared memory and
-runs one scenario per thread; the plain PyTorch version below, taken only
-for CPU tensors, uses ``torch.matmul``.  Meshes above ``MXU_MAX_NODES``
-nodes go to kernel K5a (``fused_grad_kernel.fused_kappa_mse_step``), as in
-the JAX module.  The TPU's probe-only ablation switches (``_V2_PRECISION``,
+The CUDA kernel (``csrc/fused_grad_mxu.cu``) has two routes, which
+:func:`k7_plan` picks from the dtype and n:
+
+* ``"tc"`` (float32, n ≤ 32, padded to 16 or 32 rows): the products on the
+  tensor cores, one warp a tile of 16 scenarios (``csrc/mma_frag.cuh``):
+  3xTF32 for versions 1-2, the counterpart of the TPU's ``HIGHEST``
+  multi-pass products; single-pass bf16 for version 3, the TPU's
+  ``DEFAULT`` products, which its float64-residual refinement passes
+  repair;
+* ``"fma"`` (float64, and 32 < n ≤ ``MXU_MAX_NODES``): the first design,
+  W in shared memory and one scenario a thread, each product a running sum
+  of full-precision fused multiply-adds.
+
+The plain PyTorch version below, taken only for CPU tensors, uses
+``torch.matmul`` with exact products; ``products="tf32x3"``, ``"tf32"`` or
+``"bf16"`` round the products' operands as the ``"tc"`` route's tensor
+cores do, and that is the version the card holds the route against.
+Meshes above ``MXU_MAX_NODES`` nodes go to kernel K5a
+(``fused_grad_kernel.fused_kappa_mse_step``), as in the JAX module.  The
+TPU's probe-only ablation switches (``_V2_PRECISION``,
 ``_V2_SKIP_MATMUL``) are not carried over: K7's ablations, the port of the
 TPU probe ``scripts/probe_mxu_kernel.py``, are kernels of their own
 (``difffe_tpu_torch/probes/k7_ablation.py``, ``csrc/k7_ablation.cu``).
@@ -52,8 +67,30 @@ from .fused_grad_kernel import (_as_dtype, _check_block_lanes,
 # grows as n²).
 MXU_MAX_NODES = 136
 
-#: Kernel launches made by the wrapper.
-launches = {"k7": 0}
+#: Nodes the "tc" route takes (W^T padded to 16 or 32 rows and columns).
+TC_MAX_NODES = 32
+#: The "tc" route's products by version (``csrc/mma_frag.cuh``).
+TC_PRODUCTS = {1: "tf32x3", 2: "tf32x3", 3: "bf16"}
+#: How the plain version forms its products: exactly, or with the operands
+#: rounded as the tensor cores take them.
+PRODUCTS = ("exact", "tf32x3", "tf32", "bf16")
+
+#: Kernel launches made by the wrapper, by route: "k7" on the "tc" route,
+#: "k7_fma" on the "fma" route.
+launches = {"k7": 0, "k7_fma": 0}
+
+
+def k7_plan(dtype, n: int, version: int) -> str:
+    """The route of a K7 step, from the shape alone: ``"tc"`` for float32
+    with n ≤ ``TC_MAX_NODES``, ``"fma"`` for float64 and for
+    32 < n ≤ ``MXU_MAX_NODES``, and ``"k5a"`` (kernel K5a, as the JAX
+    module routes) above.  ``version`` is part of the key because the card
+    decides the route of each body (PERF.md §5 has the times)."""
+    if version not in (1, 2, 3):
+        raise ValueError(f"version must be 1, 2 or 3, got {version}")
+    if n > MXU_MAX_NODES:
+        return "k5a"
+    return "tc" if dtype == torch.float32 and n <= TC_MAX_NODES else "fma"
 
 
 def _inverse(mesh) -> torch.Tensor:
@@ -72,9 +109,62 @@ def mxu_inverse(mesh) -> torch.Tensor:
     return mesh_constants(mesh, "mxu_inverse", _inverse)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds the float32
+    value: to nearest, ties away from zero, the 13 low bits cleared; in
+    ``x``'s dtype."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32).to(x.dtype)
+
+
+def _split(x: torch.Tensor):
+    """x = hi + lo as a 3xTF32 product splits its operand."""
+    hi = _tf32(x)
+    return hi, _tf32((x.float() - hi.float()).to(x.dtype))
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest even) through float32."""
+    return x.float().bfloat16().to(x.dtype)
+
+
+def _product(products: str, y: torch.Tensor, W: torch.Tensor):
+    """W y for each row y of (B, n) with the operands rounded as
+    ``products`` says: 3xTF32's three split products (lo·hi first, as the
+    tensor cores accumulate them), one TF32 or bf16 pass, or exact."""
+    if products == "tf32x3":
+        (yh, yl), (wh, wl) = _split(y), _split(W)
+        return yl @ wh.T + yh @ wl.T + yh @ wh.T
+    if products == "tf32":
+        return _tf32(y) @ _tf32(W).T
+    if products == "bf16":
+        return _bf16(y) @ _bf16(W).T
+    return y @ W.T
+
+
+def rule_slack(products: str, n: int) -> float:
+    """The additive term of phase 7's rule (chip_smoke.py) for a float32
+    step whose products are ``products`` at n nodes: 1e-6, and for
+    single-pass products also one rounding step of one of the n operands
+    of a product, 2^-8/n for bf16 and 2^-11/n for TF32.  The kernel and
+    its plain version round a product's right-hand side from values that
+    differ by an earlier f32 summation, so an element near a rounding
+    boundary can round up in one and down in the other (measured on the
+    card for K7's ablation C: 1 of 160 cases at B = 1000 missed the rule
+    with 1e-6 alone)."""
+    step = {"bf16": 2.0 ** -8, "tf32": 2.0 ** -11}.get(products, 0.0)
+    return 1e-6 + step / n
+
+
 def _k7_plain(log_k, F, ud, cols, W, scale: float, version: int,
-              refine: int):
-    """Plain version of K7 on (B, n) rows: (loss (B,), ∂log κ (B,))."""
+              refine: int, products: str = "exact"):
+    """Plain version of K7 on (B, n) rows: (loss (B,), ∂log κ (B,)).
+    ``products`` (:data:`PRODUCTS`) rounds the operands of every product
+    with W as the "tc" route's tensor cores do; "exact" is the CPU path's
+    and the "fma" route's."""
+    if products not in PRODUCTS:
+        raise ValueError(f"products must be one of {PRODUCTS}, got "
+                         f"{products!r}")
     m, p, d0, a0, c0, mg, t0, rhs0 = cols
     dtype = cols.dtype
     f, ud = F.to(dtype), ud.to(dtype)
@@ -83,7 +173,7 @@ def _k7_plain(log_k, F, ud, cols, W, scale: float, version: int,
     dinv = m + p * kinv
 
     def solve(y):
-        u = y @ W.T
+        u = _product(products, y, W)
         if version == 3:
             md, a0d, c0d = (m + d0).double(), a0.double(), c0.double()
             for _ in range(refine):
@@ -91,7 +181,7 @@ def _k7_plain(log_k, F, ud, cols, W, scale: float, version: int,
                 u64 = u.double()
                 T1u = (md * u64 + a0d * _shift_up(u64, 1, 0.0)
                        + c0d * _shift_down(u64, 1, 0.0))
-                u = u + (y.double() - T1u).to(dtype) @ W.T
+                u = u + _product(products, (y.double() - T1u).to(dtype), W)
         return u
 
     if version == 1:
@@ -111,6 +201,7 @@ def _k7_plain(log_k, F, ud, cols, W, scale: float, version: int,
 
 def _launch(log_k, F, ud, cols, W, scale: float, version: int, refine: int,
             block_lanes: int):
+    """K7 on the "fma" route."""
     from ._build import load_library
 
     dtype, dev = log_k.dtype, log_k.device
@@ -133,6 +224,48 @@ def _launch(log_k, F, ud, cols, W, scale: float, version: int, refine: int,
             float(scale), int(dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"K7 fused_mxu launch failed: CUDA error {rc}")
+    launches["k7_fma"] += 1
+    return loss, grad
+
+
+def _launch_tc(log_k, F, ud, cols, W, scale: float, version: int,
+               refine: int, products: Optional[str] = None):
+    """K7 on the "tc" route (float32, n ≤ 32); ``products`` defaults to
+    the version's own (:data:`TC_PRODUCTS`), and version 3 also takes
+    "tf32"."""
+    from ._build import load_library
+
+    dtype, dev = log_k.dtype, log_k.device
+    check_cuda(dtype, dev, "K7", F, ud, cols, W)
+    B, n = log_k.shape[0], ud.shape[-1]
+    products = TC_PRODUCTS[version] if products is None else products
+    if dtype != torch.float32 or n > TC_MAX_NODES:
+        raise TypeError(f"K7's tc route takes float32 and at most "
+                        f"{TC_MAX_NODES} nodes, got {dtype} and {n}")
+    if products not in (TC_PRODUCTS[version], "tf32" if version == 3
+                        else None):
+        raise ValueError(f"K7's tc route runs version {version} with "
+                         f"{TC_PRODUCTS[version]} products"
+                         + (" or tf32" if version == 3 else "")
+                         + f", got {products!r}")
+    lk, sL = rows_view(log_k[:, None], 1)
+    F, sF = rows_view(F, n)
+    ud, sU = rows_view(ud, n)
+    f_code = storage_code(F, dtype, "F")
+    u_code = storage_code(ud, dtype, "u_data")
+    loss = torch.empty(B, dtype=dtype, device=dev)
+    grad = torch.empty(B, dtype=dtype, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.difffe_fused_mxu_tc(
+            lk.data_ptr(), sL, F.data_ptr(), sF, f_code, ud.data_ptr(), sU,
+            u_code, cols.data_ptr(), W.data_ptr(), loss.data_ptr(),
+            grad.data_ptr(), B, n, version, refine, float(scale),
+            int(products == "tf32"), stream)
+    if rc != 0:
+        raise RuntimeError(f"K7 fused_mxu launch failed (tc route, "
+                           f"{products} products): CUDA error {rc}")
     launches["k7"] += 1
     return loss, grad
 
@@ -141,7 +274,7 @@ def fused_kappa_mse_step_mxu(mesh, log_k, F, u_data,
                              scale: Optional[float] = None,
                              block_lanes: int = 1024,
                              operand_dtype=None, version: int = 2,
-                             refine: int = 3):
+                             refine: int = 3, plan: Optional[str] = None):
     """Dense-inverse variant of ``fused_kappa_mse_step`` — per-scenario
     scalar κ only (kernel K7).
 
@@ -155,17 +288,25 @@ def fused_kappa_mse_step_mxu(mesh, log_k, F, u_data,
     reference fed the same quantized data.  ``version`` 1/2/3 and
     ``refine`` select the body (module note).  Meshes above
     ``MXU_MAX_NODES`` nodes route to K5a, which ignores ``operand_dtype``.
+    On the card the step runs on :func:`k7_plan`'s route, or, up to
+    ``MXU_MAX_NODES`` nodes, on ``plan`` ("tc" or "fma") where given (the
+    tests and chip_smoke.py force each route); ``block_lanes`` caps the
+    scenarios a block holds on the "fma" route and changes no result.  CPU tensors take the plain version with
+    exact products whatever the plan.
     """
     if version not in (1, 2, 3):
         raise ValueError(f"version must be 1, 2 or 3, got {version}")
     if int(refine) < 0:
         raise ValueError(f"refine must be >= 0, got {refine}")
+    if plan not in (None, "tc", "fma"):
+        raise ValueError(f"plan must be 'tc' or 'fma', got {plan!r}")
     dtype, dev = mesh.dtype, mesh.device
     log_k = _as_dtype(log_k, dtype, dev)
     B, n = log_k.shape[0], mesh.n_nodes
     if scale is None:
         scale = 2.0 / (B * n)
-    if n > MXU_MAX_NODES:
+    route = k7_plan(dtype, n, version)
+    if route == "k5a":
         return _k5.fused_kappa_mse_step(mesh, log_k, F, u_data, scale=scale)
     store = dtype if operand_dtype is None else operand_dtype
     F = torch.as_tensor(F, device=dev)
@@ -178,5 +319,8 @@ def fused_kappa_mse_step_mxu(mesh, log_k, F, u_data,
         if log_k.device.type == "cpu":
             return _k7_plain(log_k, F, u_data.expand(B, n), cols, W,
                              float(scale), version, int(refine))
+        if (plan or route) == "tc":
+            return _launch_tc(log_k, F, u_data, cols, W, scale, version,
+                              int(refine))
         return _launch(log_k, F, u_data, cols, W, scale, version,
                        int(refine), block_lanes)

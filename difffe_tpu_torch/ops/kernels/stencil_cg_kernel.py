@@ -9,10 +9,11 @@ layout are identically zero for isotropic per-triangle κ and never enter.
 Each solve has two implementations behind one wrapper:
 
 * the CUDA kernels in ``csrc/stencil_cg.cu``, launched for CUDA tensors:
-  K3a one thread block per scenario (CG vectors in shared memory or a
-  global workspace); K3b on the route :func:`cluster_plan` picks from the
-  shape, one thread-block cluster per scenario with the whole two-solve CG
-  in shared memory, or K3a's design past the cluster's reach;
+  K3a (one solve) and K3b (two) on the route :func:`cluster_plan` picks
+  from the shape, one thread-block cluster per scenario with the whole CG
+  in shared memory, or past the cluster's reach the first design (one
+  thread block per scenario, CG vectors in shared memory or a global
+  workspace);
 * the plain PyTorch versions below (the same per-scenario fixed-trip PCG
   with the same freeze rule), taken only for CPU tensors, and the
   reference the kernels are checked against.
@@ -50,9 +51,10 @@ from ..stencil import (
     stencil_coefficients,
 )
 
-#: Kernel launches made by the wrappers, by kernel: "cg" K3a, "cg2" K3b on
-#: the cluster route, "cg2_workspace" K3b on the workspace route.
-launches = {"cg": 0, "cg2": 0, "cg2_workspace": 0}
+#: Kernel launches made by the wrappers, by kernel and route: "cg" K3a and
+#: "cg2" K3b on the cluster route, "cg_workspace" and "cg2_workspace" on
+#: the workspace route.
+launches = {"cg": 0, "cg_workspace": 0, "cg2": 0, "cg2_workspace": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +144,7 @@ def _workspace(lib, B, H, W, device):
 
 
 # ---------------------------------------------------------------------------
-# The two-solve kernels' plan (K3b here, K4b in stencil3d_cg_kernel.py)
+# The cluster plan (K3a and K3b here, K4a and K4b in stencil3d_cg_kernel.py)
 # ---------------------------------------------------------------------------
 
 #: Blocks a cluster may have on the cluster route (16 is non-portable).
@@ -223,7 +225,9 @@ def cluster_layout(nodes: int, planes: int, itemsize: int, cluster: int,
 
 def cluster_plan(nodes: int, planes: int, itemsize: int,
                  smem_limit: int) -> ClusterPlan:
-    """K3b's and K4b's route for a shape, from the shape alone.
+    """K3a's, K3b's, K4a's and K4b's route for a shape, from the shape
+    alone (a one-solve and a two-solve kernel hold the same bytes a
+    block).
 
     The rule: the smallest cluster size whose block fits the card's
     shared memory and its threads' registers; failing that (more than 16
@@ -277,10 +281,14 @@ def check_schedulable(query, key, plan: ClusterPlan, device) -> None:
 
 
 def _plan_cg2(D, H, W, plan):
+    """K3a's and K3b's plan (their blocks hold the same bytes)."""
     return plan or cluster_plan(H * W, 5, 4, smem_optin(D.device.index))
 
 
-def _launch_cg(D, b, Minv, x0, iters):
+def _launch_cg(D, b, Minv, x0, iters, plan: Optional[ClusterPlan] = None):
+    """K3a on ``plan``'s route (default :func:`cluster_plan`'s for the
+    shape, K3b's; the tests and chip_smoke.py pass another to compare
+    routes and cluster sizes)."""
     from ._build import load_library
 
     B, H, W = _check_cuda_planes(D, (b, Minv, x0))
@@ -288,16 +296,24 @@ def _launch_cg(D, b, Minv, x0, iters):
     if B == 0:
         return out
     lib = load_library()
-    work = _workspace(lib, B, H, W, D.device)
+    plan = _plan_cg2(D, H, W, plan)
+    work = None
+    if plan.route == "cluster":
+        check_schedulable(
+            lambda c, t: lib.difffe_stencil_cg_clusters(H, W, c, t),
+            ("cg", H, W), plan, D.device)
+    else:
+        work = _workspace(lib, B, H, W, D.device)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.difffe_stencil_cg(
             D.data_ptr(), b.data_ptr(), Minv.data_ptr(), x0.data_ptr(),
             out.data_ptr(), None if work is None else work.data_ptr(),
-            B, H, W, int(iters), stream)
+            B, H, W, int(iters), plan.cluster, plan.threads, stream)
     if rc != 0:
-        raise RuntimeError(f"K3a stencil_cg launch failed: CUDA error {rc}")
-    launches["cg"] += 1
+        raise RuntimeError(f"K3a stencil_cg launch failed ({plan.route} "
+                           f"route, cluster {plan.cluster}): CUDA error {rc}")
+    launches["cg" if plan.route == "cluster" else "cg_workspace"] += 1
     return out
 
 

@@ -4,9 +4,11 @@ PyTorch counterpart of the TPU probe ``scripts/probe_mxu_kernel.py`` (P2):
 the scalar-κ dense-inverse grad step of K7 version 1 (one shared load F,
 u_data stored in bf16), each variant changing one thing:
 
-* A — the baseline: K7 itself (``csrc/fused_grad_mxu.cu``, version 1,
-  refine 0), through ``fused_kappa_mse_step_mxu``; P2's ``make_kernel("A")``,
-  two products at HIGHEST precision.
+* A — the baseline: K7's first design itself (``csrc/fused_grad_mxu.cu``,
+  its "fma" route forced, version 1, refine 0), through
+  ``fused_kappa_mse_step_mxu``; P2's ``make_kernel("A")``, two products at
+  HIGHEST precision.  (K7's default route at these shapes is now the "tc"
+  route, B's design carried through versions 1-3.)
 * B — both products as 3xTF32 split products on the tensor cores (each
   operand a = hi + lo rounded to TF32, hi·hi + hi·lo + lo·hi in f32);
   P2's HIGH precision, the TPU's 3-pass bf16 products.
@@ -72,7 +74,7 @@ SLICE = 8192
 MAX_NODES = 32           # the kernels pad n to 16 or 32
 
 #: Kernel launches made by :func:`ablation_step`, by variant; A's are K7's
-#: (``fused_grad_mxu_kernel.launches["k7"]``).
+#: on its "fma" route (``fused_grad_mxu_kernel.launches["k7_fma"]``).
 launches = {v: 0 for v in VARIANTS if v != "A"}
 _CODES = {"B": 1, "C": 2, "D": 3, "E": 4, "F": 5, "A1": 6}
 
@@ -86,34 +88,12 @@ _COL_M, _COL_P, _COL_D0, _COL_A0, _COL_C0, _COL_MG, _COL_T0, _COL_F = range(8)
 # ---------------------------------------------------------------------------
 
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds the float32
-    value: to nearest, ties away from zero, the 13 low bits cleared; in
-    ``x``'s dtype."""
-    b = x.float().contiguous().view(torch.int32)
-    return ((b + 0x1000) & -0x2000).view(torch.float32).to(x.dtype)
-
-
-def _split(x: torch.Tensor):
-    """x = hi + lo as variant B splits a product's operand."""
-    hi = _tf32(x)
-    return hi, _tf32((x.float() - hi.float()).to(x.dtype))
-
-
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    """``x`` rounded to bf16 (to nearest even) through float32."""
-    return x.float().bfloat16().to(x.dtype)
-
-
 def _product(variant: str, y: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """W y for each row y of (B, n): B's three split products (lo·hi first,
-    as the kernel accumulates them), C's bf16 operands, else exact."""
-    if variant == "B":
-        (yh, yl), (wh, wl) = _split(y), _split(W)
-        return yl @ wh.T + yh @ wl.T + yh @ wh.T
-    if variant == "C":
-        return _bf16(y) @ _bf16(W).T
-    return y @ W.T
+    """W y for each row y of (B, n): B's three split products, C's bf16
+    operands (``fused_grad_mxu_kernel._product``, K7's "tc" route's
+    rounding), else exact."""
+    return k7._product({"B": "tf32x3", "C": "bf16"}.get(variant, "exact"),
+                       y, W)
 
 
 def plain_step(variant: str, log_k, F, ud, cols, W, scale: float):
@@ -145,14 +125,9 @@ def plain_step(variant: str, log_k, F, ud, cols, W, scale: float):
 
 def rule_slack(variant: str, n: int) -> float:
     """The additive term of phase 7's rule (chip_smoke.py) for
-    ``variant``'s f32 kernel at n nodes: 1e-6, and for C also one bf16
-    rounding step of one of the n operands of a product, 2^-8/n.  C's
-    kernel and its plain version round the adjoint product's right-hand
-    side (m + p/κ)(u − u_data) to bf16 from values that differ by the
-    first product's f32 summation, so an element near a rounding boundary
-    can round up in one and down in the other (measured on the card: 1 of
-    160 cases at B = 1000 missed the rule with 1e-6 alone)."""
-    return 1e-6 + (2.0 ** -8 / n if variant == "C" else 0.0)
+    ``variant``'s f32 kernel at n nodes: C's bf16 products add a bf16
+    rounding step (``fused_grad_mxu_kernel.rule_slack``)."""
+    return k7.rule_slack("bf16" if variant == "C" else "exact", n)
 
 
 # ---------------------------------------------------------------------------
@@ -195,8 +170,8 @@ def ablation_step(variant: str, mesh, log_k, F, u_data, scale: float):
     ``MAX_NODES`` nodes): log κ (B,), the shared load F (n,), u_data (B, n)
     in the mesh dtype or bf16; returns (loss (B,), ∂log κ (B,)) of the
     objective scale/2 · Σ_b ‖u_b − u_data_b‖².  CUDA tensors launch the
-    variant's kernel (A: K7) or raise; CPU tensors take the plain
-    version."""
+    variant's kernel (A: K7's "fma" route) or raise; CPU tensors take the
+    plain version."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
@@ -215,7 +190,7 @@ def ablation_step(variant: str, mesh, log_k, F, u_data, scale: float):
         op = torch.bfloat16 if u_data.dtype == torch.bfloat16 else None
         return k7.fused_kappa_mse_step_mxu(mesh, log_k, F, u_data,
                                            scale=scale, operand_dtype=op,
-                                           version=1, refine=0)
+                                           version=1, refine=0, plan="fma")
     cols, W = scalar_columns(mesh), k7.mxu_inverse(mesh)
     with torch.no_grad():
         if log_k.device.type == "cpu":

@@ -63,8 +63,8 @@ def narrow_library() -> ctypes.CDLL:
     out = _build.BUILD_DIR / "probe_k7_residual"
     out.mkdir(parents=True, exist_ok=True)
     (out / "fused_grad_mxu.cu").write_text(src.replace(_WIDE, _NARROW))
-    (out / "fused_step_common.cuh").write_text(
-        (_build.CSRC / "fused_step_common.cuh").read_text())
+    for header in ("fused_step_common.cuh", "mma_frag.cuh"):
+        (out / header).write_text((_build.CSRC / header).read_text())
     lib = out / "libk7_narrow.so"
     subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
                     *_build.LINK_FLAGS, "-o", str(lib),

@@ -1,4 +1,4 @@
-"""The cluster routes' plans on the CPU: K3b's, K4a's and K4b's
+"""The cluster routes' plans on the CPU: K3a's, K3b's, K4a's and K4b's
 (``stencil_cg_kernel.cluster_plan``) and K8s's
 (``ell_kernel.ell_cluster_plan``).
 
@@ -144,6 +144,23 @@ def test_k4a_takes_k4b_plan(monkeypatch, n, item):
             ("cluster", 8) if n[0] == 32 else ("workspace", 0))
     forced = sk.workspace_plan(nodes)
     assert k4._plan_cg3(D, nz + 1, ny + 1, nx + 1, forced) is forced
+
+
+@pytest.mark.parametrize("n,want", [(8, ("cluster", 1)), (64, ("cluster", 1)),
+                                    (256, ("cluster", 16)),
+                                    (288, ("workspace", 0))],
+                         ids=["8", "64", "256", "288"])
+def test_k3a_takes_k3b_plan(monkeypatch, n, want):
+    """K3a (one solve) and K3b (two) share a plan: the same bytes a block;
+    64² at C = 1, 256² at C = 16, 288² past the reach on the workspace
+    route."""
+    monkeypatch.setattr(sk, "smem_optin", lambda index: LIMIT)
+    D = torch.empty(5, 1, 1, 1)
+    plan = sk._plan_cg2(D, n + 1, n + 1, None)
+    assert plan == sk.cluster_plan((n + 1) ** 2, 5, 4, LIMIT)
+    assert (plan.route, plan.cluster) == want
+    forced = sk.workspace_plan((n + 1) ** 2)
+    assert sk._plan_cg2(D, n + 1, n + 1, forced) is forced
 
 
 def _ell_bytes(nodes, Dn, c):

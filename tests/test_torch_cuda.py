@@ -259,8 +259,59 @@ def test_k3a_matches_plain(cuda, n, B, iters):
         # a forward solve from m·g and an adjoint-style solve from 0
         out[name] = (cg(D, b, Minv, x0, iters),
                      cg(D, ud, Minv, torch.zeros_like(ud), iters))
+    # no atomics: a second launch repeats the first bit for bit
+    kl, ku, f, g, _ = (a.float().contiguous() for a in arrays)
+    _, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), f, g)
+    again = sk._cg(D, b, Minv, x0, iters)
     torch.cuda.synchronize()
+    assert torch.equal(again, out["kernel"][0])
     for i in range(2):
+        assert torch.isfinite(out["kernel"][i]).all()
+        ok, errs = _within_rule(out["kernel"][i], out["f32"][i],
+                                out["f64"][i])
+        assert ok, (i, errs)
+
+
+_K3A_ROUTES = [(8, 7, 1), (8, 7, "workspace"), (64, 16, 1),
+               (64, 16, "workspace"), (256, 2, 16), (256, 2, "workspace"),
+               (288, 1, None)]
+
+
+@pytest.mark.parametrize(
+    "n,B,forced", _K3A_ROUTES,
+    ids=[f"{n}x{n}_" + (f"C{c}" if isinstance(c, int) else str(c))
+         for n, B, c in _K3A_ROUTES])
+def test_k3a_matches_plain_on_every_route(cuda, n, B, forced):
+    """K3a on K3b's plan (C = 1 at 8² and 64², 16 at 256², the workspace
+    route past 285²) and on the workspace route forced: by the rule, cold
+    (from m·g and from 0) and warm (from the cold solve's x), each route's
+    launch counted as its own."""
+    grid, arrays = _k3_problem(cuda, n, B, True, seed=7 * n + B)
+    nodes = (n + 1) ** 2
+    plan = sk.cluster_plan(nodes, 5, 4, sk.smem_optin(cuda.index or 0))
+    if forced == "workspace":
+        plan = sk.workspace_plan(nodes)
+    else:
+        assert plan.cluster == (forced or 0), plan
+    count = "cg" if plan.route == "cluster" else "cg_workspace"
+    cg = _forced(sk._launch_cg, plan)
+    kl, ku, f, g, ud = (a.float().contiguous() for a in arrays)
+    _, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), f, g)
+    before = sk.launches[count]
+    warm = cg(D, b, Minv, x0, 16)
+    out = {"kernel": (cg(D, b, Minv, x0, 96),
+                      cg(D, ud, Minv, torch.zeros_like(ud), 96),
+                      cg(D, b, Minv, warm, 96))}
+    torch.cuda.synchronize()
+    assert sk.launches[count] == before + 4
+    assert torch.equal(cg(D, b, Minv, warm, 96), out["kernel"][2])
+    for name, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        kl, ku, f, g, ud = (a.to(dt).contiguous() for a in arrays)
+        _, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), f, g)
+        out[name] = (sk._cg_plain(D, b, Minv, x0, 96),
+                     sk._cg_plain(D, ud, Minv, torch.zeros_like(ud), 96),
+                     sk._cg_plain(D, b, Minv, warm.to(dt), 96))
+    for i in range(3):
         assert torch.isfinite(out["kernel"][i]).all()
         ok, errs = _within_rule(out["kernel"][i], out["f32"][i],
                                 out["f64"][i])
@@ -660,12 +711,17 @@ def _fused_inputs(dev, ne, B, seed, bc, bf16, shared_f):
 
 
 def _fused_run(name, mesh, plain_meshes, lk, ke, F, ud, version=2,
-               refine=3):
+               refine=3, plan=None):
     """The kernel's outputs on ``mesh`` and the plain version's on each of
-    ``plain_meshes`` (operands widened to each mesh's dtype)."""
+    ``plain_meshes`` (operands widened to each mesh's dtype), and the
+    rule's slack.  K7's plain version rounds its products as the kernel's
+    route does (``plan``, or the one ``k7_plan`` picks for ``mesh``)."""
     B, n = ud.shape
     scale = 2.0 / (B * n)
     op = torch.bfloat16 if ud.dtype == torch.bfloat16 else None
+    products = "exact"
+    if name == "k7" and (plan or k7.k7_plan(mesh.dtype, n, version)) == "tc":
+        products = k7.TC_PRODUCTS[version]
 
     def to(t, m):
         return t if t.dtype == torch.bfloat16 else t.to(m.dtype)
@@ -677,14 +733,15 @@ def _fused_run(name, mesh, plain_meshes, lk, ke, F, ud, version=2,
         else:
             kern = k7.fused_kappa_mse_step_mxu(mesh, lk, F, ud,
                                                operand_dtype=op,
-                                               version=version, refine=refine)
+                                               version=version, refine=refine,
+                                               plan=plan)
 
         def plain(m, a, F_, u_):
             cols = k5.scalar_columns(m)
             if name == "k5a":
                 return k5._k5a_plain(a, F_, u_, cols, scale)
             return k7._k7_plain(a, F_, u_, cols, k7.mxu_inverse(m), scale,
-                                version, refine)
+                                version, refine, products)
     else:
         kap = ke
         fn, pl = ((k5.fused_kappa_mse_step_general_pcr, k5._k5b_plain)
@@ -696,12 +753,14 @@ def _fused_run(name, mesh, plain_meshes, lk, ke, F, ud, version=2,
             return pl(a, F_, u_, *k5.general_constants(m), scale)
 
     return kern, [plain(m, kap.to(m.dtype), to(F, m), to(ud, m))
-                  for m in plain_meshes]
+                  for m in plain_meshes], k7.rule_slack(products, n)
 
 
 def _launch_count(name):
-    mod = {"k5a": k5, "k5b": k5, "k6": k6, "k7": k7}[name]
-    return mod.launches[name]
+    """Launches of ``name``'s kernel (K7's on both routes)."""
+    if name == "k7":
+        return k7.launches["k7"] + k7.launches["k7_fma"]
+    return {"k5a": k5, "k5b": k5, "k6": k6}[name].launches[name]
 
 
 @pytest.mark.parametrize("ne", [1, 12, 30, 128])
@@ -717,15 +776,16 @@ def test_fused_step_matches_plain(cuda, name, ne):
         for shared_f in (False, True):
             mesh32, mesh64, lk, ke, F, ud = _fused_inputs(
                 cuda, ne, 1000, ne + 7 * runs, bc, bf16, shared_f)
-            kern, (p32, p64) = _fused_run(name, mesh32, (mesh32, mesh64), lk,
-                                          ke, F, ud)
+            kern, (p32, p64), slack = _fused_run(
+                name, mesh32, (mesh32, mesh64), lk, ke, F, ud)
             runs += 1
             for a, b, c in zip(kern, p32, p64):
                 assert a.shape == c.shape and a.dtype == torch.float32
-                ok, errs = _within_rule(a, b, c)
+                ok, errs = _within_rule(a, b, c, slack)
                 assert ok, (bf16, shared_f, errs)
-            kern64, (q64,) = _fused_run(name, mesh64, (mesh64,), lk.double(),
-                                        ke.double(), F.double(), ud.double())
+            kern64, (q64,), _ = _fused_run(name, mesh64, (mesh64,),
+                                           lk.double(), ke.double(),
+                                           F.double(), ud.double())
             runs += 1
             for a, c in zip(kern64, q64):
                 assert rel_err(a, c) <= 1e-10
@@ -733,16 +793,73 @@ def test_fused_step_matches_plain(cuda, name, ne):
     assert _launch_count(name) == before + runs
 
 
+@pytest.mark.parametrize("plan", ["tc", "fma"])
 @pytest.mark.parametrize("version,refine", [(1, 3), (2, 3), (3, 0), (3, 2),
                                             (3, 3)])
-def test_k7_versions_match_plain(cuda, version, refine):
+def test_k7_versions_match_plain(cuda, version, refine, plan):
+    """Each body on each route, against the plain version with that
+    route's products, by the rule."""
     mesh32, mesh64, lk, ke, F, ud = _fused_inputs(cuda, 30, 1000, 3,
                                                   (0.3, -0.2), True, True)
-    kern, (p32, p64) = _fused_run("k7", mesh32, (mesh32, mesh64), lk, ke, F,
-                                  ud, version, refine)
+    before = dict(k7.launches)
+    kern, (p32, p64), slack = _fused_run("k7", mesh32, (mesh32, mesh64), lk,
+                                         ke, F, ud, version, refine, plan)
+    torch.cuda.synchronize()
+    key = "k7" if plan == "tc" else "k7_fma"
+    assert k7.launches[key] == before[key] + 1
     for a, b, c in zip(kern, p32, p64):
-        ok, errs = _within_rule(a, b, c)
+        ok, errs = _within_rule(a, b, c, slack)
         assert ok, errs
+
+
+_K7_TC_GRID = [(n, B) for n in (2, 13, 31, 32) for B in (7, 1000, 2 ** 20)]
+
+
+@pytest.mark.parametrize("n,B", _K7_TC_GRID,
+                         ids=[f"n{n}_B{B}" for n, B in _K7_TC_GRID])
+def test_k7_tc_grid_matches_plain(cuda, n, B):
+    """K7's "tc" route over its grid: shared and streamed F, f32 and bf16
+    storage, versions 1-3 with refine 0, 2 and 3 (at B = 2^20 the
+    production body and the bench row's), each by the rule against the
+    plain version with the route's products and two launches equal bit
+    for bit; version 3's single-pass TF32 products as well."""
+    bodies = [(1, 0), (2, 0), (3, 0), (3, 2), (3, 3)]
+    combos = [(s, b) for s in (False, True) for b in (False, True)]
+    if B == 2 ** 20:
+        bodies, combos = [(2, 0), (3, 2)], [(False, False), (True, True)]
+    before = k7.launches["k7"]
+    runs = 0
+    for shared_f, bf16 in combos:
+        mesh32, mesh64, lk, ke, F, ud = _fused_inputs(
+            cuda, n - 1, B, n + B + 2 * shared_f + bf16, (0.3, -0.2), bf16,
+            shared_f)
+        for version, refine in bodies:
+            kern, (p32, p64), slack = _fused_run(
+                "k7", mesh32, (mesh32, mesh64), lk, ke, F, ud, version,
+                refine, "tc")
+            again, _, _ = _fused_run("k7", mesh32, (), lk, ke, F, ud,
+                                     version, refine, "tc")
+            runs += 2
+            for a, b, c, d in zip(kern, p32, p64, again):
+                assert a.shape == (B,) and torch.equal(a, d)
+                ok, errs = _within_rule(a, b, c, slack)
+                assert ok, (shared_f, bf16, version, refine, errs)
+        if B == 1000:
+            cols32, cols64 = (k5.scalar_columns(m) for m in (mesh32, mesh64))
+            W32, W64 = (k7.mxu_inverse(m) for m in (mesh32, mesh64))
+            scale = 2.0 / (B * n)
+            Fb = F if F.dtype == torch.bfloat16 else F.float()
+            kern = k7._launch_tc(lk, Fb, ud, cols32, W32, scale, 3, 2, "tf32")
+            runs += 1
+            p32 = k7._k7_plain(lk, F.float(), ud.float(), cols32, W32, scale,
+                               3, 2, "tf32")
+            p64 = k7._k7_plain(lk.double(), F.double(), ud.double(), cols64,
+                               W64, scale, 3, 2, "tf32")
+            for a, b, c in zip(kern, p32, p64):
+                ok, errs = _within_rule(a, b, c, k7.rule_slack("tf32", n))
+                assert ok, ("tf32", shared_f, bf16, errs)
+    torch.cuda.synchronize()
+    assert k7.launches["k7"] == before + runs
 
 
 def test_fused_steps_without_a_shared_memory_fit(cuda):
@@ -753,8 +870,8 @@ def test_fused_steps_without_a_shared_memory_fit(cuda):
     _, _, lk, ke, F, ud = _fused_inputs(cuda, 2000, 5, 1, (0.3, -0.2), False,
                                         False)
     for name in ("k5b", "k6"):
-        kern, (q,) = _fused_run(name, mesh, (mesh,), lk.double(), ke.double(),
-                                F.double(), ud.double())
+        kern, (q,), _ = _fused_run(name, mesh, (mesh,), lk.double(),
+                                   ke.double(), F.double(), ud.double())
         for a, c in zip(kern, q):
             assert rel_err(a, c) <= 1e-10, name
 
@@ -763,10 +880,10 @@ def test_k7_routes_large_meshes_to_k5a(cuda):
     mesh = FEMesh.line(150, dtype=torch.float32, device=cuda)
     _, _, lk, _, F, ud = _fused_inputs(cuda, 150, 64, 2, (0.0, 0.0), False,
                                        False)
-    before = (k5.launches["k5a"], k7.launches["k7"])
+    before = (k5.launches["k5a"], _launch_count("k7"))
     lp, gk = k7.fused_kappa_mse_step_mxu(mesh, lk, F, ud, version=3)
-    assert (k5.launches["k5a"], k7.launches["k7"]) == (before[0] + 1,
-                                                       before[1])
+    assert (k5.launches["k5a"], _launch_count("k7")) == (before[0] + 1,
+                                                         before[1])
     assert torch.isfinite(gk).all() and lp.shape == (64,)
 
 
@@ -785,8 +902,9 @@ def test_fused_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 def test_production_loop_runs_on_k7(cuda):
-    """The production loop, 40 steps at B = 2048: one K7 launch a step,
-    and the final κ within 1e-3 of the same loop on the plain version."""
+    """The production loop, 40 steps at B = 2048: one K7 launch a step, all
+    on the "tc" route, and the final κ within 1e-3 of the same loop on the
+    plain version."""
     mesh = production.production_mesh()
     assert mesh.device.type == "cuda"
     k_true = 1.0 + 2.0 * torch.rand(
@@ -796,7 +914,8 @@ def test_production_loop_runs_on_k7(cuda):
     before = dict(k7.launches)
     lk, losses = production.sgd_loop(mesh, F, ud, steps=40)
     torch.cuda.synchronize()
-    assert k7.launches["k7"] == before["k7"] + 40
+    assert k7.launches == {"k7": before["k7"] + 40,
+                           "k7_fma": before["k7_fma"]}
     cols, W = k5.scalar_columns(mesh), k7.mxu_inverse(mesh)
 
     def plain(m, lk_, F_, ud_, scale, block_lanes, version):
@@ -1173,9 +1292,9 @@ def test_k7_ablation_f_and_a1_equal_k7_bitwise(cuda, ne):
             mesh = mesh32 if dtype == torch.float32 else mesh64
             ud = ud if bf16 else ud.to(dtype)
             args = (mesh, lk.to(dtype), F.to(dtype), ud, 1e-3)
-            before = k7.launches["k7"]
-            a = k7ab.ablation_step("A", *args)
-            assert k7.launches["k7"] == before + 1
+            before = k7.launches["k7_fma"]
+            a = k7ab.ablation_step("A", *args)      # K7's "fma" route
+            assert k7.launches["k7_fma"] == before + 1
             for v in ("F", "A1"):
                 for x, y in zip(k7ab.ablation_step(v, *args), a):
                     assert torch.equal(x, y), (v, dtype, bf16)
