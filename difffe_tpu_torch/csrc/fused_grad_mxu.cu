@@ -26,12 +26,12 @@
 // "tc" (float32, n <= 32): tensor-core products, the TPU's own split.
 // Versions 1 and 2 take 3xTF32 products, the counterpart of the TPU's
 // Precision.HIGHEST multi-pass products; version 3 single-pass bf16
-// m16n8k16 products (the TPU's DEFAULT) repaired by its refinement passes,
-// or single-pass TF32 on request.  One warp a tile of 16 scenarios on
-// mma.sync (mma_frag.cuh): the scenarios are the M rows, W^T the B operand
-// in registers for the warp's life, u's f32 accumulator the adjoint
-// product's A operand as it stands; the shifts u_{i-/+1} are 4-lane
-// shuffles and the sums over i xor-shuffles.  A tile's u_data and streamed
+// m16n8k16 products (the TPU's DEFAULT) repaired by its refinement
+// passes.  One warp a tile of 16 scenarios on mma.sync (mma_frag.cuh):
+// the scenarios are the M rows, W^T the B operand in registers for the
+// warp's life, u's f32 accumulator the adjoint product's A operand as it
+// stands; the shifts u_{i-/+1} are 4-lane shuffles and the sums over i
+// xor-shuffles.  A tile's u_data and streamed
 // F are one contiguous span of the (B, n) row-major planes (16 n values),
 // staged into the warp's own shared memory by 16-byte cp.async, double
 // buffered: the next tile's copy is in flight while this one computes.  A
@@ -705,20 +705,19 @@ extern "C" int difffe_fused_mxu(const void* lk, long long sL, const void* F,
 }
 
 // The "tc" route of the same step, float32 and n <= 32 only, with the same
-// operands, strides and storage codes as difffe_fused_mxu.  `products`: 0
-// the version's own (3xTF32 for versions 1-2, bf16 for version 3), 1
-// single-pass TF32 (version 3 only).  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for what the kernel does not take.
+// operands, strides and storage codes as difffe_fused_mxu: 3xTF32
+// products for versions 1-2, bf16 for version 3.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for what
+// the kernel does not take.
 extern "C" int difffe_fused_mxu_tc(const void* lk, long long sL,
                                    const void* F, long long sF, int f_code,
                                    const void* ud, long long sU, int u_code,
                                    const void* cols, const void* W,
                                    void* loss, void* grad, int B, int n,
                                    int version, int refine, double scale,
-                                   int products, void* stream) {
+                                   void* stream) {
   if (n < 1 || n > kTcMaxNodes || B < 1 || version < 1 || version > 3 ||
-      refine < 0 || f_code < 0 || f_code > 1 || u_code < 0 || u_code > 1 ||
-      products < 0 || products > 1 || (products == 1 && version != 3))
+      refine < 0 || f_code < 0 || f_code > 1 || u_code < 0 || u_code > 1)
     return cudaErrorInvalidValue;
   const int fm = sF == 0 ? kFShared : (f_code ? kFBf16 : kFF32);
   auto aligned = [](const void* p) {
@@ -747,7 +746,5 @@ extern "C" int difffe_fused_mxu_tc(const void* lk, long long sL,
     return launch_tc_pad<1, Products::kTf32x3>(a, fm, u_code, st);
   if (version == 2)
     return launch_tc_pad<2, Products::kTf32x3>(a, fm, u_code, st);
-  if (products == 1)
-    return launch_tc_pad<3, Products::kTf32>(a, fm, u_code, st);
   return launch_tc_pad<3, Products::kBf16>(a, fm, u_code, st);
 }

@@ -17,7 +17,6 @@
 //   kTf32x3  each operand split a = hi + lo, each rounded to TF32 with
 //            cvt.rna (the 13 low bits cleared), lo hi + hi lo + hi hi
 //            accumulated in f32 (lo lo dropped);
-//   kTf32    one TF32 pass, hi hi;
 //   kBf16    one bf16 pass (operands rounded to nearest even), m16n8k16.
 
 #pragma once
@@ -30,7 +29,7 @@
 
 namespace {
 
-enum class Products { kTf32x3, kTf32, kBf16 };
+enum class Products { kTf32x3, kBf16 };
 
 constexpr uint32_t kTf32Mask = 0xffffe000u;
 
@@ -68,14 +67,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// W^T as the B operand of every (nn, kk) tile, in registers.  TF32: K tiles
-// of 8 with K column q at row 8 kk + 2q and q + 4 at 8 kk + 2q + 1 (hi and,
-// for kTf32x3, lo parts); bf16: K tiles of 16 in natural order.
+// W^T as the B operand of every (nn, kk) tile, in registers.  3xTF32: K
+// tiles of 8 with K column q at row 8 kk + 2q and q + 4 at 8 kk + 2q + 1
+// (hi and lo parts); bf16: K tiles of 16 in natural order.
 template <Products P, int NT>
 struct WFrag {
-  static constexpr bool kTf = P != Products::kBf16;
   static constexpr bool kSplit = P == Products::kTf32x3;
-  static constexpr int NK = kTf ? NT : NT / 2;
+  static constexpr int NK = kSplit ? NT : NT / 2;
   uint32_t hi[NT][NK][2];
   uint32_t lo[kSplit ? NT : 1][kSplit ? NK : 1][2];
 
@@ -92,9 +90,6 @@ struct WFrag {
         if constexpr (kSplit) {
           split_tf32(w(i, 8 * kk + 2 * q), hi[nn][kk][0], lo[nn][kk][0]);
           split_tf32(w(i, 8 * kk + 2 * q + 1), hi[nn][kk][1], lo[nn][kk][1]);
-        } else if constexpr (kTf) {
-          hi[nn][kk][0] = tf32_bits(w(i, 8 * kk + 2 * q));
-          hi[nn][kk][1] = tf32_bits(w(i, 8 * kk + 2 * q + 1));
         } else {
           const int j = 16 * kk + 2 * q;
           hi[nn][kk][0] = bf16x2_bits(w(i, j), w(i, j + 1));
@@ -121,11 +116,10 @@ __device__ __forceinline__ void product(const WFrag<P, NT>& wf,
   for (int nn = 0; nn < NT; ++nn)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[nn][c] = 0.0f;
-  if constexpr (P != Products::kBf16) {
-    constexpr bool kSplit = P == Products::kTf32x3;
-    float small[kSplit ? NT : 1][4];
+  if constexpr (P == Products::kTf32x3) {
+    float small[NT][4];
 #pragma unroll
-    for (int nn = 0; nn < (kSplit ? NT : 1); ++nn)
+    for (int nn = 0; nn < NT; ++nn)
 #pragma unroll
       for (int c = 0; c < 4; ++c) small[nn][c] = 0.0f;
 #pragma unroll
@@ -133,36 +127,24 @@ __device__ __forceinline__ void product(const WFrag<P, NT>& wf,
       // A: a0 (scenario g, column q), a1 (g + 8, q), a2 (g, q + 4),
       // a3 (g + 8, q + 4); columns q, q + 4 are rows 8 kk + 2q, + 1
       uint32_t ahi[4], alo[4];
-      if constexpr (kSplit) {
-        split_tf32(v[kk][0][0], ahi[0], alo[0]);
-        split_tf32(v[kk][1][0], ahi[1], alo[1]);
-        split_tf32(v[kk][0][1], ahi[2], alo[2]);
-        split_tf32(v[kk][1][1], ahi[3], alo[3]);
-      } else {
-        ahi[0] = tf32_bits(v[kk][0][0]);
-        ahi[1] = tf32_bits(v[kk][1][0]);
-        ahi[2] = tf32_bits(v[kk][0][1]);
-        ahi[3] = tf32_bits(v[kk][1][1]);
-      }
+      split_tf32(v[kk][0][0], ahi[0], alo[0]);
+      split_tf32(v[kk][1][0], ahi[1], alo[1]);
+      split_tf32(v[kk][0][1], ahi[2], alo[2]);
+      split_tf32(v[kk][1][1], ahi[3], alo[3]);
 #pragma unroll
       for (int nn = 0; nn < NT; ++nn) {
         float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if constexpr (kSplit) {
-          mma_tf32(small[nn], alo, wf.hi[nn][kk][0], wf.hi[nn][kk][1]);
-          mma_tf32(small[nn], ahi, wf.lo[nn][kk][0], wf.lo[nn][kk][1]);
-        }
+        mma_tf32(small[nn], alo, wf.hi[nn][kk][0], wf.hi[nn][kk][1]);
+        mma_tf32(small[nn], ahi, wf.lo[nn][kk][0], wf.lo[nn][kk][1]);
         mma_tf32(part, ahi, wf.hi[nn][kk][0], wf.hi[nn][kk][1]);
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[nn][c] = add(acc[nn][c], part[c]);
       }
     }
-    if constexpr (kSplit) {
 #pragma unroll
-      for (int nn = 0; nn < NT; ++nn)
+    for (int nn = 0; nn < NT; ++nn)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[nn][c] = add(small[nn][c], acc[nn][c]);
-    }
+      for (int c = 0; c < 4; ++c) acc[nn][c] = add(small[nn][c], acc[nn][c]);
   } else {
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {

@@ -62,7 +62,7 @@ _SIGNATURES = {
     "difffe_fused_mxu": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P, _I,
                          _I, _I, _I, _I, _D, _I, _P],
     "difffe_fused_mxu_tc": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _D, _I, _P],
+                            _I, _I, _I, _I, _D, _P],
     "difffe_ell_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "difffe_ell_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "difffe_ell_cg_clusters": [_I, _I, _I, _I],

@@ -14,13 +14,14 @@ bodies of the JAX module are kept as ``version``:
 * 2 — the folded right-hand side D_κ⁻¹r = (m g − t₀) + κ⁻¹ p F, and
   ∂log κ = −scale · Σ λ ⊙ p F;
 * 3 — version 2 with ``refine`` tridiagonal residual passes per solve,
-  u ← u + W (y − T̃₁ u).  On the TPU they repaired bf16 single-pass
-  products; here every product is full float32, and the passes repair
-  the float32 rounding of W instead: each residual is formed in float64
-  and rounded once (mixed-precision refinement), so the passes converge
-  to the solution of the float32 system; a float32 residual, as the TPU
-  body forms it, would add rounding noise of the size it removes
+  u ← u + W (y − T̃₁ u), each residual formed in float64 and rounded once
+  (mixed-precision refinement), so the passes converge to the solution of
+  the float32 system; a float32 residual, as the TPU body forms it, would
+  add rounding noise of the size it removes
   (``difffe_tpu_torch/probes/k7_residual.py`` measures both on the card).
+  On the "tc" route, as on the TPU, the passes repair single-pass bf16
+  products; on the CPU and the "fma" route every product is exact or full
+  precision, and they repair the rounding of W.
 
 The CUDA kernel (``csrc/fused_grad_mxu.cu``) has two routes, which
 :func:`k7_plan` picks from the dtype and n:
@@ -36,9 +37,11 @@ The CUDA kernel (``csrc/fused_grad_mxu.cu``) has two routes, which
   of full-precision fused multiply-adds.
 
 The plain PyTorch version below, taken only for CPU tensors, uses
-``torch.matmul`` with exact products; ``products="tf32x3"``, ``"tf32"`` or
-``"bf16"`` round the products' operands as the ``"tc"`` route's tensor
-cores do, and that is the version the card holds the route against.
+``torch.matmul`` with exact products; ``products="tf32x3"`` or ``"bf16"``
+round the products' operands as the ``"tc"`` route's tensor cores do, and
+that is the version the card holds the route against.  ``"tf32"`` (one
+TF32 pass) emulates version 3's measured alternative, which no kernel
+runs (PERF.md §5 has its error by refinement pass).
 Meshes above ``MXU_MAX_NODES`` nodes go to kernel K5a
 (``fused_grad_kernel.fused_kappa_mse_step``), as in the JAX module.  The
 TPU's probe-only ablation switches (``_V2_PRECISION``,
@@ -144,16 +147,14 @@ def _product(products: str, y: torch.Tensor, W: torch.Tensor):
 
 def rule_slack(products: str, n: int) -> float:
     """The additive term of phase 7's rule (chip_smoke.py) for a float32
-    step whose products are ``products`` at n nodes: 1e-6, and for
-    single-pass products also one rounding step of one of the n operands
-    of a product, 2^-8/n for bf16 and 2^-11/n for TF32.  The kernel and
-    its plain version round a product's right-hand side from values that
-    differ by an earlier f32 summation, so an element near a rounding
-    boundary can round up in one and down in the other (measured on the
-    card for K7's ablation C: 1 of 160 cases at B = 1000 missed the rule
-    with 1e-6 alone)."""
-    step = {"bf16": 2.0 ** -8, "tf32": 2.0 ** -11}.get(products, 0.0)
-    return 1e-6 + step / n
+    step whose products are ``products`` at n nodes: 1e-6, and for bf16
+    products also one bf16 rounding step of one of the n operands of a
+    product, 2^-8/n.  The kernel and its plain version round a product's
+    right-hand side from values that differ by an earlier f32 summation,
+    so an element near a rounding boundary can round up in one and down in
+    the other (measured on the card for K7's ablation C: 1 of 160 cases at
+    B = 1000 missed the rule with 1e-6 alone)."""
+    return 1e-6 + (2.0 ** -8 / n if products == "bf16" else 0.0)
 
 
 def _k7_plain(log_k, F, ud, cols, W, scale: float, version: int,
@@ -229,25 +230,17 @@ def _launch(log_k, F, ud, cols, W, scale: float, version: int, refine: int,
 
 
 def _launch_tc(log_k, F, ud, cols, W, scale: float, version: int,
-               refine: int, products: Optional[str] = None):
-    """K7 on the "tc" route (float32, n ≤ 32); ``products`` defaults to
-    the version's own (:data:`TC_PRODUCTS`), and version 3 also takes
-    "tf32"."""
+               refine: int):
+    """K7 on the "tc" route (float32, n ≤ 32), with the version's products
+    (:data:`TC_PRODUCTS`)."""
     from ._build import load_library
 
     dtype, dev = log_k.dtype, log_k.device
     check_cuda(dtype, dev, "K7", F, ud, cols, W)
     B, n = log_k.shape[0], ud.shape[-1]
-    products = TC_PRODUCTS[version] if products is None else products
     if dtype != torch.float32 or n > TC_MAX_NODES:
         raise TypeError(f"K7's tc route takes float32 and at most "
                         f"{TC_MAX_NODES} nodes, got {dtype} and {n}")
-    if products not in (TC_PRODUCTS[version], "tf32" if version == 3
-                        else None):
-        raise ValueError(f"K7's tc route runs version {version} with "
-                         f"{TC_PRODUCTS[version]} products"
-                         + (" or tf32" if version == 3 else "")
-                         + f", got {products!r}")
     lk, sL = rows_view(log_k[:, None], 1)
     F, sF = rows_view(F, n)
     ud, sU = rows_view(ud, n)
@@ -261,11 +254,10 @@ def _launch_tc(log_k, F, ud, cols, W, scale: float, version: int,
         rc = lib.difffe_fused_mxu_tc(
             lk.data_ptr(), sL, F.data_ptr(), sF, f_code, ud.data_ptr(), sU,
             u_code, cols.data_ptr(), W.data_ptr(), loss.data_ptr(),
-            grad.data_ptr(), B, n, version, refine, float(scale),
-            int(products == "tf32"), stream)
+            grad.data_ptr(), B, n, version, refine, float(scale), stream)
     if rc != 0:
-        raise RuntimeError(f"K7 fused_mxu launch failed (tc route, "
-                           f"{products} products): CUDA error {rc}")
+        raise RuntimeError(f"K7 fused_mxu launch failed (tc route): CUDA "
+                           f"error {rc}")
     launches["k7"] += 1
     return loss, grad
 
@@ -291,8 +283,9 @@ def fused_kappa_mse_step_mxu(mesh, log_k, F, u_data,
     On the card the step runs on :func:`k7_plan`'s route, or, up to
     ``MXU_MAX_NODES`` nodes, on ``plan`` ("tc" or "fma") where given (the
     tests and chip_smoke.py force each route); ``block_lanes`` caps the
-    scenarios a block holds on the "fma" route and changes no result.  CPU tensors take the plain version with
-    exact products whatever the plan.
+    scenarios a block holds on the "fma" route and changes no result.
+    CPU tensors take the plain version with exact products whatever the
+    plan.
     """
     if version not in (1, 2, 3):
         raise ValueError(f"version must be 1, 2 or 3, got {version}")

@@ -5,8 +5,9 @@
 float64, and 32 < n ≤ 136) or "k5a" above.  The card holds the "tc"
 route against ``_k7_plain`` with its products' operands rounded as the
 tensor cores take them (``products="tf32x3"`` for versions 1-2, "bf16"
-for version 3, "tf32" the single-pass alternative); here those plain
-versions are held against the exact one.  No JAX, no card.
+for version 3; "tf32", one TF32 pass, emulates version 3's measured
+alternative, which no kernel runs); here those plain versions are held
+against the exact one.  No JAX, no card.
 """
 
 import numpy as np
