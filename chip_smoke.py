@@ -12,15 +12,23 @@ any failure raises, so the run exits non-zero and never prints the final
 The 1D path (per-element κ on a line mesh, bench.py's workload: n = 30
 elements, B = 2^21 scenarios, one shared forcing), kernel K1:
 
-3. each K1 variant (step/chain × shared/f32/bf16 u_data) against its plain
-   PyTorch version, n ∈ {10, 30, 128}, B ∈ {1000, 2^21};
+3. each K1 variant (step/chain × shared/f32/bf16 u_data) on every body of
+   its row bucket (``k1_plan``: the lanes design at each L it has, and the
+   first design) against its plain PyTorch version, n ∈ {10, 30, 60, 100,
+   128} (buckets 32, 32, 64, 128, 256), B ∈ {1000, 2^21} (1000 only at
+   60 and 100): f32 within 1e-5 (step) and 1e-4 (32-step chain), and the
+   plain version run in f64 by the rule of phase 7; padded lanes inert;
 4. ``fit_kappa`` through the public entry point, 128 steps = 4 chain
-   launches, with loss checks;
+   launches on the lanes design, with loss checks;
 5. bench.py's parity gate: the step kernel's gradient against autograd
    through the PCR tridiagonal oracle on the bf16-quantized plane;
-6. chained timing of the chain and step kernels and their plain versions,
-   with the streamed bf16 u_data plane (K1d, K1b) and with shared u_data
-   (K1c, K1a).
+6. a ``torch.profiler`` split of one ``fit_kappa`` call; chained timing
+   of the chain on every body of the bucket in turns and of its plain
+   version, with the streamed bf16 u_data plane (K1d) and with shared
+   u_data (K1c); the step's kernel time a call from the profiler, lanes
+   design and first design in turns, and its plain version's (K1b, K1a);
+   the chain in the buckets 64, 128 and 256 on every body in turns
+   (B = 2^18); the registers and spills of every K1 body.
 
 The 2D path (κ-field inversion on ``FEMesh.rectangle(64, 64)``, the
 structured-grid config of BASELINE.json, B = 4096 scenarios), kernels K3a
@@ -80,11 +88,15 @@ K2 (batched PCR tridiagonal solve, ``method="tridiag_pallas"``):
     f32 and f64, random diagonally dominant and Dirichlet-eliminated FEM
     bands, batched and shared bands, u and the three band gradients: f64
     within 1e-10 relative (at n = 4097 on FEM bands also a normwise
-    backward error ≤ 1e-11), f32 by the rule of phase 7; every layout
-    equal to 'auto' bit for bit;
+    backward error ≤ 1e-11), f32 by the rule of phase 7; on both routes
+    where n ≤ 256 (``k2_plan``: the warp route, one warp a scenario; the
+    block route, the first design) and on the block route above, each
+    route's u and gradients equal to the plain version's bits; every
+    layout and a second launch equal bit for bit;
 14. the main path: u_data from ``solve_poisson_batched(method=
     "tridiag_pallas")``, ``recover_kappa_field`` for 200 Adam steps
-    (1 + 2 × 200 K2 launches; the misfit must fall 1e3×); then, in f64,
+    (1 + 2 × 200 K2 launches, all on the warp route; the misfit must
+    fall 1e3×); then, in f64,
     ``recover_kappa_scalar`` (κ error < 1e-6), the three stages of
     examples/poisson_1d_demo.py (FEM error ≤ 1e-13, ``NeuralPDE`` within
     5% after 3000 epochs, κ = 2 within 1e-4) and
@@ -96,8 +108,9 @@ K2 (batched PCR tridiagonal solve, ``method="tridiag_pallas"``):
     B = 1024 (the main path's) and 65 536 against the plain version and
     ``torch.linalg.solve`` on the densified systems (at most B = 8192,
     scaled), and the device time of a call from the profiler, of the
-    kernel, the plain version and ``torch.linalg.solve`` (the kernels line
-    carries B = 1024's, where the chain is host-bound), host
+    kernel on its two routes in turns, the plain version and
+    ``torch.linalg.solve`` (the kernels line carries B = 1024's, where the
+    chain is host-bound), the registers of both routes, host
     time of ``recover_kappa_field`` at B = 1024 and 65 536, and a
     ``torch.profiler`` split of one call.
 
@@ -245,6 +258,9 @@ BLOCK_LANES = 2048
 STEP_TOL = 1e-5          # kernel vs plain, f32, single step
 CHAIN_TOL = 1e-4         # kernel vs plain, f32, 32-step chain
 GATE_TOL = 1e-4          # bench.py's gradient-parity gate
+K1_NS = (10, 30, 60, 100, 128)   # phase 3: buckets NB 32, 32, 64, 128, 256
+K1_BUCKET_NS = (60, 100, 128)    # phase 6: the chain in the other buckets
+BATCH_BUCKETS = 2 ** 18
 CU_SOURCE = "difffe_tpu_torch/csrc/fused_grad_cf.cu"
 JAX_KERNEL = "difffe_tpu/ops/pallas/fused_grad_cf_kernel.py"
 
@@ -397,48 +413,80 @@ def run_1d(torch, dev, card):
                                        method="tridiag")
         return mesh, fv, ud, g
 
-    # -- phase 3: every K1 variant against its plain version
+    # -- phase 3: every K1 body against its plain version, f32 at the
+    # tolerances and the f64 plain version by the rule of phase 7; n = 60
+    # and 100 fill the buckets NB = 64 and 128 (10 and 30: 32; 128: 256)
     t0 = time.perf_counter()
-    max_abs = {"step": 0.0, "chain": 0.0}
-    for n in (10, 30, 128):
-        for B in (1000, BATCH):
+    max_abs = {"step": 0.0, "chain": 0.0, "step_first": 0.0,
+               "chain_first": 0.0}
+    for n in K1_NS:
+        for B in ((1000, BATCH) if n in (10, 30, 128) else (1000,)):
             mesh, fv, ud, g = problem(n, B, seed=n + B)
             F = assemble_load(mesh, fv)
             ke0 = 1.0 + 0.3 * torch.rand(B, n, generator=g, device=dev)
             scale = 2.0 / (n + 1)
+            plans = tk.K1_LANES[tk.k1_bucket(tk.packed_rows(n + 1))] + (
+                "first",)
             for mode in ("shared", "f32", "bf16"):
                 keT, aux = tk.cf_packed_operands(
                     mesh, ke0, F, ud[0] if mode == "shared" else ud,
                     operand_dtype=torch.bfloat16 if mode == "bf16" else None)
                 args = (aux["udT"], aux["cols"], B, scale, aux["u_l"],
                         aux["u_r"])
-                lp_k, g_k = tk.kappa_mse_step_cf_packed(keT, aux, scale)
+                args64 = (aux["udT"], aux["cols"].double(), B, scale,
+                          aux["u_l"], aux["u_r"])
                 lp_p, g_p = tk._cf_step_plain(keT, *args)
-                lc_k, k_k = tk.kappa_sgd_chain_cf(keT, aux, CHAIN_K, LR,
-                                                  scale)
                 lc_p, k_p = tk._cf_chain_plain(keT, *args, CHAIN_K, LR)
-                torch.cuda.synchronize()
-                errs = {
-                    "step_grad": rel_err(g_k[:, :B], g_p[:, :B]),
-                    "step_loss": rel_err(lp_k[:, :B], lp_p[:, :B]),
-                    "chain_kappa": rel_err(k_k[:, :B], k_p[:, :B]),
-                    "chain_loss": rel_err(lc_k[:, :B], lc_p[:, :B]),
-                }
-                log(f"phase 3 n={n} B={B} ud={mode}: " + " ".join(
-                    f"{k}={v:.2e}" for k, v in errs.items()))
-                if max(errs["step_grad"], errs["step_loss"]) > STEP_TOL:
-                    raise AssertionError(f"step kernel disagrees: {errs}")
-                if max(errs["chain_kappa"], errs["chain_loss"]) > CHAIN_TOL:
-                    raise AssertionError(f"chain kernel disagrees: {errs}")
-                if not (torch.all(g_k[:, B:] == 0)
-                        and torch.equal(k_k[:, B:], keT[:, B:])):
-                    raise AssertionError("padded lanes were written")
-                max_abs["step"] = max(max_abs["step"], float(
-                    (g_k[:, :B] - g_p[:, :B]).abs().max()))
-                max_abs["chain"] = max(max_abs["chain"], float(
-                    (k_k[:, :B] - k_p[:, :B]).abs().max()))
-            del mesh, ud, ke0, keT, aux, lp_k, g_k, lp_p, g_p, lc_k, k_k
-            del lc_p, k_p, args
+                lp_q, g_q = tk._cf_step_plain(keT.double(), *args64)
+                lc_q, k_q = tk._cf_chain_plain(keT.double(), *args64,
+                                               CHAIN_K, LR)
+                for plan in plans:
+                    lp_k, g_k = tk.kappa_mse_step_cf_packed(keT, aux, scale,
+                                                            plan=plan)
+                    lc_k, k_k = tk.kappa_sgd_chain_cf(keT, aux, CHAIN_K, LR,
+                                                      scale, plan=plan)
+                    torch.cuda.synchronize()
+                    errs = {
+                        "step_grad": rel_err(g_k[:, :B], g_p[:, :B]),
+                        "step_loss": rel_err(lp_k[:, :B], lp_p[:, :B]),
+                        "chain_kappa": rel_err(k_k[:, :B], k_p[:, :B]),
+                        "chain_loss": rel_err(lc_k[:, :B], lc_p[:, :B]),
+                    }
+                    tag = f"phase 3 n={n} B={B} ud={mode} plan={plan}"
+                    rule = [check_rule(
+                        "K1", a[:, :B], b[:, :B], c[:, :B], f"{tag} {what}")
+                        for what, a, b, c in (
+                            ("step_grad", g_k, g_p, g_q),
+                            ("step_loss", lp_k, lp_p, lp_q),
+                            ("chain_kappa", k_k, k_p, k_q),
+                            ("chain_loss", lc_k, lc_p, lc_q))]
+                    log(f"{tag}: " + " ".join(
+                        f"{k}={v:.2e}" for k, v in errs.items())
+                        + "; vs f64 plain (kernel, f32 plain) " + " ".join(
+                            f"({ek:.2e}, {ep:.2e})" for ek, ep in rule))
+                    if max(errs["step_grad"], errs["step_loss"]) > STEP_TOL:
+                        raise AssertionError(f"{tag}: step kernel disagrees: "
+                                             f"{errs}")
+                    if max(errs["chain_kappa"],
+                           errs["chain_loss"]) > CHAIN_TOL:
+                        raise AssertionError(f"{tag}: chain kernel "
+                                             f"disagrees: {errs}")
+                    if not (torch.all(g_k[:, B:] == 0)
+                            and torch.all(lp_k[:, B:] == 0)
+                            and torch.all(lc_k[:, B:] == 0)
+                            and torch.equal(k_k[:, B:], keT[:, B:])):
+                        raise AssertionError(f"{tag}: padded lanes were "
+                                             f"written")
+                    sfx = "_first" if plan == "first" else ""
+                    max_abs["step" + sfx] = max(max_abs["step" + sfx], float(
+                        (g_k[:, :B] - g_p[:, :B]).abs().max()))
+                    max_abs["chain" + sfx] = max(
+                        max_abs["chain" + sfx],
+                        float((k_k[:, :B] - k_p[:, :B]).abs().max()))
+                    del lp_k, g_k, lc_k, k_k
+                del keT, aux, lp_p, g_p, lc_p, k_p, lp_q, g_q, lc_q, k_q
+                del args, args64
+            del mesh, ud, ke0
             torch.cuda.empty_cache()
     log(f"phase 3 kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
@@ -494,68 +542,116 @@ def run_1d(torch, dev, card):
         raise AssertionError(f"bench parity gate failed: {gate:.3e}")
     main_path = dict(tk.launches)
     log(f"1D main-path launches: {main_path}")
-    for k, v in main_path.items():
-        if v < 1:
+    for k in ("chain", "step"):
+        if main_path[k] < 1:
             raise AssertionError(f"kernel {k} was not launched by the path")
+    if main_path["chain_first"] or main_path["step_first"]:
+        raise AssertionError("the main path ran K1's first design")
     del u, ke, ud_q, gT
     torch.cuda.empty_cache()
 
-    # -- phase 6: chained timing at the bench workload
+    # -- phase 6: timing at the bench workload.  The chain is timed
+    # chained (timeit_chained); each of its bodies in turns.  The step is
+    # timed by the profiler's kernel time a call (kernel alone, and the
+    # plain version's kernels), as K2 and K7 are.
+    profile_split(torch, lambda: fit_kappa(mesh, f, u_data, steps=STEPS),
+                  "phase 6", card)
     udT, cols, B, u_l, u_r = (aux["udT"], aux["cols"], aux["B"], aux["u_l"],
                               aux["u_r"])
     _, aux_s = tk.cf_packed_operands(mesh, ke0, assemble_load(mesh, fv),
                                      u_data[0], block_lanes=BLOCK_LANES)
     cols_s = aux_s["cols"]
-    runs = {
-        "chain": (lambda k: tk.kappa_sgd_chain_cf(k, aux, CHAIN_K, LR,
-                                                  scale)[1],
-                  lambda k: tk._cf_chain_plain(k, udT, cols, B, scale, u_l,
-                                               u_r, CHAIN_K, LR)[1]),
-        "step": (lambda k: k - LR * tk.kappa_mse_step_cf_packed(
-                     k, aux, scale)[1],
-                 lambda k: k - LR * tk._cf_step_plain(
-                     k, udT, cols, B, scale, u_l, u_r)[1]),
-        "chain_shared": (
-            lambda k: tk.kappa_sgd_chain_cf(k, aux_s, CHAIN_K, LR,
-                                            scale)[1],
-            lambda k: tk._cf_chain_plain(k, None, cols_s, B, scale, u_l,
-                                         u_r, CHAIN_K, LR)[1]),
-        "step_shared": (
-            lambda k: k - LR * tk.kappa_mse_step_cf_packed(
-                k, aux_s, scale)[1],
-            lambda k: k - LR * tk._cf_step_plain(
-                k, None, cols_s, B, scale, u_l, u_r)[1]),
-    }
+    NB = tk.k1_bucket(keT0.shape[0])
+    plans = tk.K1_LANES[NB] + ("first",)
+    default = tk.k1_plan(keT0.shape[0])
+
+    def chain_fns(ax, udp, cl):
+        fns = {p: (lambda k, p=p: tk.kappa_sgd_chain_cf(
+            k, ax, CHAIN_K, LR, scale, plan=p)[1]) for p in plans}
+        fns["plain"] = lambda k: tk._cf_chain_plain(
+            k, udp, cl, B, scale, u_l, u_r, CHAIN_K, LR)[1]
+        return fns
+
+    order = ("plain",) + plans + plans[::-1] + ("plain",)
     ms = {}
-    for name, (kernel_fn, plain_fn) in runs.items():
-        ms[name] = best = timed_pair(kernel_fn, plain_fn, keT0,
-                                     STEPS // CHAIN_K)
-        steps = CHAIN_K if name.startswith("chain") else 1
-        log(f"phase 6 {name}: kernel {best['kernel']:.4f} ms/launch, plain "
-            f"{best['plain']:.4f} ms/launch, {steps} SGD step(s)/launch; "
-            f"kernel {BATCH * steps / best['kernel'] * 1e3:.6e} "
-            f"grad-solves/s, plain "
-            f"{BATCH * steps / best['plain'] * 1e3:.6e} grad-solves/s "
+    for name, ax, udp, cl in (("chain", aux, udT, cols),
+                              ("chain_shared", aux_s, None, cols_s)):
+        ms[name] = best = timed_turns(chain_fns(ax, udp, cl), keT0,
+                                      STEPS // CHAIN_K, order)
+        log(f"phase 6 {name} (NB={NB}, {CHAIN_K} steps a launch, B={BATCH})"
+            f": " + ", ".join(
+                f"{p} {best[p]:.4f} ms" for p in plans + ("plain",))
+            + f"; lanes L={default} (the plan) "
+            f"{BATCH * CHAIN_K / best[default] * 1e3:.6e} grad-solves/s, "
+            f"first design {BATCH * CHAIN_K / best['first'] * 1e3:.6e} "
             f"[{card}]")
+    for name, ax, udp, cl in (("step", aux, udT, cols),
+                              ("step_shared", aux_s, None, cols_s)):
+        res = {}
+        for plan in (default, "first", "first", default):
+            key = "cf_kernel" if plan == "first" else "cf_lanes_kernel"
+            t = device_ms(torch, lambda k, plan=plan: (
+                tk.kappa_mse_step_cf_packed(k, ax, scale, plan=plan)[1]),
+                keT0, 20, key)
+            res[plan] = min(res.get(plan, float("inf")), t)
+        res["plain"] = device_ms(torch, lambda k: tk._cf_step_plain(
+            k, udp, cl, B, scale, u_l, u_r)[1], keT0, 4)
+        ms[name] = res
+        log(f"phase 6 {name} kernel time a call (profiler): lanes L="
+            f"{default} {res[default]:.4f} ms, first design "
+            f"{res['first']:.4f} ms, plain {res['plain']:.4f} ms [{card}]")
     # with shared u_data only κ moves (κ in, κ′ out, the 4 B loss row)
     for name in ("chain_shared", "step_shared"):
         steps = CHAIN_K if name.startswith("chain") else 1
         b_ms, b_by = bound(K1_OPS_PER_ROW_STEP * n * BATCH * steps,
                            BATCH * (2 * N_ELEMENTS * 4 + 4))
         log(f"phase 6 {name}: bound {b_ms:.4f} ms ({b_by}) [{card}]")
+    del aux_s, cols_s
+    torch.cuda.empty_cache()
+
+    # the other buckets: the chain (bf16 u_data) on every body, in turns
+    for nb_n in K1_BUCKET_NS:
+        mb, fb, udb, gb = problem(nb_n, BATCH_BUCKETS, seed=nb_n)
+        keb, auxb = tk.cf_packed_operands(
+            mb, 1.0 + 0.3 * torch.rand(BATCH_BUCKETS, nb_n, generator=gb,
+                                       device=dev),
+            assemble_load(mb, fb), udb, operand_dtype=torch.bfloat16)
+        nbb = tk.k1_bucket(keb.shape[0])
+        pb = tk.K1_LANES[nbb] + ("first",)
+        fns = {p: (lambda k, p=p: tk.kappa_sgd_chain_cf(
+            k, auxb, CHAIN_K, LR, 2.0 / (nb_n + 1), plan=p)[1]) for p in pb}
+        best = timed_turns(fns, keb, 4, pb + pb[::-1])
+        log(f"phase 6 chain at n={nb_n} (NB={nbb}, B={BATCH_BUCKETS}, bf16 "
+            f"u_data, {CHAIN_K} steps): " + ", ".join(
+                f"{p} {best[p]:.4f} ms" for p in pb) + f" [{card}]")
+        del mb, fb, udb, keb, auxb, fns
+        torch.cuda.empty_cache()
+    log("phase 6 -Xptxas -v of K1's bodies:")
+    for line in ptxas_report(("cf_kernel", "cf_lanes_kernel")):
+        log(line)
 
     # Both timed functions map κ to κ′ and must read κ (f32) and the bf16
     # u_data plane once and write κ′ once (the loss row: 4 B a scenario).
     nbytes = BATCH * (2 * N_ELEMENTS * 4 + n * udT.element_size() + 4)
+    ops_chain = K1_OPS_PER_ROW_STEP * n * BATCH * CHAIN_K
+    ops_step = K1_OPS_PER_ROW_STEP * n * BATCH
     return [
         kernel_entry("cf_chain", CU_SOURCE, f"{JAX_KERNEL}:445",
                      main_path["chain"], max_abs["chain"],
-                     ms["chain"]["kernel"], ms["chain"]["plain"],
-                     K1_OPS_PER_ROW_STEP * n * BATCH * CHAIN_K, nbytes),
+                     ms["chain"][default], ms["chain"]["plain"], ops_chain,
+                     nbytes),
         kernel_entry("cf_step", CU_SOURCE, f"{JAX_KERNEL}:132",
                      main_path["step"], max_abs["step"],
-                     ms["step"]["kernel"], ms["step"]["plain"],
-                     K1_OPS_PER_ROW_STEP * n * BATCH, nbytes),
+                     ms["step"][default], ms["step"]["plain"], ops_step,
+                     nbytes),
+        kernel_entry("cf_chain_first", CU_SOURCE, f"{JAX_KERNEL}:445",
+                     main_path["chain_first"], max_abs["chain_first"],
+                     ms["chain"]["first"], ms["chain"]["plain"], ops_chain,
+                     nbytes),
+        kernel_entry("cf_step_first", CU_SOURCE, f"{JAX_KERNEL}:132",
+                     main_path["step_first"], max_abs["step_first"],
+                     ms["step"]["first"], ms["step"]["plain"], ops_step,
+                     nbytes),
     ]
 
 
@@ -1310,7 +1406,8 @@ def k2_bands(torch, kind, n, B, gen, dev):
 
 
 def run_facade_1d(torch, dev, card):
-    """Phases 13-16; returns the K2 entry of the kernels line."""
+    """Phases 13-16; returns the K2 entries of the kernels line (its warp
+    and block routes)."""
     from difffe_tpu_torch import (DifferentiableFESolver, NeuralPDE,
                                   recover_kappa_field, recover_kappa_scalar)
     from difffe_tpu_torch.mesh import FEMesh
@@ -1346,12 +1443,26 @@ def run_facade_1d(torch, dev, card):
                     dd, ee = (d64[0], e64[0]) if shared else (d64, e64)
                     for dt in (f32, f64):
                         args = [t.to(dt) for t in (dd, ee, F64, w64)]
-                        k = solve_and_grads(tk.tridiag_solve_kernel, *args)
                         p = solve_and_grads(ttri.tridiag_solve, *args)
                         q = solve_and_grads(ttri.tridiag_solve,
                                             *(a.double() for a in args))
                         tag = (f"{kind} n={n} B={B} "
                                f"{'shared' if shared else 'batched'} {dt}")
+                        # both routes where the warp route takes n: the
+                        # same bits as each other and as the plain version
+                        routes = (("warp", "block")
+                                  if n <= tk.WARP_MAX_ROWS else ("block",))
+                        ks = {r: solve_and_grads(
+                            lambda *t, r=r: tk.tridiag_solve_kernel(
+                                *t, plan=r), *args) for r in routes}
+                        k = ks[tk.k2_plan(n, dt)]
+                        for r, kr in ks.items():
+                            for name, a, b in zip(names, kr, p):
+                                if not torch.equal(a, b):
+                                    raise AssertionError(
+                                        f"{tag} {r} route: {name} is not the "
+                                        f"plain version's bits (rel err "
+                                        f"{rel_err(a, b):.3e})")
                         errs = [rel_err(a, c) for a, c in zip(k, q)]
                         if dt == f32:
                             for name, a, b, c in zip(names, k, p, q):
@@ -1385,19 +1496,23 @@ def run_facade_1d(torch, dev, card):
                                 if not bw <= 1e-11:
                                     raise AssertionError(
                                         f"{tag} {what}: backward error {bw}")
-                        # layout and block_b only set the launch shape
+                        # layout and block_b only set the launch shape;
+                        # two launches give the same bits
                         for layout, bb in (("transposed", 64), ("batch", 1),
                                            ("batch", 64)):
-                            u_l = tk.tridiag_solve_kernel(*args[:3], bb,
-                                                          layout)
-                            if not torch.equal(u_l, k[0]):
-                                raise AssertionError(
-                                    f"{tag}: layout {layout} block_b {bb} "
-                                    f"changed the result")
-                del d64, e64, F64, w64, k, p, q, args
+                            for r in routes:
+                                u_l = tk.tridiag_solve_kernel(
+                                    *args[:3], bb, layout, plan=r)
+                                if not torch.equal(u_l, k[0]):
+                                    raise AssertionError(
+                                        f"{tag}: {r} route, layout {layout}"
+                                        f" block_b {bb} changed the result")
+                del d64, e64, F64, w64, k, ks, p, q, args
             log(f"phase 13 {kind} n={n}: every B, batched and shared bands, "
                 f"f32 and f64, u and the three band gradients within the "
-                f"gates; every layout equal to 'auto' bit for bit")
+                f"gates and equal to the plain version's bits on the "
+                f"{' and '.join(routes)} route(s); every layout and launch "
+                f"equal bit for bit")
             torch.cuda.empty_cache()
     log(f"phase 13 kernel vs plain: {time.perf_counter() - t0:.1f} s "
         f"(max abs err at n={N_1D + 1} f32 vs f64 plain: {max_abs:.3e})")
@@ -1427,8 +1542,9 @@ def run_facade_1d(torch, dev, card):
         f"{STEPS_1D} Adam steps lr={LR_1D}: loss {h0:.6e} -> {h1:.6e} "
         f"({h0 / h1:.1f}x) ({time.perf_counter() - t0:.2f} s with u_data)")
     log(f"1D facade main-path launches: {main_path}")
-    if main_path["pcr"] != 1 + 2 * STEPS_1D:
-        raise AssertionError(f"K2 launches {main_path}")
+    if main_path["pcr"] != 1 + 2 * STEPS_1D or main_path["pcr_block"]:
+        raise AssertionError(f"K2 launches {main_path}: the main path runs "
+                             f"{1 + 2 * STEPS_1D} on the warp route")
     if kappa.shape != (BATCH_1D, N_1D) or not bool(
             torch.isfinite(kappa).all()):
         raise AssertionError("recover_kappa_field's kappa is not finite of "
@@ -1529,19 +1645,27 @@ def run_facade_1d(torch, dev, card):
                 return gd
             return step
 
+        def solve(plan):
+            return lambda dd, ee, c: tk.tridiag_solve_kernel(dd, ee, c,
+                                                             plan=plan)
+
         ms[B] = {
             "fwd": timed_pair(lambda c: tk.tridiag_solve_kernel(dB, eB, c),
                               lambda c: ttri.tridiag_solve(dB, eB, c), F0,
                               4),
             "fwd_bwd": timed_pair(fwd_bwd(tk.tridiag_solve_kernel),
                                   fwd_bwd(ttri.tridiag_solve), F0, 4),
-            # device time of a call: at B = 1024 the chain is host-bound
-            "device": device_ms(
-                torch, lambda c: tk.tridiag_solve_kernel(dB, eB, c), F0, 20,
-                "pcr_kernel"),
             "plain_device": device_ms(
                 torch, lambda c: ttri.tridiag_solve(dB, eB, c), F0, 20),
         }
+        # device time of a call (at B = 1024 the chain is host-bound), the
+        # two routes in turns
+        for route in ("warp", "block", "block", "warp"):
+            key = "pcr_warp_kernel" if route == "warp" else "pcr_kernel"
+            t = device_ms(torch, lambda c, r=route: solve(r)(dB, eB, c), F0,
+                          20, key)
+            ms[B][route] = min(ms[B].get(route, float("inf")), t)
+        ms[B]["device"] = ms[B]["warp"]
         lb = min(B, BATCH_LIB)
         T = (torch.diag_embed(dB[:lb]) + torch.diag_embed(eB[:lb], 1)
              + torch.diag_embed(eB[:lb], -1))
@@ -1562,7 +1686,8 @@ def run_facade_1d(torch, dev, card):
             log(f"phase 16 K2 {what}: kernel {best['kernel']:.4f} ms, plain "
                 f"{best['plain']:.4f} ms (n={n}, B={B}, f32) [{card}]")
         log(f"phase 16 K2 forward solve on the device (profiler, kernel "
-            f"time of a call): kernel {ms[B]['device']:.4f} ms, plain "
+            f"time of a call): warp route {ms[B]['warp']:.4f} ms, block "
+            f"route (first design) {ms[B]['block']:.4f} ms, plain "
             f"{ms[B]['plain_device']:.4f} ms, torch.linalg.solve "
             f"{lib_device:.4f} ms at B={lb} (n={n}, B={B}) [{card}]")
         log(f"phase 16 K2 bound at B={B} {b_ms:.4f} ms ({b_by}); kernel "
@@ -1600,13 +1725,17 @@ def run_facade_1d(torch, dev, card):
 
     # the main path's shape: its 401 launches ran at B = 1024; the three
     # times are device times of a call
+    log("phase 16 -Xptxas -v of K2's routes:")
+    for line in ptxas_report(("pcr_warp_kernel", "10pcr_kernel")):
+        log(line)
     ops, nbytes, library_ms = k2[BATCH_1D]
-    return kernel_entry("tridiag_pcr", K2_SOURCE,
-                        f"{JAX_K2}:80 (_pcr_pallas_padded), :161 "
-                        f"(_pcr_pallas_T)", main_path["pcr"], max_abs,
-                        ms[BATCH_1D]["device"],
-                        ms[BATCH_1D]["plain_device"], ops, nbytes,
-                        library_ms)
+    replaces = f"{JAX_K2}:80 (_pcr_pallas_padded), :161 (_pcr_pallas_T)"
+    return [kernel_entry(name, K2_SOURCE, replaces, main_path[key], max_abs,
+                         ms[BATCH_1D][route], ms[BATCH_1D]["plain_device"],
+                         ops, nbytes, library_ms)
+            for name, key, route in (("tridiag_pcr", "pcr", "warp"),
+                                     ("tridiag_pcr_block", "pcr_block",
+                                      "block"))]
 
 
 N_PROD = 30             # the production demo's FEMesh.line(30)
@@ -1911,27 +2040,32 @@ def device_ms(torch, fn, x0, length, key=None):
 
     fn(x0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(length):
-                fn(x0)
-            torch.cuda.synchronize()
-            prof.step()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and (key is None or key in e.key)]
-    total = sum(e.self_device_time_total for e in rows) / 1e3
-    if key is None:
-        if not rows:
-            raise AssertionError("profiled no kernel")
-        return total / length
-    count = sum(e.count for e in rows)
-    if count != length:
-        raise AssertionError(f"profiled {count} launches of {key} in "
-                             f"{length} calls")
-    return total / count
+    # a trace can still drop a launch: record again (three tries) until
+    # it holds exactly one a call
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(length):
+                    fn(x0)
+                torch.cuda.synchronize()
+                prof.step()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and (key is None or key in e.key)]
+        total = sum(e.self_device_time_total for e in rows) / 1e3
+        if key is None:
+            if not rows:
+                raise AssertionError("profiled no kernel")
+            return total / length
+        count = sum(e.count for e in rows)
+        if count == length:
+            return total / count
+        log(f"device_ms: profiled {count} launches of {key} in {length} "
+            f"calls; recording again")
+    raise AssertionError(f"profiled {count} launches of {key} in {length} "
+                         f"calls")
 
 
 def timed_turns(fns, x0, length, order):
@@ -3020,7 +3154,7 @@ def main() -> int:
     log(f"3D path, phases 10-12: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    kernels.append(run_facade_1d(torch, dev, card))
+    kernels += run_facade_1d(torch, dev, card)
     log(f"1D facade path, phases 13-16: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

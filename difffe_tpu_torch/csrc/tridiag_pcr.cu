@@ -21,23 +21,39 @@
 // version's bits; a contracted form differed from it by ~3x the plain f32
 // error on the ill-conditioned FEM bands at n = 257.
 //
-// Design.  A thread block holds `spb` whole scenarios, spb * n rows, in
-// shared memory: four arrays a, b, c, r of spb * n values.  Each thread owns
-// R rows (j = threadIdx.x + k * blockDim.x) and keeps their a, b, c, r in
-// registers across the sweeps; the shared arrays mirror them for the
-// neighbours' reads.  A sweep reads eight neighbour values from shared
-// memory, updates the registers, and after a barrier writes them back.  The
-// TPU padded n to 8 or 128 and B to its block, and masked its circular rolls
-// with `where`; here nothing is padded: a row's neighbours are guarded by
-// its index i in its scenario, so Dirichlet rows (b = 1, a = c = 0) and the
-// ends decouple exactly.  Rows are read straight from the (B, n) bands,
-// each band with its own batch stride (0 for a band shared by every
-// scenario), so a block's loads are contiguous along its rows; offsets are
-// 64-bit.  One kernel serves both TPU layouts: `layout` and `block_b` only
-// set spb, the launch shape (ops/kernels/tridiag_kernel.py).  One block
-// holds at most 8192 rows (R <= 8 with 1024 threads) and 4 * rows values
-// must fit its shared memory: n <= 8192 in float32 and n <= 7264 in float64
-// on an H100.
+// Two routes (the wrapper's k2_plan picks one; both give the same bits).
+//
+// Warp route (pcr_warp_kernel, n <= kWarpMaxRows = 256): one warp a
+// scenario, no shared memory and no block barrier.  The rows sit in
+// registers, striped: row j in lane j % 32, slot j / 32 (K = ceil(n / 32)
+// slots, a template parameter).  A sweep's shift by s < 32 is one
+// __shfl_sync a value and slot, the row across the lane boundary taking
+// the neighbour's previous (or next) slot; a shift by a multiple of 32 is
+// a register move.  Slots are updated in place, in an order that keeps
+// each neighbour's old value at hand (one slot of shuffled values rolled
+// along for s < 32, a chain k, k + s/32, ... for s >= 32).  A neighbour
+// past the ends reads the fill values (b = 1, a = c = r = 0), so rows
+// j >= n never reach a row below n.  The sweeps are unrolled with s a
+// compile-time constant.  Each scenario's rows are read coalesced, 32
+// consecutive values a slot.
+//
+// Block route (pcr_kernel, the first design; n up to 8192): a thread block
+// holds `spb` whole scenarios, spb * n rows, in shared memory: four arrays
+// a, b, c, r of spb * n values.  Each thread owns R rows (j = threadIdx.x +
+// k * blockDim.x) and keeps their a, b, c, r in registers across the
+// sweeps; the shared arrays mirror them for the neighbours' reads.  A
+// sweep reads eight neighbour values from shared memory, updates the
+// registers, and after a barrier writes them back.  The TPU padded n to 8
+// or 128 and B to its block, and masked its circular rolls with `where`;
+// here nothing is padded: a row's neighbours are guarded by its index i in
+// its scenario, so Dirichlet rows (b = 1, a = c = 0) and the ends decouple
+// exactly.  `layout` and `block_b` only set spb, the launch shape
+// (ops/kernels/tridiag_kernel.py).  One block holds at most 8192 rows (R <=
+// 8 with 1024 threads) and 4 * rows values must fit its shared memory:
+// n <= 8192 in float32 and n <= 7264 in float64 on an H100.
+//
+// Both read the (B, n) bands straight, each band with its own batch stride
+// (0 for a band shared by every scenario); offsets are 64-bit.
 //
 // Bound.  The function must read d, e, F and write u once: (4n - 1) B
 // values.  PCR does ~16 operations per row and sweep, ceil(log2 n) sweeps,
@@ -45,7 +61,10 @@
 // far below the card's balance point: the function is bound by bytes.  This
 // kernel moves each of those bytes once, but every sweep also reads eight
 // and writes four shared-memory values per row, which at n = 129 is ~25x the
-// device-memory traffic, so in practice it is bound by shared memory.
+// device-memory traffic, so in practice the block route is bound by shared
+// memory and its barriers.  The warp route moves the eight neighbour values
+// by shuffles (no stores, no barriers, no addresses): its cost is the
+// shuffles, the selects at the slot boundaries and the IEEE divisions.
 
 #include <cuda_runtime.h>
 
@@ -168,6 +187,164 @@ pcr_kernel(const T* __restrict__ d, long long sd, const T* __restrict__ e,
   }
 }
 
+constexpr int kWarpMaxRows = 256;
+constexpr int kWarpThreads = 128;   // 4 scenarios a block
+constexpr unsigned kFull = 0xffffffffu;
+
+// One row's four band values.
+template <typename T>
+struct Row {
+  T a, b, c, r;
+};
+
+template <typename T>
+__device__ __forceinline__ Row<T> fill_row() {
+  return Row<T>{T(0), T(1), T(0), T(0)};
+}
+
+template <typename T>
+__device__ __forceinline__ Row<T> shfl_row(const Row<T>& x, int src) {
+  return Row<T>{__shfl_sync(kFull, x.a, src), __shfl_sync(kFull, x.b, src),
+                __shfl_sync(kFull, x.c, src), __shfl_sync(kFull, x.r, src)};
+}
+
+// One PCR update of row x from its neighbours up (i - s) and dn (i + s),
+// in the plain version's order, each operation rounded on its own.
+template <typename T>
+__device__ __forceinline__ Row<T> pcr_update(const Row<T>& x,
+                                             const Row<T>& up,
+                                             const Row<T>& dn) {
+  const T alpha = quot(-x.a, up.b);
+  const T gamma = quot(-x.c, dn.b);
+  return Row<T>{mul(alpha, up.a), add(add(x.b, mul(alpha, up.c)),
+                                      mul(gamma, dn.a)),
+                mul(gamma, dn.c),
+                add(add(x.r, mul(alpha, up.r)), mul(gamma, dn.r))};
+}
+
+// One sweep at stride S over the K slots of a warp's scenario.
+template <typename T, int K, int S>
+__device__ __forceinline__ void warp_sweep(Row<T> (&x)[K], int lane, int n) {
+  if constexpr (S < 32) {
+    const int src_up = (lane - S) & 31, src_dn = (lane + S) & 31;
+    const bool wrap_up = lane < S, wrap_dn = lane + S >= 32;
+    // t_prev: slot k-1 shuffled up (old values); d_cur, d_next: slots k and
+    // k+1 shuffled down (old values)
+    Row<T> t_prev = fill_row<T>();
+    Row<T> d_cur = shfl_row(x[0], src_dn);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const Row<T> t_cur = shfl_row(x[k], src_up);
+      const Row<T> d_next =
+          k + 1 < K ? shfl_row(x[k + 1], src_dn) : fill_row<T>();
+      const Row<T> up = wrap_up ? t_prev : t_cur;
+      Row<T> dn = wrap_dn ? d_next : d_cur;
+      if (32 * k + lane + S >= n) dn = fill_row<T>();
+      x[k] = pcr_update(x[k], up, dn);
+      t_prev = t_cur;
+      d_cur = d_next;
+    }
+  } else {
+    constexpr int M = S / 32;
+#pragma unroll
+    for (int k0 = 0; k0 < M && k0 < K; ++k0) {
+      Row<T> prev = fill_row<T>();   // old value of slot k - M
+#pragma unroll
+      for (int k = k0; k < K; k += M) {
+        const Row<T> old = x[k];
+        Row<T> dn = k + M < K ? x[k + M] : fill_row<T>();
+        if (32 * k + lane + S >= n) dn = fill_row<T>();
+        x[k] = pcr_update(old, prev, dn);
+        prev = old;
+      }
+    }
+  }
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kWarpThreads)
+pcr_warp_kernel(const T* __restrict__ d, long long sd,
+                const T* __restrict__ e, long long se,
+                const T* __restrict__ F, long long sF, T* __restrict__ u,
+                int B, int n, int steps) {
+  const int lane = threadIdx.x & 31;
+  const long long sc = static_cast<long long>(blockIdx.x) *
+                           (kWarpThreads / 32) + (threadIdx.x >> 5);
+  if (sc >= B) return;   // the whole warp: shuffles stay within live warps
+  const T* dr = d + sc * sd;
+  const T* er = e + sc * se;
+  const T* Fr = F + sc * sF;
+  Row<T> x[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = 32 * k + lane;
+    x[k] = fill_row<T>();
+    if (i < n) {
+      x[k].b = dr[i];
+      x[k].r = Fr[i];
+      if (i > 0) x[k].a = er[i - 1];
+      if (i < n - 1) x[k].c = er[i];
+    }
+  }
+  // ceil(log2 n) sweeps, at most log2(32 K); a compile-time stride each
+#define DIFFFE_SWEEP(st)                                  \
+  if constexpr ((1 << st) < 32 * K) {                     \
+    if (st < steps) warp_sweep<T, K, (1 << st)>(x, lane, n); \
+  }
+  DIFFFE_SWEEP(0)
+  DIFFFE_SWEEP(1)
+  DIFFFE_SWEEP(2)
+  DIFFFE_SWEEP(3)
+  DIFFFE_SWEEP(4)
+  DIFFFE_SWEEP(5)
+  DIFFFE_SWEEP(6)
+  DIFFFE_SWEEP(7)
+#undef DIFFFE_SWEEP
+  T* ur = u + sc * n;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = 32 * k + lane;
+    if (i < n) ur[i] = quot(x[k].r, x[k].b);
+  }
+}
+
+template <typename T, int K>
+int launch_warp_k(const void* d, long long sd, const void* e, long long se,
+                  const void* F, long long sF, void* u, int B, int n,
+                  int steps, cudaStream_t stream) {
+  constexpr int per_block = kWarpThreads / 32;
+  const int blocks = (B + per_block - 1) / per_block;
+  pcr_warp_kernel<T, K><<<blocks, kWarpThreads, 0, stream>>>(
+      static_cast<const T*>(d), sd, static_cast<const T*>(e), se,
+      static_cast<const T*>(F), sF, static_cast<T*>(u), B, n, steps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_warp(const void* d, long long sd, const void* e, long long se,
+                const void* F, long long sF, void* u, int B, int n,
+                cudaStream_t stream) {
+  if (n < 1 || n > kWarpMaxRows || B < 1) return cudaErrorInvalidValue;
+  int steps = 0;
+  while ((1 << steps) < n) ++steps;
+  switch ((n + 31) / 32) {
+#define DIFFFE_K(k)                                                        \
+  case k:                                                                  \
+    return launch_warp_k<T, k>(d, sd, e, se, F, sF, u, B, n, steps, stream);
+    DIFFFE_K(1)
+    DIFFFE_K(2)
+    DIFFFE_K(3)
+    DIFFFE_K(4)
+    DIFFFE_K(5)
+    DIFFFE_K(6)
+    DIFFFE_K(7)
+    DIFFFE_K(8)
+#undef DIFFFE_K
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 int optin_bytes() {
   int dev = 0, bytes = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
@@ -224,6 +401,24 @@ int launch(const void* d, long long sd, const void* e, long long se,
 }
 
 }  // namespace
+
+// The most rows of one system the warp route takes.
+extern "C" int difffe_tridiag_pcr_warp_max_rows() { return kWarpMaxRows; }
+
+// The warp route: u (B, n) = T^-1 F as difffe_tridiag_pcr below, one warp a
+// scenario, for 1 <= n <= difffe_tridiag_pcr_warp_max_rows().  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for an n
+// it does not take.
+extern "C" int difffe_tridiag_pcr_warp(const void* d, long long sd,
+                                       const void* e, long long se,
+                                       const void* F, long long sF, void* u,
+                                       int B, int n, int is_double,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    return launch_warp<double>(d, sd, e, se, F, sF, u, B, n, s);
+  return launch_warp<float>(d, sd, e, se, F, sF, u, B, n, s);
+}
 
 // The most rows (spb * n) one block can hold for values of `itemsize`
 // bytes (4 or 8): 0 when the device cannot be queried.

@@ -33,9 +33,10 @@ _P, _I, _F, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong, ctypes.c_double
 # C entry points: name -> argtypes (every pointer and the stream as void*)
 _SIGNATURES = {
-    "difffe_cf_step": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
-    "difffe_cf_chain": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                        _I, _F, _P],
+    "difffe_cf_step": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                       _F, _I, _P],
+    "difffe_cf_chain": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                        _F, _I, _F, _I, _P],
     "difffe_stencil_cg_work": [_I, _I],
     "difffe_stencil_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P],
@@ -53,6 +54,8 @@ _SIGNATURES = {
     "difffe_stencil3d_cg2_clusters": [_I, _I, _I, _I, _I, _I],
     "difffe_tridiag_pcr_max_rows": [_I],
     "difffe_tridiag_pcr": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I, _P],
+    "difffe_tridiag_pcr_warp_max_rows": [],
+    "difffe_tridiag_pcr_warp": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _P],
     "difffe_fused_pcr_workspace": [_I, _I, _I, _I],
     "difffe_fused_pcr": [_I, _P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P,
                          _I, _I, _I, _I, _D, _D, _I, _P],

@@ -16,8 +16,14 @@ totals are unaffected and their gradient is 0.
 
 Each operation has two implementations behind one wrapper:
 
-* the CUDA kernel in ``csrc/fused_grad_cf.cu`` (one thread per scenario
-  column, exact running f32 sums), launched for CUDA tensors;
+* the CUDA kernel in ``csrc/fused_grad_cf.cu``, launched for CUDA tensors.
+  ``k1_plan(N)`` picks its body by row bucket NB (32, 64, 128, 256): the
+  "lanes" design, L lanes a scenario each holding NB/L rows in registers
+  with running f32 sums and a shuffle scan across the L lanes, the per-row
+  constants in ``__constant__`` memory (``k1_rows``: h, P and the shared
+  u_data, copied on the stream before each launch); ``plan=`` forces
+  another L of the bucket or the first design ("first": one thread a
+  scenario, the constants in shared memory);
 * the plain PyTorch version below (``torch.cumsum`` on the plane), taken
   only for CPU tensors, and the reference the kernel is checked against.
 
@@ -52,8 +58,13 @@ _N_COLS = 6
 #: Largest padded row count N the CUDA kernel takes (its biggest bucket).
 MAX_ROWS = 256
 
-#: Kernel launches made by the wrappers, by kernel ("step", "chain").
-launches = {"step": 0, "chain": 0}
+#: Kernel launches made by the wrappers: "step" and "chain" on the lanes
+#: design, "step_first" and "chain_first" on the first design.
+launches = {"step": 0, "chain": 0, "step_first": 0, "chain_first": 0}
+
+#: Row buckets NB of the kernel and, for each, the lanes a scenario its
+#: lanes bodies take; the first entry is the plan's default.
+K1_LANES = {32: (1, 2, 4), 64: (4, 8), 128: (8, 16), 256: (16, 32)}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -63,6 +74,38 @@ def _round_up(x: int, m: int) -> int:
 def packed_rows(n_nodes: int) -> int:
     """Rows N of the packed planes for a mesh of ``n_nodes`` nodes."""
     return _round_up(max(n_nodes, 8), 8)
+
+
+def k1_bucket(N: int) -> int:
+    """The row bucket NB (32, 64, 128 or 256) of N packed rows."""
+    if not 1 <= N <= MAX_ROWS:
+        raise ValueError(f"K1 takes 1 to {MAX_ROWS} packed rows, got {N}")
+    return next(nb for nb in K1_LANES if N <= nb)
+
+
+def k1_plan(N: int, plan=None) -> int:
+    """Lanes a scenario of K1's body for N packed rows: the bucket's
+    default for ``plan=None``, 0 (the first design) for ``"first"``, or
+    ``plan`` itself when the bucket has a lanes body for it."""
+    nb = k1_bucket(N)
+    if plan is None:
+        return K1_LANES[nb][0]
+    if plan == "first":
+        return 0
+    if plan in K1_LANES[nb]:
+        return int(plan)
+    raise ValueError(f"K1 plan {plan!r}: bucket NB={nb} has lanes bodies "
+                     f"{K1_LANES[nb]} and the first design ('first')")
+
+
+def k1_rows(cols: torch.Tensor) -> torch.Tensor:
+    """The per-row constants as the lanes design takes them: an (NB, 3)
+    float32 block {h, P, shared u_data} from ``cols`` (its columns HS, PF
+    and UD), zero on rows N..NB-1.  The masks NM and IM are not in it (the
+    kernel derives them from the row and n), nor HK (a copy of HS)."""
+    N = cols.shape[0]
+    return F_.pad(cols[:, _COL_HS:_COL_UD + 1],
+                  (0, 0, 0, k1_bucket(N) - N)).contiguous()
 
 
 def chain_takes(mesh) -> bool:
@@ -182,40 +225,46 @@ def _check_cuda_operands(keT, udT, cols, B) -> int:
                     f"u_data, got {udT.dtype}")
 
 
-def _launch(name, keT, udT, cols, B, scale, u_l, u_r, *chain_args):
+def _launch(name, keT, udT, cols, B, n, scale, u_l, u_r, chain_args=(),
+            plan=None):
     from ._build import load_library
 
     ud_kind = _check_cuda_operands(keT, udT, cols, B)
     N, Bp = keT.shape
+    if not 2 <= n <= N:
+        raise ValueError(f"K1 needs 2 <= n <= N nodes, got n={n}, N={N}")
+    lanes = k1_plan(N, plan)
+    rows = k1_rows(cols)
     loss = torch.empty((1, Bp), dtype=torch.float32, device=keT.device)
     out = torch.empty_like(keT)
     fn = getattr(load_library(), f"difffe_cf_{name}")
     with torch.cuda.device(keT.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(keT.data_ptr(), None if udT is None else udT.data_ptr(),
-                ud_kind, cols.data_ptr(), loss.data_ptr(), out.data_ptr(),
-                N, Bp, int(B), float(scale), float(u_l), float(u_r),
-                *chain_args, stream)
+                ud_kind, cols.data_ptr(), rows.data_ptr(), loss.data_ptr(),
+                out.data_ptr(), N, int(n), Bp, int(B), float(scale),
+                float(u_l), float(u_r), *chain_args, lanes, stream)
     if rc != 0:
         raise RuntimeError(f"K1 {name} kernel launch failed: CUDA error {rc}")
-    launches[name] += 1
+    launches[name if lanes else f"{name}_first"] += 1
     return loss, out
 
 
-def _cf_step(keT, udT, cols, B, scale, u_l, u_r):
+def _cf_step(keT, udT, cols, B, n, scale, u_l, u_r, plan=None):
     """One grad step: plain version on CPU tensors, the kernel on CUDA."""
     if keT.device.type == "cpu":
         return _cf_step_plain(keT, udT, cols, B, scale, u_l, u_r)
-    return _launch("step", keT, udT, cols, B, scale, u_l, u_r)
+    return _launch("step", keT, udT, cols, B, n, scale, u_l, u_r, plan=plan)
 
 
-def _cf_chain(keT, udT, cols, B, scale, u_l, u_r, n_inner, lr):
+def _cf_chain(keT, udT, cols, B, n, scale, u_l, u_r, n_inner, lr,
+              plan=None):
     """n_inner SGD steps: plain version on CPU tensors, the kernel on CUDA."""
     if keT.device.type == "cpu":
         return _cf_chain_plain(keT, udT, cols, B, scale, u_l, u_r,
                                n_inner, lr)
-    return _launch("chain", keT, udT, cols, B, scale, u_l, u_r,
-                   int(n_inner), float(lr))
+    return _launch("chain", keT, udT, cols, B, n, scale, u_l, u_r,
+                   (int(n_inner), float(lr)), plan)
 
 
 # ---------------------------------------------------------------------------
@@ -296,32 +345,33 @@ def cf_packed_operands(mesh, kappa_e, F, u_data, block_lanes: int = 512,
 
 
 def kappa_mse_step_cf_packed(keT, aux: dict, scale: Optional[float] = None,
-                             cumsum_via: str = "mxu"):
+                             cumsum_via: str = "mxu", plan=None):
     """Gradient step on packed (N, Bp) state: returns
-    (loss_parts (1, Bp), gradT (N, Bp)), zero in padded lanes."""
+    (loss_parts (1, Bp), gradT (N, Bp)), zero in padded lanes.  ``plan``
+    forces a K1 body on the card (``k1_plan``)."""
     _check_via(cumsum_via)
     if scale is None:
         scale = 2.0 / (aux["B"] * aux["n"])
-    return _cf_step(keT, aux["udT"], aux["cols"], aux["B"], scale,
-                    aux["u_l"], aux["u_r"])
+    return _cf_step(keT, aux["udT"], aux["cols"], aux["B"], aux["n"], scale,
+                    aux["u_l"], aux["u_r"], plan)
 
 
 def kappa_sgd_chain_cf(keT, aux: dict, n_inner: int, lr: float,
                        scale: Optional[float] = None,
-                       cumsum_via: str = "mxu"):
+                       cumsum_via: str = "mxu", plan=None):
     """n_inner SGD steps per launch with κ held on the chip.
 
     Returns (loss_parts (1, Bp) from the LAST inner step, keT′); equal, to
     rounding, to n_inner calls of ``kappa_mse_step_cf_packed`` with the
-    same lr.
+    same lr.  ``plan`` forces a K1 body on the card (``k1_plan``).
     """
     if int(n_inner) < 1:
         raise ValueError("kappa_sgd_chain_cf needs n_inner >= 1")
     _check_via(cumsum_via)
     if scale is None:
         scale = 2.0 / (aux["B"] * aux["n"])
-    return _cf_chain(keT, aux["udT"], aux["cols"], aux["B"], scale,
-                     aux["u_l"], aux["u_r"], int(n_inner), float(lr))
+    return _cf_chain(keT, aux["udT"], aux["cols"], aux["B"], aux["n"], scale,
+                     aux["u_l"], aux["u_r"], int(n_inner), float(lr), plan)
 
 
 def cf_unpack(keT, aux: dict) -> torch.Tensor:

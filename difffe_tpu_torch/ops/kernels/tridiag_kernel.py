@@ -5,11 +5,19 @@ PyTorch counterpart of ``difffe_tpu/ops/pallas/tridiag_kernel.py``.  The
 JAX module has two Pallas kernels for one function, u = T⁻¹F for B
 independent symmetric tridiagonal systems: ``_pcr_pallas_padded`` (batch
 layout, n padded to 128 lanes) and ``_pcr_pallas_T`` (transposed layout,
-n on sublanes, the batch on lanes).  Here one CUDA kernel
-(``csrc/tridiag_pcr.cu``) serves both: a thread block holds ``spb`` whole
-scenarios in shared memory and runs the PCR sweeps there, with nothing
-padded.  ``layout`` and ``block_b`` keep the JAX signature and only set
-``spb``, the launch shape:
+n on sublanes, the batch on lanes).  Here one CUDA source
+(``csrc/tridiag_pcr.cu``) serves both, with two routes that give the same
+bits; ``k2_plan(n, dtype)`` picks one:
+
+* ``"warp"`` for n ≤ ``WARP_MAX_ROWS`` (256): one warp a scenario, its rows
+  striped over the lanes' registers, neighbours by shuffles, no shared
+  memory and no block barrier (launches counted as ``"pcr"``);
+* ``"block"`` above, up to one block's 8192 rows: a thread block holds
+  ``spb`` whole scenarios in shared memory and runs the PCR sweeps there
+  (the first design; launches counted as ``"pcr_block"``).
+
+Nothing is padded.  ``layout`` and ``block_b`` keep the JAX signature and
+only set the block route's ``spb``, the launch shape:
 
 * ``"transposed"`` (and ``"auto"`` with n ≤ 256): ``spb = max(1, 512 // n)``
   scenarios fill a block of up to 512 rows, as the TPU filled its lanes;
@@ -34,10 +42,32 @@ import torch
 
 from ..tridiag import _tridiag_solve_impl
 
-#: Kernel launches made by the wrapper.
-launches = {"pcr": 0}
+#: Kernel launches made by the wrapper: "pcr" on the warp route, "pcr_block"
+#: on the block route.
+launches = {"pcr": 0, "pcr_block": 0}
 
 _ROWS = 512          # rows a block aims at (spb * n)
+#: Largest system the warp route takes (8 register slots of 32 rows).
+WARP_MAX_ROWS = 256
+
+
+def k2_plan(n: int, dtype: torch.dtype, plan=None) -> str:
+    """K2's route for systems of n rows of ``dtype``: ``"warp"`` for
+    n ≤ ``WARP_MAX_ROWS``, ``"block"`` above; ``plan`` forces either and is
+    refused where the warp route cannot hold the system."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the CUDA K2 kernel takes float32 or float64 "
+                        f"bands, got {dtype}")
+    if n < 1:
+        raise ValueError(f"K2 needs n >= 1 rows, got {n}")
+    if plan is None:
+        return "warp" if n <= WARP_MAX_ROWS else "block"
+    if plan not in ("warp", "block"):
+        raise ValueError(f"K2 plan must be 'warp' or 'block', got {plan!r}")
+    if plan == "warp" and n > WARP_MAX_ROWS:
+        raise ValueError(f"K2's warp route holds at most {WARP_MAX_ROWS} "
+                         f"rows a system, got n = {n}")
+    return plan
 
 
 def _pcr_plain(d, e, F):
@@ -70,41 +100,45 @@ def _batch_stride(t: torch.Tensor) -> int:
     return 0 if t.shape[0] == 1 else t.stride(0)
 
 
-def _launch(d, e, F, lead, n, spb):
+def _launch(d, e, F, lead, n, spb, plan=None):
     from ._build import load_library
 
     for t in (d, e):
         if t.device != F.device or t.dtype != F.dtype:
             raise ValueError("K2 bands must share F's device and dtype")
-    if F.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the CUDA K2 kernel takes float32 or float64 "
-                        f"bands, got {F.dtype}")
+    route = k2_plan(n, F.dtype, plan)
     d2, e2, F2 = _rows(d, lead, n), _rows(e, lead, n - 1), _rows(F, lead, n)
     B = F2.shape[0]
     u = torch.empty((B, n), dtype=F.dtype, device=F.device)
     if B == 0:
         return u
     lib = load_library()
+    bands = (d2.data_ptr(), _batch_stride(d2), e2.data_ptr(),
+             _batch_stride(e2), F2.data_ptr(), _batch_stride(F2),
+             u.data_ptr(), B, n)
+    is_double = int(F.dtype == torch.float64)
     with torch.cuda.device(F.device):
-        cap = lib.difffe_tridiag_pcr_max_rows(F.element_size())
-        if n > cap:
-            raise ValueError(f"K2 holds a whole system in one block's shared "
-                             f"memory: n = {n} exceeds {cap} rows for "
-                             f"{F.dtype}")
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.difffe_tridiag_pcr(
-            d2.data_ptr(), _batch_stride(d2), e2.data_ptr(),
-            _batch_stride(e2), F2.data_ptr(), _batch_stride(F2), u.data_ptr(),
-            B, n, spb, int(F.dtype == torch.float64), stream)
+        if route == "warp":
+            rc = lib.difffe_tridiag_pcr_warp(*bands, is_double, stream)
+        else:
+            cap = lib.difffe_tridiag_pcr_max_rows(F.element_size())
+            if n > cap:
+                raise ValueError(
+                    f"K2 holds a whole system in one block's shared "
+                    f"memory: n = {n} exceeds {cap} rows for {F.dtype}")
+            rc = lib.difffe_tridiag_pcr(*bands, spb, is_double, stream)
     if rc != 0:
-        raise RuntimeError(f"K2 tridiag_pcr launch failed: CUDA error {rc}")
-    launches["pcr"] += 1
+        raise RuntimeError(f"K2 tridiag_pcr ({route} route) launch failed: "
+                           f"CUDA error {rc}")
+    launches["pcr" if route == "warp" else "pcr_block"] += 1
     return u
 
 
-def _solve(d, e, F, block_b, layout):
+def _solve(d, e, F, block_b, layout, plan=None):
     """u = T⁻¹F over the broadcast leading axes of d, e and F.  Plain
-    version on CPU tensors, the kernel on CUDA."""
+    version on CPU tensors, the kernel on CUDA (``plan`` forces its
+    route)."""
     n = F.shape[-1]
     if n < 1 or d.shape[-1] != n or e.shape[-1] != n - 1:
         raise ValueError(f"bands of shapes d {tuple(d.shape)}, e "
@@ -118,15 +152,15 @@ def _solve(d, e, F, block_b, layout):
     if not F.is_cuda:
         raise ValueError(f"K2 runs on CPU (plain) or CUDA tensors, got "
                          f"device {F.device}")
-    return _launch(d, e, F, lead, n, spb).reshape(lead + (n,))
+    return _launch(d, e, F, lead, n, spb, plan).reshape(lead + (n,))
 
 
 class _TridiagSolveKernel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, d, e, F, block_b, layout):
-        u = _solve(d, e, F, block_b, layout)
+    def forward(ctx, d, e, F, block_b, layout, plan):
+        u = _solve(d, e, F, block_b, layout, plan)
         ctx.save_for_backward(d, e, u)
-        ctx.cfg = (block_b, layout, d.shape, e.shape, F.shape)
+        ctx.cfg = (block_b, layout, plan, d.shape, e.shape, F.shape)
         return u
 
     @staticmethod
@@ -142,26 +176,27 @@ class _TridiagSolveKernel(torch.autograd.Function):
                 "create_graph; use method='tridiag' for higher derivatives")
         # one more kernel solve for λ = T⁻¹ḡ (T symmetric), then the band
         # gradients in torch
-        block_b, layout, d_shape, e_shape, F_shape = ctx.cfg
+        block_b, layout, plan, d_shape, e_shape, F_shape = ctx.cfg
         d, e, u = ctx.saved_tensors
-        lam = _solve(d, e, g, block_b, layout)
+        lam = _solve(d, e, g, block_b, layout, plan)
         grad_d = -lam * u
         grad_e = -(lam[..., :-1] * u[..., 1:] + lam[..., 1:] * u[..., :-1])
         return (grad_d.sum_to_size(d_shape), grad_e.sum_to_size(e_shape),
-                lam.sum_to_size(F_shape), None, None)
+                lam.sum_to_size(F_shape), None, None, None)
 
 
 def tridiag_solve_kernel(d: torch.Tensor, e: torch.Tensor, F: torch.Tensor,
-                         block_b: int = 64,
-                         layout: str = "auto") -> torch.Tensor:
+                         block_b: int = 64, layout: str = "auto",
+                         plan=None) -> torch.Tensor:
     """Solve T u = F for batched symmetric tridiagonal T = tridiag(e, d, e)
     on kernel K2.
 
     d: (…, n) diagonals, e: (…, n−1) off-diagonals, F: (…, n) right-hand
     sides; the leading axes broadcast (a band shared by every scenario is
     read in place), and unbatched (n,) inputs are accepted.  ``block_b``
-    and ``layout`` set the launch shape only (module note).
+    and ``layout`` set the launch shape only (module note); ``plan``
+    ("warp" or "block") forces a route on the card (``k2_plan``).
     Differentiable once wrt d, e and F: the backward runs one more K2 solve
     and raises ``NotImplementedError`` under ``create_graph``.
     """
-    return _TridiagSolveKernel.apply(d, e, F, block_b, layout)
+    return _TridiagSolveKernel.apply(d, e, F, block_b, layout, plan)

@@ -61,26 +61,33 @@ def _operands(dev, n, B, ud_mode):
         operand_dtype=torch.bfloat16 if ud_mode == "bf16" else None)
 
 
-@pytest.mark.parametrize("n", [10, 30, 128])
+@pytest.mark.parametrize("n", [10, 30, 60, 100, 128])
 @pytest.mark.parametrize("ud_mode", ["shared", "f32", "bf16"])
 def test_kernel_matches_plain(cuda, n, ud_mode):
+    """Every K1 body of n's row bucket (the lanes design at each L it has,
+    and the first design) against the plain version; padded lanes inert."""
     keT, aux = _operands(cuda, n, 1000, ud_mode)
     B, scale = aux["B"], 2.0 / (n + 1)
     args = (aux["udT"], aux["cols"], B, scale, aux["u_l"], aux["u_r"])
-    before = dict(tk.launches)
-    lp_k, g_k = tk.kappa_mse_step_cf_packed(keT, aux, scale=scale)
-    lc_k, k_k = tk.kappa_sgd_chain_cf(keT, aux, 32, 30.0, scale=scale)
     lp_p, g_p = tk._cf_step_plain(keT, *args)
     lc_p, k_p = tk._cf_chain_plain(keT, *args, 32, 30.0)
-    torch.cuda.synchronize()
-    assert tk.launches["step"] == before["step"] + 1
-    assert tk.launches["chain"] == before["chain"] + 1
-    assert rel_err(g_k[:, :B], g_p[:, :B]) <= STEP_TOL
-    assert rel_err(lp_k[:, :B], lp_p[:, :B]) <= STEP_TOL
-    assert rel_err(k_k[:, :B], k_p[:, :B]) <= CHAIN_TOL
-    assert rel_err(lc_k[:, :B], lc_p[:, :B]) <= CHAIN_TOL
-    assert torch.all(g_k[:, B:] == 0) and torch.all(lp_k[:, B:] == 0)
-    assert torch.equal(k_k[:, B:], keT[:, B:])
+    for plan in tk.K1_LANES[tk.k1_bucket(keT.shape[0])] + ("first",):
+        sfx = "_first" if plan == "first" else ""
+        before = dict(tk.launches)
+        lp_k, g_k = tk.kappa_mse_step_cf_packed(keT, aux, scale=scale,
+                                                plan=plan)
+        lc_k, k_k = tk.kappa_sgd_chain_cf(keT, aux, 32, 30.0, scale=scale,
+                                          plan=plan)
+        torch.cuda.synchronize()
+        assert tk.launches["step" + sfx] == before["step" + sfx] + 1
+        assert tk.launches["chain" + sfx] == before["chain" + sfx] + 1
+        assert rel_err(g_k[:, :B], g_p[:, :B]) <= STEP_TOL, plan
+        assert rel_err(lp_k[:, :B], lp_p[:, :B]) <= STEP_TOL, plan
+        assert rel_err(k_k[:, :B], k_p[:, :B]) <= CHAIN_TOL, plan
+        assert rel_err(lc_k[:, :B], lc_p[:, :B]) <= CHAIN_TOL, plan
+        assert torch.all(g_k[:, B:] == 0) and torch.all(lp_k[:, B:] == 0)
+        assert torch.all(lc_k[:, B:] == 0)
+        assert torch.equal(k_k[:, B:], keT[:, B:])
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -95,6 +102,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         torch.zeros(4, 301, device=cuda))
     with pytest.raises(ValueError, match="at most 256"):
         tk.kappa_sgd_chain_cf(keT2, aux2, 2, 30.0)
+    with pytest.raises(ValueError, match="lanes bodies"):
+        tk.kappa_sgd_chain_cf(keT, aux, 2, 30.0, plan=8)
 
 
 def test_fit_kappa_launches_the_chain_kernel(cuda):
@@ -589,28 +598,36 @@ def _k2_solve(solve, d, e, F, w, **kw):
 @pytest.mark.parametrize("n", [1, 2, 31, 129, 257, 4097])
 @pytest.mark.parametrize("shared", [False, True], ids=["batched", "shared"])
 def test_k2_matches_plain(cuda, n, shared):
+    """Each route that takes n (k2_plan: the warp route up to 256 rows, the
+    block route) against the plain version, bit for bit on u."""
     d, e, F, w = _k2_bands(cuda, n, 7, seed=n)
     if shared:
         d, e = d[0], e[0]
-    before = k2.launches["pcr"]
+    routes = ("warp", "block") if n <= k2.WARP_MAX_ROWS else ("block",)
+    before = dict(k2.launches)
     q = _k2_solve(ttri.tridiag_solve, d, e, F, w)
     for dt in (torch.float64, torch.float32):
         args = [t.to(dt) for t in (d, e, F, w)]
-        k = _k2_solve(k2.tridiag_solve_kernel, *args)
         p = _k2_solve(ttri.tridiag_solve, *args)
-        for a, b, c in zip(k, p, q):
-            assert a.shape == c.shape and torch.isfinite(a).all()
-            if dt == torch.float64:
-                assert rel_err(a, c) <= 1e-10
-            else:
-                ok, errs = _within_rule(a, b, c)
-                assert ok, errs
-        for layout, bb in (("transposed", 64), ("batch", 1), ("batch", 64),
-                           ("other", 3)):
-            u = k2.tridiag_solve_kernel(*args[:3], block_b=bb, layout=layout)
-            assert torch.equal(u, k[0]), (layout, bb)
+        for route in routes:
+            k = _k2_solve(k2.tridiag_solve_kernel, *args, plan=route)
+            assert torch.equal(k[0], p[0]), route
+            for a, b, c in zip(k, p, q):
+                assert a.shape == c.shape and torch.isfinite(a).all()
+                if dt == torch.float64:
+                    assert rel_err(a, c) <= 1e-10
+                else:
+                    ok, errs = _within_rule(a, b, c)
+                    assert ok, errs
+            for layout, bb in (("transposed", 64), ("batch", 1),
+                               ("batch", 64), ("other", 3)):
+                u = k2.tridiag_solve_kernel(*args[:3], block_b=bb,
+                                            layout=layout, plan=route)
+                assert torch.equal(u, k[0]), (route, layout, bb)
     torch.cuda.synchronize()
-    assert k2.launches["pcr"] == before + 2 * (2 + 4)
+    for route, key in (("warp", "pcr"), ("block", "pcr_block")):
+        runs = 2 * (2 + 4) if route in routes else 0
+        assert k2.launches[key] == before[key] + runs, route
 
 
 def test_k2_unbatched_and_leading_axes(cuda):
@@ -653,6 +670,11 @@ def test_k2_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     big = torch.ones(1, n, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="shared"):
         k2.tridiag_solve_kernel(4 * big, -big[:, 1:], big)
+    # the warp route holds at most WARP_MAX_ROWS rows a system
+    m = k2.WARP_MAX_ROWS + 1
+    over = torch.ones(3, m, device=cuda)
+    with pytest.raises(ValueError, match="warp route holds at most"):
+        k2.tridiag_solve_kernel(4 * over, -over[:, 1:], over, plan="warp")
 
 
 def test_second_order_refusals_on_the_card(cuda):
