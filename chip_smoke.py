@@ -13,22 +13,22 @@ The 1D path (per-element κ on a line mesh, bench.py's workload: n = 30
 elements, B = 2^21 scenarios, one shared forcing), kernel K1:
 
 3. each K1 variant (step/chain × shared/f32/bf16 u_data) on every body of
-   its row bucket (``k1_plan``: the lanes design at each L it has, and the
-   first design) against its plain PyTorch version, n ∈ {10, 30, 60, 100,
+   its row bucket (``k1_plan``: each L, lanes a scenario, the bucket has)
+   against its plain PyTorch version, n ∈ {10, 30, 60, 100,
    128} (buckets 32, 32, 64, 128, 256), B ∈ {1000, 2^21} (1000 only at
    60 and 100): f32 within 1e-5 (step) and 1e-4 (32-step chain), and the
    plain version run in f64 by the rule of phase 7; padded lanes inert;
 4. ``fit_kappa`` through the public entry point, 128 steps = 4 chain
-   launches on the lanes design, with loss checks;
+   launches, with loss checks;
 5. bench.py's parity gate: the step kernel's gradient against autograd
    through the PCR tridiagonal oracle on the bf16-quantized plane;
 6. a ``torch.profiler`` split of one ``fit_kappa`` call; chained timing
    of the chain on every body of the bucket in turns and of its plain
    version, with the streamed bf16 u_data plane (K1d) and with shared
-   u_data (K1c); the step's kernel time a call from the profiler, lanes
-   design and first design in turns, and its plain version's (K1b, K1a);
-   the chain in the buckets 64, 128 and 256 on every body in turns
-   (B = 2^18); the registers and spills of every K1 body.
+   u_data (K1c); the step's kernel time a call from the profiler, every
+   body in turns, and its plain version's (K1b, K1a); the chain in the
+   buckets 64, 128 and 256 (B = 2^18); the registers and spills of every
+   K1 body.
 
 The 2D path (κ-field inversion on ``FEMesh.rectangle(64, 64)``, the
 structured-grid config of BASELINE.json, B = 4096 scenarios), kernels K3a
@@ -317,6 +317,7 @@ LR_1D = 0.05
 K2_NS = (1, 2, 31, 129, 257, 4097)      # phase 13: system sizes
 K2_BS = (1, 7, 1024, 65536)             # 65 536 only for n <= 257
 BATCH_K2 = 65536         # phase 16: scripts/probe_tridiag.py's batch at n=129
+K2_SWEEP_BS = (256, 2048, 4096, 8192, 16384)   # phase 16: K2's routes
 BATCH_LIB = 8192         # torch.linalg.solve on the densified systems
 K2_SOURCE = "difffe_tpu_torch/csrc/tridiag_pcr.cu"
 JAX_K2 = "difffe_tpu/ops/pallas/tridiag_kernel.py"
@@ -417,16 +418,14 @@ def run_1d(torch, dev, card):
     # tolerances and the f64 plain version by the rule of phase 7; n = 60
     # and 100 fill the buckets NB = 64 and 128 (10 and 30: 32; 128: 256)
     t0 = time.perf_counter()
-    max_abs = {"step": 0.0, "chain": 0.0, "step_first": 0.0,
-               "chain_first": 0.0}
+    max_abs = {"step": 0.0, "chain": 0.0}
     for n in K1_NS:
         for B in ((1000, BATCH) if n in (10, 30, 128) else (1000,)):
             mesh, fv, ud, g = problem(n, B, seed=n + B)
             F = assemble_load(mesh, fv)
             ke0 = 1.0 + 0.3 * torch.rand(B, n, generator=g, device=dev)
             scale = 2.0 / (n + 1)
-            plans = tk.K1_LANES[tk.k1_bucket(tk.packed_rows(n + 1))] + (
-                "first",)
+            plans = tk.K1_LANES[tk.k1_bucket(tk.packed_rows(n + 1))]
             for mode in ("shared", "f32", "bf16"):
                 keT, aux = tk.cf_packed_operands(
                     mesh, ke0, F, ud[0] if mode == "shared" else ud,
@@ -477,12 +476,10 @@ def run_1d(torch, dev, card):
                             and torch.equal(k_k[:, B:], keT[:, B:])):
                         raise AssertionError(f"{tag}: padded lanes were "
                                              f"written")
-                    sfx = "_first" if plan == "first" else ""
-                    max_abs["step" + sfx] = max(max_abs["step" + sfx], float(
+                    max_abs["step"] = max(max_abs["step"], float(
                         (g_k[:, :B] - g_p[:, :B]).abs().max()))
-                    max_abs["chain" + sfx] = max(
-                        max_abs["chain" + sfx],
-                        float((k_k[:, :B] - k_p[:, :B]).abs().max()))
+                    max_abs["chain"] = max(max_abs["chain"], float(
+                        (k_k[:, :B] - k_p[:, :B]).abs().max()))
                     del lp_k, g_k, lc_k, k_k
                 del keT, aux, lp_p, g_p, lc_p, k_p, lp_q, g_q, lc_q, k_q
                 del args, args64
@@ -542,11 +539,9 @@ def run_1d(torch, dev, card):
         raise AssertionError(f"bench parity gate failed: {gate:.3e}")
     main_path = dict(tk.launches)
     log(f"1D main-path launches: {main_path}")
-    for k in ("chain", "step"):
-        if main_path[k] < 1:
+    for k, v in main_path.items():
+        if v < 1:
             raise AssertionError(f"kernel {k} was not launched by the path")
-    if main_path["chain_first"] or main_path["step_first"]:
-        raise AssertionError("the main path ran K1's first design")
     del u, ke, ud_q, gT
     torch.cuda.empty_cache()
 
@@ -562,7 +557,7 @@ def run_1d(torch, dev, card):
                                      u_data[0], block_lanes=BLOCK_LANES)
     cols_s = aux_s["cols"]
     NB = tk.k1_bucket(keT0.shape[0])
-    plans = tk.K1_LANES[NB] + ("first",)
+    plans = tk.K1_LANES[NB]
     default = tk.k1_plan(keT0.shape[0])
 
     def chain_fns(ax, udp, cl):
@@ -580,26 +575,24 @@ def run_1d(torch, dev, card):
                                       STEPS // CHAIN_K, order)
         log(f"phase 6 {name} (NB={NB}, {CHAIN_K} steps a launch, B={BATCH})"
             f": " + ", ".join(
-                f"{p} {best[p]:.4f} ms" for p in plans + ("plain",))
-            + f"; lanes L={default} (the plan) "
-            f"{BATCH * CHAIN_K / best[default] * 1e3:.6e} grad-solves/s, "
-            f"first design {BATCH * CHAIN_K / best['first'] * 1e3:.6e} "
+                f"L={p} {best[p]:.4f} ms" for p in plans)
+            + f", plain {best['plain']:.4f} ms; L={default} (the plan) "
+            f"{BATCH * CHAIN_K / best[default] * 1e3:.6e} grad-solves/s "
             f"[{card}]")
     for name, ax, udp, cl in (("step", aux, udT, cols),
                               ("step_shared", aux_s, None, cols_s)):
         res = {}
-        for plan in (default, "first", "first", default):
-            key = "cf_kernel" if plan == "first" else "cf_lanes_kernel"
+        for plan in plans + plans[::-1]:
             t = device_ms(torch, lambda k, plan=plan: (
                 tk.kappa_mse_step_cf_packed(k, ax, scale, plan=plan)[1]),
-                keT0, 20, key)
+                keT0, 20, "cf_lanes_kernel")
             res[plan] = min(res.get(plan, float("inf")), t)
         res["plain"] = device_ms(torch, lambda k: tk._cf_step_plain(
             k, udp, cl, B, scale, u_l, u_r)[1], keT0, 4)
         ms[name] = res
-        log(f"phase 6 {name} kernel time a call (profiler): lanes L="
-            f"{default} {res[default]:.4f} ms, first design "
-            f"{res['first']:.4f} ms, plain {res['plain']:.4f} ms [{card}]")
+        log(f"phase 6 {name} kernel time a call (profiler): " + ", ".join(
+            f"L={p} {res[p]:.4f} ms" for p in plans)
+            + f", plain {res['plain']:.4f} ms [{card}]")
     # with shared u_data only κ moves (κ in, κ′ out, the 4 B loss row)
     for name in ("chain_shared", "step_shared"):
         steps = CHAIN_K if name.startswith("chain") else 1
@@ -617,17 +610,17 @@ def run_1d(torch, dev, card):
                                        device=dev),
             assemble_load(mb, fb), udb, operand_dtype=torch.bfloat16)
         nbb = tk.k1_bucket(keb.shape[0])
-        pb = tk.K1_LANES[nbb] + ("first",)
+        pb = tk.K1_LANES[nbb]
         fns = {p: (lambda k, p=p: tk.kappa_sgd_chain_cf(
             k, auxb, CHAIN_K, LR, 2.0 / (nb_n + 1), plan=p)[1]) for p in pb}
         best = timed_turns(fns, keb, 4, pb + pb[::-1])
         log(f"phase 6 chain at n={nb_n} (NB={nbb}, B={BATCH_BUCKETS}, bf16 "
             f"u_data, {CHAIN_K} steps): " + ", ".join(
-                f"{p} {best[p]:.4f} ms" for p in pb) + f" [{card}]")
+                f"L={p} {best[p]:.4f} ms" for p in pb) + f" [{card}]")
         del mb, fb, udb, keb, auxb, fns
         torch.cuda.empty_cache()
     log("phase 6 -Xptxas -v of K1's bodies:")
-    for line in ptxas_report(("cf_kernel", "cf_lanes_kernel")):
+    for line in ptxas_report(("cf_lanes_kernel",)):
         log(line)
 
     # Both timed functions map κ to κ′ and must read κ (f32) and the bf16
@@ -643,14 +636,6 @@ def run_1d(torch, dev, card):
         kernel_entry("cf_step", CU_SOURCE, f"{JAX_KERNEL}:132",
                      main_path["step"], max_abs["step"],
                      ms["step"][default], ms["step"]["plain"], ops_step,
-                     nbytes),
-        kernel_entry("cf_chain_first", CU_SOURCE, f"{JAX_KERNEL}:445",
-                     main_path["chain_first"], max_abs["chain_first"],
-                     ms["chain"]["first"], ms["chain"]["plain"], ops_chain,
-                     nbytes),
-        kernel_entry("cf_step_first", CU_SOURCE, f"{JAX_KERNEL}:132",
-                     main_path["step_first"], max_abs["step_first"],
-                     ms["step"]["first"], ms["step"]["plain"], ops_step,
                      nbytes),
     ]
 
@@ -1698,6 +1683,22 @@ def run_facade_1d(torch, dev, card):
                else "") + f" [{card}]")
         del T, dB, eB, F0, F_lib
         torch.cuda.empty_cache()
+
+    # both routes' kernel time a call over the batch, in turns
+    n = N_1D + 1
+    for B in K2_SWEEP_BS:
+        dB, eB = k2_bands(torch, "fem", n, B, gen, dev)
+        dB, eB = dB.float(), eB.float()
+        F0 = torch.randn(B, n, generator=gen, device=dev)
+        t = {}
+        for route in ("warp", "block", "block", "warp"):
+            key = "pcr_warp_kernel" if route == "warp" else "pcr_kernel"
+            ms_r = device_ms(torch, lambda c, r=route: (
+                tk.tridiag_solve_kernel(dB, eB, c, plan=r)), F0, 20, key)
+            t[route] = min(t.get(route, float("inf")), ms_r)
+        log(f"phase 16 K2 kernel time a call at n={n}, B={B}: warp route "
+            f"{t['warp']:.4f} ms, block route {t['block']:.4f} ms [{card}]")
+        del dB, eB, F0
 
     for B in (BATCH_1D, BATCH_K2):
         mB = FEMesh.line(N_1D, dtype=f32)

@@ -25,32 +25,34 @@
 // per launch while the per-row work repeats n_inner times: bound by the
 // FP32 pipes.
 //
-// Design ("lanes", cf_lanes_kernel).  L adjacent lanes of a warp share one
-// scenario, lane l holding the R = NB/L contiguous rows l*R .. l*R+R-1 in
-// registers: kappa, 1/kappa, P^lambda and u_data (bf16 kept packed two to a
-// register).  Each lane keeps running sums over its rows in 8-row blocks;
-// the prefix offsets of the other lanes come from a width-L shuffle scan of
-// the lanes' totals.  The adjoint's sum(s*P^lambda) is linear in the lane's
-// offset o: sum_l (sum s*p_local + o_l*S_l), one shuffle reduction.  The
-// per-row constants h_e, P_e and the shared u_data sit in __constant__
-// memory (c_rows, written on the launch's stream before each launch): with
-// L = 1 every row index is a compile-time constant and the FP32 instructions
-// read them as constant-bank operands, with no load; with L > 1 each lane
-// loads its rows' constants into registers once per launch.  The two masks
-// come from the row index and n: the interior mask only matters on row 0
-// (rows >= n-1 have h = 0, so their P^lambda meets s = 0 and a zero
-// gradient), and the node mask only enters the loss, which is summed on
-// the last inner step alone.  1/kappa is one rcp.approx.ftz a row and step
-// (not the IEEE reciprocal: <= 1 ulp, well inside the tolerances of the
-// plain f32 version), kept for the adjoint pass and the gradient; the
-// gradient pass of step t and the totals pass of step t+1 are one loop.
-// Small R keeps registers low (no local memory in any bucket), so more
-// warps hide the running sums' dependent chains.
-//
-// First design ("first", cf_kernel), kept to be timed against the lanes
-// design: one thread a scenario column, the per-row constants in shared
-// memory (six columns, loaded once a block), three reciprocals a row and
-// step, arrays in registers for NB <= 64 and in local memory above.
+// Design.  L adjacent lanes of a warp share one scenario, lane l holding
+// the R = NB/L contiguous rows l*R .. l*R+R-1 in registers: kappa,
+// 1/kappa, P^lambda and u_data (bf16 kept packed two to a register).  Each
+// lane keeps running sums over its rows in 8-row blocks (the rounding
+// error grows with R/8 + 8 terms, not R); the prefix offsets of the other
+// lanes come from a width-L shuffle scan of the lanes' totals.  The
+// adjoint's sum(s*P^lambda) is linear in the lane's offset o:
+// sum_l (sum s*p_local + o_l*S_l), one shuffle reduction.  The per-row
+// constants h_e, P_e and the shared u_data sit in __constant__ memory
+// (c_rows, copied on the launch's stream before each launch from the
+// wrapper's k1_rows block): with L = 1 every row index is a compile-time
+// constant and the FP32 instructions read them as constant-bank operands,
+// with no load; with L > 1 each lane loads its rows' constants into
+// registers once per launch.  The two masks come from the row index and n:
+// the interior mask only matters on row 0 (rows >= n-1 have h = 0, so
+// their P^lambda meets s = 0 and a zero gradient), and the node mask only
+// enters the loss, which is summed on the last inner step alone (peeled at
+// compile time).  1/kappa is one rcp.approx.ftz a row and step (not the
+// IEEE reciprocal: <= 1 ulp, inside the tolerances of the plain f32
+// version), kept for the adjoint pass and the gradient; the gradient pass
+// of step t and the totals pass of step t+1 are one loop.  No bucket keeps
+// its arrays in local memory.  The wrapper's k1_plan picks L by bucket, as
+// measured on an H100: L = 1 at NB = 32 (its ~210 registers run 8 warps
+// an SM, and still beat L = 2 and 4, whose shuffles and redundant
+// per-scenario work cost more than the occupancy gives), L = NB/16 above
+// (16 rows a lane under a 128-register cap, 16 warps an SM).  ~30
+// instructions a row and step remain, so the chain is bound by the FP32
+// issue rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,15 +63,6 @@
 
 namespace {
 
-// Column layout of the packed (N, kCols) constants block; must match
-// difffe_tpu_torch/ops/kernels/fused_grad_cf_kernel.py.
-constexpr int kCols = 6;
-constexpr int kColHs = 0;  // element width h_e on element rows, 0 on pads
-constexpr int kColPf = 1;  // P_e on element rows
-constexpr int kColUd = 2;  // shared u_data on node rows (shared mode)
-constexpr int kColNm = 3;  // 1 on node rows 0..n-1
-constexpr int kColIm = 4;  // 1 on interior node rows 1..n-2
-constexpr int kColHk = 5;  // h_e again, used by the gradient
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 256;
 constexpr int kRowVals = 3;  // {h, P, shared u_data} a row in c_rows
@@ -78,124 +71,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // The lanes design's per-row constants, row-major {h, P, u_data}, rows
 // N..NB-1 zero (the wrapper's k1_rows block, copied on the stream).
 __constant__ float c_rows[kMaxRows * kRowVals];
-
-// A running f32 sum kept as a total of completed 8-row blocks plus the
-// partial sum of the current block: its rounding error grows with N/8 + 8
-// terms instead of N, which keeps the 129-257-row buckets at the accuracy
-// of torch.cumsum on the same data.
-struct RunSum {
-  float base = 0.f, part = 0.f;
-  __device__ __forceinline__ void add(float x, int i) {
-    part += x;
-    if ((i & 7) == 7) {
-      base += part;
-      part = 0.f;
-    }
-  }
-  __device__ __forceinline__ float value() const { return base + part; }
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// UNROLL is NB for the small buckets (arrays stay in registers) and 1 for
-// the large ones (arrays live in local memory; the build stays short).
-template <int NB, int UNROLL, bool STREAM_UD, bool CHAIN, typename UdT>
-__global__ void __launch_bounds__(kThreads)
-cf_kernel(const float* __restrict__ keT, const UdT* __restrict__ udT,
-          const float* __restrict__ cols, float* __restrict__ loss,
-          float* __restrict__ out, int N, int Bp, int B, float scale,
-          float u_l, float u_r, int n_inner, float lr) {
-  __shared__ float c_hs[NB], c_pf[NB], c_ud[NB], c_nm[NB], c_im[NB],
-      c_hk[NB];
-  for (int i = threadIdx.x; i < NB; i += blockDim.x) {
-    const bool row = i < N;
-    const float* c = cols + static_cast<size_t>(i) * kCols;
-    c_hs[i] = row ? c[kColHs] : 0.f;
-    c_pf[i] = row ? c[kColPf] : 0.f;
-    c_ud[i] = row ? c[kColUd] : 0.f;
-    c_nm[i] = row ? c[kColNm] : 0.f;
-    c_im[i] = row ? c[kColIm] : 0.f;
-    c_hk[i] = row ? c[kColHk] : 0.f;
-  }
-  __syncthreads();
-
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= Bp) return;
-  const size_t ld = static_cast<size_t>(Bp);
-  if (b >= B) {
-    loss[b] = 0.f;
-    for (int i = 0; i < N; ++i)
-      out[i * ld + b] = CHAIN ? keT[i * ld + b] : 0.f;
-    return;
-  }
-
-  // ud[] is used only when u_data is streamed; shared u_data is read
-  // from shared memory.
-  float ke[NB], ud[NB], pl[NB];
-#pragma unroll(UNROLL)
-  for (int i = 0; i < NB; ++i) {
-    ke[i] = i < N ? keT[i * ld + b] : 1.f;
-    if (STREAM_UD) ud[i] = i < N ? to_f32(udT[i * ld + b]) : 0.f;
-  }
-
-  const float du = u_r - u_l;
-  float lsum = 0.f;
-#pragma unroll 1
-  for (int it = 0; it < n_inner; ++it) {
-    // 1. S_tot, T_tot, then w1
-    RunSum s_tot, t_tot;
-#pragma unroll(UNROLL)
-    for (int i = 0; i < NB; ++i) {
-      const float s = c_hs[i] * (1.f / ke[i]);
-      s_tot.add(s, i);
-      t_tot.add(s * c_pf[i], i);
-    }
-    const float S_tot = s_tot.value();
-    const float w1 = (du + t_tot.value()) / S_tot;
-
-    // 2. u, d, the loss and the running P^lambda; 3. tl_tot, then wl1
-    RunSum S, T, Pl, tl_tot, loss_sum;
-#pragma unroll(UNROLL)
-    for (int i = 0; i < NB; ++i) {
-      const float u = u_l + (w1 * S.value() - T.value());
-      const float d = (u - (STREAM_UD ? ud[i] : c_ud[i])) * c_nm[i];
-      loss_sum.add(d * d, i);
-      Pl.add(scale * d * c_im[i], i);
-      pl[i] = Pl.value();
-      const float s = c_hs[i] * (1.f / ke[i]);
-      S.add(s, i);
-      T.add(s * c_pf[i], i);
-      tl_tot.add(s * pl[i], i);
-    }
-    lsum = loss_sum.value();
-    const float wl1 = tl_tot.value() / S_tot;
-
-    // 4. g_e = -(h_e/kappa_e^2)(w1 - P_e)(wl1 - P^lambda_e)
-#pragma unroll(UNROLL)
-    for (int i = 0; i < NB; ++i) {
-      const float inv = 1.f / ke[i];
-      const float g = -(c_hk[i] * inv * inv) * (w1 - c_pf[i]) * (wl1 - pl[i]);
-      if (CHAIN)
-        ke[i] -= lr * g;
-      else if (i < N)
-        out[i * ld + b] = g;
-    }
-  }
-  loss[b] = lsum;
-  if (CHAIN) {
-#pragma unroll(UNROLL)
-    for (int i = 0; i < NB; ++i)
-      if (i < N) out[i * ld + b] = ke[i];
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// The lanes design
-// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float rcp_approx(float x) {
   float y;
@@ -333,8 +208,10 @@ struct RowConsts {
   }
 };
 
+// L > 1: two blocks an SM (at most 128 registers, 16 warps), which ran the
+// buckets 64-256 fastest; L = 1 runs 8 warps an SM on ~210 registers
 template <int NB, int L, bool STREAM_UD, bool CHAIN, typename UdT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (L == 1 ? 1 : 2))
 cf_lanes_kernel(const float* __restrict__ keT, const UdT* __restrict__ udT,
                 float* __restrict__ loss, float* __restrict__ out, int N,
                 int n, int Bp, int B, float scale, float u_l, float u_r,
@@ -478,7 +355,6 @@ struct Args {
   const float* keT;
   const void* udT;
   int ud_kind;
-  const float* cols;
   float* loss;
   float* out;
   int N, n, Bp, B;
@@ -487,35 +363,6 @@ struct Args {
   float lr;
   cudaStream_t stream;
 };
-
-template <int NB, int UNROLL, bool CHAIN>
-cudaError_t launch_first(const Args& a) {
-  const dim3 grid((a.Bp + kThreads - 1) / kThreads);
-  switch (a.ud_kind) {
-    case 0:
-      cf_kernel<NB, UNROLL, false, CHAIN, float>
-          <<<grid, kThreads, 0, a.stream>>>(
-              a.keT, nullptr, a.cols, a.loss, a.out, a.N, a.Bp, a.B, a.scale,
-              a.u_l, a.u_r, a.n_inner, a.lr);
-      break;
-    case 1:
-      cf_kernel<NB, UNROLL, true, CHAIN, float>
-          <<<grid, kThreads, 0, a.stream>>>(
-              a.keT, static_cast<const float*>(a.udT), a.cols, a.loss, a.out,
-              a.N, a.Bp, a.B, a.scale, a.u_l, a.u_r, a.n_inner, a.lr);
-      break;
-    case 2:
-      cf_kernel<NB, UNROLL, true, CHAIN, __nv_bfloat16>
-          <<<grid, kThreads, 0, a.stream>>>(
-              a.keT, static_cast<const __nv_bfloat16*>(a.udT), a.cols,
-              a.loss, a.out, a.N, a.Bp, a.B, a.scale, a.u_l, a.u_r,
-              a.n_inner, a.lr);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
 
 template <int NB, int L, bool CHAIN>
 cudaError_t launch_lanes(const Args& a) {
@@ -546,23 +393,14 @@ cudaError_t launch_lanes(const Args& a) {
   return cudaGetLastError();
 }
 
-// lanes = 0 takes the first design; otherwise the lanes design with that
-// many lanes a scenario, where the bucket has a body for it (the wrapper's
-// k1_plan lists them).
+// The bucket NB of N rows and the lanes a scenario: the bodies the
+// wrapper's K1_LANES lists.
 template <bool CHAIN>
 cudaError_t launch(const Args& a, const void* rows, int lanes) {
   if (a.N < 1 || a.N > kMaxRows || a.n < 2 || a.n > a.N || a.Bp < 1 ||
       a.B < 1 || a.B > a.Bp || a.n_inner < 1)
     return cudaErrorInvalidValue;
   const int NB = a.N <= 32 ? 32 : a.N <= 64 ? 64 : a.N <= 128 ? 128 : 256;
-  if (lanes == 0) {
-    switch (NB) {
-      case 32: return launch_first<32, 32, CHAIN>(a);
-      case 64: return launch_first<64, 64, CHAIN>(a);
-      case 128: return launch_first<128, 1, CHAIN>(a);
-      default: return launch_first<256, 1, CHAIN>(a);
-    }
-  }
   // the bucket's rows {h, P, u_data}, zero-padded to NB rows, on the stream
   void* sym = nullptr;
   cudaError_t err = cudaGetSymbolAddress(&sym, c_rows);
@@ -575,46 +413,39 @@ cudaError_t launch(const Args& a, const void* rows, int lanes) {
     case 32 * 64 + 2: return launch_lanes<32, 2, CHAIN>(a);
     case 32 * 64 + 4: return launch_lanes<32, 4, CHAIN>(a);
     case 64 * 64 + 4: return launch_lanes<64, 4, CHAIN>(a);
-    case 64 * 64 + 8: return launch_lanes<64, 8, CHAIN>(a);
     case 128 * 64 + 8: return launch_lanes<128, 8, CHAIN>(a);
-    case 128 * 64 + 16: return launch_lanes<128, 16, CHAIN>(a);
     case 256 * 64 + 16: return launch_lanes<256, 16, CHAIN>(a);
-    case 256 * 64 + 32: return launch_lanes<256, 32, CHAIN>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// ud_kind: 0 = shared u_data (column kColUd of cols, row value 2 of rows;
-//              udT unused),
+// ud_kind: 0 = shared u_data (row value 2 of rows; udT unused),
 //          1 = streamed float (N, Bp) plane, 2 = streamed bf16 plane.
-// cols is the (N, 6) block the first design reads; rows the (NB, 3) block
-// {h, P, shared u_data} of the lanes design (NB the bucket of N, zero
-// rows past N).  n is the node count (the masks' rows).  lanes: 0 for the
-// first design, else lanes a scenario.  Every entry returns
-// cudaGetLastError() after the launch (0 on success).
+// rows is the (NB, 3) block {h, P, shared u_data} (NB the bucket of N,
+// zero rows past N), n the node count (the masks' rows), lanes the lanes
+// a scenario.  Every entry returns cudaGetLastError() after the launch (0
+// on success).
 extern "C" int difffe_cf_step(const void* keT, const void* udT, int ud_kind,
-                              const void* cols, const void* rows, void* loss,
-                              void* gradT, int N, int n, int Bp, int B,
-                              float scale, float u_l, float u_r, int lanes,
-                              void* stream) {
+                              const void* rows, void* loss, void* gradT,
+                              int N, int n, int Bp, int B, float scale,
+                              float u_l, float u_r, int lanes, void* stream) {
   const Args a{static_cast<const float*>(keT), udT, ud_kind,
-               static_cast<const float*>(cols), static_cast<float*>(loss),
-               static_cast<float*>(gradT), N, n, Bp, B, scale, u_l, u_r, 1,
-               0.f, static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(loss), static_cast<float*>(gradT), N, n,
+               Bp, B, scale, u_l, u_r, 1, 0.f,
+               static_cast<cudaStream_t>(stream)};
   return static_cast<int>(launch<false>(a, rows, lanes));
 }
 
 extern "C" int difffe_cf_chain(const void* keT, const void* udT, int ud_kind,
-                               const void* cols, const void* rows,
-                               void* loss, void* keT_out, int N, int n,
-                               int Bp, int B, float scale, float u_l,
-                               float u_r, int n_inner, float lr, int lanes,
-                               void* stream) {
+                               const void* rows, void* loss, void* keT_out,
+                               int N, int n, int Bp, int B, float scale,
+                               float u_l, float u_r, int n_inner, float lr,
+                               int lanes, void* stream) {
   const Args a{static_cast<const float*>(keT), udT, ud_kind,
-               static_cast<const float*>(cols), static_cast<float*>(loss),
-               static_cast<float*>(keT_out), N, n, Bp, B, scale, u_l, u_r,
-               n_inner, lr, static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(loss), static_cast<float*>(keT_out), N, n,
+               Bp, B, scale, u_l, u_r, n_inner, lr,
+               static_cast<cudaStream_t>(stream)};
   return static_cast<int>(launch<true>(a, rows, lanes));
 }

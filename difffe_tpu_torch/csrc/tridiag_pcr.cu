@@ -33,9 +33,10 @@
 // each neighbour's old value at hand (one slot of shuffled values rolled
 // along for s < 32, a chain k, k + s/32, ... for s >= 32).  A neighbour
 // past the ends reads the fill values (b = 1, a = c = r = 0), so rows
-// j >= n never reach a row below n.  The sweeps are unrolled with s a
-// compile-time constant.  Each scenario's rows are read coalesced, 32
-// consecutive values a slot.
+// j >= n never reach a row below n.  The sweeps at s = 1..16 are one loop
+// with s a run-time value (one copy of the code, for the instruction
+// cache); s = 32, 64 and 128 are compile-time slot moves.  Each scenario's
+// rows are read coalesced, 32 consecutive values a slot.
 //
 // Block route (pcr_kernel, the first design; n up to 8192): a thread block
 // holds `spb` whole scenarios, spb * n rows, in shared memory: four arrays
@@ -222,41 +223,50 @@ __device__ __forceinline__ Row<T> pcr_update(const Row<T>& x,
                 add(add(x.r, mul(alpha, up.r)), mul(gamma, dn.r))};
 }
 
-// One sweep at stride S over the K slots of a warp's scenario.
-template <typename T, int K, int S>
-__device__ __forceinline__ void warp_sweep(Row<T> (&x)[K], int lane, int n) {
-  if constexpr (S < 32) {
-    const int src_up = (lane - S) & 31, src_dn = (lane + S) & 31;
-    const bool wrap_up = lane < S, wrap_dn = lane + S >= 32;
-    // t_prev: slot k-1 shuffled up (old values); d_cur, d_next: slots k and
-    // k+1 shuffled down (old values)
-    Row<T> t_prev = fill_row<T>();
-    Row<T> d_cur = shfl_row(x[0], src_dn);
+// One sweep at a stride s < 32 over the K slots of a warp's scenario: the
+// neighbours are shuffles, the rows across the lane boundary the
+// neighbour slot's.  s is a run-time value, so one copy of this code
+// serves the first five sweeps (the code stays small for the instruction
+// cache).
+template <typename T, int K>
+__device__ __forceinline__ void warp_sweep_shfl(Row<T> (&x)[K], int lane,
+                                                int n, int s) {
+  const int src_up = (lane - s) & 31, src_dn = (lane + s) & 31;
+  const bool wrap_up = lane < s, wrap_dn = lane + s >= 32;
+  // t_prev: slot k-1 shuffled up (old values); d_cur, d_next: slots k and
+  // k+1 shuffled down (old values)
+  Row<T> t_prev = fill_row<T>();
+  Row<T> d_cur = shfl_row(x[0], src_dn);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const Row<T> t_cur = shfl_row(x[k], src_up);
-      const Row<T> d_next =
-          k + 1 < K ? shfl_row(x[k + 1], src_dn) : fill_row<T>();
-      const Row<T> up = wrap_up ? t_prev : t_cur;
-      Row<T> dn = wrap_dn ? d_next : d_cur;
-      if (32 * k + lane + S >= n) dn = fill_row<T>();
-      x[k] = pcr_update(x[k], up, dn);
-      t_prev = t_cur;
-      d_cur = d_next;
-    }
-  } else {
-    constexpr int M = S / 32;
+  for (int k = 0; k < K; ++k) {
+    const Row<T> t_cur = shfl_row(x[k], src_up);
+    const Row<T> d_next =
+        k + 1 < K ? shfl_row(x[k + 1], src_dn) : fill_row<T>();
+    const Row<T> up = wrap_up ? t_prev : t_cur;
+    Row<T> dn = wrap_dn ? d_next : d_cur;
+    if (32 * k + lane + s >= n) dn = fill_row<T>();
+    x[k] = pcr_update(x[k], up, dn);
+    t_prev = t_cur;
+    d_cur = d_next;
+  }
+}
+
+// One sweep at the stride S = 32 M: the neighbours are slots k -+ M of the
+// same lane, updated in place along each chain k0, k0 + M, ... with the
+// previous slot's old value kept.
+template <typename T, int K, int M>
+__device__ __forceinline__ void warp_sweep_slots(Row<T> (&x)[K], int lane,
+                                                 int n) {
 #pragma unroll
-    for (int k0 = 0; k0 < M && k0 < K; ++k0) {
-      Row<T> prev = fill_row<T>();   // old value of slot k - M
+  for (int k0 = 0; k0 < M && k0 < K; ++k0) {
+    Row<T> prev = fill_row<T>();   // old value of slot k - M
 #pragma unroll
-      for (int k = k0; k < K; k += M) {
-        const Row<T> old = x[k];
-        Row<T> dn = k + M < K ? x[k + M] : fill_row<T>();
-        if (32 * k + lane + S >= n) dn = fill_row<T>();
-        x[k] = pcr_update(old, prev, dn);
-        prev = old;
-      }
+    for (int k = k0; k < K; k += M) {
+      const Row<T> old = x[k];
+      Row<T> dn = k + M < K ? x[k + M] : fill_row<T>();
+      if (32 * (k + M) + lane >= n) dn = fill_row<T>();
+      x[k] = pcr_update(old, prev, dn);
+      prev = old;
     }
   }
 }
@@ -286,20 +296,21 @@ pcr_warp_kernel(const T* __restrict__ d, long long sd,
       if (i < n - 1) x[k].c = er[i];
     }
   }
-  // ceil(log2 n) sweeps, at most log2(32 K); a compile-time stride each
-#define DIFFFE_SWEEP(st)                                  \
-  if constexpr ((1 << st) < 32 * K) {                     \
-    if (st < steps) warp_sweep<T, K, (1 << st)>(x, lane, n); \
+  // ceil(log2 n) sweeps: strides 1..16 by shuffles in one loop, then 32,
+  // 64 and 128 (where K has them) by slot moves
+  const int shfl_steps = steps < 5 ? steps : 5;
+#pragma unroll 1
+  for (int st = 0; st < shfl_steps; ++st)
+    warp_sweep_shfl<T, K>(x, lane, n, 1 << st);
+  if constexpr (K > 1) {
+    if (steps > 5) warp_sweep_slots<T, K, 1>(x, lane, n);
   }
-  DIFFFE_SWEEP(0)
-  DIFFFE_SWEEP(1)
-  DIFFFE_SWEEP(2)
-  DIFFFE_SWEEP(3)
-  DIFFFE_SWEEP(4)
-  DIFFFE_SWEEP(5)
-  DIFFFE_SWEEP(6)
-  DIFFFE_SWEEP(7)
-#undef DIFFFE_SWEEP
+  if constexpr (K > 2) {
+    if (steps > 6) warp_sweep_slots<T, K, 2>(x, lane, n);
+  }
+  if constexpr (K > 4) {
+    if (steps > 7) warp_sweep_slots<T, K, 4>(x, lane, n);
+  }
   T* ur = u + sc * n;
 #pragma unroll
   for (int k = 0; k < K; ++k) {

@@ -33,10 +33,10 @@ _P, _I, _F, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong, ctypes.c_double
 # C entry points: name -> argtypes (every pointer and the stream as void*)
 _SIGNATURES = {
-    "difffe_cf_step": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                       _F, _I, _P],
-    "difffe_cf_chain": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                        _F, _I, _F, _I, _P],
+    "difffe_cf_step": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                       _I, _P],
+    "difffe_cf_chain": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                        _I, _F, _I, _P],
     "difffe_stencil_cg_work": [_I, _I],
     "difffe_stencil_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P],

@@ -16,14 +16,13 @@ totals are unaffected and their gradient is 0.
 
 Each operation has two implementations behind one wrapper:
 
-* the CUDA kernel in ``csrc/fused_grad_cf.cu``, launched for CUDA tensors.
-  ``k1_plan(N)`` picks its body by row bucket NB (32, 64, 128, 256): the
-  "lanes" design, L lanes a scenario each holding NB/L rows in registers
-  with running f32 sums and a shuffle scan across the L lanes, the per-row
-  constants in ``__constant__`` memory (``k1_rows``: h, P and the shared
-  u_data, copied on the stream before each launch); ``plan=`` forces
-  another L of the bucket or the first design ("first": one thread a
-  scenario, the constants in shared memory);
+* the CUDA kernel in ``csrc/fused_grad_cf.cu``, launched for CUDA tensors:
+  L lanes a scenario, each holding NB/L rows in registers with running f32
+  sums and a shuffle scan across the L lanes, the per-row constants in
+  ``__constant__`` memory (``k1_rows``: h, P and the shared u_data, copied
+  on the stream before each launch).  ``k1_plan(N)`` picks L by row bucket
+  NB (32, 64, 128, 256), as measured on the card; ``plan=`` forces another
+  L the bucket has;
 * the plain PyTorch version below (``torch.cumsum`` on the plane), taken
   only for CPU tensors, and the reference the kernel is checked against.
 
@@ -45,8 +44,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F_
 
-# Column indices in the packed (N, 6) constants block (csrc/fused_grad_cf.cu
-# reads the same layout).
+# Column indices in the packed (N, 6) constants block the plain version
+# reads; the kernel takes its first three columns (k1_rows).
 _COL_HS = 0      # element width h_e on element rows, 0 on pads
 _COL_PF = 1      # P_e = Σ_{i<e} F_i from the shared load (element rows)
 _COL_UD = 2      # shared u_data on node rows (shared-ud mode)
@@ -58,13 +57,12 @@ _N_COLS = 6
 #: Largest padded row count N the CUDA kernel takes (its biggest bucket).
 MAX_ROWS = 256
 
-#: Kernel launches made by the wrappers: "step" and "chain" on the lanes
-#: design, "step_first" and "chain_first" on the first design.
-launches = {"step": 0, "chain": 0, "step_first": 0, "chain_first": 0}
+#: Kernel launches made by the wrappers, by kernel ("step", "chain").
+launches = {"step": 0, "chain": 0}
 
-#: Row buckets NB of the kernel and, for each, the lanes a scenario its
-#: lanes bodies take; the first entry is the plan's default.
-K1_LANES = {32: (1, 2, 4), 64: (4, 8), 128: (8, 16), 256: (16, 32)}
+#: Row buckets NB of the kernel and, for each, the lanes a scenario of its
+#: bodies; the first entry is the plan's default.
+K1_LANES = {32: (1, 2, 4), 64: (4,), 128: (8,), 256: (16,)}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -85,17 +83,15 @@ def k1_bucket(N: int) -> int:
 
 def k1_plan(N: int, plan=None) -> int:
     """Lanes a scenario of K1's body for N packed rows: the bucket's
-    default for ``plan=None``, 0 (the first design) for ``"first"``, or
-    ``plan`` itself when the bucket has a lanes body for it."""
+    default for ``plan=None``, else ``plan`` itself when the bucket has a
+    body for it."""
     nb = k1_bucket(N)
     if plan is None:
         return K1_LANES[nb][0]
-    if plan == "first":
-        return 0
     if plan in K1_LANES[nb]:
         return int(plan)
     raise ValueError(f"K1 plan {plan!r}: bucket NB={nb} has lanes bodies "
-                     f"{K1_LANES[nb]} and the first design ('first')")
+                     f"{K1_LANES[nb]}")
 
 
 def k1_rows(cols: torch.Tensor) -> torch.Tensor:
@@ -241,12 +237,12 @@ def _launch(name, keT, udT, cols, B, n, scale, u_l, u_r, chain_args=(),
     with torch.cuda.device(keT.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(keT.data_ptr(), None if udT is None else udT.data_ptr(),
-                ud_kind, cols.data_ptr(), rows.data_ptr(), loss.data_ptr(),
-                out.data_ptr(), N, int(n), Bp, int(B), float(scale),
-                float(u_l), float(u_r), *chain_args, lanes, stream)
+                ud_kind, rows.data_ptr(), loss.data_ptr(), out.data_ptr(), N,
+                int(n), Bp, int(B), float(scale), float(u_l), float(u_r),
+                *chain_args, lanes, stream)
     if rc != 0:
         raise RuntimeError(f"K1 {name} kernel launch failed: CUDA error {rc}")
-    launches[name if lanes else f"{name}_first"] += 1
+    launches[name] += 1
     return loss, out
 
 

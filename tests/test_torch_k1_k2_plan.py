@@ -1,11 +1,11 @@
 """K1's and K2's routes, and K1's per-row constants, on the CPU.
 
 ``fused_grad_cf_kernel.k1_plan(N)`` picks K1's body by row bucket NB:
-the lanes design at the bucket's default lanes a scenario, another L the
-bucket has, or the first design ("first").  The lanes design takes its
-per-row constants as ``k1_rows(cols)``, an (NB, 3) block {h, P, shared
-u_data}, and derives the node and interior masks from the row and n;
-here that block and those masks are held against ``cols`` itself.
+the bucket's default lanes a scenario L, or another L the bucket has.
+The kernel takes its per-row constants as ``k1_rows(cols)``, an (NB, 3)
+block {h, P, shared u_data}, and derives the node and interior masks
+from the row and n; here that block and those masks are held against
+``cols`` itself.
 ``tridiag_kernel.k2_plan(n, dtype)`` picks K2's route: the warp route up
 to ``WARP_MAX_ROWS`` rows, the block route above.  The kernels run only
 on the card (tests/test_torch_cuda.py); no JAX here.
@@ -30,7 +30,6 @@ def test_k1_plan_routes_by_bucket(N, nb):
     assert tk.k1_bucket(N) == nb
     lanes = tk.K1_LANES[nb]
     assert tk.k1_plan(N) == lanes[0]
-    assert tk.k1_plan(N, "first") == 0
     for L in lanes:
         assert tk.k1_plan(N, L) == L
         # every lane holds the same whole number of rows, a warp whole
@@ -46,8 +45,9 @@ def test_k1_plan_refuses_what_no_body_takes():
             tk.k1_plan(N)
     with pytest.raises(ValueError, match="lanes bodies"):
         tk.k1_plan(136, 2)
-    with pytest.raises(ValueError, match="lanes bodies"):
-        tk.k1_plan(30, "lanes")
+    for plan in ("first", "lanes", 0):
+        with pytest.raises(ValueError, match="lanes bodies"):
+            tk.k1_plan(30, plan)
 
 
 @pytest.mark.parametrize("n_el", [2, 9, 30, 63, 128, 255])
