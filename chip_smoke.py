@@ -95,8 +95,8 @@ K2 (batched PCR tridiagonal solve, ``method="tridiag_pallas"``):
     layout and a second launch equal bit for bit;
 14. the main path: u_data from ``solve_poisson_batched(method=
     "tridiag_pallas")``, ``recover_kappa_field`` for 200 Adam steps
-    (1 + 2 × 200 K2 launches, all on the warp route; the misfit must
-    fall 1e3×); then, in f64,
+    (1 + 2 × 200 K2 launches, all on the block route, which ``k2_plan``
+    picks below 2048 systems; the misfit must fall 1e3×); then, in f64,
     ``recover_kappa_scalar`` (κ error < 1e-6), the three stages of
     examples/poisson_1d_demo.py (FEM error ≤ 1e-13, ``NeuralPDE`` within
     5% after 3000 epochs, κ = 2 within 1e-4) and
@@ -1440,7 +1440,7 @@ def run_facade_1d(torch, dev, card):
                         ks = {r: solve_and_grads(
                             lambda *t, r=r: tk.tridiag_solve_kernel(
                                 *t, plan=r), *args) for r in routes}
-                        k = ks[tk.k2_plan(n, dt)]
+                        k = ks[tk.k2_plan(n, dt, B)]
                         for r, kr in ks.items():
                             for name, a, b in zip(names, kr, p):
                                 if not torch.equal(a, b):
@@ -1527,9 +1527,10 @@ def run_facade_1d(torch, dev, card):
         f"{STEPS_1D} Adam steps lr={LR_1D}: loss {h0:.6e} -> {h1:.6e} "
         f"({h0 / h1:.1f}x) ({time.perf_counter() - t0:.2f} s with u_data)")
     log(f"1D facade main-path launches: {main_path}")
-    if main_path["pcr"] != 1 + 2 * STEPS_1D or main_path["pcr_block"]:
+    # B = 1024 is below WARP_MIN_BATCH: the plan's route is the block route
+    if main_path != {"pcr": 0, "pcr_block": 1 + 2 * STEPS_1D}:
         raise AssertionError(f"K2 launches {main_path}: the main path runs "
-                             f"{1 + 2 * STEPS_1D} on the warp route")
+                             f"{1 + 2 * STEPS_1D} on the block route")
     if kappa.shape != (BATCH_1D, N_1D) or not bool(
             torch.isfinite(kappa).all()):
         raise AssertionError("recover_kappa_field's kappa is not finite of "
@@ -1650,7 +1651,7 @@ def run_facade_1d(torch, dev, card):
             t = device_ms(torch, lambda c, r=route: solve(r)(dB, eB, c), F0,
                           20, key)
             ms[B][route] = min(ms[B].get(route, float("inf")), t)
-        ms[B]["device"] = ms[B]["warp"]
+        ms[B]["device"] = ms[B][tk.k2_plan(n, f32, B)]
         lb = min(B, BATCH_LIB)
         T = (torch.diag_embed(dB[:lb]) + torch.diag_embed(eB[:lb], 1)
              + torch.diag_embed(eB[:lb], -1))

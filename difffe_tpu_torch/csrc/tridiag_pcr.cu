@@ -22,6 +22,9 @@
 // error on the ill-conditioned FEM bands at n = 257.
 //
 // Two routes (the wrapper's k2_plan picks one; both give the same bits).
+// On an H100 at n = 129 the warp route leads from B = 2048 systems on (1.37x
+// at 65 536) and trails below: with fewer than ~16 warps an SM its five
+// slots a lane are latency-bound, where the block route has a thread a row.
 //
 // Warp route (pcr_warp_kernel, n <= kWarpMaxRows = 256): one warp a
 // scenario, no shared memory and no block barrier.  The rows sit in

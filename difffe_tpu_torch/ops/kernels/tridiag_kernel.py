@@ -7,14 +7,17 @@ independent symmetric tridiagonal systems: ``_pcr_pallas_padded`` (batch
 layout, n padded to 128 lanes) and ``_pcr_pallas_T`` (transposed layout,
 n on sublanes, the batch on lanes).  Here one CUDA source
 (``csrc/tridiag_pcr.cu``) serves both, with two routes that give the same
-bits; ``k2_plan(n, dtype)`` picks one:
+bits; ``k2_plan(n, dtype, batch)`` picks one:
 
-* ``"warp"`` for n ≤ ``WARP_MAX_ROWS`` (256): one warp a scenario, its rows
-  striped over the lanes' registers, neighbours by shuffles, no shared
-  memory and no block barrier (launches counted as ``"pcr"``);
-* ``"block"`` above, up to one block's 8192 rows: a thread block holds
+* ``"warp"`` for n ≤ ``WARP_MAX_ROWS`` (256) and at least
+  ``WARP_MIN_BATCH`` systems: one warp a scenario, its rows striped over
+  the lanes' registers, neighbours by shuffles, no shared memory and no
+  block barrier (launches counted as ``"pcr"``);
+* ``"block"`` otherwise, up to one block's 8192 rows: a thread block holds
   ``spb`` whole scenarios in shared memory and runs the PCR sweeps there
-  (the first design; launches counted as ``"pcr_block"``).
+  (the first design; launches counted as ``"pcr_block"``).  With fewer
+  than ~16 scenarios' warps an SM the warp route's five slots a lane
+  (n = 129) are latency-bound, and one thread a row wins.
 
 Nothing is padded.  ``layout`` and ``block_b`` keep the JAX signature and
 only set the block route's ``spb``, the launch shape:
@@ -49,19 +52,25 @@ launches = {"pcr": 0, "pcr_block": 0}
 _ROWS = 512          # rows a block aims at (spb * n)
 #: Largest system the warp route takes (8 register slots of 32 rows).
 WARP_MAX_ROWS = 256
+#: Fewest systems the warp route takes unforced: on an H100 at n = 129 the
+#: block route was faster up to B = 1024 (0.0094 against 0.0115 ms) and
+#: the warp route from B = 2048 on (chip_smoke.py phase 16).
+WARP_MIN_BATCH = 2048
 
 
-def k2_plan(n: int, dtype: torch.dtype, plan=None) -> str:
-    """K2's route for systems of n rows of ``dtype``: ``"warp"`` for
-    n ≤ ``WARP_MAX_ROWS``, ``"block"`` above; ``plan`` forces either and is
-    refused where the warp route cannot hold the system."""
+def k2_plan(n: int, dtype: torch.dtype, batch: int, plan=None) -> str:
+    """K2's route for ``batch`` systems of n rows of ``dtype``: ``"warp"``
+    for n ≤ ``WARP_MAX_ROWS`` and batch ≥ ``WARP_MIN_BATCH``, ``"block"``
+    otherwise; ``plan`` forces either and is refused where the warp route
+    cannot hold the system."""
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the CUDA K2 kernel takes float32 or float64 "
                         f"bands, got {dtype}")
     if n < 1:
         raise ValueError(f"K2 needs n >= 1 rows, got {n}")
     if plan is None:
-        return "warp" if n <= WARP_MAX_ROWS else "block"
+        return ("warp" if n <= WARP_MAX_ROWS and batch >= WARP_MIN_BATCH
+                else "block")
     if plan not in ("warp", "block"):
         raise ValueError(f"K2 plan must be 'warp' or 'block', got {plan!r}")
     if plan == "warp" and n > WARP_MAX_ROWS:
@@ -106,9 +115,9 @@ def _launch(d, e, F, lead, n, spb, plan=None):
     for t in (d, e):
         if t.device != F.device or t.dtype != F.dtype:
             raise ValueError("K2 bands must share F's device and dtype")
-    route = k2_plan(n, F.dtype, plan)
     d2, e2, F2 = _rows(d, lead, n), _rows(e, lead, n - 1), _rows(F, lead, n)
     B = F2.shape[0]
+    route = k2_plan(n, F.dtype, B, plan)
     u = torch.empty((B, n), dtype=F.dtype, device=F.device)
     if B == 0:
         return u

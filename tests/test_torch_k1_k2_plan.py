@@ -6,9 +6,10 @@ The kernel takes its per-row constants as ``k1_rows(cols)``, an (NB, 3)
 block {h, P, shared u_data}, and derives the node and interior masks
 from the row and n; here that block and those masks are held against
 ``cols`` itself.
-``tridiag_kernel.k2_plan(n, dtype)`` picks K2's route: the warp route up
-to ``WARP_MAX_ROWS`` rows, the block route above.  The kernels run only
-on the card (tests/test_torch_cuda.py); no JAX here.
+``tridiag_kernel.k2_plan(n, dtype, batch)`` picks K2's route: the warp
+route up to ``WARP_MAX_ROWS`` rows from ``WARP_MIN_BATCH`` systems on, the
+block route otherwise.  The kernels run only on the card
+(tests/test_torch_cuda.py); no JAX here.
 """
 
 import numpy as np
@@ -88,19 +89,25 @@ def test_k1_rows_against_cols(n_el, shared):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k2_plan_routes_by_n_and_dtype(dtype):
+    big, small = k2.WARP_MIN_BATCH, k2.WARP_MIN_BATCH - 1
     for n in (1, 2, 31, 32, 33, 129, k2.WARP_MAX_ROWS):
-        assert k2.k2_plan(n, dtype) == "warp"
-        assert k2.k2_plan(n, dtype, "block") == "block"
+        assert k2.k2_plan(n, dtype, big) == "warp"
+        assert k2.k2_plan(n, dtype, 65536) == "warp"
+        assert k2.k2_plan(n, dtype, small) == "block"
+        assert k2.k2_plan(n, dtype, 1024) == "block"
+        assert k2.k2_plan(n, dtype, big, "block") == "block"
+        assert k2.k2_plan(n, dtype, 1, "warp") == "warp"
     for n in (k2.WARP_MAX_ROWS + 1, 4097, 8192):
-        assert k2.k2_plan(n, dtype) == "block"
+        assert k2.k2_plan(n, dtype, big) == "block"
+        assert k2.k2_plan(n, dtype, 1) == "block"
 
 
 def test_k2_warp_route_refuses_what_it_cannot_hold():
     with pytest.raises(ValueError, match="warp route holds at most"):
-        k2.k2_plan(k2.WARP_MAX_ROWS + 1, torch.float32, "warp")
+        k2.k2_plan(k2.WARP_MAX_ROWS + 1, torch.float32, 65536, "warp")
     with pytest.raises(ValueError, match="'warp' or 'block'"):
-        k2.k2_plan(31, torch.float32, "lanes")
+        k2.k2_plan(31, torch.float32, 65536, "lanes")
     with pytest.raises(TypeError, match="float32 or float64"):
-        k2.k2_plan(31, torch.float16)
+        k2.k2_plan(31, torch.float16, 65536)
     with pytest.raises(ValueError, match="n >= 1"):
-        k2.k2_plan(0, torch.float64)
+        k2.k2_plan(0, torch.float64, 65536)

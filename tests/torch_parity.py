@@ -1,6 +1,8 @@
 """Helpers shared by the parity tests of the PyTorch port
 (tests/test_torch_*.py): numpy/JAX arrays in, torch tensors out."""
 
+import functools
+
 import numpy as np
 import torch
 
@@ -33,10 +35,17 @@ def rel_err(a, b) -> float:
 def jax_mesh(factory, *args, **kw):
     """A ``difffe_tpu`` mesh from one compiled call of ``factory`` (e.g.
     ``JMesh.box``): the factories' eager ops would each compile on first
-    use, which costs seconds per mesh shape."""
+    use, which costs seconds per mesh shape.  Built once a process for each
+    factory and arguments (the meshes are frozen), so the tests that share
+    a mesh share its compile."""
+    return _jax_mesh(factory, args, tuple(sorted(kw.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mesh(factory, args, kw):
     import jax
 
-    return jax.jit(lambda: factory(*args, **kw))()
+    return jax.jit(lambda: factory(*args, **dict(kw)))()
 
 
 def port_grid(jax_grid):
