@@ -12,9 +12,9 @@ any failure raises, so the run exits non-zero and never prints the final
 The 1D path (per-element κ on a line mesh, bench.py's workload: n = 30
 elements, B = 2^21 scenarios, one shared forcing), kernel K1:
 
-3. each K1 variant (step/chain × shared/f32/bf16 u_data) on every body of
-   its row bucket (``k1_plan``: each L, lanes a scenario, the bucket has)
-   against its plain PyTorch version, n ∈ {10, 30, 60, 100,
+3. each K1 variant (step/chain × shared/f32/bf16 u_data) on the body of
+   its row bucket (``k1_plan``: L lanes a scenario) against its plain
+   PyTorch version, n ∈ {10, 30, 60, 100,
    128} (buckets 32, 32, 64, 128, 256), B ∈ {1000, 2^21} (1000 only at
    60 and 100): f32 within 1e-5 (step) and 1e-4 (32-step chain), and the
    plain version run in f64 by the rule of phase 7; padded lanes inert;
@@ -23,12 +23,11 @@ elements, B = 2^21 scenarios, one shared forcing), kernel K1:
 5. bench.py's parity gate: the step kernel's gradient against autograd
    through the PCR tridiagonal oracle on the bf16-quantized plane;
 6. a ``torch.profiler`` split of one ``fit_kappa`` call; chained timing
-   of the chain on every body of the bucket in turns and of its plain
-   version, with the streamed bf16 u_data plane (K1d) and with shared
-   u_data (K1c); the step's kernel time a call from the profiler, every
-   body in turns, and its plain version's (K1b, K1a); the chain in the
-   buckets 64, 128 and 256 (B = 2^18); the registers and spills of every
-   K1 body.
+   of the chain and its plain version, with the streamed bf16 u_data
+   plane (K1d) and with shared u_data (K1c); the step's kernel time a
+   call from the profiler, and its plain version's (K1b, K1a); the chain
+   in the buckets 64, 128 and 256 (B = 2^18); the registers and spills of
+   every K1 body.
 
 The 2D path (κ-field inversion on ``FEMesh.rectangle(64, 64)``, the
 structured-grid config of BASELINE.json, B = 4096 scenarios), kernels K3a
@@ -425,7 +424,7 @@ def run_1d(torch, dev, card):
             F = assemble_load(mesh, fv)
             ke0 = 1.0 + 0.3 * torch.rand(B, n, generator=g, device=dev)
             scale = 2.0 / (n + 1)
-            plans = tk.K1_LANES[tk.k1_bucket(tk.packed_rows(n + 1))]
+            L = tk.k1_plan(tk.packed_rows(n + 1))
             for mode in ("shared", "f32", "bf16"):
                 keT, aux = tk.cf_packed_operands(
                     mesh, ke0, F, ud[0] if mode == "shared" else ud,
@@ -439,50 +438,47 @@ def run_1d(torch, dev, card):
                 lp_q, g_q = tk._cf_step_plain(keT.double(), *args64)
                 lc_q, k_q = tk._cf_chain_plain(keT.double(), *args64,
                                                CHAIN_K, LR)
-                for plan in plans:
-                    lp_k, g_k = tk.kappa_mse_step_cf_packed(keT, aux, scale,
-                                                            plan=plan)
-                    lc_k, k_k = tk.kappa_sgd_chain_cf(keT, aux, CHAIN_K, LR,
-                                                      scale, plan=plan)
-                    torch.cuda.synchronize()
-                    errs = {
-                        "step_grad": rel_err(g_k[:, :B], g_p[:, :B]),
-                        "step_loss": rel_err(lp_k[:, :B], lp_p[:, :B]),
-                        "chain_kappa": rel_err(k_k[:, :B], k_p[:, :B]),
-                        "chain_loss": rel_err(lc_k[:, :B], lc_p[:, :B]),
-                    }
-                    tag = f"phase 3 n={n} B={B} ud={mode} plan={plan}"
-                    rule = [check_rule(
-                        "K1", a[:, :B], b[:, :B], c[:, :B], f"{tag} {what}")
-                        for what, a, b, c in (
-                            ("step_grad", g_k, g_p, g_q),
-                            ("step_loss", lp_k, lp_p, lp_q),
-                            ("chain_kappa", k_k, k_p, k_q),
-                            ("chain_loss", lc_k, lc_p, lc_q))]
-                    log(f"{tag}: " + " ".join(
-                        f"{k}={v:.2e}" for k, v in errs.items())
-                        + "; vs f64 plain (kernel, f32 plain) " + " ".join(
-                            f"({ek:.2e}, {ep:.2e})" for ek, ep in rule))
-                    if max(errs["step_grad"], errs["step_loss"]) > STEP_TOL:
-                        raise AssertionError(f"{tag}: step kernel disagrees: "
-                                             f"{errs}")
-                    if max(errs["chain_kappa"],
-                           errs["chain_loss"]) > CHAIN_TOL:
-                        raise AssertionError(f"{tag}: chain kernel "
-                                             f"disagrees: {errs}")
-                    if not (torch.all(g_k[:, B:] == 0)
-                            and torch.all(lp_k[:, B:] == 0)
-                            and torch.all(lc_k[:, B:] == 0)
-                            and torch.equal(k_k[:, B:], keT[:, B:])):
-                        raise AssertionError(f"{tag}: padded lanes were "
-                                             f"written")
-                    max_abs["step"] = max(max_abs["step"], float(
-                        (g_k[:, :B] - g_p[:, :B]).abs().max()))
-                    max_abs["chain"] = max(max_abs["chain"], float(
-                        (k_k[:, :B] - k_p[:, :B]).abs().max()))
-                    del lp_k, g_k, lc_k, k_k
+                lp_k, g_k = tk.kappa_mse_step_cf_packed(keT, aux, scale)
+                lc_k, k_k = tk.kappa_sgd_chain_cf(keT, aux, CHAIN_K, LR,
+                                                  scale)
+                torch.cuda.synchronize()
+                errs = {
+                    "step_grad": rel_err(g_k[:, :B], g_p[:, :B]),
+                    "step_loss": rel_err(lp_k[:, :B], lp_p[:, :B]),
+                    "chain_kappa": rel_err(k_k[:, :B], k_p[:, :B]),
+                    "chain_loss": rel_err(lc_k[:, :B], lc_p[:, :B]),
+                }
+                tag = f"phase 3 n={n} B={B} ud={mode} L={L}"
+                rule = [check_rule(
+                    "K1", a[:, :B], b[:, :B], c[:, :B], f"{tag} {what}")
+                    for what, a, b, c in (
+                        ("step_grad", g_k, g_p, g_q),
+                        ("step_loss", lp_k, lp_p, lp_q),
+                        ("chain_kappa", k_k, k_p, k_q),
+                        ("chain_loss", lc_k, lc_p, lc_q))]
+                log(f"{tag}: " + " ".join(
+                    f"{k}={v:.2e}" for k, v in errs.items())
+                    + "; vs f64 plain (kernel, f32 plain) " + " ".join(
+                        f"({ek:.2e}, {ep:.2e})" for ek, ep in rule))
+                if max(errs["step_grad"], errs["step_loss"]) > STEP_TOL:
+                    raise AssertionError(f"{tag}: step kernel disagrees: "
+                                         f"{errs}")
+                if max(errs["chain_kappa"],
+                       errs["chain_loss"]) > CHAIN_TOL:
+                    raise AssertionError(f"{tag}: chain kernel "
+                                         f"disagrees: {errs}")
+                if not (torch.all(g_k[:, B:] == 0)
+                        and torch.all(lp_k[:, B:] == 0)
+                        and torch.all(lc_k[:, B:] == 0)
+                        and torch.equal(k_k[:, B:], keT[:, B:])):
+                    raise AssertionError(f"{tag}: padded lanes were "
+                                         f"written")
+                max_abs["step"] = max(max_abs["step"], float(
+                    (g_k[:, :B] - g_p[:, :B]).abs().max()))
+                max_abs["chain"] = max(max_abs["chain"], float(
+                    (k_k[:, :B] - k_p[:, :B]).abs().max()))
                 del keT, aux, lp_p, g_p, lc_p, k_p, lp_q, g_q, lc_q, k_q
-                del args, args64
+                del lp_k, g_k, lc_k, k_k, args, args64
             del mesh, ud, ke0
             torch.cuda.empty_cache()
     log(f"phase 3 kernel vs plain: {time.perf_counter() - t0:.1f} s")
@@ -557,42 +553,32 @@ def run_1d(torch, dev, card):
                                      u_data[0], block_lanes=BLOCK_LANES)
     cols_s = aux_s["cols"]
     NB = tk.k1_bucket(keT0.shape[0])
-    plans = tk.K1_LANES[NB]
-    default = tk.k1_plan(keT0.shape[0])
-
-    def chain_fns(ax, udp, cl):
-        fns = {p: (lambda k, p=p: tk.kappa_sgd_chain_cf(
-            k, ax, CHAIN_K, LR, scale, plan=p)[1]) for p in plans}
-        fns["plain"] = lambda k: tk._cf_chain_plain(
-            k, udp, cl, B, scale, u_l, u_r, CHAIN_K, LR)[1]
-        return fns
-
-    order = ("plain",) + plans + plans[::-1] + ("plain",)
+    L = tk.k1_plan(keT0.shape[0])
     ms = {}
     for name, ax, udp, cl in (("chain", aux, udT, cols),
                               ("chain_shared", aux_s, None, cols_s)):
-        ms[name] = best = timed_turns(chain_fns(ax, udp, cl), keT0,
-                                      STEPS // CHAIN_K, order)
-        log(f"phase 6 {name} (NB={NB}, {CHAIN_K} steps a launch, B={BATCH})"
-            f": " + ", ".join(
-                f"L={p} {best[p]:.4f} ms" for p in plans)
-            + f", plain {best['plain']:.4f} ms; L={default} (the plan) "
-            f"{BATCH * CHAIN_K / best[default] * 1e3:.6e} grad-solves/s "
+        ms[name] = best = timed_pair(
+            lambda k, ax=ax: tk.kappa_sgd_chain_cf(k, ax, CHAIN_K, LR,
+                                                   scale)[1],
+            lambda k, udp=udp, cl=cl: tk._cf_chain_plain(
+                k, udp, cl, B, scale, u_l, u_r, CHAIN_K, LR)[1],
+            keT0, STEPS // CHAIN_K)
+        log(f"phase 6 {name} (NB={NB}, L={L}, {CHAIN_K} steps a launch, "
+            f"B={BATCH}): kernel {best['kernel']:.4f} ms, plain "
+            f"{best['plain']:.4f} ms; kernel "
+            f"{BATCH * CHAIN_K / best['kernel'] * 1e3:.6e} grad-solves/s "
             f"[{card}]")
     for name, ax, udp, cl in (("step", aux, udT, cols),
                               ("step_shared", aux_s, None, cols_s)):
-        res = {}
-        for plan in plans + plans[::-1]:
-            t = device_ms(torch, lambda k, plan=plan: (
-                tk.kappa_mse_step_cf_packed(k, ax, scale, plan=plan)[1]),
-                keT0, 20, "cf_lanes_kernel")
-            res[plan] = min(res.get(plan, float("inf")), t)
-        res["plain"] = device_ms(torch, lambda k: tk._cf_step_plain(
-            k, udp, cl, B, scale, u_l, u_r)[1], keT0, 4)
-        ms[name] = res
-        log(f"phase 6 {name} kernel time a call (profiler): " + ", ".join(
-            f"L={p} {res[p]:.4f} ms" for p in plans)
-            + f", plain {res['plain']:.4f} ms [{card}]")
+        ms[name] = res = {
+            "kernel": device_ms(torch, lambda k, ax=ax: (
+                tk.kappa_mse_step_cf_packed(k, ax, scale)[1]), keT0, 20,
+                "cf_lanes_kernel"),
+            "plain": device_ms(torch, lambda k, udp=udp, cl=cl: (
+                tk._cf_step_plain(k, udp, cl, B, scale, u_l, u_r)[1]),
+                keT0, 4)}
+        log(f"phase 6 {name} kernel time a call (profiler): kernel "
+            f"{res['kernel']:.4f} ms, plain {res['plain']:.4f} ms [{card}]")
     # with shared u_data only κ moves (κ in, κ′ out, the 4 B loss row)
     for name in ("chain_shared", "step_shared"):
         steps = CHAIN_K if name.startswith("chain") else 1
@@ -609,14 +595,12 @@ def run_1d(torch, dev, card):
             mb, 1.0 + 0.3 * torch.rand(BATCH_BUCKETS, nb_n, generator=gb,
                                        device=dev),
             assemble_load(mb, fb), udb, operand_dtype=torch.bfloat16)
-        nbb = tk.k1_bucket(keb.shape[0])
-        pb = tk.K1_LANES[nbb]
-        fns = {p: (lambda k, p=p: tk.kappa_sgd_chain_cf(
-            k, auxb, CHAIN_K, LR, 2.0 / (nb_n + 1), plan=p)[1]) for p in pb}
-        best = timed_turns(fns, keb, 4, pb + pb[::-1])
-        log(f"phase 6 chain at n={nb_n} (NB={nbb}, B={BATCH_BUCKETS}, bf16 "
-            f"u_data, {CHAIN_K} steps): " + ", ".join(
-                f"L={p} {best[p]:.4f} ms" for p in pb) + f" [{card}]")
+        fns = {"kernel": lambda k: tk.kappa_sgd_chain_cf(
+            k, auxb, CHAIN_K, LR, 2.0 / (nb_n + 1))[1]}
+        best = timed_turns(fns, keb, 4, ("kernel", "kernel"))
+        log(f"phase 6 chain at n={nb_n} (NB={tk.k1_bucket(keb.shape[0])}, "
+            f"L={tk.k1_plan(keb.shape[0])}, B={BATCH_BUCKETS}, bf16 u_data, "
+            f"{CHAIN_K} steps): {best['kernel']:.4f} ms [{card}]")
         del mb, fb, udb, keb, auxb, fns
         torch.cuda.empty_cache()
     log("phase 6 -Xptxas -v of K1's bodies:")
@@ -631,11 +615,11 @@ def run_1d(torch, dev, card):
     return [
         kernel_entry("cf_chain", CU_SOURCE, f"{JAX_KERNEL}:445",
                      main_path["chain"], max_abs["chain"],
-                     ms["chain"][default], ms["chain"]["plain"], ops_chain,
+                     ms["chain"]["kernel"], ms["chain"]["plain"], ops_chain,
                      nbytes),
         kernel_entry("cf_step", CU_SOURCE, f"{JAX_KERNEL}:132",
                      main_path["step"], max_abs["step"],
-                     ms["step"][default], ms["step"]["plain"], ops_step,
+                     ms["step"]["kernel"], ms["step"]["plain"], ops_step,
                      nbytes),
     ]
 

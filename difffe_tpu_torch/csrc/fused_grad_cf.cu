@@ -46,13 +46,12 @@
 // IEEE reciprocal: <= 1 ulp, inside the tolerances of the plain f32
 // version), kept for the adjoint pass and the gradient; the gradient pass
 // of step t and the totals pass of step t+1 are one loop.  No bucket keeps
-// its arrays in local memory.  The wrapper's k1_plan picks L by bucket, as
-// measured on an H100: L = 1 at NB = 32 (its ~210 registers run 8 warps
-// an SM, and still beat L = 2 and 4, whose shuffles and redundant
-// per-scenario work cost more than the occupancy gives), L = NB/16 above
-// (16 rows a lane under a 128-register cap, 16 warps an SM).  ~30
-// instructions a row and step remain, so the chain is bound by the FP32
-// issue rate.
+// its arrays in local memory.  L by bucket, as measured on an H100: L = 1
+// at NB = 32 (its ~250 registers run 8 warps an SM, and still beat L = 2
+// and 4, whose shuffles and per-scenario work repeated on every lane cost
+// more than the occupancy gives), L = NB/16 above (16 rows a lane under a
+// 128-register cap, 16 warps an SM).  ~30 instructions a row and step
+// remain, so the chain is bound by the FP32 issue rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -393,8 +392,8 @@ cudaError_t launch_lanes(const Args& a) {
   return cudaGetLastError();
 }
 
-// The bucket NB of N rows and the lanes a scenario: the bodies the
-// wrapper's K1_LANES lists.
+// The bucket NB of N rows and its lanes a scenario (the wrapper's
+// K1_LANES).
 template <bool CHAIN>
 cudaError_t launch(const Args& a, const void* rows, int lanes) {
   if (a.N < 1 || a.N > kMaxRows || a.n < 2 || a.n > a.N || a.Bp < 1 ||
@@ -410,8 +409,6 @@ cudaError_t launch(const Args& a, const void* rows, int lanes) {
   if (err != cudaSuccess) return err;
   switch (NB * 64 + lanes) {
     case 32 * 64 + 1: return launch_lanes<32, 1, CHAIN>(a);
-    case 32 * 64 + 2: return launch_lanes<32, 2, CHAIN>(a);
-    case 32 * 64 + 4: return launch_lanes<32, 4, CHAIN>(a);
     case 64 * 64 + 4: return launch_lanes<64, 4, CHAIN>(a);
     case 128 * 64 + 8: return launch_lanes<128, 8, CHAIN>(a);
     case 256 * 64 + 16: return launch_lanes<256, 16, CHAIN>(a);
@@ -424,9 +421,9 @@ cudaError_t launch(const Args& a, const void* rows, int lanes) {
 // ud_kind: 0 = shared u_data (row value 2 of rows; udT unused),
 //          1 = streamed float (N, Bp) plane, 2 = streamed bf16 plane.
 // rows is the (NB, 3) block {h, P, shared u_data} (NB the bucket of N,
-// zero rows past N), n the node count (the masks' rows), lanes the lanes
-// a scenario.  Every entry returns cudaGetLastError() after the launch (0
-// on success).
+// zero rows past N), n the node count (the masks' rows), lanes the
+// bucket's lanes a scenario.  Every entry returns cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int difffe_cf_step(const void* keT, const void* udT, int ud_kind,
                               const void* rows, void* loss, void* gradT,
                               int N, int n, int Bp, int B, float scale,

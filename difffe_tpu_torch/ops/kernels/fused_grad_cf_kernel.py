@@ -20,9 +20,8 @@ Each operation has two implementations behind one wrapper:
   L lanes a scenario, each holding NB/L rows in registers with running f32
   sums and a shuffle scan across the L lanes, the per-row constants in
   ``__constant__`` memory (``k1_rows``: h, P and the shared u_data, copied
-  on the stream before each launch).  ``k1_plan(N)`` picks L by row bucket
-  NB (32, 64, 128, 256), as measured on the card; ``plan=`` forces another
-  L the bucket has;
+  on the stream before each launch).  ``k1_plan(N)`` gives L by row bucket
+  NB (32, 64, 128, 256), as measured on the card;
 * the plain PyTorch version below (``torch.cumsum`` on the plane), taken
   only for CPU tensors, and the reference the kernel is checked against.
 
@@ -60,9 +59,9 @@ MAX_ROWS = 256
 #: Kernel launches made by the wrappers, by kernel ("step", "chain").
 launches = {"step": 0, "chain": 0}
 
-#: Row buckets NB of the kernel and, for each, the lanes a scenario of its
-#: bodies; the first entry is the plan's default.
-K1_LANES = {32: (1, 2, 4), 64: (4,), 128: (8,), 256: (16,)}
+#: Row buckets NB of the kernel and the lanes a scenario of each bucket's
+#: body: one lane (all 32 rows) at NB = 32, 16 rows a lane above.
+K1_LANES = {32: 1, 64: 4, 128: 8, 256: 16}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -81,17 +80,9 @@ def k1_bucket(N: int) -> int:
     return next(nb for nb in K1_LANES if N <= nb)
 
 
-def k1_plan(N: int, plan=None) -> int:
-    """Lanes a scenario of K1's body for N packed rows: the bucket's
-    default for ``plan=None``, else ``plan`` itself when the bucket has a
-    body for it."""
-    nb = k1_bucket(N)
-    if plan is None:
-        return K1_LANES[nb][0]
-    if plan in K1_LANES[nb]:
-        return int(plan)
-    raise ValueError(f"K1 plan {plan!r}: bucket NB={nb} has lanes bodies "
-                     f"{K1_LANES[nb]}")
+def k1_plan(N: int) -> int:
+    """Lanes a scenario of K1's body for N packed rows."""
+    return K1_LANES[k1_bucket(N)]
 
 
 def k1_rows(cols: torch.Tensor) -> torch.Tensor:
@@ -221,15 +212,14 @@ def _check_cuda_operands(keT, udT, cols, B) -> int:
                     f"u_data, got {udT.dtype}")
 
 
-def _launch(name, keT, udT, cols, B, n, scale, u_l, u_r, chain_args=(),
-            plan=None):
+def _launch(name, keT, udT, cols, B, n, scale, u_l, u_r, chain_args=()):
     from ._build import load_library
 
     ud_kind = _check_cuda_operands(keT, udT, cols, B)
     N, Bp = keT.shape
     if not 2 <= n <= N:
         raise ValueError(f"K1 needs 2 <= n <= N nodes, got n={n}, N={N}")
-    lanes = k1_plan(N, plan)
+    lanes = k1_plan(N)
     rows = k1_rows(cols)
     loss = torch.empty((1, Bp), dtype=torch.float32, device=keT.device)
     out = torch.empty_like(keT)
@@ -246,21 +236,20 @@ def _launch(name, keT, udT, cols, B, n, scale, u_l, u_r, chain_args=(),
     return loss, out
 
 
-def _cf_step(keT, udT, cols, B, n, scale, u_l, u_r, plan=None):
+def _cf_step(keT, udT, cols, B, n, scale, u_l, u_r):
     """One grad step: plain version on CPU tensors, the kernel on CUDA."""
     if keT.device.type == "cpu":
         return _cf_step_plain(keT, udT, cols, B, scale, u_l, u_r)
-    return _launch("step", keT, udT, cols, B, n, scale, u_l, u_r, plan=plan)
+    return _launch("step", keT, udT, cols, B, n, scale, u_l, u_r)
 
 
-def _cf_chain(keT, udT, cols, B, n, scale, u_l, u_r, n_inner, lr,
-              plan=None):
+def _cf_chain(keT, udT, cols, B, n, scale, u_l, u_r, n_inner, lr):
     """n_inner SGD steps: plain version on CPU tensors, the kernel on CUDA."""
     if keT.device.type == "cpu":
         return _cf_chain_plain(keT, udT, cols, B, scale, u_l, u_r,
                                n_inner, lr)
     return _launch("chain", keT, udT, cols, B, n, scale, u_l, u_r,
-                   (int(n_inner), float(lr)), plan)
+                   (int(n_inner), float(lr)))
 
 
 # ---------------------------------------------------------------------------
@@ -341,25 +330,24 @@ def cf_packed_operands(mesh, kappa_e, F, u_data, block_lanes: int = 512,
 
 
 def kappa_mse_step_cf_packed(keT, aux: dict, scale: Optional[float] = None,
-                             cumsum_via: str = "mxu", plan=None):
+                             cumsum_via: str = "mxu"):
     """Gradient step on packed (N, Bp) state: returns
-    (loss_parts (1, Bp), gradT (N, Bp)), zero in padded lanes.  ``plan``
-    forces a K1 body on the card (``k1_plan``)."""
+    (loss_parts (1, Bp), gradT (N, Bp)), zero in padded lanes."""
     _check_via(cumsum_via)
     if scale is None:
         scale = 2.0 / (aux["B"] * aux["n"])
     return _cf_step(keT, aux["udT"], aux["cols"], aux["B"], aux["n"], scale,
-                    aux["u_l"], aux["u_r"], plan)
+                    aux["u_l"], aux["u_r"])
 
 
 def kappa_sgd_chain_cf(keT, aux: dict, n_inner: int, lr: float,
                        scale: Optional[float] = None,
-                       cumsum_via: str = "mxu", plan=None):
+                       cumsum_via: str = "mxu"):
     """n_inner SGD steps per launch with κ held on the chip.
 
     Returns (loss_parts (1, Bp) from the LAST inner step, keT′); equal, to
     rounding, to n_inner calls of ``kappa_mse_step_cf_packed`` with the
-    same lr.  ``plan`` forces a K1 body on the card (``k1_plan``).
+    same lr.
     """
     if int(n_inner) < 1:
         raise ValueError("kappa_sgd_chain_cf needs n_inner >= 1")
@@ -367,7 +355,7 @@ def kappa_sgd_chain_cf(keT, aux: dict, n_inner: int, lr: float,
     if scale is None:
         scale = 2.0 / (aux["B"] * aux["n"])
     return _cf_chain(keT, aux["udT"], aux["cols"], aux["B"], aux["n"], scale,
-                     aux["u_l"], aux["u_r"], int(n_inner), float(lr), plan)
+                     aux["u_l"], aux["u_r"], int(n_inner), float(lr))
 
 
 def cf_unpack(keT, aux: dict) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """K1's and K2's routes, and K1's per-row constants, on the CPU.
 
-``fused_grad_cf_kernel.k1_plan(N)`` picks K1's body by row bucket NB:
-the bucket's default lanes a scenario L, or another L the bucket has.
-The kernel takes its per-row constants as ``k1_rows(cols)``, an (NB, 3)
+``fused_grad_cf_kernel.k1_plan(N)`` gives the lanes a scenario L of K1's
+body by row bucket NB.  The kernel takes its per-row constants as
+``k1_rows(cols)``, an (NB, 3)
 block {h, P, shared u_data}, and derives the node and interior masks
 from the row and n; here that block and those masks are held against
 ``cols`` itself.
@@ -24,31 +24,22 @@ from difffe_tpu_torch.ops.kernels import tridiag_kernel as k2
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("N,nb", [(8, 32), (32, 32), (40, 64), (64, 64),
-                                  (72, 128), (128, 128), (136, 256),
-                                  (256, 256)])
-def test_k1_plan_routes_by_bucket(N, nb):
+@pytest.mark.parametrize("N,nb,L", [(8, 32, 1), (32, 32, 1), (40, 64, 4),
+                                    (64, 64, 4), (72, 128, 8),
+                                    (128, 128, 8), (136, 256, 16),
+                                    (256, 256, 16)])
+def test_k1_plan_routes_by_bucket(N, nb, L):
     assert tk.k1_bucket(N) == nb
-    lanes = tk.K1_LANES[nb]
-    assert tk.k1_plan(N) == lanes[0]
-    for L in lanes:
-        assert tk.k1_plan(N, L) == L
-        # every lane holds the same whole number of rows, a warp whole
-        # scenarios, and bf16 u_data packs in pairs
-        assert nb % L == 0 and 32 % L == 0 and (nb // L) % 2 == 0
-    with pytest.raises(ValueError, match="lanes bodies"):
-        tk.k1_plan(N, 3)
+    assert tk.k1_plan(N) == tk.K1_LANES[nb] == L
+    # every lane holds the same whole number of rows, a warp whole
+    # scenarios, and bf16 u_data packs in pairs
+    assert nb % L == 0 and 32 % L == 0 and (nb // L) % 2 == 0
 
 
 def test_k1_plan_refuses_what_no_body_takes():
     for N in (0, tk.MAX_ROWS + 1):
         with pytest.raises(ValueError, match="packed rows"):
             tk.k1_plan(N)
-    with pytest.raises(ValueError, match="lanes bodies"):
-        tk.k1_plan(136, 2)
-    for plan in ("first", "lanes", 0):
-        with pytest.raises(ValueError, match="lanes bodies"):
-            tk.k1_plan(30, plan)
 
 
 @pytest.mark.parametrize("n_el", [2, 9, 30, 63, 128, 255])
