@@ -542,9 +542,9 @@ def run_1d(torch, dev, card):
     torch.cuda.empty_cache()
 
     # -- phase 6: timing at the bench workload.  The chain is timed
-    # chained (timeit_chained); each of its bodies in turns.  The step is
-    # timed by the profiler's kernel time a call (kernel alone, and the
-    # plain version's kernels), as K2 and K7 are.
+    # chained (timeit_chained), kernel and plain version in turns.  The step
+    # is timed by the profiler's kernel time a call (the kernel alone, and
+    # the plain version's kernels), as K2 and K7 are.
     profile_split(torch, lambda: fit_kappa(mesh, f, u_data, steps=STEPS),
                   "phase 6", card)
     udT, cols, B, u_l, u_r = (aux["udT"], aux["cols"], aux["B"], aux["u_l"],
@@ -588,7 +588,7 @@ def run_1d(torch, dev, card):
     del aux_s, cols_s
     torch.cuda.empty_cache()
 
-    # the other buckets: the chain (bf16 u_data) on every body, in turns
+    # the chain in the other row buckets (bf16 u_data)
     for nb_n in K1_BUCKET_NS:
         mb, fb, udb, gb = problem(nb_n, BATCH_BUCKETS, seed=nb_n)
         keb, auxb = tk.cf_packed_operands(

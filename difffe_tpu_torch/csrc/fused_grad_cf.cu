@@ -67,7 +67,7 @@ constexpr int kMaxRows = 256;
 constexpr int kRowVals = 3;  // {h, P, shared u_data} a row in c_rows
 constexpr unsigned kFull = 0xffffffffu;
 
-// The lanes design's per-row constants, row-major {h, P, u_data}, rows
+// The per-row constants, row-major {h, P, shared u_data}, rows
 // N..NB-1 zero (the wrapper's k1_rows block, copied on the stream).
 __constant__ float c_rows[kMaxRows * kRowVals];
 
@@ -132,7 +132,7 @@ struct UdRows<R, L, true, float> {
     for (int r = 0; r < R; ++r)
       v[r] = live && row0 + r < N ? udT[(row0 + r) * ld + b] : 0.f;
   }
-  __device__ __forceinline__ float get(int r, int) const { return v[r]; }
+  __device__ __forceinline__ float get(int r) const { return v[r]; }
 };
 
 template <int R, int L>
@@ -152,7 +152,7 @@ struct UdRows<R, L, true, __nv_bfloat16> {
       v[r / 2] = lo | (hi << 16);
     }
   }
-  __device__ __forceinline__ float get(int r, int) const {
+  __device__ __forceinline__ float get(int r) const {
     return (r & 1) ? __uint_as_float(v[r / 2] & 0xffff0000u)
                    : __uint_as_float(v[r / 2] << 16);
   }
@@ -168,7 +168,7 @@ struct UdRows<R, L, false, UdT> {
       for (int r = 0; r < R; ++r) v[r] = c_rows[(row0 + r) * kRowVals + 2];
     }
   }
-  __device__ __forceinline__ float get(int r, int row0) const {
+  __device__ __forceinline__ float get(int r) const {
     if constexpr (L == 1) {
       return c_rows[r * kRowVals + 2];
     } else {
@@ -281,7 +281,7 @@ cf_lanes_kernel(const float* __restrict__ keT, const UdT* __restrict__ udT,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float u = c + fmaf(w1, sp, -tp);
-        const float d = u - ud.get(r, row0);
+        const float d = u - ud.get(r);
         if (LAST && r < n_lane) ls = fmaf(d, d, ls);
         Pl = r == 0 ? sc0 * d : fmaf(scale, d, Pl);
         pl[r] = Pl;

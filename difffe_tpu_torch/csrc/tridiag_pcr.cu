@@ -416,11 +416,9 @@ int launch(const void* d, long long sd, const void* e, long long se,
 
 }  // namespace
 
-// The most rows of one system the warp route takes.
-extern "C" int difffe_tridiag_pcr_warp_max_rows() { return kWarpMaxRows; }
-
 // The warp route: u (B, n) = T^-1 F as difffe_tridiag_pcr below, one warp a
-// scenario, for 1 <= n <= difffe_tridiag_pcr_warp_max_rows().  Returns
+// scenario, for 1 <= n <= kWarpMaxRows (256; the wrapper's
+// WARP_MAX_ROWS).  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for an n
 // it does not take.
 extern "C" int difffe_tridiag_pcr_warp(const void* d, long long sd,

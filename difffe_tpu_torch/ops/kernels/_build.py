@@ -54,7 +54,6 @@ _SIGNATURES = {
     "difffe_stencil3d_cg2_clusters": [_I, _I, _I, _I, _I, _I],
     "difffe_tridiag_pcr_max_rows": [_I],
     "difffe_tridiag_pcr": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I, _P],
-    "difffe_tridiag_pcr_warp_max_rows": [],
     "difffe_tridiag_pcr_warp": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _P],
     "difffe_fused_pcr_workspace": [_I, _I, _I, _I],
     "difffe_fused_pcr": [_I, _P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P,

@@ -61,8 +61,9 @@ def test_solve_matches_jax_and_oracle(nonuniform, batched_bc):
         bv = np.zeros((6, jm.n_nodes))
         bv[:, 0] = np.linspace(-1.0, 1.0, 6)
         bv[:, -1] = 0.5
-    u_j = jcf.solve_poisson_cf_batched(jm, jnp.asarray(ke), jnp.asarray(f),
-                                       bc_values=bv)
+    u_j = jax.jit(lambda k, f, bv: jcf.solve_poisson_cf_batched(
+        jm, k, f, bc_values=bv))(jnp.asarray(ke), jnp.asarray(f),
+                                 None if bv is None else jnp.asarray(bv))
     u_t = tcf.solve_poisson_cf_batched(tm, as_torch(ke), as_torch(f),
                                        bc_values=None if bv is None
                                        else as_torch(bv))
@@ -75,8 +76,8 @@ def test_solve_matches_jax_and_oracle(nonuniform, batched_bc):
 
 def test_solve_shared_kappa_promoted():
     jm, tm, f, ke, _ = _setup(B=1)
-    u_j = jcf.solve_poisson_cf_batched(jm, jnp.asarray(ke[0]),
-                                       jnp.asarray(f[0]))
+    u_j = jax.jit(lambda k, f: jcf.solve_poisson_cf_batched(jm, k, f))(
+        jnp.asarray(ke[0]), jnp.asarray(f[0]))
     u_t = tcf.solve_poisson_cf_batched(tm, as_torch(ke[0]), as_torch(f[0]))
     assert u_t.shape == (1, jm.n_nodes)
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), **TIGHT)
@@ -101,14 +102,19 @@ def test_autograd_gradient_matches_jax(nonuniform):
 @pytest.mark.parametrize("shared", ["none", "F", "F_and_ud"])
 def test_kappa_mse_step_cf_matches_jax(shared):
     jm, tm, f, ke, ud = _setup(nonuniform=True, bc=(0.2, 0.7))
-    F_j = j_load(jm, jnp.asarray(f))
     F_t = t_load(tm, as_torch(f))
     if shared != "none":
-        F_j, F_t = F_j[0], F_t[0]
+        F_t = F_t[0]
     if shared == "F_and_ud":
         ud = ud[0]
-    lp_j, g_j = jcf.kappa_mse_step_cf(jm, jnp.asarray(ke), F_j,
-                                      jnp.asarray(ud))
+
+    @jax.jit
+    def jax_side(k, f, ud):
+        F = j_load(jm, f)
+        return jcf.kappa_mse_step_cf(jm, k, F if shared == "none" else F[0],
+                                     ud)
+
+    lp_j, g_j = jax_side(*map(jnp.asarray, (ke, f, ud)))
     lp_t, g_t = tcf.kappa_mse_step_cf(tm, as_torch(ke), F_t, as_torch(ud))
     np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), rtol=1e-12)
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-12,

@@ -176,7 +176,7 @@ def test_solve_poisson_batched_2d(mode):
 
 
 def test_unported_2d_routes_raise():
-    jm = JMesh.rectangle(4, 4, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.rectangle, 4, 4, dtype=jnp.float64)
     tm = port_mesh(jm)
     f = torch.ones(tm.n_nodes, dtype=torch.float64)
     eye = torch.eye(2, dtype=torch.float64)

@@ -25,7 +25,7 @@ from difffe_tpu.ops.pallas import fused_grad_cf_kernel as jk
 from difffe_tpu_torch.ops.kernels import _build
 from difffe_tpu_torch.ops.kernels import fused_grad_cf_kernel as tk
 from difffe_tpu_torch.solver import solve_poisson_batched as t_solve_b
-from torch_parity import as_torch, port_mesh, rel_err
+from torch_parity import as_torch, jax_mesh, port_mesh, rel_err
 
 torch.set_num_threads(1)
 
@@ -35,7 +35,8 @@ EXACT = 1e-10   # vpu prefix sums on both sides, f64
 
 def _setup(n=20, B=40, seed=0, ud_mode="stream"):
     """Nonuniform mesh, nonzero Dirichlet values, κ near the data's κ."""
-    jm = JMesh.line(n, bc_left=0.3, bc_right=-0.2, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.line, n, bc_left=0.3, bc_right=-0.2,
+                  dtype=jnp.float64)
     xs = np.asarray(jm.nodes)[:, 0] ** 1.3
     jm = dataclasses.replace(jm, nodes=jnp.asarray(xs[:, None]))
     tm = port_mesh(jm)

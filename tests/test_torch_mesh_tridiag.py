@@ -123,7 +123,8 @@ def test_kappa_on_elements(kind):
          "batched": 1 + rng.random((3, jm.n_elements))}[kind]
     np.testing.assert_allclose(
         tasm.kappa_on_elements(tm, as_torch(k)).numpy(),
-        np.asarray(jasm.kappa_on_elements(jm, jnp.asarray(k))), **TIGHT)
+        np.asarray(jax.jit(lambda k: jasm.kappa_on_elements(jm, k))(
+            jnp.asarray(k))), **TIGHT)
 
 
 @pytest.mark.parametrize("nonuniform", [False, True])
@@ -132,12 +133,14 @@ def test_assemble_load_and_bands(nonuniform):
     rng = np.random.default_rng(2)
     f = rng.standard_normal((4, jm.n_nodes))
     k = 1 + rng.random((4, jm.n_elements))
-    for fb in (f, f[0]):
+    jF, jF0, (jd, je) = jax.jit(lambda f, k: (
+        jasm.assemble_load(jm, f), jasm.assemble_load(jm, f[0]),
+        jasm.assemble_tridiag_1d(jm, k)))(jnp.asarray(f), jnp.asarray(k))
+    for fb, jFb in ((f, jF), (f[0], jF0)):
         np.testing.assert_allclose(
-            tasm.assemble_load(tm, as_torch(fb)).numpy(),
-            np.asarray(jasm.assemble_load(jm, fb)), **TIGHT)
+            tasm.assemble_load(tm, as_torch(fb)).numpy(), np.asarray(jFb),
+            **TIGHT)
     td, te = tasm.assemble_tridiag_1d(tm, as_torch(k))
-    jd, je = jasm.assemble_tridiag_1d(jm, jnp.asarray(k))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), **TIGHT)
     np.testing.assert_allclose(te.numpy(), np.asarray(je), **TIGHT)
     assert tasm.element_family(TMesh.from_arrays(
@@ -202,8 +205,9 @@ def test_solve_poisson_tridiag_bc_elimination():
     bv = np.zeros((4, jm.n_nodes))
     bv[:, 0] = np.linspace(-1.0, 1.0, 4)
     bv[:, -1] = 0.5
-    jd, je = jasm.assemble_tridiag_1d(jm, jnp.asarray(k))
-    jF = jasm.assemble_load(jm, jnp.asarray(f))
+    (jd, je), jF = jax.jit(lambda k, f: (
+        jasm.assemble_tridiag_1d(jm, k), jasm.assemble_load(jm, f)))(
+        jnp.asarray(k), jnp.asarray(f))
     td, te = tasm.assemble_tridiag_1d(tm, as_torch(k))
     tF = tasm.assemble_load(tm, as_torch(f))
     for bc in (None, bv):

@@ -68,7 +68,7 @@ def test_rectangle_matches_jax(args):
 
 
 def test_with_dirichlet_and_from_arrays_grid():
-    jm = JMesh.rectangle(4, 4, dtype=jnp.float64)
+    jm = jax_mesh(JMesh.rectangle, 4, 4, dtype=jnp.float64)
     tm = port_mesh(jm)
     assert tm.grid is not None
     pinned, jpinned = tm.with_dirichlet([6], 0.1), jm.with_dirichlet([6], 0.1)
@@ -101,14 +101,15 @@ def test_stencil_coefficients(batched):
     kl, ku, _, _ = _fields(B=3 if batched else None)
     ref = ts._stencil_coefficients_reference(tg, as_torch(kl), as_torch(ku))
     got = ts.stencil_coefficients(tg, as_torch(kl), as_torch(ku))
-    want = js.stencil_coefficients(jg, jnp.asarray(kl), jnp.asarray(ku))
+    want, want_ref, (jKl, jKu) = jax.jit(lambda kl, ku: (
+        js.stencil_coefficients(jg, kl, ku),
+        js._stencil_coefficients_reference(jg, kl, ku),
+        js.local_blocks(jg, kl, ku)))(jnp.asarray(kl), jnp.asarray(ku))
     assert got.shape == ref.shape == want.shape
     assert rel_err(got, want) <= EXACT
     assert rel_err(ref, want) <= EXACT
-    assert rel_err(ref, js._stencil_coefficients_reference(
-        jg, jnp.asarray(kl), jnp.asarray(ku))) <= EXACT
+    assert rel_err(ref, want_ref) <= EXACT
     Kl, Ku = ts.local_blocks(tg, as_torch(kl), as_torch(ku))
-    jKl, jKu = js.local_blocks(jg, jnp.asarray(kl), jnp.asarray(ku))
     assert rel_err(Kl, jKl) <= EXACT and rel_err(Ku, jKu) <= EXACT
 
 
@@ -121,32 +122,37 @@ def test_stencil_operators():
     lam = rng.standard_normal(f.shape)
     ke = rng.random((B, 2 * 6 * 5))
     C = ts.stencil_coefficients(tg, as_torch(kl), as_torch(ku))
-    jC = js.stencil_coefficients(jg, jnp.asarray(kl), jnp.asarray(ku))
-    assert rel_err(ts.stencil_apply(C, as_torch(u)),
-                   js.stencil_apply(jC, jnp.asarray(u))) <= EXACT
-    for dr, dc in ts.OFFSETS:
+
+    @jax.jit
+    def jax_side(kl, ku, u, f, g, lam, ke):
+        jC = js.stencil_coefficients(jg, kl, ku)
+        return dict(
+            apply=js.stencil_apply(jC, u),
+            shifts=[js._shift2d(u, dr, dc) for dr, dc in ts.OFFSETS],
+            load=js.load_grid(jg, f),
+            kgrad=js.stencil_kappa_grad(jg, lam, u),
+            klu=js.kappa_lu_from_elements(jg, ke),
+            mask=js.boundary_mask_grid(jg, jnp.float64),
+            vjp=js.residual_vjp_manual(jg, (kl[0], ku[0]), f, g, u, lam))
+
+    j = jax_side(*map(jnp.asarray, (kl, ku, u, f, g, lam, ke)))
+    assert rel_err(ts.stencil_apply(C, as_torch(u)), j["apply"]) <= EXACT
+    for (dr, dc), j_shift in zip(ts.OFFSETS, j["shifts"]):
         assert rel_err(ts._shift2d(as_torch(u), dr, dc) + 1.0,
-                       js._shift2d(jnp.asarray(u), dr, dc) + 1.0) <= EXACT
-    assert rel_err(ts.load_grid(tg, as_torch(f)),
-                   js.load_grid(jg, jnp.asarray(f))) <= EXACT
+                       j_shift + 1.0) <= EXACT
+    assert rel_err(ts.load_grid(tg, as_torch(f)), j["load"]) <= EXACT
     for a, b in zip(ts.stencil_kappa_grad(tg, as_torch(lam), as_torch(u)),
-                    js.stencil_kappa_grad(jg, jnp.asarray(lam),
-                                          jnp.asarray(u))):
+                    j["kgrad"]):
         assert rel_err(a, b) <= EXACT
-    for a, b in zip(ts.kappa_lu_from_elements(tg, as_torch(ke)),
-                    js.kappa_lu_from_elements(jg, jnp.asarray(ke))):
+    for a, b in zip(ts.kappa_lu_from_elements(tg, as_torch(ke)), j["klu"]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    np.testing.assert_array_equal(
-        ts.boundary_mask_grid(tg, F64).numpy(),
-        np.asarray(js.boundary_mask_grid(jg, jnp.float64)))
+    np.testing.assert_array_equal(ts.boundary_mask_grid(tg, F64).numpy(),
+                                  np.asarray(j["mask"]))
     # unbatched κ against batched states: cotangents reduce to κ's shape
     got = ts.residual_vjp_manual(tg, (as_torch(kl[0]), as_torch(ku[0])),
                                  as_torch(f), as_torch(g), as_torch(u),
                                  as_torch(lam))
-    want = js.residual_vjp_manual(jg, (jnp.asarray(kl[0]),
-                                       jnp.asarray(ku[0])),
-                                  jnp.asarray(f), jnp.asarray(g),
-                                  jnp.asarray(u), jnp.asarray(lam))
+    want = j["vjp"]
     for a, b in zip(jax.tree_util.tree_leaves(got),
                     jax.tree_util.tree_leaves(want)):
         assert a.shape == b.shape
@@ -156,9 +162,11 @@ def test_stencil_operators():
 def _pcg_problem(B=3, n=6, seed=1):
     jg, tg = _grids(n, n)
     kl, ku, f, _ = _fields(n, n, B=B, seed=seed)
-    jC = js.stencil_coefficients(jg, jnp.asarray(kl), jnp.asarray(ku))
+    jC, jm = jax.jit(lambda kl, ku: (
+        js.stencil_coefficients(jg, kl, ku),
+        js.boundary_mask_grid(jg, jnp.float64)))(jnp.asarray(kl),
+                                                 jnp.asarray(ku))
     tC = ts.stencil_coefficients(tg, as_torch(kl), as_torch(ku))
-    jm = js.boundary_mask_grid(jg, jnp.float64)
     tm = ts.boundary_mask_grid(tg, F64)
     # scenario 0 gets a 1e-3 right-hand side: its tol threshold differs
     b = f * np.array([1e-3, 1.0, 3.0][:B])[:, None, None]
@@ -174,8 +182,9 @@ def test_pcg_matches_jax(dot, mode):
                     "past_convergence": (0.0, 300)}[mode]
     jdot = None if dot == "global" else jpcg.batched_dot(2)
     tdot = None if dot == "global" else tpcg.batched_dot(2)
-    jx, jit_, jr = jpcg.pcg(jA, jb, lambda r: r, jnp.zeros_like(jb), tol,
-                            maxiter, dot=jdot, with_diagnostics=True)
+    jx, jit_, jr = jax.jit(lambda b: jpcg.pcg(
+        jA, b, lambda r: r, jnp.zeros_like(b), tol, maxiter, dot=jdot,
+        with_diagnostics=True))(jb)
     tx, tit, tr = tpcg.pcg(tA, tb, lambda r: r, torch.zeros_like(tb), tol,
                            maxiter, dot=tdot, with_diagnostics=True)
     assert torch.isfinite(tx).all()

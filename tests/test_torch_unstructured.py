@@ -61,8 +61,8 @@ def _case(dim):
         k_el=1.0 + rng.random(ne), k_node=1.0 + rng.random(nn),
         kB=1.0 + rng.random((B, ne)), kB_node=1.0 + rng.random((B, nn)),
         ks=1.0 + 0.1 * np.arange(B), u=rng.standard_normal((B, nn)),
-        FB=np.asarray(jasm.assemble_load(jm, jnp.asarray(
-            f * (1.0 + 0.2 * rng.random((B, 1)))))),
+        FB=np.asarray(jax.jit(lambda f: jasm.assemble_load(jm, f))(
+            jnp.asarray(f * (1.0 + 0.2 * rng.random((B, 1)))))),
         m=(rng.random(nn) < 0.3).astype(np.float64),
         ud=0.01 * rng.standard_normal((B, nn)),
     )
