@@ -115,10 +115,11 @@ K2 (batched PCR tridiagonal solve, ``method="tridiag_pallas"``):
 
 The fused 1D grad-step path (examples/production_training_demo.py's
 production κ-recovery loop: scalar κ per scenario on ``FEMesh.line(30)``,
-B = 262 144, 300 SGD steps), kernels K5a/K5b (PCR with factor replay),
-K6 (Thomas) and K7 (dense products with W = Ã⁻¹; its "tc" route on the
-tensor cores for float32 and n ≤ 32, its "fma" route, the first design,
-otherwise):
+B = 262 144, 300 SGD steps), kernels K5a/K5b (PCR with factor replay; its
+warp route, one warp a scenario, for n ≤ 128, its block route, the first
+design, above), K6 (Thomas)
+and K7 (dense products with W = Ã⁻¹; its "tc" route on the tensor cores
+for float32 and n ≤ 32, its "fma" route, the first design, otherwise):
 
 17. each new kernel against its plain version on the card, n ∈ {2, 13,
     31, 129, 257} nodes for K5a/K5b/K6 and {2, 13, 31, 136} for K7 (137
@@ -128,8 +129,10 @@ otherwise):
     storage, K7 versions 1-3 with refine ∈ {0, 2, 3}, for n ≤ 32 on both
     routes (the "tc" route against the plain version with its products'
     rounding, 3xTF32 or bf16, two launches equal bit for bit, and each
-    case's error against the exact f64 plain version printed): f32 by the
-    rule of phase 7 (bf16 products add 2^-8/n), f64 within 1e-10;
+    case's error against the exact f64 plain version printed), K5a/K5b
+    for n ≤ 128 on both routes (``k5_plan(plan=)``), K5b's f32 and f64
+    gradients equal bit for bit on the two: f32 by the rule of phase 7
+    (bf16 products add 2^-8/n), f64 within 1e-10;
 18. the main path: ``difffe_tpu_torch.production.sgd_loop`` at the demo's
     defaults (300 K7 launches, all on the "tc" route, and no other launch
     of the new kernels; the loss falls 10³×; the final κ and the mean
@@ -141,12 +144,17 @@ otherwise):
     K7 row (B = 2^21, v3 refine 2, bf16 u_data, shared F), K7 versions 1,
     2 and 3 at refine 3 with f32 storage, and K5a row (B = 2^20, streamed
     F), and scripts/probe_thomas.py's per-element workload on K5b and K6
-    (n = 30 elements, B = 2^21, shared F, f32 and bf16); K7 version 3's
+    (n = 30 elements, B = 2^21, shared F, f32 and bf16), K5 each on the
+    route ``k5_plan`` picks (printed, its launch checked); K7 version 3's
     gradient error at refine 0-3, f32 and bf16 storage, on the "tc"
     route (bf16 products) and on the plain version with one TF32 pass
     (the alternative kept in reserve, no kernel's) (printed);
 20. chained timing of each new kernel at its phase 18/19 workload against
-    its plain version, K7's two routes in turns at the production step
+    its plain version; K5a and K5b on their two routes in turns, with the
+    bound and each route's kernel time a call from the profiler, and that
+    time at n = 31, 33, 64, 96 and 128 by batch (B = 7 … 65 536; a
+    point no trace holds is printed as not measured); K7's two routes in
+    turns at the production step
     and the bench row with each route's bound and the device time of a
     step from the profiler, each route's and the plain version's (the
     kernels line carries these: the production chain is host-bound on the
@@ -154,7 +162,8 @@ otherwise):
     × (31, 31), f32 and TF32, on the device and chained), host time of
     the phase-18 loop and of one K7 wrapper call, a ``torch.profiler``
     split of one loop, and the registers and spills of the new kernels
-    from the ``-Xptxas -v`` build log.
+    (K5's warp and block bodies among them) from the ``-Xptxas -v`` build
+    log.
 
 The general-mesh path (κ-field inversion on a perturbed triangulation
 without a grid, scripts/probe_unstructured.py's workload: 64 × 64 quads
@@ -167,7 +176,10 @@ solve in one launch, one thread-block cluster a scenario):
     8 indices a row, B = 8, unit weights, no diagonal, no mask) also
     against u[idx].sum(1), the 64² triangulation (6 neighbour slots) at
     B = 256, a perturbed 16³ box (14 slots) at B = 128 and a random
-    Dirichlet mask at B = 7: f32 by the rule of phase 7, f64 within 1e-12;
+    Dirichlet mask at B = 7: f32 by the rule of phase 7, f64 within 1e-12,
+    the body ``k8_body`` picks printed (the four-scenario "vec4" body
+    where B % 4 == 0, else the scalar first design) and every body that
+    takes the shape equal to it bit for bit;
     K8s (128 iterations, f32) against its plain version by the rule of
     phase 7 on a perturbed 8² triangulation at B = 7, the 64² one at
     B = 256 and the 16³ box at B = 128, at every cluster size that fits
@@ -181,7 +193,8 @@ solve in one launch, one thread-block cluster a scenario):
     'generic_ell_batchminor', the loss finite and the converged misfit
     below half the first step's, and, in that call (the counts are set
     to 0 after the u_data solve, just before it), K8 launched 100 + 1
-    times (each step's and the eval solve's right-hand side) and K8s
+    times (each step's and the eval solve's right-hand side), all on the
+    vec4 body, and K8s
     2 × 100 + 1 times (each step's forward and adjoint solves, the eval
     solve); the first step's loss and κ gradient (κ = 1) through
     ``solve_poisson_cg_ell_batched`` on K8s and on the per-iteration
@@ -191,10 +204,14 @@ solve in one launch, one thread-block cluster a scenario):
     box at B = 128; and ``fit_kappa`` on line meshes the K1 kernel does
     not take (``FEMesh.line(300)`` in f32 and a float64 line), which must
     take the torch closed form with a falling loss and no K1 launch;
-23. chained timing of K8 against its plain version, its bound and
+23. chained timing of K8's two bodies in turns against its plain
+    version, with GB/s, its bound, each body's kernel time a call from
+    the profiler with the L2 warm and after a read of twice the L2
+    before each call (the time held against the bound), and
     ``torch.sparse.mm`` with the 0/1 adjacency in CSR (P1's unweighted
-    function) at 64², B = 256 and on a perturbed 256² triangulation at
-    B = 128 (66 049 nodes); K8s at the same shapes and on the 16³ box
+    function) at 64², B = 256 and on a
+    perturbed 256² triangulation at B = 128 (66 049 nodes), and the
+    bodies' registers; K8s at the same shapes and on the 16³ box
     at B = 128 on the plan's route
     against the per-iteration route in turns, at every cluster size that
     fits, at 0 iterations (the staging alone) and
@@ -279,6 +296,7 @@ JAX_K3 = "difffe_tpu/ops/pallas/stencil_cg_kernel.py"
 
 PEAK_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
+L2_BYTES = 50 * 2 ** 20  # H100 SXM L2
 PEAK_TF32 = 495e12       # H100 SXM tensor cores, dense
 PEAK_BF16 = 989e12
 PEAK_F64 = 34e12         # H100 SXM float64 outside the tensor cores
@@ -1712,7 +1730,7 @@ def run_facade_1d(torch, dev, card):
     # the main path's shape: its 401 launches ran at B = 1024; the three
     # times are device times of a call
     log("phase 16 -Xptxas -v of K2's routes:")
-    for line in ptxas_report(("pcr_warp_kernel", "10pcr_kernel")):
+    for line in ptxas_report(("15pcr_warp_kernel", "10pcr_kernel")):
         log(line)
     ops, nbytes, library_ms = k2[BATCH_1D]
     replaces = f"{JAX_K2}:80 (_pcr_pallas_padded), :161 (_pcr_pallas_T)"
@@ -1734,6 +1752,10 @@ K7_NS = (2, 13, 31, 136)                 # 137 checks the route to K5a
 FUSED_BIG = 2 ** 20      # phase 17's largest batch, for n <= 31
 FUSED_BS = (7, 1000, FUSED_BIG)
 K7_BODIES = ((1, 3), (2, 3), (3, 0), (3, 2), (3, 3))   # (version, refine)
+K5_SWEEP_BS = (7, 256, 1000, 4096, 65536)   # phase 20: K5's routes by
+K5_SWEEP_NS = (31, 33, 64, 96, 128)          # batch and n
+K5_ROUTES = ("warp", "block")
+K5_KEYS = {"warp": "fused_pcr_warp_kernel", "block": "fused_pcr_kernel"}
 FUSED_SOURCES = {"k5a": "difffe_tpu_torch/csrc/fused_grad_pcr.cu",
                  "k5b": "difffe_tpu_torch/csrc/fused_grad_pcr.cu",
                  "k6": "difffe_tpu_torch/csrc/fused_grad_thomas.cu",
@@ -1801,8 +1823,8 @@ def fused_plain(name, mesh, scale, version=2, refine=3, products="exact"):
 def fused_kernel(name, mesh, scale, version=2, refine=3, block_lanes=None,
                  plan=None):
     """The public wrapper of a fused step as a function of (κ, F, u_data);
-    bf16-stored planes pass through with ``operand_dtype`` bf16; K7 on
-    ``plan``'s route where given."""
+    bf16-stored planes pass through with ``operand_dtype`` bf16; K5 and K7
+    on ``plan``'s route where given."""
     from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
     from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
     from difffe_tpu_torch.ops.kernels import fused_grad_thomas_kernel as k6
@@ -1813,16 +1835,18 @@ def fused_kernel(name, mesh, scale, version=2, refine=3, block_lanes=None,
 
     bl = {} if block_lanes is None else {"block_lanes": block_lanes}
     if name == "k5a":
-        return lambda a, F, ud: k5.fused_kappa_mse_step(mesh, a, F, ud,
-                                                        scale=scale, **bl)
+        return lambda a, F, ud: k5.fused_kappa_mse_step(
+            mesh, a, F, ud, scale=scale, plan=plan, **bl)
     if name == "k7":
         return lambda a, F, ud: k7.fused_kappa_mse_step_mxu(
             mesh, a, F, ud, scale=scale, operand_dtype=op(ud),
             version=version, refine=refine, plan=plan, **bl)
-    fn = (k5.fused_kappa_mse_step_general_pcr if name == "k5b"
-          else k6.fused_kappa_mse_step_general)
-    return lambda a, F, ud: fn(mesh, a, F, ud, scale=scale,
-                               operand_dtype=op(ud), **bl)
+    if name == "k5b":
+        return lambda a, F, ud: k5.fused_kappa_mse_step_general_pcr(
+            mesh, a, F, ud, scale=scale, operand_dtype=op(ud), plan=plan,
+            **bl)
+    return lambda a, F, ud: k6.fused_kappa_mse_step_general(
+        mesh, a, F, ud, scale=scale, operand_dtype=op(ud), **bl)
 
 
 def fused_launches():
@@ -1841,6 +1865,8 @@ def reset_fused_launches():
     for mod in (k5, k6, k7):
         for key in mod.launches:
             mod.launches[key] = 0
+    for key in k5.route_launches:
+        k5.route_launches[key] = 0
 
 
 def fused_operands(torch, dev, n, B, gen, bc, shared_f, bf16):
@@ -1881,12 +1907,13 @@ def k7_products(n, version, plan=None):
 
 def check_fused(torch, name, meshes, lk, ke, F, ud, bf16, version=2,
                 refine=3, plan=None):
-    """Phase 17's comparison of one case (K7 on ``plan``'s route, against
-    the plain version with that route's products; on the "tc" route also
-    two launches bit for bit and a logged line with the error against the
-    exact f64 plain version beside the rule's, elsewhere also the f64
-    kernel); returns the f32 kernel's max abs error on the gradient
-    against the exact f64 plain version."""
+    """Phase 17's comparison of one case (K5 and K7 on ``plan``'s route;
+    K7 against the plain version with that route's products; on the "tc"
+    route also two launches bit for bit and a logged line with the error
+    against the exact f64 plain version beside the rule's, elsewhere also
+    the f64 kernel); returns the f32 kernel's max abs error on the
+    gradient against the exact f64 plain version and the f32 and f64
+    kernels' outputs (None for the f64 ones on the "tc" route)."""
     from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
 
     B, n = ud.shape
@@ -1925,13 +1952,15 @@ def check_fused(torch, name, meshes, lk, ke, F, ud, bf16, version=2,
             f"{products} products {errs[0]:.3e}, {errs[1]:.3e}; vs the "
             f"exact f64 plain version {exact[0]:.3e}, {exact[1]:.3e}")
     else:
-        k64 = fused_kernel(name, m64, scale, version, refine)(
+        k64 = fused_kernel(name, m64, scale, version, refine,
+                           plan=plan if name in ("k5a", "k5b") else None)(
             kap, wide(F32, torch.float64), wide(ud32, torch.float64))
         for label, a, c in zip(("loss", "grad"), k64, p64):
             e = rel_err(a, c)
             if not e <= 1e-10:
                 raise AssertionError(f"{what} {label} f64: rel err {e:.3e}")
-    return float((k[1].double() - p64[1]).abs().max())
+        return float((k[1].double() - p64[1]).abs().max()), k, k64
+    return float((k[1].double() - p64[1]).abs().max()), k, None
 
 
 def fused_gate(torch, name, mesh, grad, kap, f, ud_q, what, limit):
@@ -2012,7 +2041,8 @@ def k7_bound(route, n, B, version, refine, store=4, shared_f=False):
     return ops, nbytes, t, f"{label} beside f32 67, float64 34"
 
 
-def device_ms(torch, fn, x0, length, key=None):
+def device_ms(torch, fn, x0, length, key=None, launched=None,
+              required=True):
     """Device time in ms of one call of ``fn(x0)``, from torch.profiler
     over ``length`` calls recorded after as many traced but unrecorded
     ones (the trace's first launches can go missing otherwise): with
@@ -2020,15 +2050,20 @@ def device_ms(torch, fn, x0, length, key=None):
     and each call must launch one; without, every kernel's time over
     ``length``.  Kernel time alone, without the gaps a host-bound chain
     leaves between launches, so a kernel and its plain version are timed
-    alike."""
+    alike.  ``launched()``, where given, is the wrapper's count of the
+    keyed kernel's launches: each call must add one to it, so a trace
+    that misses launches is told from a call that did not make them.
+    Where five traces miss launches it raises, or with ``required``
+    false returns None (the caller prints the time as not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn(x0)
     torch.cuda.synchronize()
-    # a trace can still drop a launch: record again (three tries) until
+    # a trace can still drop a launch: record again (five tries) until
     # it holds exactly one a call
-    for _ in range(3):
+    for _ in range(5):
+        before = None if launched is None else launched()
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
@@ -2037,9 +2072,12 @@ def device_ms(torch, fn, x0, length, key=None):
                     fn(x0)
                 torch.cuda.synchronize()
                 prof.step()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and (key is None or key in e.key)]
+        if launched is not None and launched() - before != 2 * length:
+            raise AssertionError(f"{2 * length} calls launched "
+                                 f"{launched() - before} of {key}")
+        cuda = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        rows = [e for e in cuda if key is None or key in e.key]
         total = sum(e.self_device_time_total for e in rows) / 1e3
         if key is None:
             if not rows:
@@ -2049,9 +2087,14 @@ def device_ms(torch, fn, x0, length, key=None):
         if count == length:
             return total / count
         log(f"device_ms: profiled {count} launches of {key} in {length} "
-            f"calls; recording again")
-    raise AssertionError(f"profiled {count} launches of {key} in {length} "
-                         f"calls")
+            f"calls (the trace's kernels: "
+            f"{[(e.key[:60], e.count) for e in cuda]}); recording again")
+    if required:
+        raise AssertionError(f"profiled {count} launches of {key} in "
+                             f"{length} calls")
+    log(f"device_ms: no trace held the {length} launches of {key}: not "
+        f"measured")
+    return None
 
 
 def timed_turns(fns, x0, length, order):
@@ -2079,7 +2122,8 @@ def run_fused_1d(torch, dev, card):
     gen = torch.Generator(device=dev).manual_seed(17)
 
     # -- phase 17: every new kernel against its plain version; K7 on both
-    # routes where n <= 32
+    # routes where n <= 32, K5 on both where n <= 128 (the two K5 routes'
+    # outputs equal bit for bit)
     t0 = time.perf_counter()
     max_abs = {k: 0.0 for k in (*FUSED_SOURCES, "k7_fma")}
     for name in ("k5a", "k5b", "k6", "k7"):
@@ -2088,6 +2132,9 @@ def run_fused_1d(torch, dev, card):
             routes = [None]
             if name == "k7":
                 routes = (["tc", "fma"] if n <= k7.TC_MAX_NODES else ["fma"])
+            elif name in ("k5a", "k5b"):
+                routes = (K5_ROUTES if n <= k5.K5_WARP_MAX_ROWS
+                          else ["block"])
             for B in (b for b in FUSED_BS if b < FUSED_BIG or n <= 31):
                 combos = [(bc, shared_f, bf16)
                           for bc in ((0.0, 0.0), (0.3, -0.2))
@@ -2106,20 +2153,40 @@ def run_fused_1d(torch, dev, card):
                         bodies = (K7_BODIES if B < FUSED_BIG
                                   else ((2, 3), (3, 2)))
                     for version, refine in bodies:
+                        outs = []
                         for plan in routes:
-                            e = check_fused(torch, name, meshes, lk, ke, F,
-                                            ud, bf16, version, refine, plan)
+                            e, *out = check_fused(torch, name, meshes, lk,
+                                                  ke, F, ud, bf16, version,
+                                                  refine, plan)
+                            outs.append(out)
                             cases += 1
-                            if n == N_PROD + 1:
+                            if n == N_PROD + 1:   # by route, the
+                                # planned one's under the kernel's name
                                 key = "k7_fma" if plan == "fma" else name
-                                max_abs[key] = max(max_abs[key], e)
+                                if name in ("k5a", "k5b") and plan != \
+                                        k5.k5_plan(n, torch.float32):
+                                    key = f"{name}_{plan}"
+                                max_abs[key] = max(max_abs.get(key, 0.0), e)
+                        # K5b's gradient (no sum) is the same on both
+                        # routes; the sums, checked by the rule above,
+                        # take another order on each
+                        if name == "k5b" and len(outs) == 2:
+                            for (_, a), (_, b) in zip(*outs):
+                                if not torch.equal(a, b):
+                                    raise AssertionError(
+                                        f"phase 17 {name} n={n} B={B}: the "
+                                        f"routes' gradients differ")
                     del meshes, lk, ke, F, ud
             torch.cuda.empty_cache()
         log(f"phase 17 {name}: {cases} cases within the gates (f32 by the "
             f"rule of phase 7, f64 within 1e-10"
             + ("; n <= 32 on the tc route against the plain version with its "
                "products and on the fma route; two tc launches equal bit "
-               "for bit" if name == "k7" else "") + ")")
+               "for bit" if name == "k7" else "")
+            + (f"; n <= {k5.K5_WARP_MAX_ROWS} on the warp and block routes"
+               + (", their f32 and f64 gradients equal bit for bit"
+                  if name == "k5b" else "")
+               if name in ("k5a", "k5b") else "") + ")")
     reset_fused_launches()
     m137, lk, _, F, ud = fused_operands(torch, dev, 137, 64, gen, (0.0, 0.0),
                                         False, False)
@@ -2128,6 +2195,13 @@ def run_fused_1d(torch, dev, card):
     log(f"phase 17 K7 at n=137 routes to K5a: launches {routed}")
     if routed["k5a"] != 1 or routed["k7"] or routed["k7_fma"]:
         raise AssertionError(f"the n > 136 route launched {routed}")
+    planned = k5.k5_plan(N_PROD + 1, torch.float32)
+    other = "block" if planned == "warp" else "warp"
+    log(f"phase 17 K5's f32 max abs error of the gradient at n={N_PROD + 1} "
+        f"against the f64 plain version, by route: " + "; ".join(
+            f"{name} {planned} (planned; the kernels line's) "
+            f"{max_abs[name]:.3e}, {other} {max_abs[name + '_' + other]:.3e}"
+            for name in ("k5a", "k5b")))
     log(f"phase 17 kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 18: the main path, the production loop at its defaults
@@ -2221,11 +2295,17 @@ def run_fused_1d(torch, dev, card):
         torch.cuda.synchronize()
         if fused_launches()[name] != 1 or fused_launches()["k7_fma"]:
             raise AssertionError(f"{what}: launches {fused_launches()}")
+        label = f"{what} B={kap.shape[0]}"
+        if name in ("k5a", "k5b"):      # on the route the plan picks
+            route = k5.k5_plan(n, torch.float32)
+            if k5.route_launches[route] != 1:
+                raise AssertionError(f"{what}: {k5.route_launches}, the "
+                                     f"{route} route planned")
+            label += f" ({route} route)"
         if not bool(torch.isfinite(gk).all() and torch.isfinite(lp).all()):
             raise AssertionError(f"{what}: non-finite outputs")
         f_gate = fB if F_.ndim == 1 else fB[:F_.shape[0]]
-        fused_gate(torch, name, mesh, gk, kap, f_gate, ud_,
-                   f"{what} B={kap.shape[0]}",
+        fused_gate(torch, name, mesh, gk, kap, f_gate, ud_, label,
                    1e-2 if ud_.dtype == torch.bfloat16 else GATE_TOL)
     # version 3's gradient error by refinement pass, f32 and bf16 storage:
     # the tc route (bf16 products; refine 3 with f32 storage is gated
@@ -2258,13 +2338,66 @@ def run_fused_1d(torch, dev, card):
     for what, (kern, plain, kap, F_, ud_) in work.items():
         # chained: each step's κ (log κ for K5a/K7) is the last one's
         # minus 1e-3 times its gradient, so κ stays near its start
-        ms[what] = best = timed_pair(
-            lambda a: a - 1e-3 * kern(a, F_, ud_)[1],
-            lambda a: a - 1e-3 * plain(a, F_, ud_)[1], kap, 4)
-        B = kap.shape[0]
-        log(f"phase 20 {what}: kernel {best['kernel']:.4f} ms, plain "
-            f"{best['plain']:.4f} ms (B={B}, n={n}); kernel "
-            f"{B / best['kernel'] * 1e3:.6e} grad-solves/s [{card}]")
+        name, B = what.split("_")[0], kap.shape[0]
+        if name not in ("k5a", "k5b"):
+            ms[what] = best = timed_pair(
+                lambda a: a - 1e-3 * kern(a, F_, ud_)[1],
+                lambda a: a - 1e-3 * plain(a, F_, ud_)[1], kap, 4)
+            log(f"phase 20 {what}: kernel {best['kernel']:.4f} ms, plain "
+                f"{best['plain']:.4f} ms (B={B}, n={n}); kernel "
+                f"{B / best['kernel'] * 1e3:.6e} grad-solves/s [{card}]")
+            continue
+        # K5 on both routes in turns, chained and the profiler's kernel
+        # time a call
+        k5_steps = {route: fused_kernel(name, mesh, scale, block_lanes=512,
+                                        plan=route) for route in K5_ROUTES}
+        fns = {route: (lambda a, st=st: a - 1e-3 * st(a, F_, ud_)[1])
+               for route, st in k5_steps.items()}
+        fns["plain"] = lambda a: a - 1e-3 * plain(a, F_, ud_)[1]
+        best = timed_turns(fns, kap, 4, ("plain", "block", "warp", "warp",
+                                         "block", "plain"))
+        dev_ms = {route: device_ms(
+            torch, lambda a, st=st: st(a, F_, ud_), kap, 20, K5_KEYS[route],
+            lambda route=route: k5.route_launches[route])
+            for route, st in k5_steps.items()}
+        planned = k5.k5_plan(n, torch.float32)
+        ms[what] = {"kernel": best[planned], "plain": best["plain"]}
+        store = 2 if ud_.dtype == torch.bfloat16 else 4
+        b_ms, b_by = bound(B * fused_ops(name, n), B * fused_bytes(
+            name, n, store, shared_f=F_.ndim == 1))
+        log(f"phase 20 {what} (B={B}, n={n}, "
+            f"{'bf16' if store == 2 else 'f32'} u_data, "
+            f"{'shared' if F_.ndim == 1 else 'streamed'} F), chained in "
+            f"turns: warp {best['warp']:.4f} ms, block (first design) "
+            f"{best['block']:.4f} ms ({best['block'] / best['warp']:.2f}x), "
+            f"plain {best['plain']:.4f} ms; kernel time a call (profiler): "
+            f"warp {dev_ms['warp']:.4f} ms, block {dev_ms['block']:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}), warp {dev_ms['warp'] / b_ms:.2f}x "
+            f"bound; the plan's route {planned}, "
+            f"{B / best[planned] * 1e3:.6e} grad-solves/s [{card}]")
+    # K5's routes by n and batch, streamed F and f32 planes: at 1-4 slots
+    # a lane (n = 31 the workloads', 33 the first past one slot), the
+    # evidence for a plan without a batch threshold
+    for nn in K5_SWEEP_NS:
+        meshes, lk, ke, F_n, ud_n = fused_operands(
+            torch, dev, nn, K5_SWEEP_BS[-1], gen, (0.0, 0.0), False, False)
+        F_n, ud_n = F_n.float(), ud_n.float()
+        for name, a in (("k5a", lk.float()), ("k5b", ke.float())):
+            row = []
+            for Bs in K5_SWEEP_BS:
+                t = {route: device_ms(
+                    torch, lambda x, st=fused_kernel(name, meshes[0], 1.0,
+                                                     plan=route):
+                    st(x, F_n[:Bs], ud_n[:Bs]), a[:Bs], 20, K5_KEYS[route],
+                    lambda route=route: k5.route_launches[route], False)
+                    for route in K5_ROUTES}
+                row.append(f"B={Bs} " + ", ".join(
+                    f"{route} " + ("not measured" if t[route] is None
+                                   else f"{t[route]:.4f} ms")
+                    for route in K5_ROUTES))
+            log(f"phase 20 {name} kernel time a call at n={nn} "
+                f"(profiler): " + "; ".join(row) + f" [{card}]")
+        del meshes, lk, ke, F_n, ud_n
     # K7 on both routes in turns at the phase 18/19 workloads: the
     # production step (v2, streamed f32 F and u_data) and the bench row
     k7_work = {"k7": (2, 0, torch.zeros(BATCH_PROD, device=dev), F, u_data,
@@ -2356,8 +2489,8 @@ def run_fused_1d(torch, dev, card):
     profile_split(torch, lambda: production.sgd_loop(mesh, F, u_data),
                   "phase 20", card, what=f"production loop (B={BATCH_PROD})")
     log("phase 20 -Xptxas -v of the new kernels:")
-    for line in ptxas_report(("fused_pcr_kernel", "thomas_kernel",
-                              "fused_grad_mxu_cu")):
+    for line in ptxas_report(("fused_pcr_kernel", "fused_pcr_warp_kernel",
+                              "thomas_kernel", "fused_grad_mxu_cu")):
         log(line)
 
     shapes = {
@@ -2428,6 +2561,17 @@ def k8_bound(n, Dn, B, item=4):
     ops = n * B * (K8_OPS_PER_SLOT * Dn + K8_OPS_PER_VALUE)
     nbytes = (n * Dn * B + 3 * n * B + n) * item + 4 * n * Dn
     return ops, nbytes
+
+
+K8_KEYS = {"vec4": "ell_apply4_kernel", "scalar": "ell_apply_kernel"}
+
+
+def k8_bodies(n, Dn, B, ptrs):
+    """K8's bodies that take B scenarios on planes at ``ptrs``."""
+    from difffe_tpu_torch.ops.kernels import ell_kernel as k8
+
+    return (("vec4", "scalar") if k8.k8_body(n, Dn, B, ptrs) == "vec4"
+            else ("scalar",))
 
 
 def k8s_bound(nbr, W, m, iters):
@@ -2629,11 +2773,22 @@ def run_general(torch, dev, card, seed):
     for tag, nbr_, W_, d_, m_ in cases:
         v = torch.randn(nbr_.shape[0], W_.shape[2], generator=gen, dtype=f64,
                         device=dev)
+        before = dict(k8.body_launches)
         y64 = k8.ell_apply(nbr_, W_, d_, v, m_)
+        planned = next(b for b in k8.K8_BODIES
+                       if k8.body_launches[b] != before[b])
         p64 = k8.ell_apply_plain(nbr_, W_, d_, v, m_)
         a32 = [t.to(f32) for t in (W_, d_, v, m_)]
         y32 = k8.ell_apply(nbr_, *a32)
         p32 = k8.ell_apply_plain(nbr_, *a32)
+        # every body that takes the shape gives the plan's body's bits
+        bodies = k8_bodies(*W_.shape, (W_.data_ptr(), d_.data_ptr(),
+                                       v.data_ptr()))
+        for body in bodies:
+            for y, args in ((y64, (W_, d_, v, m_)), (y32, a32)):
+                if not torch.equal(k8.ell_apply(nbr_, *args, body=body), y):
+                    raise AssertionError(f"phase 21 {tag}: the {body} body "
+                                         f"differs from the {planned} body")
         torch.cuda.synchronize()
         e64 = rel_err(y64, p64)
         if not e64 <= 1e-12:
@@ -2650,7 +2805,9 @@ def run_general(torch, dev, card, seed):
         if tag.startswith(f"{N_GEN}² triangulation"):
             max_abs = float((y32.double() - p64).abs().max())
         log(f"phase 21 K8 {tag} (Dn={nbr_.shape[1]}): f64 rel err "
-            f"{e64:.3e}; f32 kernel {ek:.3e} vs plain {ep:.3e}{extra}")
+            f"{e64:.3e}; f32 kernel {ek:.3e} vs plain {ep:.3e}{extra}; the "
+            f"plan's body {planned}, bodies {', '.join(bodies)} equal bit "
+            f"for bit")
     del cases, W, diag, Wb, db
     torch.cuda.empty_cache()
     log(f"phase 21 K8 vs plain: {time.perf_counter() - t0:.1f} s")
@@ -2720,11 +2877,17 @@ def run_general(torch, dev, card, seed):
                                               UDATA_ITERS)
     torch.cuda.synchronize()
     counts = reset_all_launches()
+    for key in k8.body_launches:
+        k8.body_launches[key] = 0
     t0 = time.perf_counter()
     kappa, info = fit_kappa(mesh, f, u_data, steps=STEPS_GEN)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
     main_launches = dict(counts["ell_kernel"])
+    main_bodies = dict(k8.body_launches)
+    if main_bodies != {"vec4": STEPS_GEN + 1, "scalar": 0}:
+        raise AssertionError(f"phase 22: K8 bodies {main_bodies}, every "
+                             f"launch on the vec4 body expected at B={Bm}")
     # a step: K8 for the right-hand side, K8s forward and adjoint; then the
     # eval solve: one of each
     want = {"ell_apply": STEPS_GEN + 1, "ell_cg": 2 * STEPS_GEN + 1}
@@ -2742,7 +2905,8 @@ def run_general(torch, dev, card, seed):
         f"{info['iters']}: path {info['path']}, loss {loss0:.6e} → "
         f"{float(hist[-1]):.6e}, eval_loss {info['eval_loss']:.6e} "
         f"({loss0 / info['eval_loss']:.1f}× lower); launches "
-        f"{main_launches} (K8 {STEPS_GEN} + 1, K8s 2 × {STEPS_GEN} + 1), "
+        f"{main_launches} (K8 {STEPS_GEN} + 1, K8s 2 × {STEPS_GEN} + 1; "
+        f"K8 by body {main_bodies}), "
         f"no other kernel; max |κ − κ_true| "
         f"{float((kappa - k_true).abs().max()):.3e}; {t_fit:.3f} s, "
         f"{t_fit / STEPS_GEN * 1e3:.3f} ms a step [{card}]")
@@ -2846,10 +3010,17 @@ def run_general(torch, dev, card, seed):
         W_, d_ = W_ / rho, d_ / rho
         nbr_, mk = ell_.nbr, m_.bc_mask
         v0 = torch.randn(m_.n_nodes, Bt, generator=gen, device=dev)
-        best = timed_pair(lambda c: k8.ell_apply(nbr_, W_, d_, c, mk),
-                          lambda c: k8.ell_apply_plain(nbr_, W_, d_, c, mk),
-                          v0, 8)
         Dn = nbr_.shape[1]
+        bodies = k8_bodies(m_.n_nodes, Dn, Bt, (W_.data_ptr(),
+                                                d_.data_ptr(), v0.data_ptr()))
+        planned = bodies[0]
+        fns = {body: (lambda c, body=body: k8.ell_apply(nbr_, W_, d_, c, mk,
+                                                         body=body))
+               for body in bodies}
+        fns["plain"] = lambda c: k8.ell_apply_plain(nbr_, W_, d_, c, mk)
+        best = timed_turns(fns, v0, 8, ("plain", "scalar", "vec4", "vec4",
+                                        "scalar", "plain"))
+        best["kernel"] = best[planned]
         valid = (torch.arange(Dn, device=dev) == 0) | (nbr_ != 0)
         rows = torch.arange(m_.n_nodes, device=dev)[:, None].expand(
             -1, Dn)[valid]
@@ -2861,16 +3032,59 @@ def run_general(torch, dev, card, seed):
                                    length=8)
         ops, nbytes = k8_bound(m_.n_nodes, Dn, Bt)
         b_ms, b_by = bound(ops, nbytes)
-        ms[key], lib[key] = best, t_lib
+        dev_ms = {body: device_ms(torch, fns[body], v0, 20, K8_KEYS[body],
+                                  lambda body=body: k8.body_launches[body])
+                  for body in bodies}
+        # each body again after a read of twice the L2 before every call
+        # (the read is not keyed, and leaves no dirty line to write back):
+        # repeated calls on operands that fit the L2 read part of them
+        # from it, so only this time is held against a bound of
+        # device-memory bytes
+        flush = torch.zeros(2 * L2_BYTES // 4, device=dev)
+
+        def cold(body):
+            def call(c):
+                flush.sum()
+                return fns[body](c)
+            return device_ms(torch, call, v0, 20, K8_KEYS[body],
+                             lambda: k8.body_launches[body])
+
+        cold_ms = {body: cold(body) for body in bodies}
+        del flush
+        dev_ms["plain"] = device_ms(torch, fns["plain"], v0, 20)
+        dev_ms["library"] = device_ms(torch, lambda c: torch.sparse.mm(A, c),
+                                      v0, 20)
+        ms[key] = {"kernel": dev_ms[planned], "plain": dev_ms["plain"]}
+        lib[key] = dev_ms["library"]
         log(f"phase 23 K8 at {key} ({m_.n_nodes} nodes, Dn={Dn}), B={Bt}, "
-            f"f32: kernel {best['kernel']:.4f} ms, plain "
-            f"{best['plain']:.4f} ms, torch.sparse.mm (CSR 0/1 adjacency, "
-            f"{int(valid.sum())} entries) {t_lib:.4f} ms; bound "
-            f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); kernel "
-            f"{nbytes / best['kernel'] / 1e6:.1f} GB/s; set-up "
+            f"f32, in turns: vec4 body {best['vec4']:.4f} ms "
+            f"({nbytes / best['vec4'] / 1e6:.1f} GB/s), scalar body (first "
+            f"design) {best['scalar']:.4f} ms "
+            f"({nbytes / best['scalar'] / 1e6:.1f} GB/s, "
+            f"{best['scalar'] / best['vec4']:.2f}x), the plan's {planned}; "
+            f"plain {best['plain']:.4f} ms, torch.sparse.mm (CSR 0/1 "
+            f"adjacency, {int(valid.sum())} entries) {t_lib:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); kernel time a "
+            f"call (profiler): vec4 {dev_ms['vec4']:.4f} ms "
+            f"({nbytes / dev_ms['vec4'] / 1e6:.1f} GB/s, "
+            f"{dev_ms['vec4'] / b_ms:.2f}x bound), scalar "
+            f"{dev_ms['scalar']:.4f} ms "
+            f"({nbytes / dev_ms['scalar'] / 1e6:.1f} GB/s, "
+            f"{dev_ms['scalar'] / dev_ms['vec4']:.2f}x), plain "
+            f"{dev_ms['plain']:.4f} ms, torch.sparse.mm "
+            f"{dev_ms['library']:.4f} ms; after a read of twice the L2 "
+            f"before each call (operands {nbytes / 1e6:.1f} MB, the L2 "
+            f"{L2_BYTES / 1e6:.1f}): vec4 {cold_ms['vec4']:.4f} ms "
+            f"({nbytes / cold_ms['vec4'] / 1e6:.1f} GB/s, "
+            f"{cold_ms['vec4'] / b_ms:.2f}x bound), scalar "
+            f"{cold_ms['scalar']:.4f} ms "
+            f"({cold_ms['scalar'] / cold_ms['vec4']:.2f}x); set-up "
             f"{time.perf_counter() - t0:.1f} s [{card}]")
         del ell_, W_, d_, A, v0
         torch.cuda.empty_cache()
+    log("phase 23 -Xptxas -v of K8's bodies:")
+    for line in ptxas_report(("ell_apply",)):
+        log(line)
 
     def fit10():
         torch.cuda.synchronize()

@@ -1,6 +1,6 @@
 // Helpers shared by the fused 1D grad-step kernels K5a/K5b
 // (fused_grad_pcr.cu), K6 (fused_grad_thomas.cu) and K7
-// (fused_grad_mxu.cu).
+// (fused_grad_mxu.cu), and by K8 (ell_apply.cu) for its rounding.
 //
 // Arithmetic: every product, sum, difference and quotient rounds on its own
 // (the _rn intrinsics, which nvcc never contracts into a fused multiply-add),

@@ -58,6 +58,8 @@ _SIGNATURES = {
     "difffe_fused_pcr_workspace": [_I, _I, _I, _I],
     "difffe_fused_pcr": [_I, _P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P,
                          _I, _I, _I, _I, _D, _D, _I, _P],
+    "difffe_fused_pcr_warp": [_I, _P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P,
+                              _I, _I, _D, _D, _I, _P],
     "difffe_thomas_workspace": [_I, _I, _I, _I],
     "difffe_fused_thomas": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P,
                             _I, _I, _I, _D, _D, _I, _P],
@@ -65,7 +67,7 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _D, _I, _P],
     "difffe_fused_mxu_tc": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P,
                             _I, _I, _I, _I, _D, _P],
-    "difffe_ell_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "difffe_ell_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "difffe_ell_cg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "difffe_ell_cg_clusters": [_I, _I, _I, _I],
     "difffe_k7_ablation": [_I, _P, _L, _P, _P, _L, _I, _P, _P, _P, _P, _I,

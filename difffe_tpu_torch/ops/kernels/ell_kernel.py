@@ -22,7 +22,11 @@ Two wrappers, each with a plain PyTorch version, taken only for CPU
 tensors and the reference the kernel is checked against:
 
 * :func:`ell_apply`, kernel K8 (``csrc/ell_apply.cu``): one operator
-  application, float32 or float64, one thread per (i, b);
+  application, float32 or float64, on one of two bodies that give the
+  same bits (:func:`k8_body` picks one from B and the planes' alignment):
+  ``"vec4"``, four adjacent scenarios a thread with 16-byte loads and
+  stores, where B % 4 == 0 and the planes sit on 16-byte boundaries;
+  ``"scalar"``, the first design, one thread per (i, b), otherwise;
 * :func:`ell_cg`, kernel K8s (``csrc/ell_cg.cu``): a whole fixed-trip
   Jacobi-PCG solve from 0 in one launch, one thread-block cluster a
   scenario with its W slots, diagonal, M⁻¹ and CG state on the chip
@@ -46,6 +50,12 @@ from .stencil_cg_kernel import (CLUSTER_SIZES, ClusterPlan,
 
 #: Kernel launches made by the wrappers: "ell_apply" K8, "ell_cg" K8s.
 launches = {"ell_apply": 0, "ell_cg": 0}
+#: K8's launches by body (each also counted as "ell_apply" above).
+body_launches = {"vec4": 0, "scalar": 0}
+#: K8's bodies: "vec4" four scenarios a thread, "scalar" the first design.
+K8_BODIES = ("vec4", "scalar")
+# The four-scenario body's 32-bit indices: fewer values of W (and of v).
+_VEC4_MAX_VALUES = 2 ** 31
 #: The most neighbour slots K8s takes (csrc/ell_cg.cu's kEllMaxSlots: its
 #: apply is unrolled to 8 or 16 slots).
 ELL_MAX_SLOTS = 16
@@ -83,10 +93,31 @@ def _check(nbr, W, diag, v, m, what="K8",
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+def k8_body(n: int, Dn: int, B: int, ptrs, body=None) -> str:
+    """K8's body for n nodes, Dn slots and B scenarios whose planes (W,
+    diag, v, y) start at the addresses ``ptrs``: ``"vec4"`` where B % 4 ==
+    0, every address is a multiple of 16 and W (and v) hold fewer than
+    2^31 values, ``"scalar"`` otherwise.  ``body`` forces either (tests
+    and chip_smoke.py) and is refused where the four-scenario body cannot
+    take the shape."""
+    fits = (B % 4 == 0 and n * max(Dn, 1) * B < _VEC4_MAX_VALUES
+            and all(p % 16 == 0 for p in ptrs))
+    if body is None:
+        return "vec4" if fits else "scalar"
+    if body not in K8_BODIES:
+        raise ValueError(f"K8 body must be 'vec4' or 'scalar', got {body!r}")
+    if body == "vec4" and not fits:
+        raise ValueError(f"K8's vec4 body takes B % 4 == 0, 16-byte-aligned "
+                         f"planes and fewer than 2^31 values of W; got "
+                         f"n = {n}, Dn = {Dn}, B = {B}")
+    return body
+
+
 def ell_apply(nbr: torch.Tensor, W: torch.Tensor, diag: torch.Tensor,
-              v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+              v: torch.Tensor, m: torch.Tensor, body=None) -> torch.Tensor:
     """The masked operator y (n, B) of the module note: the plain version
-    on CPU tensors, kernel K8 on CUDA tensors."""
+    on CPU tensors, kernel K8 on CUDA tensors, on the body :func:`k8_body`
+    picks (``body`` forces one)."""
     if v.ndim != 2 or nbr.ndim != 2 or nbr.shape[0] != v.shape[0]:
         raise ValueError(f"K8 takes v (n, B) and nbr (n, Dn), got "
                          f"{tuple(v.shape)} and {tuple(nbr.shape)}")
@@ -100,15 +131,18 @@ def ell_apply(nbr: torch.Tensor, W: torch.Tensor, diag: torch.Tensor,
     _check(nbr, W, diag, v, m)
     n, B = v.shape
     y = torch.empty_like(v)
+    planes = (W.data_ptr(), diag.data_ptr(), v.data_ptr(), y.data_ptr())
+    body = k8_body(n, nbr.shape[1], B, planes, body)
     fn = load_library().difffe_ell_apply
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(nbr.data_ptr(), W.data_ptr(), diag.data_ptr(), v.data_ptr(),
                 m.data_ptr(), y.data_ptr(), n, nbr.shape[1], B,
-                int(v.dtype == torch.float64), stream)
+                int(body == "vec4"), int(v.dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"K8 ell_apply launch failed: CUDA error {rc}")
     launches["ell_apply"] += 1
+    body_launches[body] += 1
     return y
 
 

@@ -22,11 +22,30 @@ only), and the κ contraction.
 Each has two implementations behind one wrapper: the CUDA kernel in
 ``csrc/fused_grad_pcr.cu``, launched for CUDA tensors, and the plain
 PyTorch version below, taken only for CPU tensors and the reference the
-kernel is checked against.  Operands stay in the caller's layout: (B, n)
-row-major planes, a shared load (n,) read with batch stride 0; nothing is
-padded or transposed per call.  The TPU's ``block_lanes`` (its lane block)
-caps the scenarios a thread block holds.  The mesh-derived constant
-columns are built once per mesh and dtype (:func:`mesh_constants`).
+kernel is checked against.  The kernel has two routes; ``k5_plan(n,
+dtype)`` picks one:
+
+* ``"warp"`` for n ≤ ``K5_WARP_MAX_ROWS`` (128): one warp a scenario, its
+  rows striped over the lanes' registers with every sweep's factors,
+  neighbours by shuffles, no shared memory and no block barrier, each sum
+  a butterfly over the lanes.  On an H100 it led the block route at every
+  point chip_smoke.py's phase 20 measures (n = 31, 33, 64, 96, 128 by
+  B = 7 to 65 536), so the batch does not enter the plan;
+* ``"block"`` otherwise, up to one block's shared memory (n ≤ 8192): a
+  thread block holds ``spb`` whole scenarios and runs the sweeps in shared
+  memory, the factors beside them or in a global workspace, each sum in
+  row order (the first design).
+
+Every row value (u, λ, K5b's gradient) has the same bits on both routes;
+the per-scenario sums (the loss, K5a's gradient) differ by rounding.
+
+Both count their launches as "k5a" or "k5b" (``route_launches`` splits
+them by route).  Operands stay in the caller's layout: (B, n) row-major
+planes, a shared load (n,) read with batch stride 0; nothing is padded or
+transposed per call.  The TPU's ``block_lanes`` (its lane block) caps the
+scenarios a thread block holds on the block route.  The mesh-derived
+constant columns are built once per mesh and dtype
+(:func:`mesh_constants`).
 
 Neither step is differentiable: each *is* a gradient step, and its outputs
 never require grad.
@@ -42,8 +61,12 @@ import torch
 
 from ..tridiag import _shift_down, _shift_up
 
-#: Kernel launches made by the wrappers, by kernel.
+#: Kernel launches made by the wrappers, by kernel (both routes).
 launches = {"k5a": 0, "k5b": 0}
+#: The same launches by route.
+route_launches = {"warp": 0, "block": 0}
+#: Largest system the warp route takes (4 register slots of 32 rows).
+K5_WARP_MAX_ROWS = 128
 
 # The (8, n) scalar-κ constants block, rows (csrc/fused_grad_pcr.cu and
 # csrc/fused_grad_mxu.cu read the same layout): the Dirichlet mask m;
@@ -68,6 +91,25 @@ def mesh_constants(mesh, name: str, build):
 
 def _sweeps(n: int) -> int:
     return max(1, math.ceil(math.log2(n)))
+
+
+def k5_plan(n: int, dtype: torch.dtype, plan=None) -> str:
+    """K5's route for systems of n nodes in ``dtype``: ``"warp"`` for n ≤
+    ``K5_WARP_MAX_ROWS``, ``"block"`` otherwise; ``plan`` forces either
+    and is refused where the warp route cannot hold the system."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the CUDA K5 kernel computes in float32 or "
+                        f"float64, got {dtype}")
+    if n < 2:
+        raise ValueError(f"K5 needs n >= 2 nodes, got {n}")
+    if plan is None:
+        return "warp" if n <= K5_WARP_MAX_ROWS else "block"
+    if plan not in ("warp", "block"):
+        raise ValueError(f"K5 plan must be 'warp' or 'block', got {plan!r}")
+    if plan == "warp" and n > K5_WARP_MAX_ROWS:
+        raise ValueError(f"K5's warp route holds at most {K5_WARP_MAX_ROWS} "
+                         f"nodes a system, got n = {n}")
+    return plan
 
 
 def _scalar_columns(mesh) -> torch.Tensor:
@@ -258,13 +300,14 @@ def check_cuda(dtype, device, what: str, *tensors):
 
 
 def _launch_pcr(general: bool, kap, F, ud, cols, scale: float, inv_h: float,
-                block_lanes: int):
+                block_lanes: int, plan=None):
     from ._build import load_library
 
     name = "k5b" if general else "k5a"
     dtype, dev = kap.dtype, kap.device
     check_cuda(dtype, dev, name.upper(), F, ud, cols)
     B, n = kap.shape[0], ud.shape[-1]
+    route = k5_plan(n, dtype, plan)
     kap, sK = rows_view(kap if general else kap[:, None],
                         kap.shape[-1] if general else 1)
     F, sF = rows_view(F, n)
@@ -274,27 +317,33 @@ def _launch_pcr(general: bool, kap, F, ud, cols, scale: float, inv_h: float,
     loss = torch.empty(B, dtype=dtype, device=dev)
     grad = torch.empty((B, n - 1) if general else (B,), dtype=dtype,
                        device=dev)
-    spb = max(1, min(block_lanes, _ROWS // n))    # scenarios a block holds
     lib = load_library()
     is_double = int(dtype == torch.float64)
+    operands = (int(general), kap.data_ptr(), sK, F.data_ptr(), sF, f_code,
+                ud.data_ptr(), sU, u_code, cols.data_ptr(), loss.data_ptr(),
+                grad.data_ptr())
     with torch.cuda.device(dev):
-        words = lib.difffe_fused_pcr_workspace(B, n, spb, is_double)
-        if words < 0:
-            raise ValueError(f"{name.upper()} holds a whole system in one "
-                             f"block's shared memory: n = {n} rows do not "
-                             f"fit for {dtype}")
-        ws = (torch.empty(words, dtype=dtype, device=dev) if words > 0
-              else None)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.difffe_fused_pcr(
-            int(general), kap.data_ptr(), sK, F.data_ptr(), sF, f_code,
-            ud.data_ptr(), sU, u_code, cols.data_ptr(), loss.data_ptr(),
-            grad.data_ptr(), None if ws is None else ws.data_ptr(), B, n, spb,
-            _sweeps(n), float(inv_h), float(scale), is_double, stream)
+        if route == "warp":
+            rc = lib.difffe_fused_pcr_warp(*operands, B, n, float(inv_h),
+                                           float(scale), is_double, stream)
+        else:
+            spb = max(1, min(block_lanes, _ROWS // n))   # scenarios a block
+            words = lib.difffe_fused_pcr_workspace(B, n, spb, is_double)
+            if words < 0:
+                raise ValueError(f"{name.upper()} holds a whole system in "
+                                 f"one block's shared memory: n = {n} rows "
+                                 f"do not fit for {dtype}")
+            ws = (torch.empty(words, dtype=dtype, device=dev) if words > 0
+                  else None)
+            rc = lib.difffe_fused_pcr(
+                *operands, None if ws is None else ws.data_ptr(), B, n, spb,
+                _sweeps(n), float(inv_h), float(scale), is_double, stream)
     if rc != 0:
-        raise RuntimeError(f"{name.upper()} fused_pcr launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"{name.upper()} fused_pcr launch failed on the "
+                           f"{route} route: CUDA error {rc}")
     launches[name] += 1
+    route_launches[route] += 1
     return loss, grad
 
 
@@ -305,7 +354,7 @@ def _launch_pcr(general: bool, kap, F, ud, cols, scale: float, inv_h: float,
 
 def fused_kappa_mse_step(mesh, log_k, F, u_data,
                          scale: Optional[float] = None,
-                         block_lanes: int = 512):
+                         block_lanes: int = 512, plan=None):
     """Fused loss-partials + ∂log κ for per-scenario-scalar-κ recovery
     (kernel K5a).
 
@@ -320,6 +369,8 @@ def fused_kappa_mse_step(mesh, log_k, F, u_data,
     ``log_k`` (B,); ``F`` the assembled load (B, n) or shared (n,), before
     elimination; ``u_data`` (B, n).  Returns ``(loss_parts (B,),
     grad_log_k (B,))``.  Not differentiable: it is the gradient step.
+    On the card ``plan`` forces a route (:func:`k5_plan`; tests and
+    chip_smoke.py); CPU tensors take the plain version whatever the plan.
     """
     dtype, dev = mesh.dtype, mesh.device
     log_k = _as_dtype(log_k, dtype, dev)
@@ -336,13 +387,13 @@ def fused_kappa_mse_step(mesh, log_k, F, u_data,
             return _k5a_plain(log_k, F, u_data.expand(B, n), cols,
                               float(scale))
         return _launch_pcr(False, log_k, F, u_data, cols, scale, 0.0,
-                           block_lanes)
+                           block_lanes, plan)
 
 
 def fused_kappa_mse_step_general_pcr(mesh, kappa_e, F, u_data,
                                      scale: Optional[float] = None,
                                      block_lanes: int = 512,
-                                     operand_dtype=None):
+                                     operand_dtype=None, plan=None):
     """Fused loss-partials + ∂κ for per-element-κ 1D inversion, PCR form
     (kernel K5b).
 
@@ -352,6 +403,7 @@ def fused_kappa_mse_step_general_pcr(mesh, kappa_e, F, u_data,
     the streamed F and u_data planes in bf16 (a shared F stays in the mesh
     dtype); κ and every solve value stay in the mesh dtype.  Requires a
     uniform mesh (one 1/h).  Not differentiable: it is the gradient step.
+    ``plan`` as :func:`fused_kappa_mse_step`'s.
     """
     dtype, dev = mesh.dtype, mesh.device
     cols, inv_h = general_constants(mesh)
@@ -373,4 +425,4 @@ def fused_kappa_mse_step_general_pcr(mesh, kappa_e, F, u_data,
             return _k5b_plain(kappa_e, F, u_data.expand(B, n), cols, inv_h,
                               float(scale))
         return _launch_pcr(True, kappa_e, F, u_data, cols, scale, inv_h,
-                           block_lanes)
+                           block_lanes, plan)

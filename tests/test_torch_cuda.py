@@ -905,6 +905,84 @@ def test_fused_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                     torch.ones(4, 11, device=cuda))
 
 
+_K5_ROUTE_GRID = [(n, B) for n in (2, 13, 31, 32, k5.K5_WARP_MAX_ROWS)
+                  for B in (7, 1000, 4096)]
+
+
+def _k5_step(name, mesh, kap, F, ud, plan):
+    op = torch.bfloat16 if ud.dtype == torch.bfloat16 else None
+    if name == "k5a":
+        return k5.fused_kappa_mse_step(mesh, kap, F, ud, plan=plan)
+    return k5.fused_kappa_mse_step_general_pcr(mesh, kap, F, ud,
+                                               operand_dtype=op, plan=plan)
+
+
+def _k5_plain(name, mesh, kap, F, ud):
+    B, n = ud.shape
+    args = [t if t.dtype == torch.bfloat16 else t.to(mesh.dtype)
+            for t in (kap, F, ud)]
+    if name == "k5a":
+        return k5._k5a_plain(*args, k5.scalar_columns(mesh), 2.0 / (B * n))
+    return k5._k5b_plain(*args, *k5.general_constants(mesh), 2.0 / (B * n))
+
+
+@pytest.mark.parametrize("n,B", _K5_ROUTE_GRID,
+                         ids=[f"n{n}_B{B}" for n, B in _K5_ROUTE_GRID])
+def test_k5_warp_route_matches_block_route(cuda, n, B):
+    """K5's warp route against the plain version (f32 by the rule, f64
+    within 1e-10), and against its block route: K5b's gradient (no sum)
+    bit for bit, the sums (the loss, K5a's gradient) by the rule, which
+    the block route meets too.  K5a and K5b, streamed and shared F, f32,
+    bf16 storage (K5b) and f64."""
+    before = dict(k5.route_launches)
+    runs = 0
+    for name in ("k5a", "k5b"):
+        for bf16 in ((False,) if name == "k5a" else (False, True)):
+            for shared_f in (False, True):
+                mesh32, mesh64, lk, ke, F, ud = _fused_inputs(
+                    cuda, n - 1, B, n + B + 2 * shared_f + bf16, (0.3, -0.2),
+                    bf16, shared_f)
+                kap = lk if name == "k5a" else ke
+                tag = (name, bf16, shared_f)
+                warp = _k5_step(name, mesh32, kap, F, ud, "warp")
+                block = _k5_step(name, mesh32, kap, F, ud, "block")
+                p32 = _k5_plain(name, mesh32, kap, F, ud)
+                p64 = _k5_plain(name, mesh64, kap, F, ud)
+                for a, b, c, d in zip(warp, block, p32, p64):
+                    for route in (a, b):
+                        ok, errs = _within_rule(route, c, d)
+                        assert ok, (tag, errs)
+                wide = [t.double() for t in (kap, F, ud)]
+                warp64 = _k5_step(name, mesh64, *wide, "warp")
+                block64 = _k5_step(name, mesh64, *wide, "block")
+                for a, b, c in zip(warp64, block64,
+                                   _k5_plain(name, mesh64, *wide)):
+                    assert rel_err(a, c) <= 1e-10, tag
+                    assert rel_err(b, c) <= 1e-10, tag
+                if name == "k5b":
+                    assert torch.equal(warp[1], block[1]), tag
+                    assert torch.equal(warp64[1], block64[1]), tag
+                runs += 2
+    torch.cuda.synchronize()
+    assert k5.route_launches == {"warp": before["warp"] + runs,
+                                 "block": before["block"] + runs}
+
+
+def test_k5_plan_on_the_card(cuda):
+    """The plan's route runs unforced, and a forced warp route past
+    K5_WARP_MAX_ROWS raises."""
+    for n, B, route in ((31, 7, "warp"), (128, 4096, "warp"),
+                        (129, 4096, "block")):
+        mesh32, _, lk, _, F, ud = _fused_inputs(cuda, n - 1, B, 4, (0.0, 0.0),
+                                                False, False)
+        before = dict(k5.route_launches)
+        k5.fused_kappa_mse_step(mesh32, lk, F, ud)
+        torch.cuda.synchronize()
+        assert k5.route_launches[route] == before[route] + 1
+    with pytest.raises(ValueError, match="warp route holds at most"):
+        k5.fused_kappa_mse_step(mesh32, lk, F, ud, plan="warp")
+
+
 def test_production_loop_runs_on_k7(cuda):
     """The production loop, 40 steps at B = 2048: one K7 launch a step, all
     on the "tc" route, and the final κ within 1e-3 of the same loop on the
@@ -991,6 +1069,49 @@ def test_k8_matches_plain(cuda, case, B):
     assert ok, errs
     if case == "p1":
         assert rel_err(y64, v[nbr.long()].sum(dim=1)) <= 1e-12
+
+
+@pytest.mark.parametrize("case", ["tri", "tet", "mask"])
+@pytest.mark.parametrize("B", [7, 130, 256])
+def test_k8_vec4_body_matches_scalar(cuda, case, B):
+    """K8's bodies: the four-scenario body where B % 4 == 0 and the planes
+    are aligned, equal to the scalar body (the first design) bit for bit;
+    the scalar body for B = 7 and 130 and for a plane off the 16-byte
+    boundary; each against the plain version (f32 by the rule, f64 within
+    1e-12)."""
+    nbr, W, diag, v, m = _k8_operands(cuda, case, B)
+    before = dict(k8.body_launches)
+    bodies = ("vec4", "scalar") if B % 4 == 0 else ("scalar",)
+    p64 = k8.ell_apply_plain(nbr, W, diag, v, m)
+    for dt in (torch.float64, torch.float32):
+        args = [t.to(dt) for t in (W, diag, v, m)]
+        y = {body: k8.ell_apply(nbr, *args, body=body) for body in bodies}
+        assert torch.equal(k8.ell_apply(nbr, *args), y[bodies[0]])
+        for body in bodies:
+            assert torch.equal(y[body], y["scalar"]), body
+        if dt == torch.float64:
+            assert rel_err(y["scalar"], p64) <= 1e-12
+        else:
+            ok, errs = _within_rule(y["scalar"],
+                                    k8.ell_apply_plain(nbr, *args), p64)
+            assert ok, errs
+        if B % 4:
+            with pytest.raises(ValueError, match="vec4 body takes"):
+                k8.ell_apply(nbr, *args, body="vec4")
+        else:     # v one value into its storage: off the 16-byte boundary
+            off = torch.empty(v.numel() + 1, dtype=dt, device=cuda)[1:]
+            off = off.view_as(v).copy_(args[2])
+            assert torch.equal(k8.ell_apply(nbr, args[0], args[1], off,
+                                            args[3]), y["scalar"])
+            with pytest.raises(ValueError, match="vec4 body takes"):
+                k8.ell_apply(nbr, args[0], args[1], off, args[3],
+                             body="vec4")
+    torch.cuda.synchronize()
+    # a dtype: the forced bodies, the plan's and (B % 4 == 0) the
+    # unaligned plane's
+    assert k8.body_launches == {
+        "vec4": before["vec4"] + (4 if B % 4 == 0 else 0),
+        "scalar": before["scalar"] + 4}
 
 
 def test_k8_rejects_what_it_does_not_take(cuda):
