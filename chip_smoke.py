@@ -117,7 +117,8 @@ The fused 1D grad-step path (examples/production_training_demo.py's
 production κ-recovery loop: scalar κ per scenario on ``FEMesh.line(30)``,
 B = 262 144, 300 SGD steps), kernels K5a/K5b (PCR with factor replay; its
 warp route, one warp a scenario, for n ≤ 128, its block route, the first
-design, above), K6 (Thomas)
+design, above), K6 (Thomas; its reg route, a float32 scenario's rows in
+registers, for n ≤ 32, its block route, the first design, otherwise)
 and K7 (dense products with W = Ã⁻¹; its "tc" route on the tensor cores
 for float32 and n ≤ 32, its "fma" route, the first design, otherwise):
 
@@ -131,8 +132,10 @@ for float32 and n ≤ 32, its "fma" route, the first design, otherwise):
     rounding, 3xTF32 or bf16, two launches equal bit for bit, and each
     case's error against the exact f64 plain version printed), K5a/K5b
     for n ≤ 128 on both routes (``k5_plan(plan=)``), K5b's f32 and f64
-    gradients equal bit for bit on the two: f32 by the rule of phase 7
-    (bf16 products add 2^-8/n), f64 within 1e-10;
+    gradients equal bit for bit on the two, K6 for n ≤ 32 on both routes
+    (``k6_plan(plan=)``), its f32 losses and gradients equal bit for bit
+    on the two: f32 by the rule of phase 7 (bf16 products add 2^-8/n),
+    f64 within 1e-10;
 18. the main path: ``difffe_tpu_torch.production.sgd_loop`` at the demo's
     defaults (300 K7 launches, all on the "tc" route, and no other launch
     of the new kernels; the loss falls 10³×; the final κ and the mean
@@ -144,8 +147,9 @@ for float32 and n ≤ 32, its "fma" route, the first design, otherwise):
     K7 row (B = 2^21, v3 refine 2, bf16 u_data, shared F), K7 versions 1,
     2 and 3 at refine 3 with f32 storage, and K5a row (B = 2^20, streamed
     F), and scripts/probe_thomas.py's per-element workload on K5b and K6
-    (n = 30 elements, B = 2^21, shared F, f32 and bf16), K5 each on the
-    route ``k5_plan`` picks (printed, its launch checked); K7 version 3's
+    (n = 30 elements, B = 2^21, shared F, f32 and bf16), K5 and K6 each
+    on the route its plan picks (printed, its launch checked); K7 version
+    3's
     gradient error at refine 0-3, f32 and bf16 storage, on the "tc"
     route (bf16 products) and on the plain version with one TF32 pass
     (the alternative kept in reserve, no kernel's) (printed);
@@ -153,7 +157,9 @@ for float32 and n ≤ 32, its "fma" route, the first design, otherwise):
     its plain version; K5a and K5b on their two routes in turns, with the
     bound and each route's kernel time a call from the profiler, and that
     time at n = 31, 33, 64, 96 and 128 by batch (B = 7 … 65 536; a
-    point no trace holds is printed as not measured); K7's two routes in
+    point no trace holds is printed as not measured); K6's two routes the
+    same way at probe_thomas's workload, beside K5b's warp route, and by
+    n = 2, 13, 31, 32, 33 and 64 and B = 7 … 2^21; K7's two routes in
     turns at the production step
     and the bench row with each route's bound and the device time of a
     step from the profiler, each route's and the plain version's (the
@@ -161,9 +167,10 @@ for float32 and n ≤ 32, its "fma" route, the first design, otherwise):
     "tc" route), the cuBLAS yardstick (two products X Wᵀ at (262 144, 31)
     × (31, 31), f32 and TF32, on the device and chained), host time of
     the phase-18 loop and of one K7 wrapper call, a ``torch.profiler``
-    split of one loop, and the registers and spills of the new kernels
-    (K5's warp and block bodies among them) from the ``-Xptxas -v`` build
-    log.
+    split of one loop, the registers and spills of the new kernels
+    (K5's and K6's bodies among them) from the ``-Xptxas -v`` build log
+    (a spill in K6's reg route fails the run), and the SASS instruction
+    count of K6's float32 bodies (``cuobjdump -sass``).
 
 The general-mesh path (κ-field inversion on a perturbed triangulation
 without a grid, scripts/probe_unstructured.py's workload: 64 × 64 quads
@@ -227,20 +234,27 @@ ported as ``difffe_tpu_torch/probes/k7_ablation.py``: K7 version 1 on
 ``csrc/k7_ablation.cu``: B (3xTF32 tensor-core products), C (bf16
 tensor-core products), D (one product), E (no shifts), F
 (register-blocked rows) and A1 (D and E's kernel with nothing ablated,
-their baseline):
+their baseline); and the tc set on K7's "tc" body (``csrc/tc_step.cuh``):
+tcA (K7's "tc" route itself), tcB (one TF32 pass), tcC (one bf16 pass),
+tcD (one product), tcE (no shifts) and tcF (two tiles a warp):
 
 24. each variant against its plain version, n ∈ {13, 31}, B ∈ {1000,
     2^21}, zero and nonzero Dirichlet values, f32 and bf16 u_data: f32 by
     the rule of phase 7, f64 within 1e-10 for A, A1, D, E and F; F and A1
     equal to A (K7's "fma" route, forced) bit for bit (F pads 13 nodes to
-    16 rows, 31 to 32); then the probe's path: its staging, each
-    variant's gradient on an 8192-scenario slice against autograd through
-    the PCR oracle on the same bf16-quantized data (A, A1, B and F within
-    1e-4; C, D and E printed), and P2's timing (30 chained steps, best of
-    3) with 121 launches of each variant (A's on K7's "fma" route) and no
-    other; the plain versions' time, the cuBLAS product X Wᵀ at
+    16 rows, 31 to 32); the tc set in f32 by the rule (single-pass
+    products add one operand rounding, 2^-8/n for bf16, 2^-11/n for
+    TF32), tcA and tcF equal to K7's "tc" route at version 1 bit for bit;
+    then the probe's path: its staging, each variant's gradient on an
+    8192-scenario slice against autograd through the PCR oracle on the
+    same bf16-quantized data (A, A1, B, F, tcA and tcF within 1e-4; the
+    others printed), and P2's timing (30 chained steps, best of 3) with
+    121 launches of each variant (A's on K7's "fma" route, tcA's on its
+    "tc" route) and no other, the tc set's kernel time a call from the
+    profiler; the plain versions' time, the cuBLAS product X Wᵀ at
     (2^21, 31) × (31, 31) in f32, TF32 and bf16 as the products'
-    yardstick, and the registers of the new kernels.
+    yardstick, the registers of the new kernels and the SASS instruction
+    count of the tc set's bodies.
 
 Each path's launch counts are set to 0 just before its main-path phases
 (4-5, 8, 11, 14, 18, 22, 24's probe path) and read just after;
@@ -1756,6 +1770,10 @@ K5_SWEEP_BS = (7, 256, 1000, 4096, 65536)   # phase 20: K5's routes by
 K5_SWEEP_NS = (31, 33, 64, 96, 128)          # batch and n
 K5_ROUTES = ("warp", "block")
 K5_KEYS = {"warp": "fused_pcr_warp_kernel", "block": "fused_pcr_kernel"}
+K6_ROUTES = ("reg", "block")
+K6_KEYS = {"reg": "thomas_reg_kernel", "block": "thomas_kernel"}
+K6_SWEEP_NS = (2, 13, 31, 32, 33, 64)           # phase 20: K6's routes by
+K6_SWEEP_BS = (7, 1000, 65536, BATCH_BENCH)     # n and batch
 FUSED_SOURCES = {"k5a": "difffe_tpu_torch/csrc/fused_grad_pcr.cu",
                  "k5b": "difffe_tpu_torch/csrc/fused_grad_pcr.cu",
                  "k6": "difffe_tpu_torch/csrc/fused_grad_thomas.cu",
@@ -1823,8 +1841,8 @@ def fused_plain(name, mesh, scale, version=2, refine=3, products="exact"):
 def fused_kernel(name, mesh, scale, version=2, refine=3, block_lanes=None,
                  plan=None):
     """The public wrapper of a fused step as a function of (κ, F, u_data);
-    bf16-stored planes pass through with ``operand_dtype`` bf16; K5 and K7
-    on ``plan``'s route where given."""
+    bf16-stored planes pass through with ``operand_dtype`` bf16; K5, K6
+    and K7 on ``plan``'s route where given."""
     from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
     from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
     from difffe_tpu_torch.ops.kernels import fused_grad_thomas_kernel as k6
@@ -1846,7 +1864,7 @@ def fused_kernel(name, mesh, scale, version=2, refine=3, block_lanes=None,
             mesh, a, F, ud, scale=scale, operand_dtype=op(ud), plan=plan,
             **bl)
     return lambda a, F, ud: k6.fused_kappa_mse_step_general(
-        mesh, a, F, ud, scale=scale, operand_dtype=op(ud), **bl)
+        mesh, a, F, ud, scale=scale, operand_dtype=op(ud), plan=plan, **bl)
 
 
 def fused_launches():
@@ -1865,8 +1883,9 @@ def reset_fused_launches():
     for mod in (k5, k6, k7):
         for key in mod.launches:
             mod.launches[key] = 0
-    for key in k5.route_launches:
-        k5.route_launches[key] = 0
+    for routes in (k5.route_launches, k6.route_launches):
+        for key in routes:
+            routes[key] = 0
 
 
 def fused_operands(torch, dev, n, B, gen, bc, shared_f, bf16):
@@ -1907,7 +1926,7 @@ def k7_products(n, version, plan=None):
 
 def check_fused(torch, name, meshes, lk, ke, F, ud, bf16, version=2,
                 refine=3, plan=None):
-    """Phase 17's comparison of one case (K5 and K7 on ``plan``'s route;
+    """Phase 17's comparison of one case (K5, K6 and K7 on ``plan``'s route;
     K7 against the plain version with that route's products; on the "tc"
     route also two launches bit for bit and a logged line with the error
     against the exact f64 plain version beside the rule's, elsewhere also
@@ -2012,6 +2031,45 @@ def ptxas_report(names):
             for name, m in zip(shown, mangled)]
 
 
+def sass_report(names):
+    """One line per compiled kernel whose demangled name holds one of
+    ``names``: its static SASS instruction count, how many of them are
+    predicated, and its most frequent opcodes, from ``cuobjdump -sass``
+    of the built library (a body unrolled over its rows runs each of
+    these once a tile).  Without cuobjdump the lines say so."""
+    import collections
+    import re
+
+    from difffe_tpu_torch.ops.kernels import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    try:
+        text = subprocess.run([str(tool), "-sass",
+                               str(_build.library_path())],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        bodies = re.split(r"\n\s*Function : ", text)[1:]
+        shown = subprocess.run(
+            ["c++filt"], input="\n".join(b.split("\n", 1)[0].strip()
+                                         for b in bodies),
+            capture_output=True, text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError) as exc:
+        return [f"  SASS not measured ({exc})"]
+    lines = []
+    for body, name in zip(bodies, shown):
+        name = name.replace("(anonymous namespace)::", "")
+        if not any(k in name for k in names):
+            continue
+        ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]+)", body)
+        ops = collections.Counter(op.split(".")[0] for _, op in ins)
+        lines.append(f"  {name[:name.rfind('(')]}: {len(ins)} SASS "
+                     f"instructions, {sum(1 for p, _ in ins if p)} "
+                     f"predicated; " + ", ".join(
+                         f"{k} {v}" for k, v in ops.most_common(10)))
+    return lines
+
+
 def k7_bound(route, n, B, version, refine, store=4, shared_f=False):
     """(operations, bytes, least seconds of the operations, rate label) of
     K7's step on ``route`` at n nodes and B scenarios, by fused_ops'
@@ -2053,16 +2111,17 @@ def device_ms(torch, fn, x0, length, key=None, launched=None,
     alike.  ``launched()``, where given, is the wrapper's count of the
     keyed kernel's launches: each call must add one to it, so a trace
     that misses launches is told from a call that did not make them.
-    Where five traces miss launches it raises, or with ``required``
-    false returns None (the caller prints the time as not measured)."""
+    Where ten traces miss launches (without ``key``: hold no kernel) it
+    raises, or with ``required`` false returns None (the caller prints
+    the time as not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn(x0)
     torch.cuda.synchronize()
-    # a trace can still drop a launch: record again (five tries) until
+    # a trace can still drop a launch: record again (ten tries) until
     # it holds exactly one a call
-    for _ in range(5):
+    for _ in range(10):
         before = None if launched is None else launched()
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -2080,9 +2139,11 @@ def device_ms(torch, fn, x0, length, key=None, launched=None,
         rows = [e for e in cuda if key is None or key in e.key]
         total = sum(e.self_device_time_total for e in rows) / 1e3
         if key is None:
-            if not rows:
-                raise AssertionError("profiled no kernel")
-            return total / length
+            if rows:
+                return total / length
+            log(f"device_ms: the trace of {length} calls holds no kernel; "
+                f"recording again")
+            continue
         count = sum(e.count for e in rows)
         if count == length:
             return total / count
@@ -2090,8 +2151,9 @@ def device_ms(torch, fn, x0, length, key=None, launched=None,
             f"calls (the trace's kernels: "
             f"{[(e.key[:60], e.count) for e in cuda]}); recording again")
     if required:
-        raise AssertionError(f"profiled {count} launches of {key} in "
-                             f"{length} calls")
+        raise AssertionError(
+            "profiled no kernel" if key is None else
+            f"profiled {count} launches of {key} in {length} calls")
     log(f"device_ms: no trace held the {length} launches of {key}: not "
         f"measured")
     return None
@@ -2117,13 +2179,15 @@ def run_fused_1d(torch, dev, card):
     from difffe_tpu_torch.ops.assembly import assemble_load
     from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
     from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
+    from difffe_tpu_torch.ops.kernels import fused_grad_thomas_kernel as k6
     from difffe_tpu_torch.solver import solve_poisson_batched
 
     gen = torch.Generator(device=dev).manual_seed(17)
 
     # -- phase 17: every new kernel against its plain version; K7 on both
     # routes where n <= 32, K5 on both where n <= 128 (the two K5 routes'
-    # outputs equal bit for bit)
+    # row values equal bit for bit), K6 on both where n <= 32 (the two
+    # routes' outputs equal bit for bit)
     t0 = time.perf_counter()
     max_abs = {k: 0.0 for k in (*FUSED_SOURCES, "k7_fma")}
     for name in ("k5a", "k5b", "k6", "k7"):
@@ -2134,6 +2198,9 @@ def run_fused_1d(torch, dev, card):
                 routes = (["tc", "fma"] if n <= k7.TC_MAX_NODES else ["fma"])
             elif name in ("k5a", "k5b"):
                 routes = (K5_ROUTES if n <= k5.K5_WARP_MAX_ROWS
+                          else ["block"])
+            elif name == "k6":
+                routes = (K6_ROUTES if n <= k6.K6_REG_MAX_NODES
                           else ["block"])
             for B in (b for b in FUSED_BS if b < FUSED_BIG or n <= 31):
                 combos = [(bc, shared_f, bf16)
@@ -2163,19 +2230,26 @@ def run_fused_1d(torch, dev, card):
                             if n == N_PROD + 1:   # by route, the
                                 # planned one's under the kernel's name
                                 key = "k7_fma" if plan == "fma" else name
-                                if name in ("k5a", "k5b") and plan != \
-                                        k5.k5_plan(n, torch.float32):
+                                planned = {
+                                    "k5a": k5.k5_plan, "k5b": k5.k5_plan,
+                                    "k6": k6.k6_plan}.get(name)
+                                if planned and plan != planned(
+                                        n, torch.float32):
                                     key = f"{name}_{plan}"
                                 max_abs[key] = max(max_abs.get(key, 0.0), e)
                         # K5b's gradient (no sum) is the same on both
                         # routes; the sums, checked by the rule above,
-                        # take another order on each
-                        if name == "k5b" and len(outs) == 2:
-                            for (_, a), (_, b) in zip(*outs):
-                                if not torch.equal(a, b):
-                                    raise AssertionError(
-                                        f"phase 17 {name} n={n} B={B}: the "
-                                        f"routes' gradients differ")
+                        # take another order on each.  K6's routes make
+                        # every operation alike: loss and gradient agree
+                        if name in ("k5b", "k6") and len(outs) == 2:
+                            for ka, kb in zip(*outs):
+                                pairs = zip(ka, kb) if name == "k6" else \
+                                    [(ka[1], kb[1])]
+                                for a, b in pairs:
+                                    if not torch.equal(a, b):
+                                        raise AssertionError(
+                                            f"phase 17 {name} n={n} B={B}: "
+                                            f"the routes' outputs differ")
                     del meshes, lk, ke, F, ud
             torch.cuda.empty_cache()
         log(f"phase 17 {name}: {cases} cases within the gates (f32 by the "
@@ -2186,7 +2260,10 @@ def run_fused_1d(torch, dev, card):
             + (f"; n <= {k5.K5_WARP_MAX_ROWS} on the warp and block routes"
                + (", their f32 and f64 gradients equal bit for bit"
                   if name == "k5b" else "")
-               if name in ("k5a", "k5b") else "") + ")")
+               if name in ("k5a", "k5b") else "")
+            + (f"; n <= {k6.K6_REG_MAX_NODES} on the reg and block routes, "
+               f"their f32 losses and gradients equal bit for bit"
+               if name == "k6" else "") + ")")
     reset_fused_launches()
     m137, lk, _, F, ud = fused_operands(torch, dev, 137, 64, gen, (0.0, 0.0),
                                         False, False)
@@ -2201,7 +2278,9 @@ def run_fused_1d(torch, dev, card):
         f"against the f64 plain version, by route: " + "; ".join(
             f"{name} {planned} (planned; the kernels line's) "
             f"{max_abs[name]:.3e}, {other} {max_abs[name + '_' + other]:.3e}"
-            for name in ("k5a", "k5b")))
+            for name in ("k5a", "k5b"))
+        + f"; k6 reg (planned) {max_abs['k6']:.3e}, block "
+        f"{max_abs['k6_block']:.3e}")
     log(f"phase 17 kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 18: the main path, the production loop at its defaults
@@ -2296,10 +2375,12 @@ def run_fused_1d(torch, dev, card):
         if fused_launches()[name] != 1 or fused_launches()["k7_fma"]:
             raise AssertionError(f"{what}: launches {fused_launches()}")
         label = f"{what} B={kap.shape[0]}"
-        if name in ("k5a", "k5b"):      # on the route the plan picks
-            route = k5.k5_plan(n, torch.float32)
-            if k5.route_launches[route] != 1:
-                raise AssertionError(f"{what}: {k5.route_launches}, the "
+        if name in ("k5a", "k5b", "k6"):    # on the route the plan picks
+            mod = k6 if name == "k6" else k5
+            route = (k6.k6_plan if name == "k6" else k5.k5_plan)(
+                n, torch.float32)
+            if mod.route_launches[route] != 1:
+                raise AssertionError(f"{what}: {mod.route_launches}, the "
                                      f"{route} route planned")
             label += f" ({route} route)"
         if not bool(torch.isfinite(gk).all() and torch.isfinite(lp).all()):
@@ -2339,7 +2420,7 @@ def run_fused_1d(torch, dev, card):
         # chained: each step's κ (log κ for K5a/K7) is the last one's
         # minus 1e-3 times its gradient, so κ stays near its start
         name, B = what.split("_")[0], kap.shape[0]
-        if name not in ("k5a", "k5b"):
+        if name not in ("k5a", "k5b", "k6"):
             ms[what] = best = timed_pair(
                 lambda a: a - 1e-3 * kern(a, F_, ud_)[1],
                 lambda a: a - 1e-3 * plain(a, F_, ud_)[1], kap, 4)
@@ -2347,34 +2428,47 @@ def run_fused_1d(torch, dev, card):
                 f"{best['plain']:.4f} ms (B={B}, n={n}); kernel "
                 f"{B / best['kernel'] * 1e3:.6e} grad-solves/s [{card}]")
             continue
-        # K5 on both routes in turns, chained and the profiler's kernel
-        # time a call
-        k5_steps = {route: fused_kernel(name, mesh, scale, block_lanes=512,
-                                        plan=route) for route in K5_ROUTES}
+        # K5 and K6 on both routes in turns, chained and the profiler's
+        # kernel time a call
+        mod = k6 if name == "k6" else k5
+        routes, keys = ((K6_ROUTES, K6_KEYS) if name == "k6"
+                        else (K5_ROUTES, K5_KEYS))
+        new, first = routes
+        steps = {route: fused_kernel(name, mesh, scale, block_lanes=512,
+                                     plan=route) for route in routes}
         fns = {route: (lambda a, st=st: a - 1e-3 * st(a, F_, ud_)[1])
-               for route, st in k5_steps.items()}
+               for route, st in steps.items()}
         fns["plain"] = lambda a: a - 1e-3 * plain(a, F_, ud_)[1]
-        best = timed_turns(fns, kap, 4, ("plain", "block", "warp", "warp",
-                                         "block", "plain"))
+        best = timed_turns(fns, kap, 4, ("plain", first, new, new, first,
+                                         "plain"))
         dev_ms = {route: device_ms(
-            torch, lambda a, st=st: st(a, F_, ud_), kap, 20, K5_KEYS[route],
-            lambda route=route: k5.route_launches[route])
-            for route, st in k5_steps.items()}
-        planned = k5.k5_plan(n, torch.float32)
-        ms[what] = {"kernel": best[planned], "plain": best["plain"]}
+            torch, lambda a, st=st: st(a, F_, ud_), kap, 20, keys[route],
+            lambda route=route: mod.route_launches[route])
+            for route, st in steps.items()}
+        planned = (k6.k6_plan if name == "k6" else k5.k5_plan)(
+            n, torch.float32)
+        ms[what] = {"kernel": best[planned], "plain": best["plain"],
+                    "chained": best, "device": dev_ms}
         store = 2 if ud_.dtype == torch.bfloat16 else 4
         b_ms, b_by = bound(B * fused_ops(name, n), B * fused_bytes(
             name, n, store, shared_f=F_.ndim == 1))
         log(f"phase 20 {what} (B={B}, n={n}, "
             f"{'bf16' if store == 2 else 'f32'} u_data, "
             f"{'shared' if F_.ndim == 1 else 'streamed'} F), chained in "
-            f"turns: warp {best['warp']:.4f} ms, block (first design) "
-            f"{best['block']:.4f} ms ({best['block'] / best['warp']:.2f}x), "
+            f"turns: {new} {best[new]:.4f} ms, {first} (first design) "
+            f"{best[first]:.4f} ms ({best[first] / best[new]:.2f}x), "
             f"plain {best['plain']:.4f} ms; kernel time a call (profiler): "
-            f"warp {dev_ms['warp']:.4f} ms, block {dev_ms['block']:.4f} ms; "
-            f"bound {b_ms:.4f} ms ({b_by}), warp {dev_ms['warp'] / b_ms:.2f}x "
-            f"bound; the plan's route {planned}, "
-            f"{B / best[planned] * 1e3:.6e} grad-solves/s [{card}]")
+            f"{new} {dev_ms[new]:.4f} ms, {first} {dev_ms[first]:.4f} ms "
+            f"({dev_ms[first] / dev_ms[new]:.2f}x); bound {b_ms:.4f} ms "
+            f"({b_by}), {new} {dev_ms[new] / b_ms:.2f}x bound; the plan's "
+            f"route {planned}, {B / best[planned] * 1e3:.6e} grad-solves/s "
+            f"[{card}]")
+        if name == "k6":
+            warp = ms[f"k5b_{what.split('_')[1]}"]["device"]["warp"]
+            log(f"phase 20 {what} beside K5b's warp route on the same "
+                f"workload, kernel time a call: K6 reg {dev_ms['reg']:.4f} "
+                f"ms, K5b warp {warp:.4f} ms ({warp / dev_ms['reg']:.2f}x) "
+                f"[{card}]")
     # K5's routes by n and batch, streamed F and f32 planes: at 1-4 slots
     # a lane (n = 31 the workloads', 33 the first past one slot), the
     # evidence for a plan without a batch threshold
@@ -2398,6 +2492,31 @@ def run_fused_1d(torch, dev, card):
             log(f"phase 20 {name} kernel time a call at n={nn} "
                 f"(profiler): " + "; ".join(row) + f" [{card}]")
         del meshes, lk, ke, F_n, ud_n
+    # K6's routes by n and batch, shared F and f32 planes (probe_thomas's
+    # layout): the reg route where its bucket takes n, the block route
+    # everywhere
+    for nn in K6_SWEEP_NS:
+        meshes, _, ke, F_n, ud_n = fused_operands(
+            torch, dev, nn, K6_SWEEP_BS[-1], gen, (0.3, -0.2), True, False)
+        F_n, ud_n, ke = F_n.float(), ud_n.float(), ke.float()
+        routes = [r for r in K6_ROUTES
+                  if r == "block" or nn <= k6.K6_REG_MAX_NODES]
+        row = []
+        for Bs in K6_SWEEP_BS:
+            t = {route: device_ms(
+                torch, lambda x, st=fused_kernel("k6", meshes[0], 1.0,
+                                                 plan=route):
+                st(x, F_n, ud_n[:Bs]), ke[:Bs], 20, K6_KEYS[route],
+                lambda route=route: k6.route_launches[route], False)
+                for route in routes}
+            row.append(f"B={Bs} " + ", ".join(
+                f"{route} " + ("not measured" if t[route] is None
+                               else f"{t[route]:.4f} ms")
+                for route in routes))
+        log(f"phase 20 k6 kernel time a call at n={nn} (profiler, shared "
+            f"F): " + "; ".join(row) + f" [{card}]")
+        del meshes, ke, F_n, ud_n
+    torch.cuda.empty_cache()
     # K7 on both routes in turns at the phase 18/19 workloads: the
     # production step (v2, streamed f32 F and u_data) and the bench row
     k7_work = {"k7": (2, 0, torch.zeros(BATCH_PROD, device=dev), F, u_data,
@@ -2490,7 +2609,18 @@ def run_fused_1d(torch, dev, card):
                   "phase 20", card, what=f"production loop (B={BATCH_PROD})")
     log("phase 20 -Xptxas -v of the new kernels:")
     for line in ptxas_report(("fused_pcr_kernel", "fused_pcr_warp_kernel",
-                              "thomas_kernel", "fused_grad_mxu_cu")):
+                              "thomas_kernel", "thomas_reg_kernel",
+                              "fused_grad_mxu_cu")):
+        log(line)
+    spilled = [line for line in ptxas_report(("thomas_reg_kernel",))
+               if " 0 bytes spill stores" not in line
+               or " 0 bytes spill loads" not in line]
+    if spilled:
+        raise AssertionError(f"K6's reg route spills: {spilled}")
+    log("phase 20 SASS of K6's float32 bodies:")
+    for line in sass_report(("thomas_reg_kernel<16, float, 0>",
+                             "thomas_reg_kernel<32, float, 0>",
+                             "thomas_kernel<float, float, float, true>")):
         log(line)
 
     shapes = {
@@ -2511,6 +2641,13 @@ def run_fused_1d(torch, dev, card):
             FUSED_NAMES[name], FUSED_SOURCES[name], FUSED_REPLACES[name],
             main_path[name], max_abs[name], ms[key]["kernel"],
             ms[key]["plain"], B * ops, B * nbytes))
+    # K6's first design, the block route, chained on the same workload
+    B, ops, nbytes = shapes["k6"]
+    entries.append(kernel_entry(
+        "fused_thomas_block", FUSED_SOURCES["k6"], FUSED_REPLACES["k6"],
+        main_path["k6"], max_abs["k6_block"],
+        ms["k6_f32"]["chained"]["block"], ms["k6_f32"]["plain"], B * ops,
+        B * nbytes))
     # K7 at the production step's workload, on each route
     for route, name, key in (("tc", "fused_mxu", "k7"),
                              ("fma", "fused_mxu_fma", "k7_fma")):
@@ -3136,31 +3273,47 @@ ABL_NAMES = {"A1": "k7_ablation_a1_staged_v1",
              "B": "k7_ablation_b_3xtf32", "C": "k7_ablation_c_bf16",
              "D": "k7_ablation_d_one_product",
              "E": "k7_ablation_e_no_shifts",
-             "F": "k7_ablation_f_register_rows"}
+             "F": "k7_ablation_f_register_rows",
+             "tcA": "k7_ablation_tca_tc_route_v1",
+             "tcB": "k7_ablation_tcb_tf32",
+             "tcC": "k7_ablation_tcc_bf16",
+             "tcD": "k7_ablation_tcd_one_product",
+             "tcE": "k7_ablation_tce_no_shifts",
+             "tcF": "k7_ablation_tcf_two_tiles"}
+TC_SOURCE = "difffe_tpu_torch/csrc/k7_ablation.cu + tc_step.cuh"
+TC_GATED = ("tcA", "tcF")        # the tc set's parity gate
 
 
 def ablation_ops(variant, n):
     """(product operations, row operations) of one scenario's step of a K7
-    ablation, by fused_ops' convention for K7: 2n² a product pass (B makes
-    three passes a product, D one product) and 12n + 3 around them (E
-    drops the shifts' 4n)."""
-    passes = {"B": 6, "D": 1}.get(variant, 2)
-    return passes * 2 * n * n, 12 * n + 3 - (4 * n if variant == "E" else 0)
+    ablation, by fused_ops' convention for K7: 2n² a product pass (B, tcA,
+    tcD, tcE and tcF make three TF32 passes a product, D and tcD one
+    product) and 12n + 3 around them (E and tcE drop the shifts' 4n)."""
+    from difffe_tpu_torch.probes import k7_ablation as ab
+
+    math, products = ab.math_and_products(variant)
+    passes = 3 if products == "tf32x3" else 1
+    products_n = 1 if math == "D" else 2
+    return (passes * products_n * 2 * n * n,
+            12 * n + 3 - (4 * n if math == "E" else 0))
 
 
 def ablation_bound(variant, n, B):
     """(operations, bytes, least seconds of the operations, rate label) of
-    one step at n nodes and B scenarios with bf16 u_data and shared F.  B
-    and C run their products on the tensor cores beside the row work on
-    the f32 pipes, so their operations take the larger of the two times;
-    the others do both on the f32 pipes, one after the other."""
+    one step at n nodes and B scenarios with bf16 u_data and shared F.  B,
+    C and the tc set run their products on the tensor cores beside the row
+    work on the f32 pipes, so their operations take the larger of the two
+    times; the others do both on the f32 pipes, one after the other."""
+    from difffe_tpu_torch.probes import k7_ablation as ab
+
     prod, row = ablation_ops(variant, n)
-    rate, label = {"B": (PEAK_TF32, "TF32 495 TFLOP/s"),
-                   "C": (PEAK_BF16, "bf16 989 TFLOP/s")}.get(
-                       variant, (PEAK_FLOPS, "f32 67 TFLOP/s"))
+    products = ab.math_and_products(variant)[1]
+    tensor = variant in ("B", "C") or variant in ab.TC_SET
+    rate, label = ((PEAK_BF16, "bf16 989 TFLOP/s") if products == "bf16"
+                   else (PEAK_TF32, "TF32 495 TFLOP/s") if tensor
+                   else (PEAK_FLOPS, "f32 67 TFLOP/s"))
     t_prod, t_row = prod / rate, row / PEAK_FLOPS
-    ops_s = B * (max(t_prod, t_row) if variant in ("B", "C")
-                 else t_prod + t_row)
+    ops_s = B * (max(t_prod, t_row) if tensor else t_prod + t_row)
     return (B * (prod + row), B * fused_bytes("k7", n, 2, shared_f=True),
             ops_s, label)
 
@@ -3176,9 +3329,9 @@ def run_ablation(torch, dev, card):
 
     gen = torch.Generator(device=dev).manual_seed(24)
 
-    # -- phase 24, each variant against its plain version
+    # -- phase 24, each variant of both sets against its plain version
     t0 = time.perf_counter()
-    max_abs = {v: 0.0 for v in ab.VARIANTS}
+    max_abs = {v: 0.0 for v in ab.ALL_VARIANTS}
     for n in ABL_NS:
         for B in ABL_BS:
             for bc in ((0.0, 0.0), (0.3, -0.2)):
@@ -3195,7 +3348,7 @@ def run_ablation(torch, dev, card):
                     what = (f"phase 24 n={n} B={B} bc={bc} "
                             f"{'bf16' if bf16 else 'f32'} u_data")
                     errs, out = [], {}
-                    for v in ab.VARIANTS:
+                    for v in ab.ALL_VARIANTS:
                         k = ab.ablation_step(v, m32, *a32, scale)
                         p32 = ab.plain_step(v, *a32, c32, W32, scale)
                         p64 = ab.plain_step(v, *a64, c64, W64, scale)
@@ -3226,10 +3379,23 @@ def run_ablation(torch, dev, card):
                                     raise AssertionError(
                                         f"{what}: {v} differs from A "
                                         f"({prec})")
+                    # tcA is K7's "tc" route at version 1; tcF gives its
+                    # bits with two tiles a warp
+                    k7_tc = k7.fused_kappa_mse_step_mxu(
+                        m32, *a32, scale=scale,
+                        operand_dtype=torch.bfloat16 if bf16 else None,
+                        version=1, refine=0, plan="tc")
+                    for v in ("tcA", "tcF"):
+                        for a, b in zip(out[v, "f32"], k7_tc):
+                            if not torch.equal(a, b):
+                                raise AssertionError(
+                                    f"{what}: {v} differs from K7's tc "
+                                    f"route")
                     log(f"{what}: grad error against the f64 plain version, "
                         f"kernel/plain f32 " + ", ".join(errs)
-                        + "; F and A1 equal A bit for bit (f32, f64)")
-                    del meshes, lk, F, ud, ud32, a32, a64, out
+                        + "; F and A1 equal A bit for bit (f32, f64); tcA "
+                        "and tcF equal K7's tc route v1 bit for bit")
+                    del meshes, lk, F, ud, ud32, a32, a64, out, k7_tc
             torch.cuda.empty_cache()
     log(f"phase 24 kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
@@ -3241,27 +3407,37 @@ def run_ablation(torch, dev, card):
     n, B = mesh.n_nodes, ab.BATCH
     st = ab.stage(mesh, B, torch.Generator(device=dev).manual_seed(0))
     g_ref = ab.oracle_grad(mesh, st)
-    for v in ab.VARIANTS:
+    for v in ab.ALL_VARIANTS:
         rel = ab.parity(v, mesh, st, g_ref)
-        gated = v in ("A", "A1", "B", "F")
+        gated = v in ("A", "A1", "B", "F") + TC_GATED
         log(f"phase 24 variant {v}: parity rel {rel:.3e} against the PCR "
             f"oracle on the bf16-quantized slice of {g_ref.shape[0]}"
             + (f" (limit {GATE_TOL})" if gated else " (not gated)"))
         if gated and not rel <= GATE_TOL:
             raise AssertionError(f"phase 24 variant {v}: parity {rel:.3e}")
-    ms = {v: ab.run_variant(v, mesh, st) for v in ab.VARIANTS}
+    ms = {v: ab.run_variant(v, mesh, st) for v in ab.ALL_VARIANTS}
     torch.cuda.synchronize()
     want = 1 + 4 * ab.STEPS
     log(f"K7 ablation main-path launches: {dict(ab.launches)}, "
-        f"k7 (fma route) {k7.launches['k7_fma']}")
+        f"k7 (fma route, A) {k7.launches['k7_fma']}, k7 (tc route, tcA) "
+        f"{k7.launches['k7']}")
     if ab.launches != {v: want for v in ab.launches}:
         raise AssertionError(f"phase 24 launches {ab.launches}, expected "
                              f"{want} each")
-    check_only(counts, {"fused_grad_mxu_kernel": {"k7_fma": want}},
+    check_only(counts, {"fused_grad_mxu_kernel": {"k7_fma": want,
+                                                  "k7": want}},
                "phase 24")
+    # the tc set's kernel time a call (profiler; tcF has a kernel of its
+    # own)
+    dev_ms = {v: device_ms(
+        torch, lambda lk, v=v: ab.ablation_step(v, mesh, lk, st.F,
+                                                st.u_data, st.scale),
+        st.log_k, 20, "tc_two_tiles_kernel" if v == "tcF" else "tc_kernel",
+        lambda v=v: k7.launches["k7"] if v == "tcA" else ab.launches[v])
+        for v in ab.TC_VARIANTS}
 
     plain_ms = {v: ab.run_variant(v, mesh, st, plain=True)
-                for v in ab.VARIANTS}
+                for v in ab.ALL_VARIANTS}
     X = torch.randn(B, n, generator=gen, device=dev)
     Wt = k7.mxu_inverse(mesh).T
     Wt = (Wt / Wt.abs().sum(0).max()).contiguous()   # a contraction
@@ -3280,22 +3456,33 @@ def run_ablation(torch, dev, card):
         + ", ".join(f"{k} {t:.4f} ms" for k, t in cublas.items())
         + f" [{card}]")
     entries = []
-    for v in ab.VARIANTS:
+    for v in ab.ALL_VARIANTS:
         ops, nbytes, ops_s, rate = ablation_bound(v, n, B)
         b_ms, b_by = bound(ops, nbytes, ops_s)
-        log(f"phase 24 {v}: {ms[v]:.4f} ms a step, {B / ms[v] / 1e3:.1f} M "
-            f"solves/s, bound {b_ms:.4f} ms ({b_by}; operations at {rate}, "
-            f"bytes {nbytes / 1e6:.1f} MB), {ms[v] / b_ms:.2f}x bound; "
-            f"plain {plain_ms[v]:.4f} ms; {ms[v] / ms['A']:.3f}x A "
-            f"[{card}]")
+        base = "tcA" if v in ab.TC_SET else "A"
+        kt = (f" ({dev_ms[v]:.4f} ms kernel time a call, "
+              f"{dev_ms[v] / b_ms:.2f}x bound, {dev_ms[v] / dev_ms['tcA']:.3f}x"
+              f" tcA's)" if v in dev_ms else "")
+        log(f"phase 24 {v}: {ms[v]:.4f} ms a step{kt}, "
+            f"{B / ms[v] / 1e3:.1f} M solves/s, bound {b_ms:.4f} ms "
+            f"({b_by}; operations at {rate}, bytes {nbytes / 1e6:.1f} MB), "
+            f"{ms[v] / b_ms:.2f}x bound; plain {plain_ms[v]:.4f} ms; "
+            f"{ms[v] / ms[base]:.3f}x {base} [{card}]")
         if v != "A":
+            launched = (k7.launches["k7"] if v == "tcA"
+                        else ab.launches[v])
             entries.append(kernel_entry(
-                ABL_NAMES[v], ABL_SOURCE,
+                ABL_NAMES[v], TC_SOURCE if v in ab.TC_SET else ABL_SOURCE,
                 f"{P2_PROBE}:162 (grad_call → pallas_call :163), variant {v}",
-                ab.launches[v], max_abs[v], ms[v], plain_ms[v], ops, nbytes,
+                launched, max_abs[v], ms[v], plain_ms[v], ops, nbytes,
                 None, ops_s))
     log("phase 24 -Xptxas -v of the new kernels:")
     for line in ptxas_report(("k7_ablation_cu",)):
+        log(line)
+    log("phase 24 SASS of the tc set's bodies at n = 31, bf16 u_data:")
+    for line in sass_report(tuple(
+            f"tc_kernel<1, (Products){p}, 4, __nv_bfloat16, 0, ("
+            for p in range(3)) + ("tc_two_tiles_kernel<4, __nv_bfloat16>",)):
         log(line)
     return entries
 

@@ -85,29 +85,36 @@ inline int smem_optin_bytes() {
   return device_attribute<cudaDevAttrMaxSharedMemoryPerBlockOptin>();
 }
 
-// Launch `kernel` with `smem` bytes of dynamic shared memory on `stream`;
-// returns cudaGetLastError().  Above the default 48 KB the kernel's limit
-// is raised on the current device, once for each kernel, device and larger
-// size.
+// Raise `kernel`'s dynamic shared memory limit on the current device to
+// `smem` where it is above the default 48 KB, once for each kernel, device
+// and larger size; returns the CUDA error of the attempt.
+template <typename Kernel>
+int raise_smem_limit(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> raised;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& limit = raised[{reinterpret_cast<const void*>(kernel), dev}];
+  if (smem > limit) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    limit = smem;
+  }
+  return cudaSuccess;
+}
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory on `stream`
+// (raise_smem_limit first); returns cudaGetLastError().
 template <typename Kernel, typename... Args>
 int launch_with_smem(Kernel kernel, int blocks, int threads, size_t smem,
                      cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
-    static std::mutex mu;
-    static std::map<std::pair<const void*, int>, size_t> raised;
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    std::lock_guard<std::mutex> lock(mu);
-    size_t& limit = raised[{reinterpret_cast<const void*>(kernel), dev}];
-    if (smem > limit) {
-      err = cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-      limit = smem;
-    }
-  }
+  const int err = raise_smem_limit(kernel, smem);
+  if (err != cudaSuccess) return err;
   kernel<<<blocks, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }

@@ -27,6 +27,19 @@
 //      rows (P2: W packed block-diagonally onto the 128 x 128 MXU);
 //   A1 no change: D and E's kernel with nothing ablated (no P2 variant).
 //
+// Those ablate K7's first design (its "fma" route), which float64 and
+// 32 < n <= 136 still run.  The tc set ablates K7's "tc" route, which every
+// float32 step at n <= 32 runs: its body (tc_step.cuh: staging, persistent
+// grid, tile loop) instantiated at version 1 with one thing changed, shared
+// F only.  tcA is the route itself (K7's own launch, 3xTF32 products); here:
+//
+//   tcB  single-pass TF32 products (Products::kTf32);
+//   tcC  single-pass bf16 products;
+//   tcD  one product, as D (wrong math, timing only);
+//   tcE  no shifts, as E (wrong math, timing only);
+//   tcF  the same math with two tiles of 16 scenarios a warp, their
+//        mma.syncs interleaved, at half the warps: equal to tcA bit for bit.
+//
 // The row work (everything but the products) rounds each product, sum and
 // difference on its own in the plain PyTorch versions' order
 // (difffe_tpu_torch/probes/k7_ablation.py), as K7 does.  n <= 32: the
@@ -83,19 +96,26 @@
 // tensor cores, which run beside the f32 pipes, so their operations take
 // the larger of the products' time and the row work's (0.012 ms at 67):
 // B's three passes at 495 TFLOP/s TF32, 0.049 ms, leave B bound by
-// operations; C's one at 989 bf16, 0.008 ms, leaves C bound by bytes.
+// operations; C's one at 989 bf16, 0.008 ms, leaves C bound by bytes.  The
+// tc set counts alike: tcA, tcE and tcF three TF32 passes a product (0.049
+// ms), tcB one (0.016), tcD three for its one product (0.025), tcC one bf16
+// pass (0.008); beside the row work every one but tcA, tcE and tcF is bound
+// by bytes.
 
 #include <cstdint>
 
 #include "fused_step_common.cuh"
 #include "mma_frag.cuh"
+#include "tc_step.cuh"
 
 namespace {
 
 constexpr int kBlock = 128;
 constexpr int kMaxNodes = 32;
-// variant codes of difffe_k7_ablation (kA1: A's math in D and E's kernel)
-constexpr int kB = 1, kC = 2, kD = 3, kE = 4, kF = 5, kA1 = 6;
+// variant codes of difffe_k7_ablation (kA1: A's math in D and E's kernel;
+// kTcB-kTcF: the tc set, on K7's "tc" body)
+constexpr int kB = 1, kC = 2, kD = 3, kE = 4, kF = 5, kA1 = 6, kTcB = 7,
+              kTcC = 8, kTcD = 9, kTcE = 10, kTcF = 11;
 
 __device__ __forceinline__ float fmadd(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
@@ -338,11 +358,11 @@ constexpr Products kProducts = V == kB ? Products::kTf32x3 : Products::kBf16;
 
 template <typename TU, int V, int NT>
 __global__ void __launch_bounds__(kBlock)
-tc_kernel(const float* __restrict__ lk, long long sL,
-          const float* __restrict__ F, const TU* __restrict__ ud,
-          long long sU, const float* __restrict__ cols,
-          const float* __restrict__ Wg, float* __restrict__ loss,
-          float* __restrict__ grad, int B, int n, float scale) {
+mma_kernel(const float* __restrict__ lk, long long sL,
+           const float* __restrict__ F, const TU* __restrict__ ud,
+           long long sU, const float* __restrict__ cols,
+           const float* __restrict__ Wg, float* __restrict__ loss,
+           float* __restrict__ grad, int B, int n, float scale) {
   constexpr int NP = 8 * NT;
   // rows m, p, d0, a0, c0, mg, t0 and F, zero padded to NP
   __shared__ float cs[8][NP];
@@ -447,6 +467,37 @@ tc_kernel(const float* __restrict__ lk, long long sL,
 }
 
 // ---------------------------------------------------------------------------
+// The tc set: K7's "tc" body (tc_step.cuh) at version 1, shared F
+// ---------------------------------------------------------------------------
+
+template <Products P, TcAblation A>
+int launch_tc_set(const TcArgs& a, int u_code, cudaStream_t st) {
+  if (u_code)
+    return launch_tc_pad<1, P, __nv_bfloat16, kFShared, A>(a, st);
+  return launch_tc_pad<1, P, float, kFShared, A>(a, st);
+}
+
+int launch_tc_variant(int variant, const TcArgs& a, int u_code,
+                      cudaStream_t st) {
+  switch (variant) {
+    case kTcB:
+      return launch_tc_set<Products::kTf32, TcAblation::kNone>(a, u_code, st);
+    case kTcC:
+      return launch_tc_set<Products::kBf16, TcAblation::kNone>(a, u_code, st);
+    case kTcD:
+      return launch_tc_set<Products::kTf32x3, TcAblation::kOneProduct>(
+          a, u_code, st);
+    case kTcE:
+      return launch_tc_set<Products::kTf32x3, TcAblation::kNoShifts>(
+          a, u_code, st);
+    case kTcF:
+      return launch_tc_set<Products::kTf32x3, TcAblation::kTwoTiles>(
+          a, u_code, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -488,9 +539,10 @@ int launch_t(int variant, const void* lk, long long sL, const void* F,
     if (sms <= 0) return cudaErrorInvalidDevice;
     const long long cap = 16LL * sms;
     const int tc_blocks = static_cast<int>(need < cap ? need : cap);
-    auto kern = variant == kB
-                    ? (np == 16 ? tc_kernel<TU, kB, 2> : tc_kernel<TU, kB, 4>)
-                    : (np == 16 ? tc_kernel<TU, kC, 2> : tc_kernel<TU, kC, 4>);
+    auto kern =
+        variant == kB
+            ? (np == 16 ? mma_kernel<TU, kB, 2> : mma_kernel<TU, kB, 4>)
+            : (np == 16 ? mma_kernel<TU, kC, 2> : mma_kernel<TU, kC, 4>);
     return launch_with_smem(kern, tc_blocks, kBlock, 0, st, lk_, sL, F_, ud_,
                             sU, cols_, W_, loss_, grad_, B, n, sc);
   }
@@ -499,15 +551,15 @@ int launch_t(int variant, const void* lk, long long sL, const void* F,
 
 }  // namespace
 
-// One ablated grad step (variant 1-6: B, C, D, E, F, A1) for B scenarios of
-// n <= 32 nodes: lk the log kappa (B,) with stride sL; F the shared load
-// (n,); u_data (B, n) rows with unit stride along n and batch stride sU,
-// stored as the compute type (u_code 0) or bf16 (1); cols the (8, n)
-// unit-kappa block; W (n, n) row-major.  Writes loss (B,) and grad (B,).
-// float32, or float64 when `is_double` (D, E, F and A1 only).  B, C and F
-// pad n to NP = 16 or 32, the least that holds it.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for what
-// the kernels do not take.
+// One ablated grad step (variant 1-6: B, C, D, E, F, A1; 7-11: the tc set's
+// tcB-tcF) for B scenarios of n <= 32 nodes: lk the log kappa (B,) with
+// stride sL; F the shared load (n,); u_data (B, n) rows with unit stride
+// along n and batch stride sU, stored as the compute type (u_code 0) or
+// bf16 (1); cols the (8, n) unit-kappa block; W (n, n) row-major.  Writes
+// loss (B,) and grad (B,).  float32, or float64 when `is_double` (D, E, F
+// and A1 only).  B, C, F and the tc set pad n to NP = 16 or 32, the least
+// that holds it.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for what the kernels do not take.
 extern "C" int difffe_k7_ablation(int variant, const void* lk, long long sL,
                                   const void* F, const void* ud,
                                   long long sU, int u_code, const void* cols,
@@ -516,10 +568,15 @@ extern "C" int difffe_k7_ablation(int variant, const void* lk, long long sL,
                                   int is_double, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int np = n <= 16 ? 16 : 32;
-  if (variant < kB || variant > kA1 || B < 1 || n < 1 || n > kMaxNodes ||
+  if (variant < kB || variant > kTcF || B < 1 || n < 1 || n > kMaxNodes ||
       u_code < 0 || u_code > 1 ||
-      (is_double && (variant == kB || variant == kC)))
+      (is_double && (variant == kB || variant == kC || variant >= kTcB)))
     return cudaErrorInvalidValue;
+  if (variant >= kTcB)
+    return launch_tc_variant(
+        variant,
+        tc_args(lk, sL, F, 0, 0, ud, sU, cols, W, loss, grad, B, n, 0, scale),
+        u_code, st);
   using bf16 = __nv_bfloat16;
   if (is_double)
     return u_code ? launch_t<double, bf16>(variant, lk, sL, F, ud, sU, cols,

@@ -1,5 +1,6 @@
-// Tensor-core fragments of K7's products (csrc/fused_grad_mxu.cu, the "tc"
-// route) and of its ablations B and C (csrc/k7_ablation.cu).
+// Tensor-core fragments of K7's products (the "tc" route, csrc/tc_step.cuh,
+// which csrc/fused_grad_mxu.cu instantiates) and of its ablations
+// (csrc/k7_ablation.cu: B and C on their own kernel, the tc set on K7's).
 //
 // A product is computed transposed, U^T (16 x NP) = X^T (16 x NP) W^T, with
 // one warp a tile of 16 scenarios: the scenarios are the M rows, W^T (zero
@@ -17,7 +18,13 @@
 //   kTf32x3  each operand split a = hi + lo, each rounded to TF32 with
 //            cvt.rna (the 13 low bits cleared), lo hi + hi lo + hi hi
 //            accumulated in f32 (lo lo dropped);
+//   kTf32    one TF32 pass (operands rounded with cvt.rna), m16n8k8: no
+//            route of K7 runs it, only its ablation tcB (k7_ablation.cu);
 //   kBf16    one bf16 pass (operands rounded to nearest even), m16n8k16.
+//
+// A warp may hold KT tiles of 16 scenarios at once (product_tiles, 3xTF32
+// only): each tile's products are the one-tile products, in the same order,
+// with the KT tiles' mma.syncs interleaved (ablation tcF; K7 holds one).
 
 #pragma once
 
@@ -29,7 +36,7 @@
 
 namespace {
 
-enum class Products { kTf32x3, kBf16 };
+enum class Products { kTf32x3, kBf16, kTf32 };
 
 constexpr uint32_t kTf32Mask = 0xffffe000u;
 
@@ -67,13 +74,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// W^T as the B operand of every (nn, kk) tile, in registers.  3xTF32: K
+// W^T as the B operand of every (nn, kk) tile, in registers.  TF32: K
 // tiles of 8 with K column q at row 8 kk + 2q and q + 4 at 8 kk + 2q + 1
-// (hi and lo parts); bf16: K tiles of 16 in natural order.
+// (3xTF32: hi and lo parts); bf16: K tiles of 16 in natural order.
 template <Products P, int NT>
 struct WFrag {
   static constexpr bool kSplit = P == Products::kTf32x3;
-  static constexpr int NK = kSplit ? NT : NT / 2;
+  static constexpr bool kTf32 = P != Products::kBf16;
+  static constexpr int NK = kTf32 ? NT : NT / 2;
   uint32_t hi[NT][NK][2];
   uint32_t lo[kSplit ? NT : 1][kSplit ? NK : 1][2];
 
@@ -90,6 +98,9 @@ struct WFrag {
         if constexpr (kSplit) {
           split_tf32(w(i, 8 * kk + 2 * q), hi[nn][kk][0], lo[nn][kk][0]);
           split_tf32(w(i, 8 * kk + 2 * q + 1), hi[nn][kk][1], lo[nn][kk][1]);
+        } else if constexpr (kTf32) {
+          hi[nn][kk][0] = tf32_bits(w(i, 8 * kk + 2 * q));
+          hi[nn][kk][1] = tf32_bits(w(i, 8 * kk + 2 * q + 1));
         } else {
           const int j = 16 * kk + 2 * q;
           hi[nn][kk][0] = bf16x2_bits(w(i, j), w(i, j + 1));
@@ -145,6 +156,19 @@ __device__ __forceinline__ void product(const WFrag<P, NT>& wf,
     for (int nn = 0; nn < NT; ++nn)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[nn][c] = add(small[nn][c], acc[nn][c]);
+  } else if constexpr (P == Products::kTf32) {
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      const uint32_t a[4] = {tf32_bits(v[kk][0][0]), tf32_bits(v[kk][1][0]),
+                             tf32_bits(v[kk][0][1]), tf32_bits(v[kk][1][1])};
+#pragma unroll
+      for (int nn = 0; nn < NT; ++nn) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_tf32(part, a, wf.hi[nn][kk][0], wf.hi[nn][kk][1]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[nn][c] = add(acc[nn][c], part[c]);
+      }
+    }
   } else {
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {
@@ -164,6 +188,52 @@ __device__ __forceinline__ void product(const WFrag<P, NT>& wf,
       }
     }
   }
+}
+
+// product's 3xTF32 pass over KT tiles of 16 scenarios at once (acc[t]
+// from v[t]): each tile's operations are product's, in its order, with the
+// KT tiles' mma.syncs interleaved.
+template <int NT, int KT>
+__device__ __forceinline__ void product_tiles(
+    const WFrag<Products::kTf32x3, NT>& wf, const float (&v)[KT][NT][2][2],
+    float (&acc)[KT][NT][4]) {
+  float small[KT][NT][4];
+#pragma unroll
+  for (int t = 0; t < KT; ++t)
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[t][nn][c] = small[t][nn][c] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    uint32_t ahi[KT][4], alo[KT][4];
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      split_tf32(v[t][kk][0][0], ahi[t][0], alo[t][0]);
+      split_tf32(v[t][kk][1][0], ahi[t][1], alo[t][1]);
+      split_tf32(v[t][kk][0][1], ahi[t][2], alo[t][2]);
+      split_tf32(v[t][kk][1][1], ahi[t][3], alo[t][3]);
+    }
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn)
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_tf32(small[t][nn], alo[t], wf.hi[nn][kk][0], wf.hi[nn][kk][1]);
+        mma_tf32(small[t][nn], ahi[t], wf.lo[nn][kk][0], wf.lo[nn][kk][1]);
+        mma_tf32(part, ahi[t], wf.hi[nn][kk][0], wf.hi[nn][kk][1]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[t][nn][c] = add(acc[t][nn][c], part[c]);
+      }
+  }
+#pragma unroll
+  for (int t = 0; t < KT; ++t)
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[t][nn][c] = add(small[t][nn][c], acc[t][nn][c]);
 }
 
 // Sum over the four lanes of a group.

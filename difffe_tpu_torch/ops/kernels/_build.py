@@ -63,6 +63,8 @@ _SIGNATURES = {
     "difffe_thomas_workspace": [_I, _I, _I, _I],
     "difffe_fused_thomas": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P,
                             _I, _I, _I, _D, _D, _I, _P],
+    "difffe_fused_thomas_reg": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P,
+                                _I, _I, _D, _D, _P],
     "difffe_fused_mxu": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P, _I,
                          _I, _I, _I, _I, _D, _I, _P],
     "difffe_fused_mxu_tc": [_P, _L, _P, _L, _I, _P, _L, _I, _P, _P, _P, _P,

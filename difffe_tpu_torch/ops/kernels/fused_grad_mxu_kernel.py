@@ -147,14 +147,16 @@ def _product(products: str, y: torch.Tensor, W: torch.Tensor):
 
 def rule_slack(products: str, n: int) -> float:
     """The additive term of phase 7's rule (chip_smoke.py) for a float32
-    step whose products are ``products`` at n nodes: 1e-6, and for bf16
-    products also one bf16 rounding step of one of the n operands of a
-    product, 2^-8/n.  The kernel and its plain version round a product's
-    right-hand side from values that differ by an earlier f32 summation,
-    so an element near a rounding boundary can round up in one and down in
-    the other (measured on the card for K7's ablation C: 1 of 160 cases at
-    B = 1000 missed the rule with 1e-6 alone)."""
-    return 1e-6 + (2.0 ** -8 / n if products == "bf16" else 0.0)
+    step whose products are ``products`` at n nodes: 1e-6, and for
+    single-pass products also one rounding step of one of the n operands
+    of a product, 2^-8/n for bf16 and 2^-11/n for TF32.  The kernel and
+    its plain version round a product's right-hand side from values that
+    differ by an earlier f32 summation, so an element near a rounding
+    boundary can round up in one and down in the other (measured on the
+    card for K7's ablation C: 1 of 160 cases at B = 1000 missed the rule
+    with 1e-6 alone)."""
+    step = {"bf16": 2.0 ** -8, "tf32": 2.0 ** -11}.get(products, 0.0)
+    return 1e-6 + step / n
 
 
 def _k7_plain(log_k, F, ud, cols, W, scale: float, version: int,

@@ -8,12 +8,26 @@ adjoint, share ONE factorization: the sweep factors (c′_i, 1/b′_i) are
 computed once and each solve is forward and back substitution.
 
 The CUDA kernel (``csrc/fused_grad_thomas.cu``) runs one scenario per
-thread; the plain PyTorch version below runs the same row recurrences on
-(B,) vectors and is taken only for CPU tensors.  The TPU's (N, 8, B/8)
-packing and its SMEM constant columns have no counterpart: the kernel reads
-the caller's (B, n) rows, staged through shared memory.  ``block_lanes``
-caps the scenarios a thread block holds.  Not differentiable: it is the
-gradient step, and its outputs never require grad.
+thread on one of two routes, which :func:`k6_plan` picks from n and the
+dtype:
+
+* ``"reg"`` (float32, n ≤ ``K6_REG_MAX_NODES``): the rows in registers
+  (the body compiled for a 16- or 32-row bucket, every row loop
+  unrolled), the mesh's rows in the kernel's parameters, each warp's 32
+  scenarios staged by 16-byte ``cp.async`` into its own shared memory,
+  double buffered, on a persistent grid;
+* ``"block"`` otherwise (float64, longer meshes): the first design, a
+  block's scenarios transposed through shared memory (or a global
+  workspace past its fit).
+
+Both make the same operations in the same order, so they give the same
+bits; launches count as "k6", and by route in ``route_launches``.  The
+plain PyTorch version below runs the same row recurrences on (B,) vectors
+and is taken only for CPU tensors.  The TPU's (N, 8, B/8) packing and its
+SMEM constant columns have no counterpart: the kernel reads the caller's
+(B, n) rows.  ``block_lanes`` caps the scenarios a thread block holds on
+the block route.  Not differentiable: it is the gradient step, and its
+outputs never require grad.
 """
 
 from __future__ import annotations
@@ -24,10 +38,45 @@ import torch
 
 from .fused_grad_kernel import (_as_dtype, _check_block_lanes, _check_planes,
                                 _plane, check_cuda, general_constants,
-                                rows_view, storage_code)
+                                mesh_constants, rows_view, storage_code)
 
-#: Kernel launches made by the wrapper.
+#: Kernel launches made by the wrapper (both routes).
 launches = {"k6": 0}
+#: The same launches by route.
+route_launches = {"reg": 0, "block": 0}
+#: Largest mesh the reg route takes: its larger row bucket, 32 rows, where
+#: the factors and rows of a float32 scenario fit a thread's registers
+#: without spilling at three blocks an SM (PERF.md §5).
+K6_REG_MAX_NODES = 32
+
+
+def k6_plan(n: int, dtype: torch.dtype, plan: Optional[str] = None) -> str:
+    """K6's route for meshes of n nodes in ``dtype``: ``"reg"`` for float32
+    with n ≤ ``K6_REG_MAX_NODES``, ``"block"`` otherwise; ``plan`` forces
+    either and is refused where the reg route cannot take the shape."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the CUDA K6 kernel computes in float32 or "
+                        f"float64, got {dtype}")
+    if n < 2:
+        raise ValueError(f"K6 needs n >= 2 nodes, got {n}")
+    reg = dtype == torch.float32 and n <= K6_REG_MAX_NODES
+    if plan is None:
+        return "reg" if reg else "block"
+    if plan not in ("reg", "block"):
+        raise ValueError(f"K6 plan must be 'reg' or 'block', got {plan!r}")
+    if plan == "reg" and not reg:
+        raise ValueError(f"K6's reg route takes float32 and at most "
+                         f"{K6_REG_MAX_NODES} nodes, got {dtype} and "
+                         f"n = {n}")
+    return plan
+
+
+def _host_rows(mesh) -> torch.Tensor:
+    """The (3, n) rows (m, p, m g) in host memory, cached per mesh: the reg
+    route passes them in its kernel's parameters."""
+    return mesh_constants(mesh, "k6_host_rows",
+                          lambda m: general_constants(m)[0].cpu()
+                          .contiguous())
 
 
 def _k6_plain(kappa_e, F, ud, cols, inv_h: float, scale: float):
@@ -82,13 +131,14 @@ def _k6_plain(kappa_e, F, ud, cols, inv_h: float, scale: float):
     return loss, torch.stack(grad, dim=1)
 
 
-def _launch(kappa_e, F, ud, cols, inv_h: float, scale: float,
-            block_lanes: int):
+def _launch(mesh, kappa_e, F, ud, cols, inv_h: float, scale: float,
+            block_lanes: int, plan: Optional[str]):
     from ._build import load_library
 
     dtype, dev = kappa_e.dtype, kappa_e.device
     check_cuda(dtype, dev, "K6", F, ud, cols)
     B, n = kappa_e.shape[0], ud.shape[-1]
+    route = k6_plan(n, dtype, plan)
     kap, sK = rows_view(kappa_e, n - 1)
     F, sF = rows_view(F, n)
     ud, sU = rows_view(ud, n)
@@ -98,26 +148,35 @@ def _launch(kappa_e, F, ud, cols, inv_h: float, scale: float,
     grad = torch.empty((B, n - 1), dtype=dtype, device=dev)
     lib = load_library()
     is_double = int(dtype == torch.float64)
+    operands = (kap.data_ptr(), sK, F.data_ptr(), sF, f_code, ud.data_ptr(),
+                sU, u_code)
     with torch.cuda.device(dev):
-        words = lib.difffe_thomas_workspace(B, n, block_lanes, is_double)
-        ws = (torch.empty(words, dtype=dtype, device=dev) if words > 0
-              else None)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.difffe_fused_thomas(
-            kap.data_ptr(), sK, F.data_ptr(), sF, f_code, ud.data_ptr(), sU,
-            u_code, cols.data_ptr(), loss.data_ptr(), grad.data_ptr(),
-            None if ws is None else ws.data_ptr(), B, n, block_lanes,
-            float(inv_h), float(scale), is_double, stream)
+        if route == "reg":
+            rc = lib.difffe_fused_thomas_reg(
+                *operands, _host_rows(mesh).data_ptr(), loss.data_ptr(),
+                grad.data_ptr(), B, n, float(inv_h), float(scale), stream)
+        else:
+            words = lib.difffe_thomas_workspace(B, n, block_lanes, is_double)
+            ws = (torch.empty(words, dtype=dtype, device=dev) if words > 0
+                  else None)
+            rc = lib.difffe_fused_thomas(
+                *operands, cols.data_ptr(), loss.data_ptr(), grad.data_ptr(),
+                None if ws is None else ws.data_ptr(), B, n, block_lanes,
+                float(inv_h), float(scale), is_double, stream)
     if rc != 0:
-        raise RuntimeError(f"K6 fused_thomas launch failed: CUDA error {rc}")
+        raise RuntimeError(f"K6 fused_thomas launch failed ({route} route): "
+                           f"CUDA error {rc}")
     launches["k6"] += 1
+    route_launches[route] += 1
     return loss, grad
 
 
 def fused_kappa_mse_step_general(mesh, kappa_e, F, u_data,
                                  scale: Optional[float] = None,
                                  block_lanes: int = 512,
-                                 operand_dtype=None):
+                                 operand_dtype=None,
+                                 plan: Optional[str] = None):
     """Fused loss-partials + ∂κ for per-element-κ 1D inversion (kernel K6).
 
     For every scenario b with per-element field κ_b (n_elements,):
@@ -131,8 +190,12 @@ def fused_kappa_mse_step_general(mesh, kappa_e, F, u_data,
     u_data: (B, n).  Returns (loss_parts (B,), grad (B, n_elements)).
     ``operand_dtype=torch.bfloat16`` stores the streamed F and u_data
     planes in bf16 (a shared F stays in the mesh dtype); κ and all solve
-    state stay in the mesh dtype.  Requires a uniform mesh.  Not
-    differentiable: it is the gradient step.
+    state stay in the mesh dtype.  Requires a uniform mesh.  On the card
+    the step runs on :func:`k6_plan`'s route, or on ``plan`` ("reg" or
+    "block") where given, which raises where the route cannot take the
+    shape; ``block_lanes`` caps the scenarios a block holds on the block
+    route and changes no result.  CPU tensors take the plain version
+    whatever the plan.  Not differentiable: it is the gradient step.
     """
     dtype, dev = mesh.dtype, mesh.device
     cols, inv_h = general_constants(mesh)
@@ -153,4 +216,5 @@ def fused_kappa_mse_step_general(mesh, kappa_e, F, u_data,
         if kappa_e.device.type == "cpu":
             return _k6_plain(kappa_e, F.expand(B, n) if F.ndim == 2 else F,
                              u_data.expand(B, n), cols, inv_h, float(scale))
-        return _launch(kappa_e, F, u_data, cols, inv_h, scale, block_lanes)
+        return _launch(mesh, kappa_e, F, u_data, cols, inv_h, scale,
+                       block_lanes, plan)

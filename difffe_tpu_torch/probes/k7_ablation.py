@@ -30,7 +30,25 @@ u_data stored in bf16), each variant changing one thing:
   compiled for version 1 alone (equal to A bit for bit), is the baseline
   D and E are read against.
 
-B-F and A1 are kernels of ``csrc/k7_ablation.cu``, launched by
+Those ablate K7's first design, its "fma" route, which float64 and
+32 < n ≤ 136 still run.  The tc set ablates K7's "tc" route, which every
+float32 step at n ≤ 32 runs, on the route's own body (``csrc/tc_step.cuh``:
+its staging, persistent grid and tile loop), version 1, shared F:
+
+* tcA — nothing: K7's "tc" route itself, 3xTF32 products, through
+  ``fused_kappa_mse_step_mxu(plan="tc", version=1, refine=0)``;
+* tcB — single-pass TF32 products, one step down as B was from A;
+* tcC — single-pass bf16 products;
+* tcD — one product, as D (wrong math, timing only);
+* tcE — no shifts, as E (wrong math, timing only);
+* tcF — the same math as tcA with two 16-scenario tiles a warp, their
+  ``mma.sync``s interleaved, at half the warps: equal to tcA bit for bit.
+
+Each tc variant's plain version is its math (A's, D's or E's) with the
+products' operands rounded as its tensor cores take them
+(``fused_grad_mxu_kernel._product``).
+
+B-F, A1 and tcB-tcF are kernels of ``csrc/k7_ablation.cu``, launched by
 :func:`ablation_step` for CUDA tensors; for CPU tensors it takes their
 plain PyTorch versions (:func:`plain_step`).  P2's workload: ``FEMesh.line(30)``
 (31 nodes), B = 2^21, one κ per scenario, f = sin(πx) + 1 shared, bf16
@@ -40,7 +58,7 @@ the PCR tridiagonal oracle on the same bf16-quantized data.
 
 Run on a machine with a CUDA card:
     python -m difffe_tpu_torch.probes.k7_ablation [batch]
-It prints P2's line for each variant (M solves/s and parity rel), then the
+It prints a line for each variant of both sets (M solves/s, parity), then the
 card's name and power limit, and writes chiprun_out/k7_ablation.json.
 """
 
@@ -66,6 +84,13 @@ from ..solver import solve_poisson_batched
 from ..utils.profiling import timeit_chained
 
 VARIANTS = ("A", "A1", "B", "C", "F", "D", "E")   # P2's order, A1 after A
+#: The tc set: each variant's math (P2's A, D or E) and its products
+#: (``fused_grad_mxu_kernel.PRODUCTS``).
+TC_SET = {"tcA": ("A", "tf32x3"), "tcB": ("A", "tf32"),
+          "tcC": ("A", "bf16"), "tcD": ("D", "tf32x3"),
+          "tcE": ("E", "tf32x3"), "tcF": ("A", "tf32x3")}
+TC_VARIANTS = tuple(TC_SET)
+ALL_VARIANTS = VARIANTS + TC_VARIANTS
 N_ELEM = 30
 BATCH = 2 ** 21
 STEPS = 30
@@ -74,9 +99,11 @@ SLICE = 8192
 MAX_NODES = 32           # the kernels pad n to 16 or 32
 
 #: Kernel launches made by :func:`ablation_step`, by variant; A's are K7's
-#: on its "fma" route (``fused_grad_mxu_kernel.launches["k7_fma"]``).
-launches = {v: 0 for v in VARIANTS if v != "A"}
-_CODES = {"B": 1, "C": 2, "D": 3, "E": 4, "F": 5, "A1": 6}
+#: on its "fma" route (``fused_grad_mxu_kernel.launches["k7_fma"]``), tcA's
+#: K7's on its "tc" route (``launches["k7"]`` there).
+launches = {v: 0 for v in ALL_VARIANTS if v not in ("A", "tcA")}
+_CODES = {"B": 1, "C": 2, "D": 3, "E": 4, "F": 5, "A1": 6, "tcB": 7,
+          "tcC": 8, "tcD": 9, "tcE": 10, "tcF": 11}
 
 # P2's columns of its staged (N, 128) block (difffe_tpu's
 # ops/pallas/fused_grad_kernel.py:50-56 and fused_grad_mxu_kernel.py:60)
@@ -88,33 +115,43 @@ _COL_M, _COL_P, _COL_D0, _COL_A0, _COL_C0, _COL_MG, _COL_T0, _COL_F = range(8)
 # ---------------------------------------------------------------------------
 
 
-def _product(variant: str, y: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """W y for each row y of (B, n): B's three split products, C's bf16
-    operands (``fused_grad_mxu_kernel._product``, K7's "tc" route's
-    rounding), else exact."""
-    return k7._product({"B": "tf32x3", "C": "bf16"}.get(variant, "exact"),
-                       y, W)
+def _check_variant(variant: str):
+    if variant not in ALL_VARIANTS:
+        raise ValueError(f"variant must be one of {ALL_VARIANTS}, got "
+                         f"{variant!r}")
+
+
+def math_and_products(variant: str):
+    """(the math, P2's "A", "D" or "E" or the variant's own, and the
+    products, ``fused_grad_mxu_kernel.PRODUCTS``) of ``variant``: B's three
+    split products and C's bf16 operands as K7's "tc" route rounds them."""
+    _check_variant(variant)
+    if variant in TC_SET:
+        return TC_SET[variant]
+    return variant, {"B": "tf32x3", "C": "bf16"}.get(variant, "exact")
 
 
 def plain_step(variant: str, log_k, F, ud, cols, W, scale: float):
     """Plain version of ``variant`` on (B, n) rows with the shared load F
     (n,): (loss (B,), ∂log κ (B,)).  A, A1 and F are K7's plain version,
-    version 1 without refinement."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got "
-                         f"{variant!r}")
+    version 1 without refinement; tcA, tcB, tcC and tcF K7's with their
+    products (``_k7_plain(..., products=)``)."""
+    math, products = math_and_products(variant)
     if variant in ("A", "A1", "F"):
         return k7._k7_plain(log_k, F, ud, cols, W, scale, 1, 0)
+    if variant in TC_SET and math == "A":
+        return k7._k7_plain(log_k, F, ud, cols, W, scale, 1, 0, products)
     m, p, d0, a0, c0, mg, t0, _ = cols
     dtype = cols.dtype
     f, ud = F.to(dtype), ud.to(dtype)
     kappa = torch.exp(log_k)[:, None]
     dinv = m + p * (1.0 / kappa)
     r = mg + p * f - kappa * t0
-    u = _product(variant, dinv * r, W)
+    u = k7._product(products, dinv * r, W)
     diff = u - ud
-    lam = dinv * diff if variant == "D" else _product(variant, dinv * diff, W)
-    if variant == "E":
+    lam = (dinv * diff if math == "D"
+           else k7._product(products, dinv * diff, W))
+    if math == "E":
         term = t0 + d0 * u
     else:
         term = (t0 + a0 * _shift_up(u, 1, 0.0) + d0 * u
@@ -125,9 +162,10 @@ def plain_step(variant: str, log_k, F, ud, cols, W, scale: float):
 
 def rule_slack(variant: str, n: int) -> float:
     """The additive term of phase 7's rule (chip_smoke.py) for
-    ``variant``'s f32 kernel at n nodes: C's bf16 products add a bf16
-    rounding step (``fused_grad_mxu_kernel.rule_slack``)."""
-    return k7.rule_slack("bf16" if variant == "C" else "exact", n)
+    ``variant``'s f32 kernel at n nodes: single-pass products add one
+    rounding step of their operands (``fused_grad_mxu_kernel.rule_slack``:
+    C's and tcC's bf16, tcB's TF32)."""
+    return k7.rule_slack(math_and_products(variant)[1], n)
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +180,8 @@ def _launch(variant: str, log_k, F, ud, cols, W, scale: float):
     dtype, dev = log_k.dtype, log_k.device
     what = f"K7 ablation {variant}"
     check_cuda(dtype, dev, what, F, ud, cols, W)
-    if dtype == torch.float64 and variant in ("B", "C"):
+    if dtype == torch.float64 and (variant in ("B", "C")
+                                   or variant in TC_SET):
         raise TypeError(f"{what}: tensor-core products take float32")
     B, n = log_k.shape[0], ud.shape[-1]
     lk, sL = rows_view(log_k[:, None], 1)
@@ -170,11 +209,9 @@ def ablation_step(variant: str, mesh, log_k, F, u_data, scale: float):
     ``MAX_NODES`` nodes): log κ (B,), the shared load F (n,), u_data (B, n)
     in the mesh dtype or bf16; returns (loss (B,), ∂log κ (B,)) of the
     objective scale/2 · Σ_b ‖u_b − u_data_b‖².  CUDA tensors launch the
-    variant's kernel (A: K7's "fma" route) or raise; CPU tensors take the
-    plain version."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got "
-                         f"{variant!r}")
+    variant's kernel (A: K7's "fma" route, tcA: its "tc" route) or raise;
+    CPU tensors take the plain version."""
+    _check_variant(variant)
     n, dtype = mesh.n_nodes, mesh.dtype
     B = log_k.shape[0]
     if n > MAX_NODES:
@@ -195,6 +232,11 @@ def ablation_step(variant: str, mesh, log_k, F, u_data, scale: float):
     with torch.no_grad():
         if log_k.device.type == "cpu":
             return plain_step(variant, log_k, F, u_data, cols, W, scale)
+        if variant == "tcA":
+            op = torch.bfloat16 if u_data.dtype == torch.bfloat16 else None
+            return k7.fused_kappa_mse_step_mxu(mesh, log_k, F, u_data,
+                                               scale=scale, operand_dtype=op,
+                                               version=1, refine=0, plan="tc")
         return _launch(variant, log_k, F, u_data, cols, W, scale)
 
 
@@ -317,7 +359,7 @@ def main(batch: int = BATCH):
     st = stage(mesh, batch, torch.Generator(device=dev).manual_seed(0))
     g_ref = oracle_grad(mesh, st)
     rows = []
-    for v in VARIANTS:
+    for v in ALL_VARIANTS:
         ms = run_variant(v, mesh, st)
         rel = parity(v, mesh, st, g_ref)
         rows.append({"variant": v, "ms": ms, "msolves_s": batch / ms / 1e3,

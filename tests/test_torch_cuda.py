@@ -983,6 +983,87 @@ def test_k5_plan_on_the_card(cuda):
         k5.fused_kappa_mse_step(mesh32, lk, F, ud, plan="warp")
 
 
+_K6_ROUTE_GRID = [(n, B) for n in (2, 13, 31, 32) for B in (7, 1000, 4099)]
+
+
+def _k6_step(mesh, ke, F, ud, plan):
+    op = torch.bfloat16 if ud.dtype == torch.bfloat16 else None
+    return k6.fused_kappa_mse_step_general(mesh, ke, F, ud, operand_dtype=op,
+                                           plan=plan)
+
+
+def _k6_plain(mesh, ke, F, ud):
+    B, n = ud.shape
+    args = [t if t.dtype == torch.bfloat16 else t.to(mesh.dtype)
+            for t in (ke, F, ud)]
+    return k6._k6_plain(*args, *k5.general_constants(mesh), 2.0 / (B * n))
+
+
+@pytest.mark.parametrize("n,B", _K6_ROUTE_GRID,
+                         ids=[f"n{n}_B{B}" for n, B in _K6_ROUTE_GRID])
+def test_k6_reg_route_matches_block_route(cuda, n, B):
+    """K6's reg route equals its block route bit for bit (loss and
+    gradient) and meets the plain version by the rule: shared and
+    streamed F, f32 and bf16 storage, zero, nonzero and one-sided
+    Dirichlet values, and a strided κ view."""
+    before = dict(k6.route_launches)
+    runs = 0
+    for bc in ((0.0, 0.0), (0.3, -0.2), (0.3, None)):
+        for bf16 in (False, True):
+            for shared_f in (False, True):
+                mesh32, mesh64, _, ke, F, ud = _fused_inputs(
+                    cuda, n - 1, B, n + B + 2 * shared_f + bf16, bc, bf16,
+                    shared_f)
+                tag = (bc, bf16, shared_f)
+                reg = _k6_step(mesh32, ke, F, ud, "reg")
+                block = _k6_step(mesh32, ke, F, ud, "block")
+                runs += 1
+                p32 = _k6_plain(mesh32, ke, F, ud)
+                p64 = _k6_plain(mesh64, ke, F, ud)
+                for a, b, c, d in zip(reg, block, p32, p64):
+                    assert a.shape == b.shape and torch.equal(a, b), tag
+                    ok, errs = _within_rule(a, c, d)
+                    assert ok, (tag, errs)
+    # κ as a strided view: every other column of a wider tensor
+    mesh32, _, _, ke, F, ud = _fused_inputs(cuda, n - 1, B, 5, (0.3, -0.2),
+                                            False, False)
+    wide = torch.zeros(B, 2 * (n - 1), device=cuda)
+    wide[:, ::2] = ke
+    view = wide[:, ::2]
+    assert not view.is_contiguous()
+    for a, b in zip(_k6_step(mesh32, view, F, ud, "reg"),
+                    _k6_step(mesh32, ke, F, ud, "block")):
+        assert torch.equal(a, b)
+    runs += 1
+    torch.cuda.synchronize()
+    assert k6.route_launches == {"reg": before["reg"] + runs,
+                                 "block": before["block"] + runs}
+
+
+def test_k6_plan_on_the_card(cuda):
+    """The plan's route runs unforced, and a forced reg route that cannot
+    take the shape raises."""
+    for n, dtype, route in ((31, torch.float32, "reg"),
+                            (32, torch.float32, "reg"),
+                            (33, torch.float32, "block"),
+                            (13, torch.float64, "block")):
+        mesh32, mesh64, _, ke, F, ud = _fused_inputs(cuda, n - 1, 7, 4,
+                                                     (0.0, 0.0), False, False)
+        mesh = mesh32 if dtype == torch.float32 else mesh64
+        before = dict(k6.route_launches)
+        k6.fused_kappa_mse_step_general(mesh, ke.to(dtype), F.to(dtype),
+                                        ud.to(dtype))
+        torch.cuda.synchronize()
+        assert k6.route_launches[route] == before[route] + 1, (n, dtype)
+        if route == "block":
+            with pytest.raises(ValueError, match="reg route takes"):
+                k6.fused_kappa_mse_step_general(mesh, ke.to(dtype),
+                                                F.to(dtype), ud.to(dtype),
+                                                plan="reg")
+    with pytest.raises(ValueError, match="'reg' or 'block'"):
+        k6.fused_kappa_mse_step_general(mesh32, ke, F, ud, plan="warp")
+
+
 def test_production_loop_runs_on_k7(cuda):
     """The production loop, 40 steps at B = 2048: one K7 launch a step, all
     on the "tc" route, and the final κ within 1e-3 of the same loop on the
@@ -1351,17 +1432,25 @@ def _ablation_plain(variant, mesh, lk, F, ud, scale):
                            k7.mxu_inverse(mesh), scale)
 
 
+def _ablation_launches(variant):
+    """Launches of ``variant``'s kernel (tcA's are K7's on its tc route)."""
+    return (k7.launches["k7"] if variant == "tcA"
+            else k7ab.launches[variant])
+
+
 @pytest.mark.parametrize("B", [7, 1000])
 @pytest.mark.parametrize("ne", [12, 30])
-@pytest.mark.parametrize("variant", ["B", "C", "D", "E", "F", "A1"])
+@pytest.mark.parametrize("variant", ["B", "C", "D", "E", "F", "A1", "tcA",
+                                     "tcB", "tcC", "tcD", "tcE", "tcF"])
 def test_k7_ablation_matches_plain(cuda, variant, ne, B):
     """f32 by the rule (C with its bf16 slack), f64 within 1e-10.  At
     B = 7 each kernel also equals its own run on 1000 scenarios bit for
     bit (a scenario's result depends on its own row alone), and the rule
     is applied to 12 seeded 7-scenario launches taken together: K7 itself
     misses it on 6 of 160 single 7-scenario cases on an H100, a maximum
-    over 7 being too small a sample."""
-    before = k7ab.launches[variant]
+    over 7 being too small a sample.  The tc set (float32 only) is held
+    against plain versions with its products' rounding."""
+    before = _ablation_launches(variant)
     runs = 0
     for bc, bf16 in (((0.0, 0.0), True), ((0.3, -0.2), False)):
         mesh32, mesh64, lk, _, F, ud = _fused_inputs(cuda, ne, 1000,
@@ -1405,7 +1494,28 @@ def test_k7_ablation_matches_plain(cuda, variant, ne, B):
             for a, c in zip(k64, q64):
                 assert a.shape == (B,) and rel_err(a, c) <= 1e-10
     torch.cuda.synchronize()
-    assert k7ab.launches[variant] == before + runs
+    assert _ablation_launches(variant) == before + runs
+
+
+@pytest.mark.parametrize("ne", [12, 30])
+def test_k7_tc_set_equals_k7_bitwise(cuda, ne):
+    """tcA is K7's "tc" route at version 1 and tcF, two tiles a warp,
+    gives its bits: f32 and bf16 u_data, batches that leave a ragged
+    last tile of either."""
+    for B in (1000, 4099):
+        for bf16 in (False, True):
+            mesh32, _, lk, _, F, ud = _fused_inputs(cuda, ne, B, 6 + B,
+                                                    (0.3, -0.2), bf16, True)
+            args = (mesh32, lk, F, ud, 1e-3)
+            op = torch.bfloat16 if bf16 else None
+            k = k7.fused_kappa_mse_step_mxu(mesh32, lk, F, ud, scale=1e-3,
+                                            operand_dtype=op, version=1,
+                                            refine=0, plan="tc")
+            before = k7ab.launches["tcF"]
+            for v in ("tcA", "tcF"):
+                for x, y in zip(k7ab.ablation_step(v, *args), k):
+                    assert torch.equal(x, y), (v, B, bf16)
+            assert k7ab.launches["tcF"] == before + 1
 
 
 @pytest.mark.parametrize("ne", [12, 30])
@@ -1430,7 +1540,7 @@ def test_k7_ablation_rejects_what_the_kernels_do_not_take(cuda):
     args = (torch.zeros(4, device=cuda, dtype=torch.float64),
             torch.ones(13, device=cuda, dtype=torch.float64),
             torch.ones(4, 13, device=cuda, dtype=torch.float64), 0.1)
-    for variant in ("B", "C"):
+    for variant in ("B", "C", "tcA", "tcB", "tcC", "tcD", "tcE", "tcF"):
         with pytest.raises(TypeError, match="float32"):
             k7ab.ablation_step(variant, mesh, *args)
     with pytest.raises(TypeError, match="float16"):

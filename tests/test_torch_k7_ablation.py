@@ -45,6 +45,10 @@ F32 = 1e-5
 # where XLA:CPU, which ignores precision=, multiplies in f32 (measured
 # 2.3e-3 on the loss and 3.2e-3 on the gradient)
 BF16 = 1e-2
+# tcB rounds both operands of each product to TF32 (11 significant bits)
+# where XLA:CPU multiplies in f32: 2^-3 of C's rounding (measured 3.0e-4
+# on the loss and 2.9e-4 on the gradient)
+TF32 = 2e-3
 
 
 def _load_probe():
@@ -188,6 +192,20 @@ def test_c_plain_is_bf16_and_within_its_tolerance(p2):
     for got, want, a in zip(_plain("C", ops), ref["C"], plain_a):
         assert rel_err(got, want) <= BF16
         assert rel_err(got, a) > 100 * F32
+
+
+@pytest.mark.parametrize("variant,body", [("tcA", "A"), ("tcF", "F"),
+                                          ("tcB", "B"), ("tcC", "C"),
+                                          ("tcD", "D"), ("tcE", "E")])
+def test_tc_plain_matches_p2_body(p2, variant, body):
+    """Each variant of the tc set (K7's "tc" route ablated) against the P2
+    body it ablates alike, at that body's tolerance; tcB's one TF32 pass
+    at TF32."""
+    ops, ref = p2
+    tol = {"tcB": TF32, "tcC": BF16}.get(variant, F32)
+    for got, want in zip(_plain(variant, ops), ref[body]):
+        assert got.dtype == torch.float32 and got.shape == (B,)
+        assert rel_err(got, want) <= tol
 
 
 def test_a_plain_is_k7_version_1(p2):
