@@ -159,7 +159,8 @@ for float32 and n ≤ 32, its "fma" route, the first design, otherwise):
     time at n = 31, 33, 64, 96 and 128 by batch (B = 7 … 65 536; a
     point no trace holds is printed as not measured); K6's two routes the
     same way at probe_thomas's workload, beside K5b's warp route, and by
-    n = 2, 13, 31, 32, 33 and 64 and B = 7 … 2^21; K7's two routes in
+    n = 2, 13, 31, 32, 33 and 64 and B = 7 … 2^21 (7 … 65 536 past
+    n = 32, the block route alone); K7's two routes in
     turns at the production step
     and the bench row with each route's bound and the device time of a
     step from the profiler, each route's and the plain version's (the
@@ -250,11 +251,14 @@ tcD (one product), tcE (no shifts) and tcF (two tiles a warp):
     same bf16-quantized data (A, A1, B, F, tcA and tcF within 1e-4; the
     others printed), and P2's timing (30 chained steps, best of 3) with
     121 launches of each variant (A's on K7's "fma" route, tcA's on its
-    "tc" route) and no other, the tc set's kernel time a call from the
-    profiler; the plain versions' time, the cuBLAS product X Wᵀ at
-    (2^21, 31) × (31, 31) in f32, TF32 and bf16 as the products'
-    yardstick, the registers of the new kernels and the SASS instruction
-    count of the tc set's bodies.
+    "tc" route) and no other (the kernels line carries these counts, read
+    before the timing's calls), the tc set's kernel time a call from the
+    profiler, tcA's and tcF's grids (blocks an SM) and registers from
+    the profiler's kernel record at n = 31 and 13, and their kernel time
+    at n = 13 (16 rows, where tcF does not spill); the plain versions'
+    time, the cuBLAS product X Wᵀ at (2^21, 31) × (31, 31) in f32, TF32
+    and bf16 as the products' yardstick, the registers of the new kernels
+    and the SASS instruction count of the tc set's bodies.
 
 Each path's launch counts are set to 0 just before its main-path phases
 (4-5, 8, 11, 14, 18, 22, 24's probe path) and read just after;
@@ -272,6 +276,7 @@ seed of the general-mesh path's node perturbation and data; default 0).
 """
 
 import argparse
+import functools
 import json
 import math
 import subprocess
@@ -2031,6 +2036,25 @@ def ptxas_report(names):
             for name, m in zip(shown, mangled)]
 
 
+@functools.cache
+def _sass_bodies():
+    """The built library's SASS, one text a kernel, and the kernels'
+    demangled names (``cuobjdump -sass`` once a run)."""
+    import re
+
+    from difffe_tpu_torch.ops.kernels import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    bodies = re.split(r"\n\s*Function : ", text)[1:]
+    shown = subprocess.run(
+        ["c++filt"], input="\n".join(b.split("\n", 1)[0].strip()
+                                     for b in bodies),
+        capture_output=True, text=True, check=True).stdout.splitlines()
+    return bodies, shown
+
+
 def sass_report(names):
     """One line per compiled kernel whose demangled name holds one of
     ``names``: its static SASS instruction count, how many of them are
@@ -2040,19 +2064,8 @@ def sass_report(names):
     import collections
     import re
 
-    from difffe_tpu_torch.ops.kernels import _build
-
-    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
     try:
-        text = subprocess.run([str(tool), "-sass",
-                               str(_build.library_path())],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        bodies = re.split(r"\n\s*Function : ", text)[1:]
-        shown = subprocess.run(
-            ["c++filt"], input="\n".join(b.split("\n", 1)[0].strip()
-                                         for b in bodies),
-            capture_output=True, text=True, check=True).stdout.splitlines()
+        bodies, shown = _sass_bodies()
     except (OSError, subprocess.CalledProcessError) as exc:
         return [f"  SASS not measured ({exc})"]
     lines = []
@@ -2156,6 +2169,47 @@ def device_ms(torch, fn, x0, length, key=None, launched=None,
             f"profiled {count} launches of {key} in {length} calls")
     log(f"device_ms: no trace held the {length} launches of {key}: not "
         f"measured")
+    return None
+
+
+def launch_shape(torch, fn, x0, key, length=20):
+    """The grid, the blocks an SM and the registers a thread of the launch
+    of the kernel whose name holds ``key`` in ``fn(x0)``, from the
+    profiler's trace (CUPTI's kernel record); None where ten traces of
+    ``length`` calls hold no such launch (it then logs the kernel records
+    of the last).  A persistent grid's blocks an SM are those the
+    occupancy API gave it.  As in ``device_ms``, a traced but unrecorded
+    step comes first, and a trace can miss launches: it records again."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn(x0)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for _ in range(10):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(length):
+                    fn(x0)
+                torch.cuda.synchronize()
+                prof.step()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            trace = json.loads(path.read_text())
+        kernels = [e for e in trace.get("traceEvents", [])
+                   if str(e.get("cat", "")).lower() == "kernel"]
+        for e in kernels:
+            args = e.get("args", {})
+            if key in e.get("name", "") and "grid" in args:
+                grid = math.prod(args["grid"])
+                return grid, grid / sms, args.get("registers per thread")
+    seen = [(e.get("name", "")[:60], sorted(e.get("args", {})))
+            for e in kernels[:3]]
+    log(f"launch_shape: no record of {key} with a grid among {seen}")
     return None
 
 
@@ -2494,15 +2548,17 @@ def run_fused_1d(torch, dev, card):
         del meshes, lk, ke, F_n, ud_n
     # K6's routes by n and batch, shared F and f32 planes (probe_thomas's
     # layout): the reg route where its bucket takes n, the block route
-    # everywhere
+    # everywhere; past the reg route's n, B = 2^21 is left out (the block
+    # route alone, which the workload's rows above time)
     for nn in K6_SWEEP_NS:
+        reg = nn <= k6.K6_REG_MAX_NODES
+        batches = K6_SWEEP_BS if reg else K6_SWEEP_BS[:-1]
         meshes, _, ke, F_n, ud_n = fused_operands(
-            torch, dev, nn, K6_SWEEP_BS[-1], gen, (0.3, -0.2), True, False)
+            torch, dev, nn, batches[-1], gen, (0.3, -0.2), True, False)
         F_n, ud_n, ke = F_n.float(), ud_n.float(), ke.float()
-        routes = [r for r in K6_ROUTES
-                  if r == "block" or nn <= k6.K6_REG_MAX_NODES]
+        routes = [r for r in K6_ROUTES if r == "block" or reg]
         row = []
-        for Bs in K6_SWEEP_BS:
+        for Bs in batches:
             t = {route: device_ms(
                 torch, lambda x, st=fused_kernel("k6", meshes[0], 1.0,
                                                  plan=route):
@@ -3427,14 +3483,47 @@ def run_ablation(torch, dev, card):
     check_only(counts, {"fused_grad_mxu_kernel": {"k7_fma": want,
                                                   "k7": want}},
                "phase 24")
+    # the probe path's counts, read before the profiler's calls add to them
+    probe_launches = {v: k7.launches["k7"] if v == "tcA" else ab.launches[v]
+                      for v in ab.ALL_VARIANTS if v != "A"}
     # the tc set's kernel time a call (profiler; tcF has a kernel of its
     # own)
-    dev_ms = {v: device_ms(
-        torch, lambda lk, v=v: ab.ablation_step(v, mesh, lk, st.F,
-                                                st.u_data, st.scale),
-        st.log_k, 20, "tc_two_tiles_kernel" if v == "tcF" else "tc_kernel",
-        lambda v=v: k7.launches["k7"] if v == "tcA" else ab.launches[v])
-        for v in ab.TC_VARIANTS}
+    def tc_step(v, mesh_, st_):
+        return lambda lk: ab.ablation_step(v, mesh_, lk, st_.F, st_.u_data,
+                                           st_.scale)
+
+    def tc_key(v):
+        return "tc_two_tiles_kernel" if v == "tcF" else "tc_kernel"
+
+    def tc_launched(v):
+        return lambda: k7.launches["k7"] if v == "tcA" else ab.launches[v]
+
+    dev_ms = {v: device_ms(torch, tc_step(v, mesh, st), st.log_k, 20,
+                           tc_key(v), tc_launched(v))
+              for v in ab.TC_VARIANTS}
+    # tcA and tcF at n = 31 and, where tcF keeps its doubled arrays in
+    # registers without a spill, at n = 13 (rows padded to 16): their grids
+    # (the resident blocks an SM the occupancy API gave each; tcF's tiles
+    # are 32 scenarios a warp, tcA's 16) and at n = 13 the kernel time
+    mesh13 = FEMesh.line(12, dtype=torch.float32, device=dev)
+    st13 = ab.stage(mesh13, B, torch.Generator(device=dev).manual_seed(0))
+    at13 = {}
+    for v in ("tcA", "tcF"):
+        for nn, mesh_, st_ in ((n, mesh, st), (13, mesh13, st13)):
+            shape = launch_shape(torch, tc_step(v, mesh_, st_), st_.log_k,
+                                 tc_key(v))
+            log(f"phase 24 {v}'s launch at n = {nn}: " + (
+                "not measured (no kernel record in the trace)"
+                if shape is None
+                else f"grid {shape[0]}, {shape[1]:.2f} blocks an SM "
+                     f"({4 * shape[1]:.2f} warps), {shape[2]} registers a "
+                     f"thread") + f" [{card}]")
+        at13[v] = device_ms(torch, tc_step(v, mesh13, st13), st13.log_k, 20,
+                            tc_key(v), tc_launched(v))
+    log(f"phase 24 tcA and tcF at n = 13, B = {B}, kernel time a call: "
+        f"tcA {at13['tcA']:.4f} ms, tcF {at13['tcF']:.4f} ms "
+        f"({at13['tcF'] / at13['tcA']:.3f}x tcA's) [{card}]")
+    del st13
 
     plain_ms = {v: ab.run_variant(v, mesh, st, plain=True)
                 for v in ab.ALL_VARIANTS}
@@ -3469,20 +3558,22 @@ def run_ablation(torch, dev, card):
             f"{ms[v] / b_ms:.2f}x bound; plain {plain_ms[v]:.4f} ms; "
             f"{ms[v] / ms[base]:.3f}x {base} [{card}]")
         if v != "A":
-            launched = (k7.launches["k7"] if v == "tcA"
-                        else ab.launches[v])
             entries.append(kernel_entry(
                 ABL_NAMES[v], TC_SOURCE if v in ab.TC_SET else ABL_SOURCE,
                 f"{P2_PROBE}:162 (grad_call → pallas_call :163), variant {v}",
-                launched, max_abs[v], ms[v], plain_ms[v], ops, nbytes,
+                probe_launches[v], max_abs[v], ms[v], plain_ms[v], ops, nbytes,
                 None, ops_s))
     log("phase 24 -Xptxas -v of the new kernels:")
     for line in ptxas_report(("k7_ablation_cu",)):
         log(line)
-    log("phase 24 SASS of the tc set's bodies at n = 31, bf16 u_data:")
+    log("phase 24 SASS of the tc set's bodies at n = 31 (NT = 4) and of "
+        "tcA's and tcF's at n = 13 (NT = 2), bf16 u_data:")
     for line in sass_report(tuple(
             f"tc_kernel<1, (Products){p}, 4, __nv_bfloat16, 0, ("
-            for p in range(3)) + ("tc_two_tiles_kernel<4, __nv_bfloat16>",)):
+            for p in range(3)) + (
+            "tc_kernel<1, (Products)0, 2, __nv_bfloat16, 0, (TcAblation)0>",
+            "tc_two_tiles_kernel<4, __nv_bfloat16>",
+            "tc_two_tiles_kernel<2, __nv_bfloat16>")):
         log(line)
     return entries
 

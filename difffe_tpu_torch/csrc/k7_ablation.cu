@@ -38,7 +38,8 @@
 //   tcD  one product, as D (wrong math, timing only);
 //   tcE  no shifts, as E (wrong math, timing only);
 //   tcF  the same math with two tiles of 16 scenarios a warp, their
-//        mma.syncs interleaved, at half the warps: equal to tcA bit for bit.
+//        mma.syncs interleaved, so the same tiles take half the warps:
+//        equal to tcA bit for bit.
 //
 // The row work (everything but the products) rounds each product, sum and
 // difference on its own in the plain PyTorch versions' order

@@ -17,9 +17,10 @@
 //   kNoShifts    the contraction sum_i lambda_i (t0 + d0 u_i): no shifts
 //                (wrong math, timing only);
 //   kTwoTiles    the same math with two tiles a warp, their mma.syncs
-//                interleaved (product_tiles), at half the warps: the
-//                two-tile kernel below, whose tiles each run the body's
-//                arithmetic, so the outputs equal K7's bit for bit.
+//                interleaved (product_tiles), so the same tiles take half
+//                the warps: the two-tile kernel below, whose tiles each run
+//                the body's arithmetic, so the outputs equal K7's bit for
+//                bit.
 // The ablations enter the body only through `if constexpr`, so K7's own
 // instantiations compile as they would without them.
 
@@ -392,8 +393,13 @@ tc_kernel(TcArgs a) {
 // tcF: tc_kernel's version 1 step with two tiles of 16 scenarios a warp
 // (a span of 32) and a shared F.  Each tile's arithmetic is tc_kernel's in
 // its order, the two tiles' mma.syncs interleaved (product_tiles), so the
-// outputs equal K7's bit for bit; the doubled arrays take the register file
-// (one block an SM by the launch bounds).
+// outputs equal K7's bit for bit.  It copies tc_kernel's version 1 loop
+// (staging, right-hand sides, misfit, contraction, write-back): a change to
+// one is made to the other, and chip_smoke.py's phase 24 and the card tests
+// hold tcF equal to K7's "tc" route.  The doubled arrays take all 255
+// registers a thread and spill 72 bytes at NT = 4 (the launch bounds ask
+// for one block an SM; the occupancy API gives the grid what the registers
+// allow).
 template <int NT, typename TU>
 __global__ void __launch_bounds__(kTcBlock, 1)
 tc_two_tiles_kernel(TcArgs a) {

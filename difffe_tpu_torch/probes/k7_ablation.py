@@ -42,7 +42,8 @@ its staging, persistent grid and tile loop), version 1, shared F:
 * tcD — one product, as D (wrong math, timing only);
 * tcE — no shifts, as E (wrong math, timing only);
 * tcF — the same math as tcA with two 16-scenario tiles a warp, their
-  ``mma.sync``s interleaved, at half the warps: equal to tcA bit for bit.
+  ``mma.sync``s interleaved, so the same tiles take half the warps:
+  equal to tcA bit for bit.
 
 Each tc variant's plain version is its math (A's, D's or E's) with the
 products' operands rounded as its tensor cores take them
