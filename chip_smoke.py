@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``difffe_tpu_torch``) on one CUDA card.
 
-Drives the port's four paths through their public entry points, in phases;
+Drives the port's paths through their public entry points, in phases;
 any failure raises, so the run exits non-zero and never prints the final
 ``ok`` line:
 
@@ -260,9 +260,46 @@ tcD (one product), tcE (no shifts) and tcF (two tiles a warp):
     and bf16 as the products' yardstick, the registers of the new kernels
     and the SASS instruction count of the tc set's bodies.
 
+The structured solver path (the generalized-mask natural-BC solves on
+``FEMesh.rectangle(64, 64)``, B = 4096, and the plain-PyTorch solvers
+around them: 2D and 3D multigrid, bf16 refinement, SPIKE), kernel K3a
+on the natural route:
+
+25. K3a against its plain version on natural planes (Dirichlet on the left
+    edge only, a per-scenario Neumann flux on the right edge, an
+    axis-adjacent Robin edge) and on custom-mask planes (the factory
+    boundary with interior pins), 8² B = 7, 64² B = 4096, 256² B = 64,
+    256 iterations, a forward and an adjoint-style solve, by the rule of
+    phase 7, on the route its plan names (printed; launches counted by
+    route), two launches equal bit for bit; the main path:
+    ``solve_poisson_batched`` with those natural terms at full width
+    (cg_tol = 0, cg_maxiter = 256) and the κ gradient of Σu² through it,
+    2 K3a launches (forward and adjoint), every one on its plan's route
+    and no other launch, u and the gradient by the rule of phase 7; the
+    unbatched natural PCG route against the dense route in f64; the
+    facade call chained, K3a alone on the natural planes against its
+    plain version, and K3a's share of a forward + gradient call from a
+    ``torch.profiler`` split;
+26. 2D multigrid to 1e-10 at 64², 128² and 256² (W- and V-cycle
+    iteration counts against the Jacobi-PCG of
+    ``solve_poisson_structured``; the W-cycle's may grow at most 2.5×),
+    ``solve_poisson_structured_bf16`` at 64², B = 4096, 48 inner
+    iterations × (1 + 3) passes against the f64 oracle (per scenario:
+    median ≤ 1e-3, worst ≤ 5e-3),
+    ``tridiag_solve_spike`` against PCR at n = 4096, B = 4096 (f64 ≤ 1e-12,
+    f32 ≤ 1e-5; both timed chained in turns) and
+    ``tridiag_solve_refined`` at n = 30 (3 passes, ≤ 1e-5) and n = 128 (4
+    passes, ≤ 5e-4) on tests/test_precision.py's problem against the f64
+    oracle;
+27. ``kappa_mse_grad_step_3d_mg`` at 48³, B = 128, f64, 120 iterations,
+    against the converged Jacobi step (600 iterations; loss within 1e-9,
+    κ gradient within 1e-6), the two steps in f32 chained in turns, and
+    ``solve_poisson_structured_3d_mg`` at 64³ with its iteration count;
+    phases 26-27 launch no kernel.
+
 Each path's launch counts are set to 0 just before its main-path phases
-(4-5, 8, 11, 14, 18, 22, 24's probe path) and read just after;
-comparisons and timing outside those do not count.  The
+(4-5, 8, 11, 14, 18, 22, 24's probe path, 25's facade call) and read just
+after; comparisons and timing outside those do not count.  The
 third-to-last line is one JSON object describing each kernel, with its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (H100 SXM, fp32 outside the tensor cores;
@@ -361,6 +398,35 @@ JAX_K2 = "difffe_tpu/ops/pallas/tridiag_kernel.py"
 # alpha, gamma (a negation and a division each) 4, a', c' 2, b', r' 8; one
 # division per row after the last sweep
 K2_OPS_PER_ROW_SWEEP = 14
+
+
+N_NAT = 64               # phase 25's main path: config 4's 64² grid
+BATCH_NAT = 4096
+NAT_ITERS = 256          # the batched natural route's fixed trip (its cap)
+NAT_CASES = ((8, 7), (N_NAT, BATCH_NAT), (256, 64))    # phase 25: (n, B)
+MG_NS = (64, 128, 256)   # phase 26: 2D MG grids
+BATCH_BF16 = 4096
+BF16_INNER, BF16_PASSES = 48, 3
+# ops/precision.py: 48 inner × (1 + 3) passes reach 5.1e-4 at 64² on one
+# problem (JAX, CPU).  Per scenario, over phase 26's 4096 the median must
+# meet 1e-3 and the worst 5e-3: the contraction varies with κ (the same
+# problem on the CPU: median 4.2e-4, worst 2.8e-3 in 32 scenarios)
+BF16_TOL_MEDIAN, BF16_TOL_MAX = 1e-3, 5e-3
+N_SPIKE, BATCH_SPIKE, SPIKE_CHUNK = 4096, 4096, 64
+SPIKE_F64_TOL = 1e-12
+SPIKE_F32_TOL = 1e-5     # diagonally dominant bands: f32 PCR sits ~1e-7
+# (n, passes, tolerance) of tests/test_precision.py's problem (κ = 1.37,
+# one load): ops/precision.py measured 1.3e-6 at n = 30 in 3 passes and
+# 1.8e-5 at n = 128 in 4 (JAX, CPU); n = 128 sits near the
+# cond·ε_bf16 < 1 boundary, where the contraction is erratic from pass to
+# pass
+REFINED_CASES = ((30, 3, 1e-5), (128, 4, 5e-4))
+N_MG3_STEP, BATCH_MG3 = 48, 128
+# tests/test_multigrid3.py:159 holds 30 MG iterations to 600 Jacobi ones
+# at 8³; at 48³ the step's cycle (pre = post = 1, 8 coarse sweeps) leaves
+# the κ gradient 1e-2 off after 30, 1e-5 after 60, 4e-12 after 120
+MG3_ITERS, JACOBI3_ITERS = 120, 600
+N_MG3_SOLVE = 64
 
 
 N_GEN = 64              # scripts/probe_unstructured.py's 64² triangulation
@@ -679,7 +745,8 @@ def check_rule(name, kernel, plain32, plain64, what, slack=1e-6):
 
 def profile_split(torch, fn, label, card, what="fit_kappa"):
     """Device time by kernel name of one call of ``fn`` under
-    torch.profiler; logs the busy time, the window and the top rows."""
+    torch.profiler; logs the busy time, the window and the top rows, and
+    returns (rows (name, count, ms), busy ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -703,6 +770,7 @@ def profile_split(torch, fn, label, card, what="fit_kappa"):
         f"{100 * max(0.0, 1 - busy / (window * 1e3)):.1f}% [{card}]")
     for key, count, t in rows[:12]:
         log(f"  {t:9.2f} ms {100 * t / busy:5.1f}% x{count:<5d} {key[:90]}")
+    return rows, busy
 
 
 def plan_text(plan):
@@ -3578,6 +3646,445 @@ def run_ablation(torch, dev, card):
     return entries
 
 
+def natural_planes(torch, dev, n, B, variant, seed):
+    """f64 inputs of K3a's natural route at an n² grid, B scenarios: a
+    per-scenario κ pair, forcing and the Dirichlet values, with the
+    generalized mask and natural terms of ``variant``: "natural" (Dirichlet
+    on the left edge only, a per-scenario Neumann flux on the right edge,
+    an axis-adjacent Robin term α = 2 on the top edge) or "pins" (the
+    factory boundary and three interior pinned nodes, no natural term).
+    Returns (grid, (kl, ku, f, g, m, qn, C_r, rload))."""
+    from difffe_tpu_torch.ops.stencil import StructuredGrid
+
+    grid = StructuredGrid.unit(n, n)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    opts = dict(dtype=torch.float64, device=dev)
+    kl = 1.2 + 0.6 * torch.rand(B, n, n, generator=gen, **opts)
+    ku = 1.2 + 0.6 * torch.rand(B, n, n, generator=gen, **opts)
+    xs = torch.linspace(0.0, 1.0, n + 1, **opts)
+    Y, X = torch.meshgrid(xs, xs, indexing="ij")
+    bump = torch.sin(math.pi * X) * torch.sin(math.pi * Y)
+    f = 10.0 * bump * (1.0 + 0.2 * torch.rand(B, 1, 1, generator=gen,
+                                              **opts))
+    g = 0.3 * X + 0.1 * Y
+    m = torch.zeros(n + 1, n + 1, **opts)
+    qn = C_r = rload = None
+    h = 1.0 / n
+    if variant == "natural":
+        m[:, 0] = 1.0
+        qn = torch.zeros(B, n + 1, n + 1, **opts)
+        qn[:, :, -1] = h * (1.0 + torch.rand(B, n + 1, generator=gen,
+                                             **opts))
+        # the top edge's boundary mass α·h/6·[[2, 1], [1, 2]] per segment
+        alpha = 2.0
+        C_r = torch.zeros(7, n + 1, n + 1, **opts)
+        C_r[0, -1, :] = 4.0 * alpha * h / 6.0
+        C_r[0, -1, [0, -1]] = 2.0 * alpha * h / 6.0
+        C_r[1, -1, :-1] = alpha * h / 6.0
+        C_r[2, -1, 1:] = alpha * h / 6.0
+        rload = torch.zeros(n + 1, n + 1, **opts)
+        rload[-1, :] = 0.5 * h
+    else:
+        m[[0, -1], :] = 1.0
+        m[:, [0, -1]] = 1.0
+        for r, c in ((n // 2, n // 2), (n // 4, 3 * n // 4),
+                     (3 * n // 4, n // 3)):
+            m[r, c] = 1.0
+    return grid, (kl, ku, f, g, m, qn, C_r, rload)
+
+
+def run_structured(torch, dev, card):
+    """Phases 25-27; returns the entry of K3a's natural route for the
+    kernels line."""
+    import dataclasses
+
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.ops import stencil_natural as nat
+    from difffe_tpu_torch.ops import tridiag as ttri
+    from difffe_tpu_torch.ops.assembly import (assemble_load,
+                                               assemble_tridiag_1d)
+    from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
+    from difffe_tpu_torch.ops.multigrid import mg_diagnostics
+    from difffe_tpu_torch.ops.multigrid3 import (
+        kappa_mse_grad_step_3d_mg, mg3_diagnostics,
+        solve_poisson_structured_3d_mg)
+    from difffe_tpu_torch.ops.neumann import boundary_edges, edge_flux_load
+    from difffe_tpu_torch.ops.pcg import batched_dot, pcg
+    from difffe_tpu_torch.ops.precision import (
+        solve_poisson_structured_bf16, tridiag_solve_refined)
+    from difffe_tpu_torch.ops.robin import robin_edges
+    from difffe_tpu_torch.ops.spike import tridiag_solve_spike
+    from difffe_tpu_torch.ops.stencil import (StructuredGrid,
+                                              boundary_mask_grid,
+                                              kappa_lu_from_elements,
+                                              load_grid,
+                                              solve_poisson_structured,
+                                              stencil_apply,
+                                              stencil_coefficients)
+    from difffe_tpu_torch.ops.stencil3d import (StructuredGrid3,
+                                                kappa_mse_grad_step_3d)
+    from difffe_tpu_torch.solver import (_natural_terms, solve_poisson,
+                                         solve_poisson_batched)
+    from difffe_tpu_torch.utils.profiling import timeit_chained
+
+    f32, f64 = torch.float32, torch.float64
+    limit = sk.smem_optin(0)
+    max_abs = 0.0
+
+    # -- phase 25: K3a on natural and custom-mask planes against its plain
+    # version, by the rule of phase 7, on the route its plan names
+    t0 = time.perf_counter()
+    for n, B in NAT_CASES:
+        plan = sk.cluster_plan((n + 1) ** 2, 5, 4, limit)
+        route = "cg" if plan.route == "cluster" else "cg_workspace"
+        log(f"phase 25 K3a plan at {n}²: {plan_text(plan)}")
+        for variant in ("natural", "pins"):
+            grid, arrays = natural_planes(torch, dev, n, B, variant,
+                                          seed=25 * n + B)
+            before = dict(sk.launches)
+            sols = {}
+            for name, dt, cg in (("kernel", f32, sk._cg),
+                                 ("f32", f32, sk._cg_plain),
+                                 ("f64", f64, sk._cg_plain)):
+                kl, ku, f, g, m, qn, C_r, rl = (
+                    None if a is None else a.to(dt).contiguous()
+                    for a in arrays)
+                _, D, b, Minv, x0, _ = nat._prep_nat_pallas(
+                    grid, (kl, ku), f, g, m, qn, C_r, rl)
+                # a forward solve from m·g and an adjoint-style one from 0
+                rhs = ((1.0 - m) * f).contiguous()
+                sols[name] = (cg(D, b, Minv, x0, NAT_ITERS),
+                              cg(D, rhs, Minv, torch.zeros_like(rhs),
+                                 NAT_ITERS))
+                if name == "kernel" and not torch.equal(
+                        cg(D, b, Minv, x0, NAT_ITERS), sols[name][0]):
+                    raise AssertionError(f"phase 25 K3a {variant} n={n}: "
+                                         f"two launches differ")
+            torch.cuda.synchronize()
+            added = {k: sk.launches[k] - before[k] for k in sk.launches}
+            want = {k: 3 if k == route else 0 for k in sk.launches}
+            if added != want:
+                raise AssertionError(f"phase 25 K3a {variant} n={n}: "
+                                     f"launches {added}, expected {want}")
+            errs = []
+            for i in range(2):
+                ek, ep = check_rule("K3a", sols["kernel"][i], sols["f32"][i],
+                                    sols["f64"][i],
+                                    f"phase 25 {variant} n={n} solve {i}")
+                errs.append(f"({ek:.2e}, {ep:.2e})")
+                max_abs = max(max_abs, float(
+                    (sols["kernel"][i] - sols["f64"][i]).abs().max()))
+            log(f"phase 25 K3a {variant} n={n} B={B} {NAT_ITERS} iters, "
+                f"(kernel, f32 plain) rel err vs f64, forward and "
+                f"adjoint-style: {', '.join(errs)}; launches by route "
+                f"{added}; two launches equal bit for bit")
+            del sols, arrays
+            torch.cuda.empty_cache()
+
+    # the main path: the facade's batched natural route at full width
+    mesh0 = FEMesh.rectangle(N_NAT, N_NAT, dtype=f32)
+    x, y = mesh0.nodes.T
+    left = (x.abs() < 1e-6).to(f32)
+    mesh = dataclasses.replace(mesh0, bc_mask=left,
+                               bc_values=torch.zeros_like(left))
+    grid, ne, nn = mesh.grid, mesh.n_elements, mesh.n_nodes
+    H, W = grid.node_shape
+    right = boundary_edges(mesh, predicate=lambda q: abs(q[0] - 1.0) < 1e-6)
+    top = boundary_edges(mesh, predicate=lambda q: abs(q[1] - 1.0) < 1e-6)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    flux = 1.0 + torch.rand(BATCH_NAT, nn, generator=gen, device=dev)
+    nm = edge_flux_load(mesh, right, flux)
+    rb = robin_edges(mesh, top, 2.0, 0.5 * torch.ones(nn, device=dev))
+    k_true = 1.2 + 0.6 * torch.rand(BATCH_NAT, ne, generator=gen,
+                                    device=dev)
+    f = (10.0 * torch.sin(math.pi * x) * torch.sin(math.pi * y)).expand(
+        BATCH_NAT, nn).contiguous()
+    plan = sk.cluster_plan(H * W, 5, 4, limit)
+    route = "cg" if plan.route == "cluster" else "cg_workspace"
+
+    def facade(ke, f_):
+        return solve_poisson_batched(mesh, ke, f_, neumann=nm, robin=rb,
+                                     cg_tol=0.0, cg_maxiter=NAT_ITERS)
+
+    counts = reset_all_launches()
+    t1 = time.perf_counter()
+    ke = k_true.clone().requires_grad_()
+    u = facade(ke, f)
+    (u ** 2).sum().backward()
+    torch.cuda.synchronize()
+    main_path = dict(counts["stencil_cg_kernel"])
+    check_only(counts, {"stencil_cg_kernel": {route: 2}},
+               "phase 25 natural route")
+    log(f"phase 25 main path: solve_poisson_batched on "
+        f"FEMesh.rectangle({N_NAT}, {N_NAT}) with Dirichlet on x = 0 only, "
+        f"a per-scenario Neumann flux on x = 1 and a Robin edge on y = 1, "
+        f"B={BATCH_NAT}, cg_tol=0, cg_maxiter={NAT_ITERS}, then the κ "
+        f"gradient of Σu²: {time.perf_counter() - t1:.2f} s; K3a launches "
+        f"{main_path}, every one on its plan's route ({plan.route})")
+
+    def nat_plain(dtype):
+        klu = kappa_lu_from_elements(grid, k_true.to(dtype))
+        fg = f.to(dtype).reshape(BATCH_NAT, H, W)
+        g0 = mesh.bc_values.to(dtype).reshape(H, W)
+        m, qn, C_r, rl = (None if t is None else t.to(dtype)
+                          for t in _natural_terms(mesh, nm, rb, f32))
+        C_tot, D, b, Minv, x0, _ = nat._prep_nat_pallas(grid, klu, fg, g0, m,
+                                                        qn, C_r, rl)
+        up = sk._cg_plain(D, b, Minv, x0, NAT_ITERS)
+        lam = sk._cg_plain(D, 2.0 * up, Minv, torch.zeros_like(up),
+                           NAT_ITERS)
+        gl, gu = nat._natural_cotangents(
+            grid, klu, fg, g0, m, qn, C_r, rl, up, lam,
+            lambda v: stencil_apply(C_tot, v))[:2]
+        return (up.reshape(BATCH_NAT, nn),
+                torch.stack([gl, gu], dim=-1).reshape(BATCH_NAT, ne))
+
+    p32, p64 = nat_plain(f32), nat_plain(f64)
+    # max_abs_err holds K3a's solutions, as the factory route's entry does
+    max_abs = max(max_abs, float((u.detach() - p64[0]).abs().max()))
+    for i, (name, out) in enumerate((("u", u.detach()), ("κ gradient",
+                                                         ke.grad))):
+        ek, ep = check_rule("K3a natural route", out, p32[i], p64[i],
+                            f"phase 25 main path {name}")
+        log(f"phase 25 main path {name}: rel err vs f64 plain {ek:.3e}, "
+            f"f32 plain {ep:.3e}")
+    del p32, p64
+
+    # the unbatched natural PCG route against the dense route, f64
+    mesh64 = dataclasses.replace(
+        FEMesh.rectangle(N_NAT, N_NAT, dtype=f64), bc_mask=left.double(),
+        bc_values=torch.zeros(nn, dtype=f64, device=dev))
+    nm1 = edge_flux_load(mesh64, right, flux[0].double())
+    rb1 = robin_edges(mesh64, top, 2.0, 0.5 * torch.ones(nn, dtype=f64,
+                                                         device=dev))
+    u_st = solve_poisson(mesh64, k_true[0].double(), f[0].double(),
+                         neumann=nm1, robin=rb1)
+    u_de = solve_poisson(mesh64, k_true[0].double(), f[0].double(),
+                         method="dense", neumann=nm1, robin=rb1)
+    err = rel_err(u_st, u_de)
+    log(f"phase 25 unbatched natural PCG route (tol 1e-12) against the "
+        f"dense route, f64, one scenario: rel err {err:.3e}")
+    if not err <= 1e-9:
+        raise AssertionError(f"phase 25 PCG against dense: {err:.3e}")
+    del mesh64, u_st, u_de
+
+    # timing: the facade call chained, K3a alone against its plain version
+    # on the main path's planes, and K3a's share of a call's device time
+    with torch.no_grad():
+        call_ms = timeit_chained(lambda fc: fc + 1e-6 * facade(k_true, fc),
+                                 f, length=3, repeats=2).min_s * 1e3
+    log(f"phase 25 the natural facade call (forward, B={BATCH_NAT}, "
+        f"{NAT_ITERS} iters), chained: {call_ms:.4f} ms [{card}]")
+    klu = kappa_lu_from_elements(grid, k_true)
+    m, qn, C_r, rl = _natural_terms(mesh, nm, rb, f32)
+    _, D, b, Minv, x0, _ = nat._prep_nat_pallas(
+        grid, klu, f.reshape(BATCH_NAT, H, W), mesh.bc_values.reshape(H, W),
+        m, qn, C_r, rl)
+    ms = timed_pair(lambda v: sk._cg(D, b, Minv, v, NAT_ITERS),
+                    lambda v: sk._cg_plain(D, b, Minv, v, NAT_ITERS), x0, 2)
+    log(f"phase 25 K3a on the natural planes ({N_NAT}², B={BATCH_NAT}, "
+        f"{NAT_ITERS} iters, {plan.route} route): kernel "
+        f"{ms['kernel']:.4f} ms/launch, plain {ms['plain']:.4f} ms/launch "
+        f"[{card}]")
+
+    def grad_call():
+        ke_ = k_true.clone().requires_grad_()
+        (facade(ke_, f) ** 2).sum().backward()
+
+    rows, busy = profile_split(torch, grad_call, "phase 25", card,
+                               what="natural facade forward + κ gradient")
+    k3a = sum(t for key, _, t in rows
+              if "cluster_cg_kernel" in key or "stencil_cg_kernel" in key)
+    log(f"phase 25 K3a's share of the call's device time: {k3a:.2f} of "
+        f"{busy:.2f} ms, {100 * k3a / busy:.1f}% [{card}]")
+    del D, b, Minv, x0, u, ke, nm, flux
+    torch.cuda.empty_cache()
+    log(f"phase 25: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 26: 2D MG, bf16 refinement, SPIKE (plain PyTorch: no kernel
+    # may launch until the end of phase 27)
+    t0 = time.perf_counter()
+    counts = reset_all_launches()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    its = []
+    for n in MG_NS:
+        grid = StructuredGrid.unit(n, n)
+        kl = 1.0 + torch.rand(n, n, generator=gen, dtype=f64, device=dev)
+        ku = 1.0 + torch.rand(n, n, generator=gen, dtype=f64, device=dev)
+        xs = torch.linspace(0.0, 1.0, n + 1, dtype=f64, device=dev)
+        fg = 10.0 * torch.outer(torch.sin(math.pi * xs),
+                                torch.sin(math.pi * xs))
+        g0 = torch.zeros_like(fg)
+        t1 = time.perf_counter()
+        u_w, it_w, r_w = mg_diagnostics(grid, (kl, ku), fg, g0, tol=1e-10)
+        t_w = time.perf_counter() - t1
+        _, it_v, r_v = mg_diagnostics(grid, (kl, ku), fg, g0, tol=1e-10,
+                                      gamma=1)
+        # the Jacobi-PCG of solve_poisson_structured, to the same tolerance
+        C = stencil_coefficients(grid, kl, ku)
+        m = boundary_mask_grid(grid, f64, dev)
+        p = 1.0 - m
+        rhs = p * load_grid(grid, fg)
+        diag = m + p * C[0]
+        t1 = time.perf_counter()
+        u_j, it_j, _ = pcg(lambda v: m * v + p * stencil_apply(C, p * v),
+                           rhs, lambda r: r / diag, torch.zeros_like(rhs),
+                           1e-10, 100 * n, with_diagnostics=True)
+        t_j = time.perf_counter() - t1
+        u_s = solve_poisson_structured(grid, (kl, ku), fg, g0, 1e-10,
+                                       100 * n)
+        err = rel_err(u_w, u_s)
+        its.append(it_w)
+        log(f"phase 26 2D MG at {n}² (f64, to 1e-10): W-cycle {it_w} "
+            f"iterations ({t_w:.3f} s host), V-cycle {it_v} (residual "
+            f"{float(r_v):.2e}; 100 is mg_diagnostics' cap); "
+            f"solve_poisson_structured's Jacobi-PCG {it_j} ({t_j:.3f} s "
+            f"host); rel err MG vs it {err:.3e} [{card}]")
+        if not (err <= 1e-8 and rel_err(u_j, u_s) <= 1e-12):
+            raise AssertionError(f"phase 26 MG at {n}²: {err:.3e}")
+    if not its[-1] <= 2.5 * its[0]:
+        raise AssertionError(f"phase 26 MG iterations {its} grow with n")
+
+    # bf16 inner CG under f32 refinement against the f64 oracle
+    n, B = N_NAT, BATCH_BF16
+    grid, arrays = natural_planes(torch, dev, n, B, "pins", seed=26)
+    kl, ku, fg, g0 = arrays[:4]
+    u64 = solve_poisson_structured(grid, (kl, ku), fg, g0, 1e-12, None,
+                                   batched_dot(2))
+    args32 = [a.float() for a in (kl, ku, fg, g0)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    u16 = solve_poisson_structured_bf16(grid, tuple(args32[:2]), *args32[2:],
+                                        BF16_INNER, BF16_PASSES)
+    torch.cuda.synchronize()
+    t_bf = time.perf_counter() - t1
+    errs = ((u16.double() - u64).abs().amax(dim=(-2, -1))
+            / u64.abs().amax(dim=(-2, -1)))
+    med, worst = float(errs.median()), float(errs.max())
+    log(f"phase 26 solve_poisson_structured_bf16 at {n}², B={B}, "
+        f"{BF16_INNER} inner × (1 + {BF16_PASSES}) passes: rel err vs f64 "
+        f"per scenario, median {med:.3e} (tolerance {BF16_TOL_MEDIAN:g}), "
+        f"worst {worst:.3e} ({BF16_TOL_MAX:g}); {t_bf:.3f} s host [{card}]")
+    if not (med <= BF16_TOL_MEDIAN and worst <= BF16_TOL_MAX):
+        raise AssertionError(f"phase 26 bf16 refinement: {med:.3e}, "
+                             f"{worst:.3e}")
+    del u64, u16, arrays, args32
+
+    # SPIKE against PCR
+    d64, e64 = k2_bands(torch, "random", N_SPIKE, BATCH_SPIKE, gen, dev)
+    F64 = torch.randn(BATCH_SPIKE, N_SPIKE, generator=gen, dtype=f64,
+                      device=dev)
+    u_p = ttri.tridiag_solve(d64, e64, F64)
+    e_s64 = rel_err(tridiag_solve_spike(d64, e64, F64, SPIKE_CHUNK), u_p)
+    d32, e32, F32 = d64.float(), e64.float(), F64.float()
+    e_s32 = rel_err(tridiag_solve_spike(d32, e32, F32, SPIKE_CHUNK), u_p)
+    e_p32 = rel_err(ttri.tridiag_solve(d32, e32, F32), u_p)
+    log(f"phase 26 SPIKE (chunk {SPIKE_CHUNK}) against PCR at n={N_SPIKE}, "
+        f"B={BATCH_SPIKE}: f64 rel err {e_s64:.3e}; f32 rel err vs f64 PCR "
+        f"{e_s32:.3e} (f32 PCR {e_p32:.3e})")
+    if not (e_s64 <= SPIKE_F64_TOL and e_s32 <= SPIKE_F32_TOL):
+        raise AssertionError(f"phase 26 SPIKE: {e_s64:.3e}, {e_s32:.3e}")
+    best = timed_turns(
+        {"spike": lambda Fc: Fc + 1e-6 * tridiag_solve_spike(
+            d32, e32, Fc, SPIKE_CHUNK),
+         "pcr": lambda Fc: Fc + 1e-6 * ttri.tridiag_solve(d32, e32, Fc)},
+        F32, 3, ("pcr", "spike", "spike", "pcr"))
+    log(f"phase 26 SPIKE against PCR, f32, chained: SPIKE "
+        f"{best['spike']:.4f} ms, PCR {best['pcr']:.4f} ms a solve "
+        f"[{card}]")
+    del d64, e64, F64, u_p, d32, e32, F32
+
+    # the refined bf16 PCR solve against the f64 oracle
+    for n, passes, tol in REFINED_CASES:
+        mesh = FEMesh.line(n, dtype=f32)
+        xn = mesh.nodes[:, 0]
+        d, e = assemble_tridiag_1d(mesh, torch.tensor(1.37, device=dev))
+        F = assemble_load(mesh, torch.sin(math.pi * xn) + 1.0)
+        m, g1 = mesh.bc_mask, mesh.bc_values
+        p = 1.0 - m
+        dm, em = p * d + m, p[:-1] * p[1:] * e
+        Fm = m * g1 + p * (F - ttri.tridiag_matvec(d, e, m * g1))
+        u64 = ttri.tridiag_solve(dm.double(), em.double(), Fm.double())
+        errs = [rel_err(tridiag_solve_refined(dm, em, Fm, k), u64)
+                for k in range(passes + 1)]
+        log(f"phase 26 tridiag_solve_refined n={n} (κ = 1.37, load "
+            f"sin(πx) + 1), rel err vs f64 after 0..{passes} passes: "
+            + ", ".join(f"{x:.3e}" for x in errs) + f" (tolerance {tol:g})")
+        if not errs[-1] <= tol:
+            raise AssertionError(f"phase 26 refined n={n}: {errs[-1]:.3e}")
+    log(f"phase 26: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 27: 3D multigrid
+    t0 = time.perf_counter()
+    n, B = N_MG3_STEP, BATCH_MG3
+    grid = StructuredGrid3.unit(n, n, n)
+    shape = grid.node_shape
+    kappa = 1.0 + torch.rand(B, grid.n_elements, generator=gen, dtype=f64,
+                             device=dev)
+    f3 = torch.randn((B,) + shape, generator=gen, dtype=f64, device=dev)
+    g3 = torch.zeros(shape, dtype=f64, device=dev)
+    ud = torch.randn((B,) + shape, generator=gen, dtype=f64, device=dev)
+    loss_m, gk_m = kappa_mse_grad_step_3d_mg(grid, kappa, f3, g3, ud,
+                                             MG3_ITERS)
+    loss_j, gk_j = kappa_mse_grad_step_3d(grid, kappa, f3, g3, ud,
+                                          JACOBI3_ITERS)
+    e_loss = abs(float(loss_m) - float(loss_j)) / abs(float(loss_j))
+    e_grad = rel_err(gk_m, gk_j)
+    log(f"phase 27 kappa_mse_grad_step_3d_mg at {n}³, B={B}, f64, "
+        f"{MG3_ITERS} iters against the Jacobi step at {JACOBI3_ITERS}: "
+        f"loss rel err {e_loss:.3e}, κ gradient rel err {e_grad:.3e}")
+    if not (e_loss <= 1e-9 and e_grad <= 1e-6):
+        raise AssertionError(f"phase 27 MG step: {e_loss:.3e}, "
+                             f"{e_grad:.3e}")
+    args32 = [a.float() for a in (kappa, f3, g3, ud)]
+    for name, step, iters in (("MG", kappa_mse_grad_step_3d_mg, MG3_ITERS),
+                              ("Jacobi", kappa_mse_grad_step_3d,
+                               JACOBI3_ITERS)):
+        _, gk32 = step(grid, *args32, iters)
+        log(f"phase 27 the f32 {name} step ({iters} iters): κ gradient rel "
+            f"err vs the f64 Jacobi step {rel_err(gk32, gk_j):.3e}")
+    del gk_m, gk_j, kappa, f3, ud
+
+    def sgd(step, iters):
+        return lambda k: k - 1e-3 * step(grid, k, *args32[1:], iters)[1]
+
+    best = timed_turns({"mg": sgd(kappa_mse_grad_step_3d_mg, MG3_ITERS),
+                        "jacobi": sgd(kappa_mse_grad_step_3d,
+                                      JACOBI3_ITERS)},
+                       args32[0], 1, ("jacobi", "mg", "mg", "jacobi"))
+    log(f"phase 27 the 3D grad step at {n}³, B={B}, f32, chained: MG "
+        f"({MG3_ITERS} iters) {best['mg']:.2f} ms, Jacobi "
+        f"({JACOBI3_ITERS} iters) {best['jacobi']:.2f} ms, "
+        f"{best['jacobi'] / best['mg']:.2f}x [{card}]")
+    del args32
+    torch.cuda.empty_cache()
+
+    n = N_MG3_SOLVE
+    grid = StructuredGrid3.unit(n, n, n)
+    kappa = 1.0 + torch.rand(grid.n_elements, generator=gen, dtype=f64,
+                             device=dev)
+    f3 = torch.ones(grid.node_shape, dtype=f64, device=dev)
+    g3 = torch.zeros_like(f3)
+    t1 = time.perf_counter()
+    u_mg, it_mg, rnorm = mg3_diagnostics(grid, kappa, f3, g3, tol=1e-10)
+    t_mg = time.perf_counter() - t1
+    u_solve = solve_poisson_structured_3d_mg(grid, kappa, f3, g3, tol=1e-10)
+    log(f"phase 27 solve_poisson_structured_3d_mg at {n}³ (f64, to 1e-10):"
+        f" {it_mg} iterations, residual {float(rnorm):.3e}, "
+        f"{t_mg:.3f} s host [{card}]")
+    if not (it_mg < 100 and bool(torch.isfinite(u_solve).all())
+            and rel_err(u_solve, u_mg) <= 1e-12):
+        raise AssertionError(f"phase 27 3D MG solve: {it_mg} iterations")
+    check_only(counts, {}, "phases 26-27 (no kernel on these solvers)")
+    log(f"phase 27: {time.perf_counter() - t0:.1f} s")
+
+    n_nodes = BATCH_NAT * H * W
+    return [kernel_entry(
+        "stencil_cg_natural", K3_SOURCE, f"{JAX_K3}:191", main_path[route],
+        max_abs, ms["kernel"], ms["plain"],
+        K3_OPS_PER_NODE_ITER * n_nodes * NAT_ITERS, 9 * n_nodes * 4)]
+
+
 def timeit_chained_min(fn, x0, length=4):
     """Best chained ms per call of one function."""
     from difffe_tpu_torch.utils.profiling import timeit_chained
@@ -3646,6 +4153,11 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += run_ablation(torch, dev, card)
     log(f"K7 ablation path (P2), phase 24: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels += run_structured(torch, dev, card)
+    log(f"structured solver path, phases 25-27: "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernels}))
     log(card)

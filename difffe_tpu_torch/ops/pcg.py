@@ -37,6 +37,17 @@ def batched_dot(ndim: int = 2):
     return dot
 
 
+def first_order_only(name: str) -> None:
+    """Raise inside a backward that autograd is recording (create_graph):
+    an IFT backward whose adjoint solve runs this loop gives first
+    derivatives only, as the JAX package's custom VJPs do, and a graph
+    that skipped λ's dependence on the inputs would give wrong second
+    derivatives without a word."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(f"{name} is differentiable once: its "
+                                  f"backward takes no create_graph")
+
+
 def _global_dot(u, v):
     return (u * v).sum()
 

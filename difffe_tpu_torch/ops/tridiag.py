@@ -102,15 +102,11 @@ def solve_poisson_tridiag(mesh: FEMesh, d: torch.Tensor, e: torch.Tensor,
 
     ``bc_values`` optionally overrides the mesh's Dirichlet values and may
     carry leading batch axes.  ``backend``: ``"xla"`` (the elementwise PCR
-    sweeps above) or ``"pallas"`` (kernel K2, ops/kernels/tridiag_kernel.py,
-    on bands broadcast to F's batch shape); ``"spike"`` is not ported yet
-    and ``chunk`` is read by it only.
+    sweeps above), ``"pallas"`` (kernel K2, ops/kernels/tridiag_kernel.py)
+    or ``"spike"`` (the partitioned solver of ops/spike.py, ``chunk`` rows
+    a chunk); the last two take the bands broadcast to F's batch shape.
     """
-    if backend == "spike":
-        raise NotImplementedError(
-            "backend='spike' is not ported yet (slice B, next PR: "
-            "ops/spike.py)")
-    if backend not in ("xla", "pallas"):
+    if backend not in ("xla", "pallas", "spike"):
         raise ValueError(f"unknown tridiagonal backend {backend!r} "
                          "(expected 'xla', 'pallas', or 'spike')")
     m = mesh.bc_mask
@@ -121,13 +117,15 @@ def solve_poisson_tridiag(mesh: FEMesh, d: torch.Tensor, e: torch.Tensor,
     e_mod = p[..., :-1] * p[..., 1:] * e
     mg = (m * g).expand(F.shape)
     F_mod = (mg + p * (F - tridiag_matvec(d, e, mg))).expand(F.shape)
-    if backend == "pallas":
-        from .kernels.tridiag_kernel import tridiag_solve_kernel
-
-        # the kernel route takes explicitly batched bands (stride-0 views
-        # of a band shared by every scenario, read in place)
-        bshape = F_mod.shape[:-1]
-        return tridiag_solve_kernel(d_mod.expand(bshape + d_mod.shape[-1:]),
-                                    e_mod.expand(bshape + e_mod.shape[-1:]),
-                                    F_mod)
-    return tridiag_solve(d_mod, e_mod, F_mod)
+    if backend == "xla":
+        return tridiag_solve(d_mod, e_mod, F_mod)
+    # the other backends take explicitly batched bands (stride-0 views of a
+    # band shared by every scenario; K2 reads them in place)
+    bshape = F_mod.shape[:-1]
+    d_mod = d_mod.expand(bshape + d_mod.shape[-1:])
+    e_mod = e_mod.expand(bshape + e_mod.shape[-1:])
+    if backend == "spike":
+        from .spike import tridiag_solve_spike
+        return tridiag_solve_spike(d_mod, e_mod, F_mod, chunk)
+    from .kernels.tridiag_kernel import tridiag_solve_kernel
+    return tridiag_solve_kernel(d_mod, e_mod, F_mod)

@@ -17,15 +17,20 @@ PyTorch counterpart of the ported subset of ``difffe_tpu/solver.py``:
   meshes with their factory Dirichlet boundary, and for fixed-trip batched
   solves (``cg_tol=0``, ``cg_maxiter ≤ 256``) the whole-CG kernel K3a
   (ops/kernels/stencil_cg_kernel.py), forward and adjoint;
+* the generalized-mask stencil solver (ops/stencil_natural.py) on
+  rectangle meshes with Neumann loads, Robin terms that fold into the
+  stencil or any other Dirichlet mask, and for such fixed-trip batched
+  solves (``cg_tol=0``, ``cg_maxiter ≤ 256``, axis-adjacent Robin, shared
+  boundary values) the same kernel K3a on the folded planes; ``auto``
+  falls back to dense or cg when a Robin pattern does not fold;
 * the 3D structured stencil solver (ops/stencil3d.py) on ``FEMesh.box``
   meshes with their factory Dirichlet boundary, and for fixed-trip batched
   solves on the card (``cg_tol=0``, an explicit ``cg_maxiter``) the
   whole-CG kernel K4a (ops/kernels/stencil3d_cg_kernel.py), forward and
   adjoint.
 
-Natural BCs and non-factory Dirichlet masks on rectangle meshes (the
-generalized-mask stencil solver) raise ``NotImplementedError`` naming the
-slice that ports them.
+Box meshes take the factory Dirichlet boundary only (no Neumann/Robin on
+the stencil route), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,9 +50,6 @@ from .ops.assembly import (assemble_load, assemble_stiffness_dense,
                            is_tensor_kappa, kappa_on_elements)
 from .ops.solve import solve_dense
 
-_NATURAL_2D = ("Neumann/Robin terms and non-factory Dirichlet masks on "
-               "rectangle meshes take the generalized-mask stencil solver, "
-               "not ported yet (slice C item 14: ops/stencil_natural.py)")
 _NATURAL_3D = ("the 3D structured stencil path supports the factory "
                "Dirichlet boundary only (no Neumann/Robin); use "
                "method='cg' or 'dense'")
@@ -100,17 +102,24 @@ def _mask_is_factory(mesh: FEMesh) -> bool:
 def _solve_stencil(mesh: FEMesh, kappa, f: torch.Tensor, cg_tol: float,
                    cg_maxiter: Optional[int], neumann=None, robin=None,
                    bc_values=None, dot=None) -> torch.Tensor:
-    """Route onto the closed-form structured stencil solver.
+    """Route onto the closed-form structured stencil solvers.
 
     κ in any facade form (scalar / per-element / per-node, leading batch
-    axes allowed) becomes per-triangle fields by the generic assembly's
-    rules; flat node vectors reshape to the node grid and back.  All of it
-    is differentiable.  ``dot`` is the CG inner product
-    (``pcg.batched_dot(2)`` for independent scenarios)."""
+    axes allowed) becomes per-triangle or per-tet fields by the generic
+    assembly's rules; flat node vectors reshape to the node grid and back.
+    All of it is differentiable.  ``dot`` is the factory-mask solvers' CG
+    inner product (``pcg.batched_dot(2)`` for independent scenarios).
+
+    2D natural BCs and non-factory Dirichlet masks take the
+    generalized-mask solver (ops/stencil_natural.py), whose batched
+    right-hand sides take per-scenario dots; a Robin pattern that does not
+    fold into the stencil raises ValueError (the ``auto`` callers fall
+    back before).  3D takes the factory boundary only."""
     from .ops.stencil import kappa_lu_from_elements, solve_poisson_structured
     from .ops.stencil3d import solve_poisson_structured_3d
 
-    _require_factory_dirichlet(mesh, neumann is not None or robin is not None)
+    natural = (neumann is not None or robin is not None
+               or not _mask_is_factory(mesh))
     grid = mesh.grid
     shape = grid.node_shape
     ke = kappa_on_elements(mesh, kappa)
@@ -118,22 +127,62 @@ def _solve_stencil(mesh: FEMesh, kappa, f: torch.Tensor, cg_tol: float,
     g = g.reshape(g.shape[:-1] + shape)
     fg = f.reshape(f.shape[:-1] + shape)
     if mesh.dim == 3:
+        if natural:
+            raise ValueError(_NATURAL_3D)
         u = solve_poisson_structured_3d(grid, ke, fg, g, cg_tol, cg_maxiter,
                                         dot)
+    elif natural:
+        from .ops.stencil_natural import solve_poisson_structured_natural
+        u = solve_poisson_structured_natural(
+            grid, kappa_lu_from_elements(grid, ke), fg, g,
+            *_natural_terms(mesh, neumann, robin, fg.dtype), cg_tol,
+            cg_maxiter)
     else:
         u = solve_poisson_structured(grid, kappa_lu_from_elements(grid, ke),
                                      fg, g, cg_tol, cg_maxiter, dot)
     return u.reshape(u.shape[:-len(shape)] + (mesh.n_nodes,))
 
 
-def _require_factory_dirichlet(mesh: FEMesh, natural: bool):
-    """The structured solvers take the factory Dirichlet boundary only: 3D
-    refuses anything else as the JAX package does; 2D's generalized-mask
-    solver is not ported yet."""
-    if natural or not _mask_is_factory(mesh):
-        if mesh.dim == 3:
-            raise ValueError(_NATURAL_3D)
-        raise NotImplementedError(_NATURAL_2D)
+def _natural_terms(mesh: FEMesh, neumann, robin, dtype):
+    """The generalized-mask solvers' (m, qn, C_r, rload) grids: the
+    Dirichlet mask, the Neumann load and the folded Robin planes and load
+    (None where absent), leading scenario axes kept."""
+    from .ops.stencil_natural import fold_robin_planes
+
+    grid = mesh.grid
+    shape = grid.node_shape
+    m = mesh.bc_mask.reshape(shape).to(dtype)
+    qn = None
+    if neumann is not None:
+        qn = torch.as_tensor(neumann, dtype=dtype, device=mesh.device)
+        qn = qn.reshape(qn.shape[:-1] + shape)
+    C_r = rload = None
+    if robin is not None:
+        C_r, rload = fold_robin_planes(grid, robin.rows, robin.cols,
+                                       robin.vals, robin.load)
+    return m, qn, C_r, rload
+
+
+def _robin_folds(mesh: FEMesh, robin, axis_adjacent: bool = False) -> bool:
+    """Whether a Robin term's pattern folds into the rectangle stencil
+    (into its 5-point part when ``axis_adjacent``, what K3a carries): a
+    host-side check of its indices.  False on box meshes."""
+    from .ops.stencil_natural import (robin_is_axis_adjacent,
+                                      robin_plane_index)
+
+    if mesh.dim != 2:
+        return False
+    if axis_adjacent:
+        return robin_is_axis_adjacent(mesh.grid, robin.rows, robin.cols)
+    try:
+        robin_plane_index(mesh.grid, robin.rows, robin.cols)
+    except ValueError:
+        return False
+    return True
+
+
+def _fallback_method(mesh: FEMesh) -> str:
+    return "dense" if mesh.n_nodes <= 4096 else "cg"
 
 
 def _check_kw(kw: dict):
@@ -240,15 +289,24 @@ def solve_poisson(mesh: FEMesh, kappa, f, method: str = "auto",
     neumann : optional (n_nodes,) natural-BC load (ops/neumann.py), added
         to F before Dirichlet elimination.
     robin : optional ops/robin.RobinBC (1D point Robin: every 1D route;
-        edge Robin: 'dense', 'lu', 'cg').
+        edge Robin: 'dense', 'lu', 'cg', and 'stencil' on rectangle meshes
+        where its pattern folds into the stencil; 'auto' falls back to
+        dense or cg where it does not).  On rectangle meshes Neumann loads,
+        Robin terms and non-factory Dirichlet masks take the
+        generalized-mask stencil solver; box meshes refuse them on the
+        stencil route.
 
     Returns u (n_nodes,), differentiable wrt kappa, f and bc_values, and on
     the 'dense'/'lu'/'cg' routes wrt the node coordinates.
     """
     f = torch.as_tensor(f, dtype=mesh.dtype, device=mesh.device)
     natural = neumann is not None or robin is not None
+    was_auto = method == "auto"
     method = _resolve_method(mesh, method, kappa=kappa,
                              structured_ok=(not natural) or mesh.dim == 2)
+    if (was_auto and method == "stencil" and robin is not None
+            and not _robin_folds(mesh, robin)):
+        method = _fallback_method(mesh)
     if robin is None and mesh.n_dirichlet == 0:
         raise ValueError(
             "mesh has no Dirichlet nodes: the Poisson system is singular "
@@ -311,9 +369,12 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
 
     On rectangle meshes a fixed-trip solve (``cg_tol=0.0``,
     ``cg_maxiter ≤ 256``) of batched forcings with shared boundary values
-    runs on the whole-CG kernel K3a, its gradient too; other batched
-    stencil solves run the torch CG with per-scenario dots (the JAX
-    package ``vmap``s one solve per scenario there).  On box meshes such a
+    runs on the whole-CG kernel K3a, its gradient too: with the factory
+    mask, and with Neumann loads, axis-adjacent Robin terms or any other
+    Dirichlet mask folded into its planes; other batched stencil solves
+    run the torch CG with per-scenario dots (the JAX package ``vmap``s one
+    solve per scenario there).  A Robin pattern that does not fold into
+    the stencil takes 'dense' (up to 4096 nodes) or 'cg'.  On box meshes such a
     solve (any explicit ``cg_maxiter``) on the card runs on K4a, its
     gradient too; every other batched box solve runs
     ``solve_poisson_structured_3d_batched`` (per-scenario dots, the JAX
@@ -356,22 +417,34 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
 
     if method == "stencil":
         _require_stencil(mesh)
-        _require_factory_dirichlet(mesh, natural)
+        # a Robin pattern that does not fold leaves the stencil route
+        if rb is not None and not _robin_folds(mesh, rb):
+            method = _fallback_method(mesh)
+    if method == "stencil":
         from .ops.kernels.stencil_cg_kernel import choose_2d_path
         from .ops.pcg import batched_dot
 
         cg_tol, cg_maxiter = kw.get("cg_tol"), kw.get("cg_maxiter")
+        natural = natural or not _mask_is_factory(mesh)
         if mesh.dim == 3:
+            if natural:
+                raise ValueError(_NATURAL_3D)
             return _solve_batched_box(mesh, kappa, f, bc_values, cg_tol,
                                       cg_maxiter)
-        if (f_batched and not g_batched
-                and cg_tol == 0.0 and cg_maxiter and cg_maxiter <= 256
-                and choose_2d_path(mesh.grid, block_b=8) == "fused"):
+        fixed_trip = (f_batched and not g_batched
+                      and cg_tol == 0.0 and cg_maxiter and cg_maxiter <= 256
+                      and choose_2d_path(mesh.grid, block_b=8) == "fused")
+        if fixed_trip and not natural:
             return _solve_batched_kernel(mesh, kappa, f, bc_values,
                                          int(cg_maxiter))
+        if fixed_trip and (rb is None or _robin_folds(mesh, rb,
+                                                      axis_adjacent=True)):
+            return _solve_batched_kernel(mesh, kappa, f, bc_values,
+                                         int(cg_maxiter), natural=(nm, rb))
         cg_tol, cg_maxiter = _cg_policy(mesh, cg_tol, cg_maxiter)
         return _solve_stencil(mesh, kappa, f, cg_tol, cg_maxiter,
-                              bc_values=bc_values, dot=batched_dot(2))
+                              neumann=nm, robin=rb, bc_values=bc_values,
+                              dot=batched_dot(2))
 
     if method in ("tridiag", "tridiag_pallas"):
         return _tridiag_route(mesh, method, kappa, f, bc_values, nm, rb,
@@ -386,20 +459,27 @@ def solve_poisson_batched(mesh: FEMesh, kappa, f, method: str = "auto",
     raise ValueError(f"Unknown method {method!r}")
 
 
-def _solve_batched_kernel(mesh, kappa, f, bc_values, iters):
+def _solve_batched_kernel(mesh, kappa, f, bc_values, iters, natural=None):
     """The fixed-trip batched rectangle solve on K3a (block_b = 8, as the
-    JAX route passes)."""
+    JAX routes pass): the factory-mask route, or with ``natural`` =
+    (neumann, robin) the generalized-mask route on the folded planes."""
     from .ops.kernels.stencil_cg_kernel import solve_structured_kernel
     from .ops.stencil import kappa_lu_from_elements
+    from .ops.stencil_natural import solve_structured_pallas_natural
 
     grid = mesh.grid
+    shape = grid.node_shape
     B = f.shape[0]
-    keB = kappa_on_elements(mesh, kappa).expand(B, mesh.n_elements)
-    g = mesh.bc_values if bc_values is None else bc_values
-    u = solve_structured_kernel(
-        grid, kappa_lu_from_elements(grid, keB),
-        f.reshape((B,) + grid.node_shape), g.reshape(grid.node_shape),
-        iters, 8)
+    klu = kappa_lu_from_elements(
+        grid, kappa_on_elements(mesh, kappa).expand(B, mesh.n_elements))
+    fg = f.reshape((B,) + shape)
+    g = (mesh.bc_values if bc_values is None else bc_values).reshape(shape)
+    if natural is None:
+        u = solve_structured_kernel(grid, klu, fg, g, iters, 8)
+    else:
+        u = solve_structured_pallas_natural(
+            grid, klu, fg, g, *_natural_terms(mesh, *natural, f.dtype),
+            iters, 8)
     return u.reshape(B, mesh.n_nodes)
 
 

@@ -366,6 +366,144 @@ def test_2d_routes_launch_k3(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K3a on the natural route (ops/stencil_natural.py): generalized-mask and
+# natural-BC planes, held by the K3 rule above.
+# ---------------------------------------------------------------------------
+
+
+def _natural_planes(dev, n, B, variant, seed):
+    """f64 (kl, ku, f, g, m, qn, C_r, rload) of an n² grid: "natural"
+    (Dirichlet on the left edge only, a per-scenario Neumann flux on the
+    right edge, an axis-adjacent Robin edge on top) or "pins" (the factory
+    boundary and two interior pins)."""
+    grid, (kl, ku, f, g, _) = _k3_problem(dev, n, B, True, seed)
+    opts = dict(dtype=torch.float64, device=dev)
+    m = torch.zeros(n + 1, n + 1, **opts)
+    qn = C_r = rload = None
+    if variant == "natural":
+        h = 1.0 / n
+        m[:, 0] = 1.0
+        qn = torch.zeros(B, n + 1, n + 1, **opts)
+        qn[:, :, -1] = h * torch.linspace(1.0, 2.0, B, **opts)[:, None]
+        C_r = torch.zeros(7, n + 1, n + 1, **opts)
+        C_r[0, -1, :] = 4.0 * h / 6.0
+        C_r[0, -1, [0, -1]] = 2.0 * h / 6.0
+        C_r[1, -1, :-1] = h / 6.0
+        C_r[2, -1, 1:] = h / 6.0
+        rload = torch.zeros(n + 1, n + 1, **opts)
+        rload[-1, :] = 0.5 * h
+    else:
+        m[[0, -1], :] = 1.0
+        m[:, [0, -1]] = 1.0
+        m[n // 2, n // 2] = m[n // 4, 3 * n // 4] = 1.0
+    return grid, (kl, ku, f, g, m, qn, C_r, rload)
+
+
+@pytest.mark.parametrize("n,B", [(8, 7), (64, 16), (256, 2)],
+                         ids=["8x8_B7", "64x64_B16", "256x256_B2"])
+@pytest.mark.parametrize("variant", ["natural", "pins"])
+def test_k3a_natural_planes_match_plain(cuda, n, B, variant):
+    """K3a on the folded natural and custom-mask planes by the rule, on
+    the route its plan names, a second launch equal bit for bit."""
+    from difffe_tpu_torch.ops import stencil_natural as nat
+
+    grid, arrays = _natural_planes(cuda, n, B, variant, seed=5 * n + B)
+    plan = sk.cluster_plan((n + 1) ** 2, 5, 4, sk.smem_optin(cuda.index or 0))
+    count = "cg" if plan.route == "cluster" else "cg_workspace"
+    before = dict(sk.launches)
+    out = {}
+    for name, dt, cg in (("kernel", torch.float32, sk._cg),
+                         ("f32", torch.float32, sk._cg_plain),
+                         ("f64", torch.float64, sk._cg_plain)):
+        kl, ku, f, g, m, qn, C_r, rl = (None if a is None else a.to(dt)
+                                        for a in arrays)
+        _, D, b, Minv, x0, _ = nat._prep_nat_pallas(grid, (kl, ku), f, g, m,
+                                                    qn, C_r, rl)
+        rhs = ((1.0 - m) * f).contiguous()
+        out[name] = (cg(D, b, Minv, x0, 128),
+                     cg(D, rhs, Minv, torch.zeros_like(rhs), 128))
+        if name == "kernel":
+            again = cg(D, b, Minv, x0, 128)
+    torch.cuda.synchronize()
+    assert sk.launches[count] == before[count] + 3
+    assert torch.equal(again, out["kernel"][0])
+    for i in range(2):
+        assert torch.isfinite(out["kernel"][i]).all()
+        ok, errs = _within_rule(out["kernel"][i], out["f32"][i],
+                                out["f64"][i])
+        assert ok, (i, errs)
+
+
+def test_natural_facade_route_launches_k3a(cuda):
+    """solve_poisson_batched with a custom mask, a batched Neumann load and
+    a Robin edge, fixed trip: one K3a launch forward and one for the
+    gradient, on the route the plan names; the answer is the dense
+    route's."""
+    import dataclasses
+
+    from difffe_tpu_torch.ops.neumann import boundary_edges, edge_flux_load
+    from difffe_tpu_torch.ops.robin import robin_edges
+
+    full = FEMesh.rectangle(8, 8, dtype=torch.float32)
+    left = (full.nodes[:, 0].abs() < 1e-6).float()
+    mesh = dataclasses.replace(full, bc_mask=left,
+                               bc_values=torch.zeros_like(left))
+    B, nn = 6, mesh.n_nodes
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    right = boundary_edges(mesh, predicate=lambda p: abs(p[0] - 1.0) < 1e-6)
+    top = boundary_edges(mesh, predicate=lambda p: abs(p[1] - 1.0) < 1e-6)
+    nm = edge_flux_load(mesh, right, torch.rand(B, nn, generator=gen,
+                                                device=cuda))
+    rb = robin_edges(mesh, top, 2.0, torch.ones(nn, device=cuda))
+    f = torch.rand(B, nn, generator=gen, device=cuda)
+    k = (1.0 + torch.rand(B, mesh.n_elements, generator=gen, device=cuda)
+         ).requires_grad_()
+    plan = sk.cluster_plan(81, 5, 4, sk.smem_optin(cuda.index or 0))
+    count = "cg" if plan.route == "cluster" else "cg_workspace"
+    before = dict(sk.launches)
+    u = solve_poisson_batched(mesh, k, f, neumann=nm, robin=rb, cg_tol=0.0,
+                              cg_maxiter=128)
+    (u ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert {key: sk.launches[key] - before[key] for key in sk.launches} == \
+        {key: 2 if key == count else 0 for key in sk.launches}
+    kd = k.detach().double().requires_grad_()
+    u_d = solve_poisson_batched(
+        dataclasses.replace(mesh, nodes=mesh.nodes.double(),
+                            bc_mask=left.double(),
+                            bc_values=torch.zeros_like(left.double())),
+        kd, f.double(), method="dense", neumann=nm.double(),
+        robin=dataclasses.replace(rb, vals=rb.vals.double(),
+                                  load=rb.load.double()))
+    (u_d ** 2).sum().backward()
+    assert rel_err(u, u_d) <= 1e-5
+    assert rel_err(k.grad, kd.grad) <= 1e-4
+
+
+@pytest.mark.parametrize("n,B,chunk", [(4096, 64, 64), (1000, 7, 32)])
+def test_spike_f64_matches_pcr(cuda, n, B, chunk):
+    from difffe_tpu_torch.ops.spike import tridiag_solve_spike
+
+    gen = torch.Generator(device=cuda).manual_seed(n + B)
+    f64 = dict(dtype=torch.float64, device=cuda)
+    e = -torch.rand(B, n - 1, generator=gen, **f64) - 0.1
+    d = torch.rand(B, n, generator=gen, **f64) + 0.1
+    d[:, :-1] -= e
+    d[:, 1:] -= e
+    F = torch.randn(B, n, generator=gen, **f64)
+    w = torch.randn(B, n, generator=gen, **f64)
+    grads = []
+    for solve in (lambda *t: tridiag_solve_spike(*t, chunk),
+                  ttri.tridiag_solve):
+        ts = [t.clone().requires_grad_() for t in (d, e, F)]
+        u = solve(*ts)
+        u.backward(w)
+        grads.append([u.detach()] + [t.grad for t in ts])
+    for a, b in zip(*grads):
+        assert rel_err(a, b) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
 # K4a / K4b: whole-CG 3D stencil kernels, held by the K3 rule above.  The
 # (12, 9, 6) box is non-cubic; 32³ takes the global-workspace route.
 # ---------------------------------------------------------------------------

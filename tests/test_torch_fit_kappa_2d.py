@@ -185,18 +185,20 @@ def test_unported_2d_routes_raise():
     assert rel_err(t_solve(tm, eye, f), u_stencil) <= 1e-12
     with pytest.raises(ValueError, match="tensor-valued"):
         t_solve(tm, eye, f, method="stencil")
-    with pytest.raises(NotImplementedError, match="slice C item 14"):
-        t_solve(tm, 1.0, f, neumann=torch.zeros_like(f))
+    # natural terms take the generalized-mask stencil solver
+    # (ops/stencil_natural.py, tests/test_torch_stencil_natural.py)
+    assert rel_err(t_solve(tm, 1.0, f, neumann=torch.zeros_like(f)),
+                   u_stencil) <= 1e-9
     # a non-factory Dirichlet mask that keeps the grid metadata
     mask = np.asarray(jm.bc_mask).copy()
     mask[6] = 1.0
     pinned = TMesh.from_arrays(np.asarray(jm.nodes), np.asarray(jm.elements),
                                mask, np.zeros_like(mask), device="cpu",
                                grid=port_grid(jm.grid))
-    with pytest.raises(NotImplementedError, match="slice C item 14"):
-        t_solve(pinned, 1.0, f)
-    with pytest.raises(NotImplementedError, match="slice C item 14"):
-        t_solve_b(pinned, 1.0, f.expand(2, -1), cg_tol=0.0, cg_maxiter=8)
+    u_dense = t_solve(pinned, 1.0, f, method="dense")
+    assert rel_err(t_solve(pinned, 1.0, f), u_dense) <= 1e-9
+    uB = t_solve_b(pinned, 1.0, f.expand(2, -1), cg_tol=0.0, cg_maxiter=8)
+    assert rel_err(uB, u_dense.expand(2, -1)) <= 1e-9
     # fit_kappa drops the grid of a replaced mask: the generic routes
     _, info = t_fit(pinned, f, f, steps=2)
     assert info["path"] == "generic_adam"

@@ -220,8 +220,10 @@ def test_solve_poisson_tridiag_bc_elimination():
         u_k = ttri.solve_poisson_tridiag(tm, td, te, tF, backend="pallas",
                                          bc_values=bc)
         np.testing.assert_allclose(u_k.numpy(), np.asarray(u_j), **TIGHT)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        ttri.solve_poisson_tridiag(tm, td, te, tF, backend="spike")
+        # and so does the SPIKE backend (ops/spike.py)
+        u_s = ttri.solve_poisson_tridiag(tm, td, te, tF, backend="spike",
+                                         bc_values=bc, chunk=4)
+        np.testing.assert_allclose(u_s.numpy(), np.asarray(u_j), **TIGHT)
 
 
 @pytest.mark.parametrize("kappa_kind", ["shared_field", "per_scenario_scalar",

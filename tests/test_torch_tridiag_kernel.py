@@ -142,7 +142,8 @@ def test_second_order_raises_in_both_packages():
 
 def test_pallas_backend_of_the_band_solver():
     """``solve_poisson_tridiag(backend="pallas")`` goes through the K2
-    wrapper on broadcast bands and matches the elementwise route."""
+    wrapper on broadcast bands and matches the elementwise route, as does
+    ``backend="spike"``."""
     from difffe_tpu_torch.mesh import FEMesh
     from difffe_tpu_torch.ops.assembly import (assemble_load,
                                                assemble_tridiag_1d)
@@ -158,10 +159,13 @@ def test_pallas_backend_of_the_band_solver():
     u_p = ttri.solve_poisson_tridiag(mesh, d, e, F, backend="pallas")
     assert rel_err(u_p, u_x) <= 1e-13
     (g_x,) = torch.autograd.grad(u_x.square().sum(), k, retain_graph=True)
-    (g_p,) = torch.autograd.grad(u_p.square().sum(), k)
+    (g_p,) = torch.autograd.grad(u_p.square().sum(), k, retain_graph=True)
     assert rel_err(g_p, g_x) <= 1e-12
-    with pytest.raises(NotImplementedError, match="slice B, next PR"):
-        ttri.solve_poisson_tridiag(mesh, d, e, F, backend="spike")
+    u_s = ttri.solve_poisson_tridiag(mesh, d, e, F, backend="spike",
+                                     chunk=4)
+    assert rel_err(u_s, u_x) <= 1e-13
+    (g_s,) = torch.autograd.grad(u_s.square().sum(), k)
+    assert rel_err(g_s, g_x) <= 1e-12
     with pytest.raises(ValueError, match="unknown tridiagonal backend"):
         ttri.solve_poisson_tridiag(mesh, d, e, F, backend="nope")
 
