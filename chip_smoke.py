@@ -297,9 +297,42 @@ on the natural route:
     ``solve_poisson_structured_3d_mg`` at 64³ with its iteration count;
     phases 26-27 launch no kernel.
 
+The control and model path (BASELINE.json config 3, heat-equation
+receding-horizon source control: ``FEMesh.line(64)``, B = 4096 scenarios,
+H = 50 steps, and config 5, topology optimization, 32²; the surrogates of
+``models/``), kernel K2 on every rollout step:
+
+28. the heat rollout's trajectory and the q-gradient of the tracking
+    cost at config 3's width (f32, per-scenario κ in [0.8, 1.6], targets
+    a_b·sin(πx) with a_b in [0.1, 0.4], the demo's three actuators) on
+    the ``auto`` route, K2, against the 'tridiag' route by the rule of
+    phase 7; the main path: ``make_planner_batched``, 60 Adam steps at
+    lr 0.3, 6000 K2 launches (a forward and an adjoint step each), all on
+    the warp route and no other launch, every scenario's last cost below
+    0.3× its first; the plan's host time over chained calls, a
+    device-only ``torch.profiler`` split (idle share, K2's share), K2's
+    kernel time a call at (n = 65, B = 4096) against its bound, its plain
+    version and ``torch.linalg.solve``; ``receding_horizon`` as
+    examples/heat_mpc_demo.py runs it (20 MPC steps at B = 1: K2's block
+    route, 20 × 6001 launches), its host time and tracking error (below
+    half the first);
+29. ``optimize_batched`` on config 5's ``topopt_2d`` (32², vol_frac 0.4,
+    penal 3, 50 OC iterations, f32) at B = 16 and 1024 with forcings
+    1 + a_b·sin(πx), a_b in [0, 0.5] from the seed: every scenario's
+    compliance below 0.5× its first, the volume within 0.02 of 0.4, ρ in
+    [0, 1], 25 bisection steps an OC step, no kernel launch; host time an
+    OC iteration and the state solve's CG iterations at the first and the
+    last ρ;
+30. ``train_operator`` with tests/test_operator.py's gate arguments (loss
+    < 1e-5, held-out relative error < 0.02) and, timed, at the JAX
+    defaults on B = 4096 targets from ``FEMesh.line(128)`` (solved by one
+    K2 launch), with inference at B = 4096; ``train_collocation`` with
+    tests/test_collocation.py's gate arguments (max error < 0.02) and,
+    timed, at its defaults on the unit square.
+
 Each path's launch counts are set to 0 just before its main-path phases
-(4-5, 8, 11, 14, 18, 22, 24's probe path, 25's facade call) and read just
-after; comparisons and timing outside those do not count.  The
+(4-5, 8, 11, 14, 18, 22, 24's probe path, 25's facade call, 28's plan and
+closed loop, each of 29's and 30's runs) and read just after; comparisons and timing outside those do not count.  The
 third-to-last line is one JSON object describing each kernel, with its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (H100 SXM, fp32 outside the tensor cores;
@@ -427,6 +460,23 @@ N_MG3_STEP, BATCH_MG3 = 48, 128
 # the κ gradient 1e-2 off after 30, 1e-5 after 60, 4e-12 after 120
 MG3_ITERS, JACOBI3_ITERS = 120, 600
 N_MG3_SOLVE = 64
+
+N_MPC = 64               # BASELINE.json config 3: FEMesh.line(64), 65 nodes
+BATCH_MPC = 4096         # its 4096 scenarios
+MPC_H, MPC_DT = 50, 2e-3             # its horizon; the demo's Δt
+MPC_ITERS, MPC_LR, MPC_PENALTY = 60, 0.3, 1e-6   # the demo's planner
+MPC_CENTERS, MPC_WIDTH = (0.25, 0.5, 0.75), 0.1  # the demo's actuators
+MPC_RH_STEPS = 20        # examples/heat_mpc_demo.py's closed loop
+# tests/test_control.py::test_planner_reduces_cost's bound (the CPU
+# calibration with the JAX package gave 0.02-0.06 at this width, B = 4)
+MPC_COST_RATIO = 0.3
+N_TOPO, TOPO_ITERS = 32, 50          # config 5's topopt_2d
+TOPO_BS = (16, 1024)
+TOPO_RATIO = 0.5         # the CPU calibration: 0.32 after 50 iterations
+OP_GATE = dict(width=48, depth=2, n_basis=24, n_epochs=4000, lr=2e-3)
+N_OP_BIG, BATCH_OP_BIG = 128, 4096   # the defaults on config 2's line
+COL_GATE = dict(hidden_dim=32, n_layers=2, n_points=64, n_epochs=1500,
+                lr=3e-3, resample_every=250)
 
 
 N_GEN = 64              # scripts/probe_unstructured.py's 64² triangulation
@@ -743,15 +793,17 @@ def check_rule(name, kernel, plain32, plain64, what, slack=1e-6):
     return ek, ep
 
 
-def profile_split(torch, fn, label, card, what="fit_kappa"):
+def profile_split(torch, fn, label, card, what="fit_kappa", cpu=True):
     """Device time by kernel name of one call of ``fn`` under
     torch.profiler; logs the busy time, the window and the top rows, and
-    returns (rows (name, count, ms), busy ms)."""
+    returns (rows (name, count, ms), busy ms).  ``cpu=False`` records the
+    device's activity alone: a call of ~10⁵ host operations would take
+    the profiler tens of seconds to process."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -4085,6 +4137,373 @@ def run_structured(torch, dev, card):
         K3_OPS_PER_NODE_ITER * n_nodes * NAT_ITERS, 9 * n_nodes * 4)]
 
 
+def mpc_problem(torch, dev, dtype):
+    """Phase 28's workload: ``FEMesh.line(64)``, one κ a scenario spaced
+    evenly in [0.8, 1.6], targets a_b·sin(πx) with a_b spaced evenly in
+    [0.1, 0.4] over the horizon, the demo's three actuators and planner."""
+    from difffe_tpu_torch.control import MPCConfig, gaussian_actuators
+    from difffe_tpu_torch.mesh import FEMesh
+
+    mesh = FEMesh.line(N_MPC, dtype=dtype, device=dev)
+    x = mesh.nodes[:, 0]
+    kappa = torch.linspace(0.8, 1.6, BATCH_MPC, dtype=dtype, device=dev)
+    amp = torch.linspace(0.1, 0.4, BATCH_MPC, dtype=dtype, device=dev)
+    targets = (amp[:, None] * torch.sin(math.pi * x))[:, None, :].expand(
+        BATCH_MPC, MPC_H, mesh.n_nodes)
+    act = gaussian_actuators(mesh, MPC_CENTERS, MPC_WIDTH)
+    cfg = MPCConfig(horizon=MPC_H, dt=MPC_DT, lr=MPC_LR,
+                    plan_iters=MPC_ITERS, control_penalty=MPC_PENALTY)
+    return mesh, kappa, targets, act, cfg
+
+
+def stencil_cg_iters(torch, mesh, kappa_e, f):
+    """Iterations of the tol-gated batched stencil CG that
+    ``solve_poisson_batched`` runs for per-triangle κ (B, ne) and loads
+    (B, n) on a rectangle (``solver._solve_stencil``'s forward solve, its
+    default tolerance and cap), and the largest relative residual."""
+    from difffe_tpu_torch.ops.pcg import batched_dot, pcg
+    from difffe_tpu_torch.ops.stencil import (_operator, boundary_mask_grid,
+                                              kappa_lu_from_elements,
+                                              load_grid, stencil_apply,
+                                              stencil_coefficients)
+    from difffe_tpu_torch.solver import _cg_policy
+
+    grid = mesh.grid
+    shape = grid.node_shape
+    kl, ku = kappa_lu_from_elements(grid, kappa_e)
+    C = stencil_coefficients(grid, kl, ku)
+    m = boundary_mask_grid(grid, f.dtype, f.device)
+    p = 1.0 - m
+    mg = m * mesh.bc_values.reshape(shape)
+    b = p * (load_grid(grid, f.reshape(f.shape[:-1] + shape))
+             - stencil_apply(C, mg))
+    diag = m + p * C[..., 0, :, :]
+    minv = 1.0 / torch.where(diag.abs() > 1e-30, diag, torch.ones_like(diag))
+    tol, maxiter = _cg_policy(mesh, None, None)
+    dot = batched_dot(2)
+    _, iters, r = pcg(lambda v: _operator(C, m, v), b, lambda v: minv * v,
+                      torch.zeros_like(b), tol, maxiter, dot=dot,
+                      with_diagnostics=True)
+    rel = (dot(r, r) / dot(b, b).clamp_min(1e-30)).sqrt()
+    return iters, maxiter, tol, float(rel.max())
+
+
+def run_control(torch, dev, card):
+    """Phases 28-29; returns the K2 entry at the planner's shape."""
+    from difffe_tpu_torch.control import (TopOptConfig, make_planner_batched,
+                                          optimize_batched, receding_horizon,
+                                          rollout, tracking_cost)
+    from difffe_tpu_torch.control.heat import resolve_method
+    from difffe_tpu_torch.control.topopt import (cone_filter_kernel,
+                                                 density_filter,
+                                                 oc_bisection_steps,
+                                                 quads_to_tris, simp_kappa)
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.ops import tridiag as ttri
+    from difffe_tpu_torch.ops.assembly import (assemble_lumped_mass,
+                                               assemble_tridiag_1d)
+    from difffe_tpu_torch.ops.kernels import tridiag_kernel as tk
+
+    f32, f64 = torch.float32, torch.float64
+    B = BATCH_MPC
+    t0 = time.perf_counter()
+
+    # -- phase 28: the rollout and the planner's q-gradient on K2 against
+    # the same rollout on the plain PCR sweeps, by the rule of phase 7
+    gen = torch.Generator(device=dev).manual_seed(28)
+    q_rand = 0.5 * torch.randn(B, MPC_H, len(MPC_CENTERS), generator=gen,
+                               dtype=f64, device=dev)
+
+    def rollout_and_grad(dtype, method):
+        mesh, kappa, targets, act, cfg = mpc_problem(torch, dev, dtype)
+        q = q_rand.to(dtype).detach().clone().requires_grad_()
+        k = kappa[:, None].expand(B, N_MPC)
+        traj = rollout(mesh, k, torch.zeros(B, mesh.n_nodes, dtype=dtype,
+                                            device=dev),
+                       (q @ act).transpose(0, 1), MPC_DT, method=method)
+        tracking_cost(mesh, traj.transpose(0, 1), targets, q,
+                      cfg).sum().backward()
+        return traj.detach(), q.grad
+
+    mesh32 = mpc_problem(torch, dev, f32)[0]
+    if resolve_method(mesh32) != "tridiag_pallas":
+        raise AssertionError("the rollout's auto route on the card is not "
+                             "K2's")
+    kern, plain32, plain64 = (rollout_and_grad(f32, "auto"),
+                              rollout_and_grad(f32, "tridiag"),
+                              rollout_and_grad(f64, "tridiag"))
+    for i, what in enumerate(("trajectory", "q-gradient of the cost")):
+        ek, ep = check_rule("K2 rollout", kern[i], plain32[i], plain64[i],
+                            f"phase 28 {what}")
+        log(f"phase 28 the rollout's {what} on K2 (n={N_MPC + 1}, B={B}, "
+            f"H={MPC_H}, f32): rel err vs f64 plain {ek:.3e} (f32 plain "
+            f"{ep:.3e}) ({time.perf_counter() - t0:.1f} s in)")
+    del kern, plain32, plain64
+    torch.cuda.empty_cache()
+
+    # the main path: one batched plan at config 3's width
+    mesh, kappa, targets, act, cfg = mpc_problem(torch, dev, f32)
+    plan = make_planner_batched(mesh, kappa, act, cfg)
+    u0 = torch.zeros(B, mesh.n_nodes, device=dev)
+    q0 = torch.zeros(B, MPC_H, len(MPC_CENTERS), device=dev)
+    counts = reset_all_launches()
+    t1 = time.perf_counter()
+    q_opt, losses = plan(u0, targets, q0)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t1
+    main_path = dict(tk.launches)
+    want = 2 * MPC_H * MPC_ITERS
+    log(f"phase 28 make_planner_batched: n={N_MPC + 1} B={B} H={MPC_H} "
+        f"{MPC_ITERS} Adam steps, first plan {t_plan:.3f} s host; K2 "
+        f"launches {main_path}")
+    check_only(counts, {"tridiag_kernel": {"pcr": want}},
+               "phase 28 plan (every step one K2 launch, warp route)")
+    ratio = losses[:, -1] / losses[:, 0]
+    log(f"phase 28 plan: cost ratio last/first over the {B} scenarios: min "
+        f"{float(ratio.min()):.4f}, median {float(ratio.median()):.4f}, "
+        f"max {float(ratio.max()):.4f}; first cost "
+        f"{float(losses[:, 0].mean()):.6e} mean")
+    if not (bool(torch.isfinite(losses).all())
+            and bool(torch.isfinite(q_opt).all())
+            and losses.shape == (B, MPC_ITERS)):
+        raise AssertionError("phase 28 plan: losses or q not finite")
+    if not float(ratio.max()) < MPC_COST_RATIO:
+        raise AssertionError(f"phase 28 plan: a scenario's last cost is "
+                             f"{float(ratio.max()):.4f} of its first")
+
+    # the plan's host time over chained calls (each warm-started from the
+    # last's controls), its profile, and K2's time a call at its shape
+    times, q = [], q_opt
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        q, _ = plan(u0, targets, q)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    log(f"phase 28 plan host time, chained: "
+        + ", ".join(f"{t:.4f}" for t in times)
+        + f" s; {B * MPC_ITERS / min(times):.6e} scenario-plan-steps/s "
+          f"({want} K2 launches a plan) [{card}]")
+    rows, busy = profile_split(torch, lambda: plan(u0, targets, q0),
+                               "phase 28", card,
+                               what=f"make_planner_batched (B={B})",
+                               cpu=False)
+    k2_busy = sum(t for key, _, t in rows if "pcr_warp_kernel" in key)
+    log(f"phase 28 K2's share of the plan's device time: {k2_busy:.2f} of "
+        f"{busy:.2f} ms ({100 * k2_busy / busy:.1f}%) [{card}] "
+        f"({time.perf_counter() - t0:.1f} s in)")
+
+    n = N_MPC + 1
+    M = assemble_lumped_mass(mesh)
+    dK, eK = assemble_tridiag_1d(mesh, kappa[:, None].expand(B, N_MPC))
+    dB, eB, _, _ = ttri.dirichlet_elimination(mesh, M + MPC_DT * dK,
+                                              MPC_DT * eK)
+    dB, eB = dB.contiguous(), eB.contiguous()
+    F0 = torch.randn(B, n, generator=gen, device=dev)
+    with torch.no_grad():
+        u_k = tk.tridiag_solve_kernel(dB, eB, F0)
+        u_64 = ttri.tridiag_solve(dB.double(), eB.double(), F0.double())
+    max_abs = float((u_k.double() - u_64).abs().max())
+    k2_ms = device_ms(torch, lambda c: tk.tridiag_solve_kernel(dB, eB, c),
+                      F0, 20, "pcr_warp_kernel",
+                      launched=lambda: tk.launches["pcr"])
+    plain_ms = device_ms(torch, lambda c: ttri.tridiag_solve(dB, eB, c),
+                         F0, 20)
+    T = (torch.diag_embed(dB) + torch.diag_embed(eB, 1)
+         + torch.diag_embed(eB, -1))
+    lib_ms = device_ms(
+        torch, lambda c: torch.linalg.solve(T, c[..., None])[..., 0], F0, 2)
+    ops = B * n * (K2_OPS_PER_ROW_SWEEP * math.ceil(math.log2(n)) + 1)
+    nbytes = (4 * n - 1) * B * 4
+    b_ms, b_by = bound(ops, nbytes)
+    log(f"phase 28 K2 at the planner's shape (n={n}, B={B}, f32, warp "
+        f"route), kernel time a call (profiler): {k2_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB), plain "
+        f"{plain_ms:.4f} ms, torch.linalg.solve on the densified systems "
+        f"{lib_ms:.4f} ms; max abs err vs f64 plain {max_abs:.3e} [{card}] "
+        f"({time.perf_counter() - t0:.1f} s in)")
+    del T, dB, eB, F0, u_k, u_64, q_opt, losses, q
+    torch.cuda.empty_cache()
+
+    # receding_horizon as examples/heat_mpc_demo.py runs it: one scenario,
+    # so K2's block route
+    x = mesh.nodes[:, 0]
+    target_field = 0.3 * torch.sin(math.pi * x)
+    target = target_field.expand(MPC_H, mesh.n_nodes)
+    counts = reset_all_launches()
+    t1 = time.perf_counter()
+    states, controls = receding_horizon(mesh, 1.0, torch.zeros_like(x), act,
+                                        target, cfg, MPC_RH_STEPS)
+    torch.cuda.synchronize()
+    t_rh = time.perf_counter() - t1
+    free = torch.as_tensor(mesh.free_nodes(), device=dev)
+    errs = [float((states[i][free] - target_field[free]).abs().max())
+            for i in (0, MPC_RH_STEPS)]
+    log(f"phase 28 receding_horizon (line({N_MPC}), B=1, {MPC_RH_STEPS} MPC "
+        f"steps, H={MPC_H}, {MPC_ITERS} plan iterations): {t_rh:.3f} s "
+        f"host, {t_rh / MPC_RH_STEPS:.4f} s a step; max tracking error "
+        f"{errs[0]:.4f} -> {errs[1]:.4f}; final controls "
+        f"{[round(float(c), 4) for c in controls[-1]]} [{card}]")
+    check_only(counts, {"tridiag_kernel": {
+        "pcr_block": MPC_RH_STEPS * (want + 1)}},
+        "phase 28 receding_horizon (K2's block route at B = 1)")
+    if not errs[1] < 0.5 * errs[0]:
+        raise AssertionError(f"phase 28 receding_horizon: tracking error "
+                             f"{errs[0]:.4f} -> {errs[1]:.4f}")
+    log(f"phase 28: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 29: topology optimization, config 5's topopt_2d, batched
+    t0 = time.perf_counter()
+    mesh = FEMesh.rectangle(N_TOPO, N_TOPO, dtype=f32, device=dev)
+    cfg = TopOptConfig(nx=N_TOPO, ny=N_TOPO, n_iters=TOPO_ITERS)
+    steps = oc_bisection_steps(f32)
+    if steps != 25:
+        raise AssertionError(f"the OC bisection takes {steps} steps")
+    kernel = cone_filter_kernel(cfg.filter_radius, f32, dev)
+    x = mesh.nodes[:, 0]
+    gen_cpu = torch.Generator().manual_seed(29)
+    for Bt in TOPO_BS:
+        a = 0.5 * torch.rand(Bt, generator=gen_cpu).to(dev)
+        f = 1.0 + a[:, None] * torch.sin(math.pi * x)
+        counts = reset_all_launches()
+        t1 = time.perf_counter()
+        rho, hist = optimize_batched(mesh, f, cfg)
+        torch.cuda.synchronize()
+        t_opt = time.perf_counter() - t1
+        check_only(counts, {}, "phase 29 (the tol-gated stencil CG is plain "
+                               "PyTorch)")
+        ratio = hist[:, -1] / hist[:, 0]
+        vol = rho.mean((-2, -1))
+        its = [stencil_cg_iters(torch, mesh, simp_kappa(quads_to_tris(
+            density_filter(r, kernel)), cfg), f)
+            for r in (torch.full_like(rho, cfg.vol_frac), rho)]
+        log(f"phase 29 optimize_batched {N_TOPO}x{N_TOPO} B={Bt} "
+            f"{TOPO_ITERS} OC iterations ({steps} bisection steps each): "
+            f"{t_opt:.3f} s host, {1e3 * t_opt / TOPO_ITERS:.2f} ms an OC "
+            f"iteration; compliance ratio last/first min "
+            f"{float(ratio.min()):.4f} max {float(ratio.max()):.4f}; volume "
+            f"{float(vol.min()):.4f}-{float(vol.max()):.4f}; rho in "
+            f"[{float(rho.min()):.4f}, {float(rho.max()):.4f}]; state solve "
+            + "; ".join(f"at the {w} rho {i} of {mx} iterations (tol "
+                        f"{tol:g}, worst residual {r:.2e})"
+                        for w, (i, mx, tol, r) in zip(("first", "last"),
+                                                      its))
+            + f" [{card}]")
+        if not (bool(torch.isfinite(hist).all())
+                and float(ratio.max()) < TOPO_RATIO
+                and float((vol - cfg.vol_frac).abs().max()) < 0.02
+                and float(rho.min()) >= 0.0 and float(rho.max()) <= 1.0):
+            raise AssertionError(f"phase 29 B={Bt}: compliance ratio "
+                                 f"{float(ratio.max()):.4f}, volume "
+                                 f"{float(vol.min()):.4f}-"
+                                 f"{float(vol.max()):.4f}")
+        del rho, hist, f
+    log(f"phase 29: {time.perf_counter() - t0:.1f} s")
+
+    replaces = f"{JAX_K2}:80 (_pcr_pallas_padded), :161 (_pcr_pallas_T)"
+    return [kernel_entry("tridiag_pcr_mpc", K2_SOURCE, replaces,
+                         main_path["pcr"], max_abs, k2_ms, plain_ms, ops,
+                         nbytes, lib_ms)]
+
+
+def run_surrogates(torch, dev, card):
+    """Phase 30: the DeepONet and collocation surrogates on the card."""
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.models.collocation import train_collocation
+    from difffe_tpu_torch.models.operator import train_operator
+    from difffe_tpu_torch.solver import solve_poisson_batched
+    from difffe_tpu_torch.utils.profiling import timeit_chained
+
+    f32 = torch.float32
+    t0 = time.perf_counter()
+
+    def family(mesh, kappas, method="auto"):
+        """tests/test_operator.py's scenarios: features log κ, targets the
+        FEM solutions of −κu″ = sin(πx) + 1."""
+        x = mesh.nodes[:, 0]
+        f = (torch.sin(math.pi * x) + 1.0).expand(kappas.shape[0],
+                                                  mesh.n_nodes)
+        with torch.no_grad():
+            u = solve_poisson_batched(mesh, kappas, f, method=method,
+                                      kappa_batched=True)
+        return kappas.log()[:, None], u
+
+    mesh = FEMesh.line(24, dtype=f32, device=dev)
+    feats, u = family(mesh, torch.linspace(0.5, 2.5, 40, device=dev))
+    counts = reset_all_launches()
+    t1 = time.perf_counter()
+    _, u_fn, losses = train_operator(mesh, feats, u, init=torch.Generator(
+        ).manual_seed(0), **OP_GATE)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t1
+    check_only(counts, {}, "phase 30 train_operator (no kernel)")
+    feats_t, u_true = family(mesh, torch.tensor([0.77, 1.31, 2.05],
+                                                device=dev))
+    rel = float((u_fn(feats_t) - u_true).abs().max() / u_true.abs().max())
+    log(f"phase 30 train_operator (line(24), 40 scenarios, width 48, depth "
+        f"2, n_basis 24, 4000 epochs, f32): final loss "
+        f"{float(losses[-1]):.3e}, held-out relative error {rel:.4f}; "
+        f"{t_op:.3f} s host [{card}]")
+    if not (float(losses[-1]) < 1e-5 and rel < 0.02):
+        raise AssertionError(f"phase 30 train_operator: loss "
+                             f"{float(losses[-1]):.3e}, error {rel:.4f}")
+
+    # the JAX defaults on B = 4096 targets from config 2's line, solved on
+    # K2 (one launch, the warp route)
+    mesh = FEMesh.line(N_OP_BIG, dtype=f32, device=dev)
+    counts = reset_all_launches()
+    feats, u = family(mesh, torch.linspace(0.5, 2.5, BATCH_OP_BIG,
+                                           device=dev), "tridiag_pallas")
+    check_only(counts, {"tridiag_kernel": {"pcr": 1}},
+               "phase 30 the operator's FEM targets")
+    t1 = time.perf_counter()
+    _, u_fn, losses = train_operator(mesh, feats, u)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t1
+    infer = timeit_chained(lambda c: u_fn(c)[:, 1:2], feats, length=20)
+    log(f"phase 30 train_operator at the defaults (width 64, depth 3, "
+        f"n_basis 32, 3000 epochs) on line({N_OP_BIG}), B={BATCH_OP_BIG}, "
+        f"f32: {t_op:.3f} s host, {1e3 * t_op / 3000:.3f} ms an epoch, "
+        f"final loss {float(losses[-1]):.3e}; inference at "
+        f"B={BATCH_OP_BIG}: {infer.mean_ms:.4f} ms a call, chained "
+        f"[{card}]")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("phase 30 train_operator: loss not finite")
+
+    mesh = FEMesh.line(32, dtype=f32, device=dev)
+    counts = reset_all_launches()
+    t1 = time.perf_counter()
+    _, u_fn, losses = train_collocation(
+        mesh, lambda x: math.pi ** 2 * torch.sin(math.pi * x),
+        generator=torch.Generator().manual_seed(42), **COL_GATE)
+    torch.cuda.synchronize()
+    t_col = time.perf_counter() - t1
+    xs = torch.linspace(0.05, 0.95, 19, device=dev)[:, None]
+    err = float((u_fn(xs) - torch.sin(math.pi * xs[:, 0])).abs().max())
+    drop = float(losses[-1] / losses[0])
+    log(f"phase 30 train_collocation (line(32), hidden 32, 2 layers, 64 "
+        f"points, 1500 epochs, f32): max error vs sin(πx) {err:.4f}, loss "
+        f"ratio last/first {drop:.2e}; {t_col:.3f} s host [{card}]")
+    if not (err < 0.02 and drop < 1e-2):
+        raise AssertionError(f"phase 30 train_collocation: error {err:.4f},"
+                             f" loss ratio {drop:.2e}")
+    mesh = FEMesh.rectangle(32, 32, dtype=f32, device=dev)
+    t1 = time.perf_counter()
+    _, _, losses = train_collocation(
+        mesh, lambda x: 2 * math.pi ** 2 * torch.sin(math.pi * x[:, 0])
+        * torch.sin(math.pi * x[:, 1]))
+    torch.cuda.synchronize()
+    t_col = time.perf_counter() - t1
+    check_only(counts, {}, "phase 30 train_collocation (no kernel)")
+    log(f"phase 30 train_collocation at the defaults (hidden 64, 3 layers, "
+        f"256 points, 2000 epochs) on rectangle(32, 32), f32: {t_col:.3f} s "
+        f"host, {1e3 * t_col / 2000:.3f} ms an epoch, loss ratio "
+        f"{float(losses[-1] / losses[0]):.2e} [{card}]")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("phase 30 train_collocation: loss not finite")
+    log(f"phase 30: {time.perf_counter() - t0:.1f} s")
+
+
 def timeit_chained_min(fn, x0, length=4):
     """Best chained ms per call of one function."""
     from difffe_tpu_torch.utils.profiling import timeit_chained
@@ -4157,6 +4576,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += run_structured(torch, dev, card)
     log(f"structured solver path, phases 25-27: "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels += run_control(torch, dev, card)
+    run_surrogates(torch, dev, card)
+    log(f"control and model path, phases 28-30: "
         f"{time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernels}))

@@ -38,7 +38,14 @@ Ported so far:
   hand-written CUDA kernels K8 (one operator application) and K8s (a
   whole fixed-trip solve) (ops/kernels/ell_kernel.py), the
   ``dense``/``lu``/``cg`` routes on any mesh, and ``fit_kappa``'s
-  generic routes.
+  generic routes;
+* the control and model layers — heat-equation rollouts (control/heat.py,
+  on kernel K2 on the card), receding-horizon MPC and its batched planner
+  (control/mpc.py), SIMP topology optimization (control/topopt.py), the
+  DeepONet operator surrogate (models/operator.py) and mesh-free
+  collocation training (models/collocation.py) — with the scenario
+  configs, the metrics stream and the command line (utils/config.py,
+  utils/metrics.py, cli.py).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"`` in the mesh factories).
@@ -60,6 +67,7 @@ __all__ = [
     "recover_kappa_field",
     "solve_poisson_cf_batched",
     "fit_kappa",
+    "train_collocation",
     "kappa_sgd_chain_cf",
     "StructuredGrid3",
     "solve_poisson_structured_3d",
@@ -97,6 +105,9 @@ def __getattr__(name):
     if name == "fit_kappa":
         from .inverse import fit_kappa
         return fit_kappa
+    if name == "train_collocation":
+        from .models.collocation import train_collocation
+        return train_collocation
     if name in _STENCIL3D:
         from .ops import stencil3d
         return getattr(stencil3d, name)

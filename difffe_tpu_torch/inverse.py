@@ -373,6 +373,22 @@ def _adam(params, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
+def _adam_loop(params, loss_fn, n_epochs: int, lr: float) -> torch.Tensor:
+    """``n_epochs`` Adam steps on the tensors ``params``; the per-epoch
+    losses (taken before each update; a loss of several independent values,
+    one a scenario, is summed for the backward pass), stacked on the device
+    along the last axis."""
+    opt = _adam(list(params), lr)
+    losses = []
+    for _ in range(n_epochs):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.sum().backward()
+        opt.step()
+        losses.append(loss.detach())
+    return torch.stack(losses, dim=-1)
+
+
 def recover_kappa_scalar(mesh: FEMesh, f, u_data, kappa0=None,
                          adam_steps: int = 100, newton_steps: int = 6,
                          lr: float = 0.1, method: str = "auto"

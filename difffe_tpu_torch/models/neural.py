@@ -29,27 +29,32 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..inverse import _adam
+from ..inverse import _adam_loop
 from ..losses import energy_loss, fem_match_loss, variational_fd_loss
 from ..mesh import FEMesh
 from ..solver import solve_poisson, solve_poisson_batched
 
 
 class MLP(nn.Module):
-    """dim→[hidden, tanh]×n_layers→1; ``forward`` maps x (…, in_dim) to the
-    raw scalar field (…)."""
+    """dims[0]→[hidden, tanh]×…→dims[-1]; ``forward`` maps x (…, in_dim)
+    to the raw scalar field (…), or with ``squeeze`` false to the linear
+    head's (…, dims[-1]) outputs (the DeepONet heads of
+    models/operator.py)."""
 
-    def __init__(self, dims: Sequence[int], dtype=None, device=None):
+    def __init__(self, dims: Sequence[int], dtype=None, device=None,
+                 squeeze: bool = True):
         super().__init__()
         self.layers = nn.ModuleList(
             nn.Linear(a, b, dtype=dtype, device=device)
             for a, b in zip(dims[:-1], dims[1:]))
+        self.squeeze = squeeze
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
         for layer in self.layers[:-1]:
             h = torch.tanh(layer(h))
-        return self.layers[-1](h)[..., 0]
+        out = self.layers[-1](h)
+        return out[..., 0] if self.squeeze else out
 
 
 class BatchedMLP(nn.Module):
@@ -88,14 +93,15 @@ def init_mlp(generator: torch.Generator, in_dim: int, hidden_dim: int,
     return net.to(device) if device is not None else net
 
 
-def mlp_params_from_jax(params, dtype=None, device=None) -> MLP:
+def mlp_params_from_jax(params, dtype=None, device=None,
+                        squeeze: bool = True) -> MLP:
     """The port's MLP holding the JAX package's parameters ``[(W (d_in,
     d_out), b (d_out,)), …]`` (numpy or JAX arrays): each nn.Linear weight
-    is Wᵀ."""
+    is Wᵀ.  ``squeeze`` as in :class:`MLP`."""
     Ws = [np.asarray(W) for W, _ in params]
     dims = [Ws[0].shape[0]] + [W.shape[1] for W in Ws]
     dtype = dtype or torch.from_numpy(np.empty(0, Ws[0].dtype)).dtype
-    net = MLP(dims, dtype=dtype, device=device)
+    net = MLP(dims, dtype=dtype, device=device, squeeze=squeeze)
     with torch.no_grad():
         for layer, (W, b) in zip(net.layers, params):
             layer.weight.copy_(torch.from_numpy(np.array(W).T))
@@ -152,20 +158,6 @@ def neural_pde_forward(params: nn.Module, mesh: FEMesh, mask: torch.Tensor,
     return boundary_mask_at(mesh, x) * params(x)
 
 
-def _adam_loop(params: nn.Module, loss_fn, n_epochs: int, lr: float):
-    """``n_epochs`` Adam steps on ``params``; the per-epoch losses (taken
-    before each update), stacked on the device."""
-    opt = _adam(list(params.parameters()), lr)
-    losses = []
-    for _ in range(n_epochs):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn()
-        loss.sum().backward()
-        opt.step()
-        losses.append(loss.detach())
-    return torch.stack(losses, dim=-1)
-
-
 def train_pde(params: MLP, mesh: FEMesh,
               forcing_fn: Callable[[torch.Tensor], torch.Tensor],
               n_epochs: int = 2000, lr: float = 1e-3,
@@ -192,8 +184,8 @@ def train_pde(params: MLP, mesh: FEMesh,
         raise ValueError(f"Unknown mode: {mode!r}")
     params = copy.deepcopy(params)
     losses = _adam_loop(
-        params, lambda: loss_of(neural_pde_forward(params, mesh, mask)),
-        n_epochs, lr)
+        params.parameters(),
+        lambda: loss_of(neural_pde_forward(params, mesh, mask)), n_epochs, lr)
     return params, losses
 
 
@@ -226,7 +218,7 @@ def train_pde_batched(inits: Sequence[Union[torch.Generator, MLP]],
         u = neural_pde_forward(params, mesh, mask)
         return ((u - u_fem) ** 2).mean(dim=-1)
 
-    return params, _adam_loop(params, loss_fn, n_epochs, lr)
+    return params, _adam_loop(params.parameters(), loss_fn, n_epochs, lr)
 
 
 class NeuralPDE:

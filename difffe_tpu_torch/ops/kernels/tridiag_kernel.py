@@ -153,7 +153,9 @@ def _solve(d, e, F, block_b, layout, plan=None):
         raise ValueError(f"bands of shapes d {tuple(d.shape)}, e "
                          f"{tuple(e.shape)}, F {tuple(F.shape)} do not form "
                          f"tridiagonal systems")
-    lead = torch.broadcast_shapes(d.shape[:-1], e.shape[:-1], F.shape[:-1])
+    lead = F.shape[:-1]
+    if d.shape[:-1] != lead or e.shape[:-1] != lead:
+        lead = torch.broadcast_shapes(d.shape[:-1], e.shape[:-1], lead)
     spb = scenarios_per_block(n, block_b, layout)
     if F.device.type == "cpu":
         return _pcr_plain(d.expand(lead + (n,)), e.expand(lead + (n - 1,)),
@@ -188,10 +190,13 @@ class _TridiagSolveKernel(torch.autograd.Function):
         block_b, layout, plan, d_shape, e_shape, F_shape = ctx.cfg
         d, e, u = ctx.saved_tensors
         lam = _solve(d, e, g, block_b, layout, plan)
-        grad_d = -lam * u
-        grad_e = -(lam[..., :-1] * u[..., 1:] + lam[..., 1:] * u[..., :-1])
-        return (grad_d.sum_to_size(d_shape), grad_e.sum_to_size(e_shape),
-                lam.sum_to_size(F_shape), None, None, None)
+        # the band gradients only where asked (a time loop over one system
+        # asks for λ alone)
+        need_d, need_e = ctx.needs_input_grad[:2]
+        grad_d = (-lam * u).sum_to_size(d_shape) if need_d else None
+        grad_e = -(lam[..., :-1] * u[..., 1:] + lam[..., 1:] * u[..., :-1]
+                   ).sum_to_size(e_shape) if need_e else None
+        return grad_d, grad_e, lam.sum_to_size(F_shape), None, None, None
 
 
 def tridiag_solve_kernel(d: torch.Tensor, e: torch.Tensor, F: torch.Tensor,

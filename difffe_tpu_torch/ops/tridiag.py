@@ -92,31 +92,41 @@ def tridiag_solve(d: torch.Tensor, e: torch.Tensor,
     return _TridiagSolve.apply(d, e, F)
 
 
-def solve_poisson_tridiag(mesh: FEMesh, d: torch.Tensor, e: torch.Tensor,
-                          F: torch.Tensor, backend: str = "xla",
-                          bc_values=None, chunk: int = 64) -> torch.Tensor:
-    """Eliminate the Dirichlet rows of banded (d, e, F) on a chain mesh and
-    solve.  Mask elimination in band form:
+def dirichlet_elimination(mesh: FEMesh, d: torch.Tensor, e: torch.Tensor,
+                          bc_values=None):
+    """The band-form Dirichlet elimination of ``solve_poisson_tridiag``,
+    split at what depends on the bands alone:
 
         d̃ = p⊙d + m,  ẽ_i = p_i p_{i+1} e_i,  F̃ = m⊙g + p(F − T(m⊙g)).
 
-    ``bc_values`` optionally overrides the mesh's Dirichlet values and may
-    carry leading batch axes.  ``backend``: ``"xla"`` (the elementwise PCR
-    sweeps above), ``"pallas"`` (kernel K2, ops/kernels/tridiag_kernel.py)
-    or ``"spike"`` (the partitioned solver of ops/spike.py, ``chunk`` rows
-    a chunk); the last two take the bands broadcast to F's batch shape.
-    """
-    if backend not in ("xla", "pallas", "spike"):
-        raise ValueError(f"unknown tridiagonal backend {backend!r} "
-                         "(expected 'xla', 'pallas', or 'spike')")
+    Returns (d̃, ẽ, p, rhs) with p = 1 − m and rhs(F) = F̃; T(m⊙g) is
+    computed once, and rhs is affine in F, so a time loop over one system
+    can eliminate the loads of all its steps at once.  ``bc_values``
+    optionally overrides the mesh's Dirichlet values and may carry leading
+    batch axes."""
     m = mesh.bc_mask
     g = mesh.bc_values if bc_values is None else \
         torch.as_tensor(bc_values, dtype=mesh.dtype, device=mesh.device)
     p = 1.0 - m
     d_mod = p * d + m
     e_mod = p[..., :-1] * p[..., 1:] * e
-    mg = (m * g).expand(F.shape)
-    F_mod = (mg + p * (F - tridiag_matvec(d, e, mg))).expand(F.shape)
+    mg = m * g
+    Tmg = tridiag_matvec(d, e, mg)
+
+    def rhs(F):
+        return (mg + p * (F - Tmg)).expand(F.shape)
+
+    return d_mod, e_mod, p, rhs
+
+
+def solve_eliminated(d_mod: torch.Tensor, e_mod: torch.Tensor,
+                     F_mod: torch.Tensor, backend: str = "xla",
+                     chunk: int = 64) -> torch.Tensor:
+    """Solve an eliminated band system on ``backend`` (as in
+    ``solve_poisson_tridiag``)."""
+    if backend not in ("xla", "pallas", "spike"):
+        raise ValueError(f"unknown tridiagonal backend {backend!r} "
+                         "(expected 'xla', 'pallas', or 'spike')")
     if backend == "xla":
         return tridiag_solve(d_mod, e_mod, F_mod)
     # the other backends take explicitly batched bands (stride-0 views of a
@@ -129,3 +139,19 @@ def solve_poisson_tridiag(mesh: FEMesh, d: torch.Tensor, e: torch.Tensor,
         return tridiag_solve_spike(d_mod, e_mod, F_mod, chunk)
     from .kernels.tridiag_kernel import tridiag_solve_kernel
     return tridiag_solve_kernel(d_mod, e_mod, F_mod)
+
+
+def solve_poisson_tridiag(mesh: FEMesh, d: torch.Tensor, e: torch.Tensor,
+                          F: torch.Tensor, backend: str = "xla",
+                          bc_values=None, chunk: int = 64) -> torch.Tensor:
+    """Eliminate the Dirichlet rows of banded (d, e, F) on a chain mesh and
+    solve (``dirichlet_elimination``, then ``solve_eliminated``).
+
+    ``bc_values`` optionally overrides the mesh's Dirichlet values and may
+    carry leading batch axes.  ``backend``: ``"xla"`` (the elementwise PCR
+    sweeps above), ``"pallas"`` (kernel K2, ops/kernels/tridiag_kernel.py)
+    or ``"spike"`` (the partitioned solver of ops/spike.py, ``chunk`` rows
+    a chunk); the last two take the bands broadcast to F's batch shape.
+    """
+    d_mod, e_mod, _, rhs = dirichlet_elimination(mesh, d, e, bc_values)
+    return solve_eliminated(d_mod, e_mod, rhs(F), backend, chunk)

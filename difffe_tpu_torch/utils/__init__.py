@@ -1,1 +1,2 @@
-"""Timing utilities of the PyTorch port."""
+"""Utilities of the PyTorch port: honest device timing (profiling.py),
+scenario configs (config.py) and the metrics stream (metrics.py)."""

@@ -1683,3 +1683,71 @@ def test_k7_ablation_rejects_what_the_kernels_do_not_take(cuda):
             k7ab.ablation_step(variant, mesh, *args)
     with pytest.raises(TypeError, match="float16"):
         k7ab.ablation_step("D", mesh, args[0], args[1], args[2].half(), 0.1)
+
+
+def _mpc_rollout(dev, dtype, method, B, H=50):
+    """The heat rollout of the planner at BASELINE.json config 3's width
+    (FEMesh.line(64), one κ a scenario) and the q-gradient of its tracking
+    cost."""
+    from difffe_tpu_torch.control import (MPCConfig, gaussian_actuators,
+                                          rollout, tracking_cost)
+
+    mesh = FEMesh.line(64, dtype=dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(B)
+    q = (0.5 * torch.randn(B, H, 3, generator=g, dtype=torch.float64,
+                           device=dev)).to(dtype).requires_grad_()
+    kappa = torch.linspace(0.8, 1.6, B, dtype=dtype, device=dev)
+    act = gaussian_actuators(mesh, [0.25, 0.5, 0.75], 0.1)
+    target = 0.3 * torch.sin(torch.pi * mesh.nodes[:, 0])
+    traj = rollout(mesh, kappa[:, None].expand(B, 64),
+                   torch.zeros(B, mesh.n_nodes, dtype=dtype, device=dev),
+                   (q @ act).transpose(0, 1), 2e-3, method=method)
+    cfg = MPCConfig(horizon=H, dt=2e-3, control_penalty=1e-6)
+    tracking_cost(mesh, traj.transpose(0, 1), target, q,
+                  cfg).sum().backward()
+    return traj.detach(), q.grad
+
+
+def test_heat_rollout_on_k2_matches_plain(cuda):
+    """The rollout's auto route on the card is K2 (warp route at B =
+    4096): its trajectory and the cost's q-gradient by the rule of phase
+    7 against the 'tridiag' route (the plain PCR sweeps)."""
+    from difffe_tpu_torch.control.heat import resolve_method
+
+    B = 4096
+    assert resolve_method(FEMesh.line(64, device=cuda)) == "tridiag_pallas"
+    before = dict(k2.launches)
+    kern = _mpc_rollout(cuda, torch.float32, "auto", B)
+    torch.cuda.synchronize()
+    assert k2.launches["pcr"] == before["pcr"] + 2 * 50
+    assert k2.launches["pcr_block"] == before["pcr_block"]
+    p32 = _mpc_rollout(cuda, torch.float32, "tridiag", B)
+    p64 = _mpc_rollout(cuda, torch.float64, "tridiag", B)
+    for k, a, b in zip(kern, p32, p64):
+        ok, errs = _within_rule(k, a, b)
+        assert ok, errs
+
+
+def test_batched_planner_launches_k2_on_the_warp_route(cuda):
+    """Every forward and adjoint step of a batched plan is one K2 launch,
+    all on the warp route from 2048 scenarios, and the cost falls."""
+    from difffe_tpu_torch.control import (MPCConfig, gaussian_actuators,
+                                          make_planner_batched)
+
+    B, H, iters = 4096, 8, 3
+    mesh = FEMesh.line(64, device=cuda)
+    act = gaussian_actuators(mesh, [0.25, 0.5, 0.75], 0.1)
+    cfg = MPCConfig(horizon=H, dt=2e-3, lr=0.3, plan_iters=iters,
+                    control_penalty=1e-6)
+    target = (0.3 * torch.sin(torch.pi * mesh.nodes[:, 0])).expand(
+        B, H, mesh.n_nodes)
+    plan = make_planner_batched(mesh, torch.linspace(0.8, 1.6, B,
+                                                     device=cuda), act, cfg)
+    before = dict(k2.launches)
+    q, losses = plan(torch.zeros(B, mesh.n_nodes, device=cuda), target,
+                     torch.zeros(B, H, 3, device=cuda))
+    torch.cuda.synchronize()
+    assert k2.launches["pcr"] == before["pcr"] + 2 * H * iters
+    assert k2.launches["pcr_block"] == before["pcr_block"]
+    assert losses.shape == (B, iters) and q.shape == (B, H, 3)
+    assert bool((losses[:, -1] < losses[:, 0]).all())

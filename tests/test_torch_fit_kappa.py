@@ -170,7 +170,7 @@ def test_bench_workload_small_batch(jax_vpu_chain):
 
 def test_lazy_exports():
     from difffe_tpu_torch import inverse, losses, solver
-    from difffe_tpu_torch.models import neural
+    from difffe_tpu_torch.models import collocation, neural
 
     for name in difffe_tpu_torch.__all__:
         assert callable(getattr(difffe_tpu_torch, name)), name
@@ -182,8 +182,10 @@ def test_lazy_exports():
         solver.DifferentiableFESolver
     assert difffe_tpu_torch.PhysicsLoss is losses.PhysicsLoss
     assert difffe_tpu_torch.NeuralPDE is neural.NeuralPDE
+    assert difffe_tpu_torch.train_collocation is \
+        collocation.train_collocation
     with pytest.raises(AttributeError):
-        difffe_tpu_torch.train_collocation
+        difffe_tpu_torch.no_such_export
 
 
 def test_timeit_chained_refuses_to_time_the_cpu():
