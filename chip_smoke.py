@@ -330,9 +330,46 @@ H = 50 steps, and config 5, topology optimization, 32²; the surrogates of
     tests/test_collocation.py's gate arguments (max error < 0.02) and,
     timed, at its defaults on the unit square.
 
+The parallel path (``difffe_tpu_torch/parallel/`` on ``torch.distributed``
+at world size 1, the NCCL group of this one card: BASELINE.json config 2's
+sharded κ inversion, config 4's halo solves, config 3's time pipeline),
+kernel K2 on every 1D solve:
+
+31. ``multihost.initialize()`` (NCCL, world size 1), ``HealthCheck.ping``
+    over the mesh and the default group, ``timed_block_until_ready`` on 100
+    chained K2 solves; ``make_inversion_step`` and
+    ``make_inversion_step_shard_map`` on ``FEMesh.line(128)``, B = 1024,
+    phase 14's data and per-element log κ, 200 Adam steps at lr 0.05 with
+    ``method="tridiag_pallas"``: each run (its u_data solve and steps)
+    1 + 2 × 200 K2 launches on the block route and no other, the misfit
+    falling 10³×, the two variants' log κ and losses within 1e-6 and the
+    losses within 1e-5 of ``recover_kappa_field``'s; ``entry()`` against
+    the plain route, ``dryrun_multichip(1)``; a device profile of the
+    200-step loop and K2's kernel time at its shape;
+32. ``make_halo_solver`` on config 4's 64² grid, B = 64, 256 CG
+    iterations a solve, 3 Adam steps of the κ-field inversion from κ = 1
+    (the misfit must fall), the first loss and κ gradients within 1e-5 of
+    ``solve_poisson_structured(dot=batched_dot(2))``, a device profile of
+    a value and gradient; ``make_halo_solver_3d`` on a 32³ box, B = 128,
+    100 iterations, one value and κ gradient within 1e-5 of
+    ``solve_poisson_structured_3d(dot=batched_dot(3))``; no kernel launch;
+33. ``pipelined_rollout`` at config 3 (``FEMesh.line(64)``, B = 4096,
+    H = 50, Δt = 2e-3, 4 microbatches, depth 1): final state, cost and
+    gradients to κ, u0 and f_seq against ``rollout_batched``, in f64 (K2
+    in f64 against the plain route) within 1e-10 and in f32 within 1e-3
+    (the κ gradient sums over microbatches and steps in another order),
+    2 × 4 × 50 K2 launches on the block route and no other, a
+    device profile and K2's kernel time at the microbatch's shape;
+    ``moe_apply`` at B = 4096 over 8 experts of 64 × 3 tanh MLPs against a
+    per-expert loop and with the mesh (1e-5); ``CheckpointManager``'s
+    async round trip of phase 31's CUDA Adam state, bit for bit;
+    ``golden_compare`` of the 1D solve on K2, f32 against f64, on
+    tests/test_debug.py's problem with its bound (1e-4).
+
 Each path's launch counts are set to 0 just before its main-path phases
 (4-5, 8, 11, 14, 18, 22, 24's probe path, 25's facade call, 28's plan and
-closed loop, each of 29's and 30's runs) and read just after; comparisons and timing outside those do not count.  The
+closed loop, each of 29's and 30's runs, each of 31's inversion runs,
+32's halo runs, 33's pipeline and expert calls) and read just after; comparisons and timing outside those do not count.  The
 third-to-last line is one JSON object describing each kernel, with its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (H100 SXM, fp32 outside the tensor cores;
@@ -4504,6 +4541,442 @@ def run_surrogates(torch, dev, card):
     log(f"phase 30: {time.perf_counter() - t0:.1f} s")
 
 
+N_HALO, BATCH_HALO, HALO_ITERS = 64, 64, 256   # config 4's 64², B = 64
+HALO_STEPS, HALO_LR = 3, 0.05
+N_HALO3, BATCH_HALO3, HALO3_ITERS = 32, 128, 100
+HALO_TOL = 1e-5          # the halo solves against the one-process solves
+N_PIPE, BATCH_PIPE, PIPE_H, PIPE_DT, PIPE_MICRO = 64, 4096, 50, 2e-3, 4
+MOE_E, MOE_DIN, MOE_HIDDEN, MOE_LAYERS, BATCH_MOE = 8, 16, 64, 3, 4096
+PIPE_F64_TOL = 1e-10     # the pipeline against rollout_batched in f64
+PIPE_F32_TOL = 1e-3      # and in f32, where the sums run in other orders
+MOE_TOL = 1e-5
+GOLDEN_N, GOLDEN_TOL = 32, 1e-4   # tests/test_debug.py's problem, bound
+
+
+def k2_entry(torch, name, dB, eB, F0, launches, what, card):
+    """The kernels-line entry of K2 at one path's shape: the block route's
+    kernel time a call (profiler), its plain version's, the library's
+    (``torch.linalg.solve`` on the densified systems), the error against
+    the f64 plain version, and the bound."""
+    from difffe_tpu_torch.ops import tridiag as ttri
+    from difffe_tpu_torch.ops.kernels import tridiag_kernel as tk
+
+    B, n = F0.shape
+    with torch.no_grad():
+        u_k = tk.tridiag_solve_kernel(dB, eB, F0)
+        u_64 = ttri.tridiag_solve(dB.double(), eB.double(), F0.double())
+    max_abs = float((u_k.double() - u_64).abs().max())
+    ms = device_ms(torch, lambda c: tk.tridiag_solve_kernel(dB, eB, c), F0,
+                   20, "pcr_kernel", launched=lambda: tk.launches["pcr_block"])
+    plain_ms = device_ms(torch, lambda c: ttri.tridiag_solve(dB, eB, c), F0,
+                         20)
+    T = (torch.diag_embed(dB) + torch.diag_embed(eB, 1)
+         + torch.diag_embed(eB, -1))
+    if T.ndim == 2:
+        lib_ms = device_ms(torch, lambda c: torch.linalg.solve(T, c.T).T,
+                           F0, 2)
+    else:
+        lib_ms = device_ms(
+            torch, lambda c: torch.linalg.solve(T, c[..., None])[..., 0],
+            F0, 2)
+    ops = B * n * (K2_OPS_PER_ROW_SWEEP * math.ceil(math.log2(n)) + 1)
+    # the bands are read once whether shared or per scenario
+    band_rows = 1 if dB.ndim == 1 else B
+    nbytes = ((2 * n - 1) * band_rows + 2 * n * B) * 4
+    b_ms, b_by = bound(ops, nbytes)
+    log(f"{what} K2 at the path's shape (n={n}, B={B}, f32, block route, "
+        f"{'shared' if band_rows == 1 else 'batched'} bands), kernel time a "
+        f"call (profiler): {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain "
+        f"{plain_ms:.4f} ms, torch.linalg.solve {lib_ms:.4f} ms; max abs "
+        f"err vs f64 plain {max_abs:.3e} [{card}]")
+    replaces = f"{JAX_K2}:80 (_pcr_pallas_padded), :161 (_pcr_pallas_T)"
+    return kernel_entry(name, K2_SOURCE, replaces, launches, max_abs, ms,
+                        plain_ms, ops, nbytes, lib_ms)
+
+
+def sharded_run(torch, build, mesh, f, u_data, steps):
+    """``steps`` Adam steps of an inversion step from ``build()`` (init_fn,
+    step_fn) from log κ = 0; (log κ, stacked losses, optimizer, host
+    seconds of the first step)."""
+    init_fn, step_fn = build()
+    log_k, opt = init_fn(torch.zeros(f.shape[0], mesh.n_elements))
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        log_k, opt, loss = step_fn(log_k, opt, f, u_data)
+        losses.append(loss)
+        if i == 0:
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+    return log_k, torch.stack(losses), opt, t_first
+
+
+def run_parallel(torch, dev, card):
+    """Phases 31-33: the parallel layer at world size 1 on NCCL; returns
+    K2's entries at the sharded step's and the pipeline's shapes."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from difffe_tpu_torch.control.heat import (heat_system_tridiag,
+                                               rollout_batched)
+    from difffe_tpu_torch.entry import dryrun_multichip, entry
+    from difffe_tpu_torch.inverse import recover_kappa_field
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.models.neural import init_mlp
+    from difffe_tpu_torch.ops import tridiag as ttri
+    from difffe_tpu_torch.ops.kernels import tridiag_kernel as tk
+    from difffe_tpu_torch.ops.pcg import batched_dot
+    from difffe_tpu_torch.ops.stencil import (StructuredGrid,
+                                              solve_poisson_structured)
+    from difffe_tpu_torch.ops.stencil3d import (StructuredGrid3,
+                                                solve_poisson_structured_3d)
+    from difffe_tpu_torch.parallel import (make_device_mesh,
+                                           make_halo_solver,
+                                           make_inversion_step,
+                                           make_inversion_step_shard_map,
+                                           moe_apply, multihost,
+                                           pipelined_rollout,
+                                           route_by_bucket)
+    from difffe_tpu_torch.parallel.expert import mlp_bank
+    from difffe_tpu_torch.parallel.halo3d import make_halo_solver_3d
+    from difffe_tpu_torch.solver import solve_poisson, solve_poisson_batched
+    from difffe_tpu_torch.utils import CheckpointManager, golden_compare
+
+    f32, f64 = torch.float32, torch.float64
+    entries = []
+
+    # -- phase 31: multihost and sharding, BASELINE.json config 2
+    t0 = time.perf_counter()
+    multihost.initialize(device="cuda", timeout_s=120.0)
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"the group is {dist.get_backend()} at world "
+                             f"size {dist.get_world_size()}")
+    dmesh = make_device_mesh()
+    pings = (multihost.HealthCheck(60.0).ping(dmesh),
+             multihost.HealthCheck(60.0).ping())
+    gen = torch.Generator(device=dev).manual_seed(31)
+    n = N_1D + 1
+    dB, eB = k2_bands(torch, "fem", n, BATCH_1D, gen, dev)
+    dB, eB = dB.float().contiguous(), eB.float().contiguous()
+    c = torch.randn(BATCH_1D, n, generator=gen, device=dev)
+    t1 = time.perf_counter()
+    for _ in range(100):
+        c = tk.tridiag_solve_kernel(dB, eB, c)
+        c = c / c.abs().amax(dim=-1, keepdim=True)
+    ready = multihost.timed_block_until_ready(c, 60.0)
+    log(f"phase 31 NCCL at world size 1: HealthCheck.ping over the mesh and "
+        f"the default group {pings}; timed_block_until_ready on 100 chained "
+        f"K2 solves {ready} after {time.perf_counter() - t1:.3f} s [{card}]")
+    if not (all(pings) and ready):
+        raise AssertionError("phase 31: a ping or the timed wait failed")
+
+    # phase 14's data: per-element log κ, recovered by both variants
+    mesh = FEMesh.line(N_1D, dtype=f32, device=dev)
+    g0 = torch.Generator(device=dev).manual_seed(0)
+    x = mesh.nodes[:, 0]
+    k_true = 1.2 + 0.6 * torch.rand(BATCH_1D, N_1D, generator=g0, device=dev)
+    kk = 1.0 + (torch.arange(BATCH_1D, device=dev) % 4)
+    f = torch.sin(kk[:, None] * math.pi * x) + 1.5
+    variants = {
+        "make_inversion_step": lambda: make_inversion_step(
+            mesh, dmesh, lr=LR_1D, method="tridiag_pallas")[:2],
+        "make_inversion_step_shard_map": lambda: make_inversion_step_shard_map(
+            mesh, dmesh, lr=LR_1D, method="tridiag_pallas")}
+    runs = {}
+    for name, build in variants.items():
+        counts = reset_all_launches()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            u_data = solve_poisson_batched(mesh, k_true, f,
+                                           method="tridiag_pallas")
+        log_k, losses, opt, t_first = sharded_run(torch, build, mesh, f,
+                                                  u_data, STEPS_1D)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t1
+        launched = dict(tk.launches)
+        check_only(counts, {"tridiag_kernel": {"pcr_block": 1 + 2 * STEPS_1D}},
+                   f"phase 31 {name} (u_data and {STEPS_1D} steps, block "
+                   f"route)")
+        h0, h1 = float(losses[0]), float(losses[-1])
+        log(f"phase 31 {name}: n={n} B={BATCH_1D} {STEPS_1D} Adam steps "
+            f"lr={LR_1D} on K2: loss {h0:.6e} -> {h1:.6e} ({h0 / h1:.1f}x), "
+            f"{t_run:.3f} s host with u_data (the first step "
+            f"{t_first:.3f} s), {1e3 * t_run / STEPS_1D:.3f} ms a step; K2 "
+            f"launches {launched} [{card}]")
+        if not (bool(torch.isfinite(losses).all()) and h1 < 1e-3 * h0):
+            raise AssertionError(f"phase 31 {name}: the misfit fell "
+                                 f"{h0 / h1:.1f}x, not 1e3x")
+        runs[name] = (log_k.detach().clone(), losses, launched, opt)
+    (lk_a, loss_a, launched_a, opt_a), (lk_b, loss_b, _, _) = runs.values()
+    _, hist = recover_kappa_field(mesh, f, u_data, adam_steps=STEPS_1D,
+                                  lr=LR_1D, method="tridiag_pallas")
+    e_lk, e_loss, e_rec = (rel_err(lk_b, lk_a), rel_err(loss_b, loss_a),
+                           rel_err(loss_a, hist))
+    log(f"phase 31 the two variants: log kappa rel err {e_lk:.3e}, losses "
+        f"{e_loss:.3e}; the losses against recover_kappa_field's {e_rec:.3e}")
+    if not (e_lk <= 1e-6 and e_loss <= 1e-6 and e_rec <= 1e-5):
+        raise AssertionError("phase 31: the sharded steps disagree")
+    profile_split(torch, lambda: sharded_run(
+        torch, variants["make_inversion_step"], mesh, f, u_data, STEPS_1D),
+        "phase 31", card, what=f"make_inversion_step loop ({STEPS_1D} "
+                               f"steps, B={BATCH_1D})", cpu=False)
+
+    t1 = time.perf_counter()
+    fn, args = entry()
+    u_entry = fn(*args)
+    u_plain = solve_poisson_batched(FEMesh.line(128, dtype=f32, device=dev),
+                                    *args, method="tridiag",
+                                    kappa_batched=True)
+    e_entry = rel_err(u_entry, u_plain)
+    dryrun_multichip(1)
+    log(f"phase 31 entry(): {tuple(u_entry.shape)} on K2, rel err vs the "
+        f"plain route {e_entry:.3e}; dryrun_multichip(1) ok "
+        f"({time.perf_counter() - t1:.2f} s)")
+    if not (bool(torch.isfinite(u_entry).all()) and e_entry <= 1e-5):
+        raise AssertionError("phase 31 entry(): K2 disagrees")
+    entries.append(k2_entry(
+        torch, "tridiag_pcr_sharded", dB, eB,
+        torch.randn(BATCH_1D, n, generator=gen, device=dev),
+        launched_a["pcr_block"], "phase 31", card))
+    log(f"phase 31: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 32: halo solvers, config 4 (64², B = 64) and a 32³ box
+    t0 = time.perf_counter()
+    grid = StructuredGrid.unit(N_HALO, N_HALO)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    shape = (BATCH_HALO, N_HALO, N_HALO)
+    kl_t = 1.0 + torch.rand(shape, generator=gen, device=dev)
+    ku_t = 1.0 + torch.rand(shape, generator=gen, device=dev)
+    fh = 1.0 + torch.rand((BATCH_HALO,) + grid.node_shape, generator=gen,
+                          device=dev)
+    gh = torch.zeros(grid.node_shape, device=dev)
+    solve = make_halo_solver(dmesh, grid, maxiter=HALO_ITERS,
+                             batch_axis="dp")
+    counts = reset_all_launches()
+    with torch.no_grad():
+        u_data = solve((kl_t, ku_t), fh, gh)
+    lkl = torch.zeros(shape, device=dev, requires_grad=True)
+    lku = torch.zeros(shape, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([lkl, lku], lr=HALO_LR, betas=(0.9, 0.999),
+                           eps=1e-8)
+    losses = []
+    t1 = time.perf_counter()
+    for step in range(HALO_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = ((solve((lkl.exp(), lku.exp()), fh, gh) - u_data) ** 2).mean()
+        loss.backward()
+        if step == 0:
+            first = (loss.detach(), lkl.grad.clone(), lku.grad.clone())
+        opt.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    t_halo = time.perf_counter() - t1
+    check_only(counts, {}, "phase 32 (the halo solves are plain PyTorch)")
+    kl0 = torch.zeros(shape, device=dev, requires_grad=True)
+    ku0 = torch.zeros(shape, device=dev, requires_grad=True)
+    ref = ((solve_poisson_structured(grid, (kl0.exp(), ku0.exp()), fh, gh,
+                                     maxiter=HALO_ITERS,
+                                     dot=batched_dot(2)) - u_data) ** 2).mean()
+    ref.backward()
+    errs = (rel_err(first[0], ref.detach()), rel_err(first[1], kl0.grad),
+            rel_err(first[2], ku0.grad))
+    log(f"phase 32 make_halo_solver {N_HALO}x{N_HALO} B={BATCH_HALO} "
+        f"maxiter={HALO_ITERS} f32: {HALO_STEPS} Adam steps, loss "
+        + " -> ".join(f"{v:.6e}" for v in losses)
+        + f", {1e3 * t_halo / HALO_STEPS:.1f} ms a step (a forward and an "
+          f"adjoint halo CG); the first loss and kappa gradients against "
+          f"solve_poisson_structured(dot=batched_dot(2)): rel err "
+          + ", ".join(f"{e:.3e}" for e in errs) + f" [{card}]")
+    if not (max(errs) <= HALO_TOL and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 32 2D halo: errors {errs}, losses "
+                             f"{losses}")
+    profile_split(torch, lambda: ((solve((lkl.exp(), lku.exp()), fh, gh)
+                                   - u_data) ** 2).mean().backward(),
+                  "phase 32", card, what="2D halo value and gradient",
+                  cpu=False)
+    del kl_t, ku_t, fh, u_data, lkl, lku, opt, kl0, ku0, first
+    torch.cuda.empty_cache()
+
+    grid3 = StructuredGrid3.unit(N_HALO3, N_HALO3, N_HALO3)
+    k3 = 1.0 + torch.rand(BATCH_HALO3, grid3.n_elements, generator=gen,
+                          device=dev)
+    f3 = 1.0 + torch.rand((BATCH_HALO3,) + grid3.node_shape, generator=gen,
+                          device=dev)
+    g3 = torch.zeros(grid3.node_shape, device=dev)
+    solve3 = make_halo_solver_3d(dmesh, grid3, maxiter=HALO3_ITERS,
+                                 batch_axis="dp")
+    vals, grads = [], []
+    counts = reset_all_launches()
+    for which in ("halo", "single"):
+        k = k3.clone().requires_grad_()
+        t1 = time.perf_counter()
+        u = (solve3(k, f3, g3) if which == "halo" else
+             solve_poisson_structured_3d(grid3, k, f3, g3,
+                                         maxiter=HALO3_ITERS,
+                                         dot=batched_dot(3)))
+        val = (u ** 2).mean()
+        val.backward()
+        torch.cuda.synchronize()
+        if which == "halo":
+            t_h3 = time.perf_counter() - t1
+        vals.append(val.detach())
+        grads.append(k.grad)
+        del u, k
+    check_only(counts, {}, "phase 32 3D (plain PyTorch)")
+    errs = (rel_err(vals[0], vals[1]), rel_err(grads[0], grads[1]))
+    log(f"phase 32 make_halo_solver_3d {N_HALO3}^3 B={BATCH_HALO3} "
+        f"maxiter={HALO3_ITERS} f32: value and kappa gradient in "
+        f"{t_h3:.3f} s; against solve_poisson_structured_3d("
+        f"dot=batched_dot(3)): rel err {errs[0]:.3e}, {errs[1]:.3e} [{card}]")
+    if not max(errs) <= HALO_TOL:
+        raise AssertionError(f"phase 32 3D halo: errors {errs}")
+    del k3, f3, grads
+    torch.cuda.empty_cache()
+    log(f"phase 32: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 33: the pipeline (config 3), the expert bank, checkpoints
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(33)
+    n = N_PIPE + 1
+    inputs = {"kappa": 0.8 + 0.8 * torch.rand(N_PIPE, generator=gen,
+                                              device=dev, dtype=f64),
+              "u0": torch.rand(BATCH_PIPE, n, generator=gen, device=dev,
+                               dtype=f64),
+              "f": torch.rand(PIPE_H, BATCH_PIPE, n, generator=gen,
+                              device=dev, dtype=f64)}
+    w = torch.randn(BATCH_PIPE, n, generator=gen, device=dev, dtype=f64)
+
+    def rollout_run(dtype, pipelined, method="auto"):
+        m = FEMesh.line(N_PIPE, dtype=dtype, device=dev)
+        leaves = [inputs[k].to(dtype).detach().clone().requires_grad_()
+                  for k in ("kappa", "u0", "f")]
+        if pipelined:
+            u_final, cost = pipelined_rollout(
+                dmesh, m, *leaves, PIPE_DT, n_micro=PIPE_MICRO,
+                cost_fn=lambda u: (u * u).sum())
+        else:
+            traj = rollout_batched(m, *leaves, PIPE_DT, method=method)
+            u_final, cost = traj[-1], (traj * traj).sum()
+        (cost + (u_final * w.to(dtype)).sum()).backward()
+        return [u_final.detach(), cost.detach()] + [t.grad for t in leaves]
+
+    counts = reset_all_launches()
+    t1 = time.perf_counter()
+    pipe = rollout_run(f32, True)
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t1
+    launched_pipe = dict(tk.launches)
+    want = 2 * PIPE_MICRO * PIPE_H
+    check_only(counts, {"tridiag_kernel": {"pcr_block": want}},
+               f"phase 33 pipelined_rollout ({PIPE_MICRO} microbatches of "
+               f"{BATCH_PIPE // PIPE_MICRO}: {want} block-route launches)")
+    ref32 = rollout_run(f32, False)
+    ref64 = rollout_run(f64, False, "tridiag")
+    pipe64 = rollout_run(f64, True)
+    what = ("final state", "cost", "kappa gradient", "u0 gradient",
+            "f_seq gradient")
+    e64 = [rel_err(a, c) for a, c in zip(pipe64, ref64)]
+    e32 = [(rel_err(a, c), rel_err(b, c), rel_err(a, b))
+           for a, b, c in zip(pipe, ref32, ref64)]
+    log(f"phase 33 pipelined_rollout line({N_PIPE}) B={BATCH_PIPE} "
+        f"H={PIPE_H} dt={PIPE_DT} n_micro={PIPE_MICRO} depth 1: "
+        f"{t_pipe:.3f} s host for the f32 value and gradients; K2 launches "
+        f"{launched_pipe}; f64 on K2 against rollout_batched f64: "
+        + ", ".join(f"{wh} {e:.3e}" for wh, e in zip(what, e64))
+        + "; f32 against rollout_batched f64 (rollout_batched f32; the "
+          "two f32 runs' difference): "
+        + ", ".join(f"{wh} {a:.3e} ({b:.3e}; {d:.3e})"
+                    for wh, (a, b, d) in zip(what, e32)) + f" [{card}]")
+    # the same function in f64; in f32 the pipeline sums the κ gradient
+    # over microbatches and steps in another order than the rollout
+    if not (max(e64) <= PIPE_F64_TOL
+            and max(d for _, _, d in e32) <= PIPE_F32_TOL
+            and all(bool(torch.isfinite(t).all()) for t in pipe)):
+        raise AssertionError(f"phase 33 pipelined_rollout: f64 {e64}, "
+                             f"f32 {e32}")
+    profile_split(torch, lambda: rollout_run(f32, True), "phase 33", card,
+                  what="pipelined_rollout value and gradients", cpu=False)
+    del pipe, ref32, ref64, pipe64
+    torch.cuda.empty_cache()
+    mesh_p = FEMesh.line(N_PIPE, dtype=f32, device=dev)
+    dP, eP = heat_system_tridiag(mesh_p, inputs["kappa"].float(), PIPE_DT)
+    dP, eP, _, _ = ttri.dirichlet_elimination(mesh_p, dP, eP)
+    entries.append(k2_entry(
+        torch, "tridiag_pcr_pipeline", dP.contiguous(), eP.contiguous(),
+        torch.rand(BATCH_PIPE // PIPE_MICRO, n, generator=gen, device=dev),
+        launched_pipe["pcr_block"], "phase 33", card))
+
+    # the expert bank: 8 experts of 64 × 3 tanh MLPs over 4096 scenarios
+    cpu_gen = torch.Generator().manual_seed(33)
+    nets = [init_mlp(cpu_gen, MOE_DIN, MOE_HIDDEN, MOE_LAYERS, device=dev)
+            for _ in range(MOE_E)]
+    params, apply_fn = mlp_bank(nets)
+    X = torch.randn(BATCH_MOE, MOE_DIN, generator=gen, device=dev)
+    stat = torch.rand(BATCH_MOE, generator=gen, device=dev)
+    bounds = torch.quantile(stat, torch.linspace(0, 1, MOE_E + 1,
+                                                 device=dev)[1:-1])
+    ids = route_by_bucket(stat, bounds)
+    counts = reset_all_launches()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        Y, dropped = moe_apply(params, X, ids, apply_fn)
+        Y_mesh, dropped_mesh = moe_apply(params, X, ids, apply_fn,
+                                         dmesh=dmesh)
+    torch.cuda.synchronize()
+    t_moe = time.perf_counter() - t1
+    check_only(counts, {}, "phase 33 moe_apply (plain PyTorch)")
+    with torch.no_grad():
+        Y_ref = torch.zeros_like(Y)
+        for e, net in enumerate(nets):
+            rows = ids == e
+            Y_ref[rows, 0] = net(X[rows])
+    e_moe, e_mesh = rel_err(Y, Y_ref), rel_err(Y_mesh, Y)
+    log(f"phase 33 moe_apply B={BATCH_MOE} E={MOE_E} experts of "
+        f"{MOE_HIDDEN} x {MOE_LAYERS} on {MOE_DIN} inputs: dropped "
+        f"{int(dropped)} (with the mesh {int(dropped_mesh)}), rel err vs a "
+        f"per-expert loop {e_moe:.3e}, with the mesh vs without "
+        f"{e_mesh:.3e}, both calls {1e3 * t_moe:.1f} ms [{card}]")
+    if not (int(dropped) == int(dropped_mesh) == 0 and e_moe <= MOE_TOL
+            and e_mesh <= MOE_TOL):
+        raise AssertionError("phase 33 moe_apply disagrees")
+
+    # a CUDA Adam state through CheckpointManager, bit for bit
+    state = {"log_k": lk_a, "opt": opt_a.state_dict()}
+    with tempfile.TemporaryDirectory() as ck_dir:
+        mgr = CheckpointManager(ck_dir, async_save=True)
+        mgr.save(STEPS_1D, state)
+        back = mgr.restore(mgr.latest_step(), template=state)
+    pairs = [(back["log_k"], state["log_k"])] + [
+        (back["opt"]["state"][i][k], v)
+        for i, st in state["opt"]["state"].items() for k, v in st.items()]
+    same = all(a.device == b.device and a.dtype == b.dtype
+               and torch.equal(a, b) for a, b in pairs)
+    restored = torch.optim.Adam([back["log_k"].clone().requires_grad_()],
+                                lr=LR_1D)
+    restored.load_state_dict(back["opt"])
+    log(f"phase 33 CheckpointManager (async) of the phase 31 Adam state: "
+        f"{len(pairs)} tensors (the moments on the card) restored bit for bit: {same}")
+    if not same:
+        raise AssertionError("phase 33: the restored state differs")
+
+    # tests/test_debug.py's problem and bound, the solve on K2
+    mesh_g = FEMesh.line(GOLDEN_N, dtype=f32, device=dev)
+    worst = golden_compare(
+        lambda k, f_: solve_poisson(mesh_g.astype(f_.dtype), k, f_,
+                                    method="tridiag_pallas"),
+        torch.tensor(1.0, device=dev),
+        torch.sin(torch.linspace(0, 3, GOLDEN_N + 1, device=dev)))
+    log(f"phase 33 golden_compare of the 1D solve on K2 (line({GOLDEN_N}), "
+        f"kappa 1, f = sin(linspace(0, 3))), f32 against f64: worst "
+        f"elementwise rel deviation {worst:.3e} [{card}]")
+    if not worst <= GOLDEN_TOL:
+        raise AssertionError(f"phase 33 golden_compare: {worst:.3e}")
+    log(f"phase 33: {time.perf_counter() - t0:.1f} s")
+    dist.destroy_process_group()
+    return entries
+
+
 def timeit_chained_min(fn, x0, length=4):
     """Best chained ms per call of one function."""
     from difffe_tpu_torch.utils.profiling import timeit_chained
@@ -4583,6 +5056,10 @@ def main() -> int:
     run_surrogates(torch, dev, card)
     log(f"control and model path, phases 28-30: "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels += run_parallel(torch, dev, card)
+    log(f"parallel path, phases 31-33: {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernels}))
     log(card)

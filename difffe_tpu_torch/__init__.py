@@ -45,7 +45,12 @@ Ported so far:
   DeepONet operator surrogate (models/operator.py) and mesh-free
   collocation training (models/collocation.py) — with the scenario
   configs, the metrics stream and the command line (utils/config.py,
-  utils/metrics.py, cli.py).
+  utils/metrics.py, cli.py);
+* the parallel layer on ``torch.distributed`` (parallel/: the sharded
+  κ-inversion step, the 2D and 3D halo-exchange solves, the
+  time-pipelined rollout on K2, the expert bank, multi-process init),
+  checkpointing, debug guards and profiling helpers (utils/), and the
+  driver entry (entry.py).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"`` in the mesh factories).

@@ -93,6 +93,14 @@ class FEMesh:
         """Indices of unconstrained nodes, as a host numpy array."""
         return np.nonzero(self.bc_mask.cpu().numpy() < 0.5)[0]
 
+    def dirichlet_items(self):
+        """(node_index, value) pairs of the Dirichlet nodes, as Python
+        numbers: the reference's BC dict."""
+        mask = self.bc_mask.cpu().numpy()
+        idx = np.nonzero(mask > 0.5)[0]
+        vals = self.bc_values.cpu().numpy()[idx]
+        return list(zip(idx.tolist(), vals.tolist()))
+
     def h(self) -> float:
         """Characteristic element size: the minimum element length in 1D,
         the minimum edge length over all vertex pairs of every element in
@@ -273,6 +281,15 @@ class FEMesh:
         return rectangle_p2(nx, ny, **kw)
 
     # ------------------------------------------------------------------ misc
+
+    def astype(self, dtype: torch.dtype) -> "FEMesh":
+        """Cast all float fields to ``dtype`` on the mesh's device
+        (``elements`` stay int64; ``grid`` is kept)."""
+        return FEMesh(nodes=self.nodes.to(dtype),
+                      elements=self.elements,
+                      bc_mask=self.bc_mask.to(dtype),
+                      bc_values=self.bc_values.to(dtype),
+                      grid=self.grid)
 
     def with_dirichlet(self, node_indices, values) -> "FEMesh":
         """Return a copy with additional/overridden Dirichlet constraints.

@@ -1751,3 +1751,89 @@ def test_batched_planner_launches_k2_on_the_warp_route(cuda):
     assert k2.launches["pcr_block"] == before["pcr_block"]
     assert losses.shape == (B, iters) and q.shape == (B, H, 3)
     assert bool((losses[:, -1] < losses[:, 0]).all())
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A (1, 1) mesh on the NCCL group of this one card."""
+    import torch.distributed as dist
+
+    from difffe_tpu_torch.parallel import make_device_mesh, multihost
+
+    multihost.initialize(device="cuda", timeout_s=60.0)
+    try:
+        yield make_device_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_parallel_nccl_ping_and_sharded_step(nccl_mesh):
+    """HealthCheck over NCCL, and three sharded Adam steps on K2 (two
+    launches each) equal to recover_kappa_field's."""
+    from difffe_tpu_torch.inverse import recover_kappa_field
+    from difffe_tpu_torch.parallel import (make_inversion_step,
+                                           make_inversion_step_shard_map,
+                                           multihost)
+
+    hc = multihost.HealthCheck(60.0)
+    assert hc.ping(nccl_mesh) and hc.ping()
+    mesh = FEMesh.line(64, dtype=torch.float32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    k_true = 1.0 + torch.rand(64, 64, generator=g, device="cuda")
+    f = 1.0 + torch.rand(64, 65, generator=g, device="cuda")
+    u_data = solve_poisson_batched(mesh, k_true, f, method="tridiag")
+    results = []
+    for init_fn, step in (
+            make_inversion_step(mesh, nccl_mesh, lr=0.05,
+                                method="tridiag_pallas")[:2],
+            make_inversion_step_shard_map(mesh, nccl_mesh, lr=0.05,
+                                          method="tridiag_pallas")):
+        log_k, opt = init_fn(torch.zeros(64, 64))
+        before = dict(k2.launches)
+        losses = [step(log_k, opt, f, u_data)[2] for _ in range(3)]
+        assert k2.launches["pcr_block"] - before["pcr_block"] == 6
+        results.append((log_k.detach().clone(), torch.stack(losses)))
+    _, hist = recover_kappa_field(mesh, f, u_data, adam_steps=3, lr=0.05,
+                                  method="tridiag_pallas")
+    assert torch.equal(results[0][0], results[1][0])
+    assert rel_err(results[0][1], hist) <= 1e-6
+
+
+def test_parallel_halo_and_pipeline_on_the_card(nccl_mesh):
+    """The halo solver (2D) and the pipelined rollout at world size 1 on
+    the card against the one-process solve and rollout."""
+    from difffe_tpu_torch.control.heat import rollout_batched
+    from difffe_tpu_torch.ops.pcg import batched_dot
+    from difffe_tpu_torch.ops.stencil import solve_poisson_structured
+    from difffe_tpu_torch.parallel import make_halo_solver, pipelined_rollout
+
+    grid = StructuredGrid.unit(16, 16)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    kl = (1.0 + torch.rand(4, 16, 16, generator=g, device="cuda")
+          ).requires_grad_()
+    ku = 1.0 + torch.rand(4, 16, 16, generator=g, device="cuda")
+    fh = torch.rand((4,) + grid.node_shape, generator=g, device="cuda")
+    gh = torch.zeros(grid.node_shape, device="cuda")
+    u = make_halo_solver(nccl_mesh, grid, maxiter=64)((kl, ku), fh, gh)
+    (gk,) = torch.autograd.grad((u * u).sum(), (kl,))
+    u_ref = solve_poisson_structured(grid, (kl, ku), fh, gh, maxiter=64,
+                                     dot=batched_dot(2))
+    (gk_ref,) = torch.autograd.grad((u_ref * u_ref).sum(), (kl,))
+    assert rel_err(u, u_ref) <= 1e-6 and rel_err(gk, gk_ref) <= 1e-6
+
+    mesh = FEMesh.line(16, dtype=torch.float32, device="cuda")
+    kappa = (0.8 + torch.rand(16, generator=g, device="cuda")
+             ).requires_grad_()
+    u0 = torch.rand(64, 17, generator=g, device="cuda")
+    f_seq = torch.rand(8, 64, 17, generator=g, device="cuda")
+    before = dict(k2.launches)
+    u_fin, cost = pipelined_rollout(nccl_mesh, mesh, kappa, u0, f_seq, 0.01,
+                                    n_micro=4,
+                                    cost_fn=lambda v: (v * v).sum())
+    (gp,) = torch.autograd.grad(cost, (kappa,))
+    assert k2.launches["pcr_block"] - before["pcr_block"] == 2 * 4 * 8
+    traj = rollout_batched(mesh, kappa, u0, f_seq, 0.01)
+    cost_ref = (traj * traj).sum()
+    (gp_ref,) = torch.autograd.grad(cost_ref, (kappa,))
+    assert rel_err(u_fin, traj[-1]) <= 1e-5
+    assert rel_err(cost, cost_ref) <= 1e-5 and rel_err(gp, gp_ref) <= 1e-5

@@ -4,6 +4,8 @@ gradient step and the box routes of the facade — with the JAX package, on
 the same numpy inputs (f64).  Every grid is non-cubic, so a transposed
 axis or a swapped tet table cannot go unseen."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -159,6 +161,7 @@ def test_batched_solve_matches_jax_batch_minor():
     jg, tg = _grids()
     k, f, g = _fields(B=3, seed=6)
     w = np.random.default_rng(7).standard_normal(f.shape)
+    ju_shared = None
     for gg in (g, np.stack([g, 0.5 * g, -g])):
         def jloss(k_, f_, g_):
             u = js.solve_poisson_structured_3d_batched(jg, k_, f_, g_, 0.0,
@@ -175,11 +178,16 @@ def test_batched_solve_matches_jax_batch_minor():
         for t, j in zip(targs, jgrads):
             assert t.grad.shape == j.shape
             assert rel_err(t.grad, j) <= SOLVE
+        if ju_shared is None:
+            ju_shared = ju
+    # JAX's router at B >= 128 is the batch-minor solve held above (with
+    # the shared g), so its value is that solve's
+    jpath = js.choose_3d_path(jg, 128)
+    assert jpath.func is js.solve_poisson_structured_3d_batched
+    assert jpath.args == (jg,)
     solve = ts.choose_3d_path(tg, 3)
     assert rel_err(solve(as_torch(k), as_torch(f), as_torch(g), 0.0, 40),
-                   jax.jit(lambda k, f, g: js.choose_3d_path(jg, 128)(
-                       k, f, g, 0.0, 40))(jnp.asarray(k), jnp.asarray(f),
-                                          jnp.asarray(g))) <= SOLVE
+                   ju_shared) <= SOLVE
     with pytest.raises(ValueError, match="kappa"):
         ts.solve_poisson_structured_3d_batched(tg, as_torch(k[0]),
                                                as_torch(f), as_torch(g))
@@ -280,6 +288,20 @@ def test_facade_solve_poisson_3d(kappa_kind):
     assert rel_err(tu, ju_bc) <= FACADE
 
 
+@functools.cache
+def _jax_batched_3d(kw, with_bc):
+    """The value and κ gradient of Σu² through JAX's batched box solve,
+    jitted once a module for each (keywords, with bc_values)."""
+    jm = jax_mesh(JMesh.box, 3, 2, 2, dtype=jnp.float64)
+
+    def jloss(k_, f_, *bc):
+        u = j_solve_b(jm, k_, f_, bc_values=bc[0] if bc else None,
+                      **dict(kw))
+        return jnp.sum(u ** 2), u
+
+    return jax.jit(jax.value_and_grad(jloss, has_aux=True))
+
+
 @pytest.mark.parametrize("mode", ["fixed_trip", "tol_gated",
                                   "per_scenario_g", "shared_f",
                                   "batch_minor"])
@@ -302,14 +324,12 @@ def test_solve_poisson_batched_3d(mode):
     if mode == "per_scenario_g":
         bc = 0.3 * rng.standard_normal((B, jm.n_nodes))
 
-    def jloss(k_):
-        u = j_solve_b(jm, k_, jnp.asarray(f),
-                      bc_values=None if bc is None else jnp.asarray(bc),
-                      **kw)
-        return jnp.sum(u ** 2), u
-
-    (_, ju), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
-        jnp.asarray(k))
+    # the shared forcing's reference is the batched solve of B equal
+    # rows, fixed_trip's compiled function
+    jf = np.broadcast_to(f, (B, jm.n_nodes))
+    jbc = () if bc is None else (jnp.asarray(bc),)
+    (_, ju), jg = _jax_batched_3d(tuple(sorted(kw.items())), len(jbc))(
+        jnp.asarray(k), jnp.asarray(jf), *jbc)
     tk_ = as_torch(k).requires_grad_()
     tu = t_solve_b(tm, tk_, as_torch(f),
                    bc_values=None if bc is None else as_torch(bc), **kw)
