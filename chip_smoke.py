@@ -366,10 +366,38 @@ kernel K2 on every 1D solve:
     ``golden_compare`` of the 1D solve on K2, f32 against f64, on
     tests/test_debug.py's problem with its bound (1e-4).
 
+The serving path (utils/export.py, ``cli export`` and ``cli serve``): AOT
+artifacts through ``torch.export``, with K2 and K1 as ``torch.library``
+custom ops:
+
+34. config 2's ``FEMesh.line(128)`` in f32 at B = 1024 (``k2_plan``'s
+    block route) and 4096 (its warp route): ``cli export --dim 1`` and
+    ``--grad`` written to a temporary directory (bytes, export and load
+    times; on the card the CLI's 1D artifacts take K2); each artifact's
+    call against the live route (the solve's max difference, expected 0),
+    both against the plain route run in f64 by the rule of phase 7, the
+    gradient also against autograd through the live K2 route; exactly 1
+    K2 launch a solve call and 2 a gradient call, on the route k2_plan
+    names; ``python -m difffe_tpu_torch.cli serve`` as a subprocess with
+    16 requests at B = 1024 and a malformed line (each reply equal to the
+    artifact's direct result after the JSON round trip, an error reply,
+    exit 0); a request's host ms split into parsing, the call and the
+    reply; the artifact's call against the live route's, chained, and K2's
+    kernel time a call of each from the profiler;
+35. one ``kappa_sgd_chain_cf`` launch at bench.py's shape (n = 30,
+    B = 2^21, k = 32, lr = 30, streamed bf16 u_data: K1d) through
+    ``export_fn``, bit for bit against the live chain with one K1 launch
+    a call; ``cli export --dim 2 --elements 64 --batch 256`` (and
+    ``--grad``) against the live tol-gated stencil route: u, the κ
+    gradient and each solve's CG iterations; ``export_fn`` of a function
+    that reaches K3a raises the guard's error.
+
 Each path's launch counts are set to 0 just before its main-path phases
 (4-5, 8, 11, 14, 18, 22, 24's probe path, 25's facade call, 28's plan and
 closed loop, each of 29's and 30's runs, each of 31's inversion runs,
-32's halo runs, 33's pipeline and expert calls) and read just after; comparisons and timing outside those do not count.  The
+32's halo runs, 33's pipeline and expert calls, 34's artifact calls, 35's
+chain artifact call) and read just after; comparisons and timing outside
+those do not count.  The
 third-to-last line is one JSON object describing each kernel, with its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (H100 SXM, fp32 outside the tensor cores;
@@ -386,6 +414,7 @@ import argparse
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -4977,6 +5006,393 @@ def run_parallel(torch, dev, card):
     return entries
 
 
+EXPORT_BATCHES = (1024, 4096)   # phase 34: k2_plan's block and warp routes
+SERVE_REQUESTS = 16
+N_EXPORT_2D, BATCH_EXPORT_2D = 64, 256    # phase 35: the CLI's 2D artifact
+
+
+def export_k2_case(torch, mesh, mesh64, B, tmp, card):
+    """Phase 34 at one batch: the two artifacts against the live, plain
+    and f64 routes with their launch counts; (the loaded artifacts, K2's
+    launch key, the inputs, the launches of the artifact calls)."""
+    from difffe_tpu_torch import cli
+    from difffe_tpu_torch.ops.kernels import tridiag_kernel as tk
+    from difffe_tpu_torch.solver import solve_poisson_batched
+    from difffe_tpu_torch.utils import export as texp
+
+    dev, n = mesh.device, mesh.n_nodes
+    gen = torch.Generator(device=dev).manual_seed(34 + B)
+    x = mesh.nodes[:, 0]
+    kk = 1.0 + (torch.arange(B, device=dev) % 4)
+    f = torch.sin(kk[:, None] * math.pi * x) + 1.5
+    kappa = 1.0 + 2.0 * torch.rand(B, generator=gen, device=dev)
+    k_true = 1.0 + 2.0 * torch.rand(B, generator=gen, device=dev)
+    route = tk.k2_plan(n, torch.float32, B)
+    key = "pcr" if route == "warp" else "pcr_block"
+    arts = {}
+    for name, extra in (("solver", []), ("grad", ["--grad"])):
+        # built as a user builds it: `cli export`, which takes K2 on the card
+        path = Path(tmp) / f"{name}_{B}.pt2"
+        t0 = time.perf_counter()
+        if cli.main(["export", str(path), "--dim", "1", "--elements",
+                     str(mesh.n_elements), "--batch", str(B), *extra]) != 0:
+            raise AssertionError(f"phase 34 cli export {name} B={B} failed")
+        t_export = time.perf_counter() - t0
+        blob = path.read_bytes()
+        t0 = time.perf_counter()
+        arts[name], specs = texp.load_exported_with_avals(blob)
+        t_load = time.perf_counter() - t0
+        if {s.dtype for s in specs} != {torch.float32}:
+            raise AssertionError(f"phase 34 {name} artifact B={B}: inputs "
+                                 f"{specs}, expected float32")
+        log(f"phase 34 {name} artifact B={B} (cli export): {len(blob)} "
+            f"bytes, export {t_export:.3f} s, load {t_load:.3f} s")
+
+    def live(k):
+        return solve_poisson_batched(mesh, k, f, method="tridiag_pallas",
+                                     kappa_batched=True)
+
+    def loss_of(u, ud):
+        return ((u - ud) ** 2).mean()
+
+    with torch.no_grad():
+        u_data = live(k_true)
+    launched = {}
+    for name, args in (("solver", (kappa, f)),
+                       ("grad", (kappa.log(), f, u_data))):
+        reset_all_launches()
+        out = arts[name](*args)
+        torch.cuda.synchronize()
+        launched[name] = dict(tk.launches)
+        want = 1 if name == "solver" else 2
+        if (tk.launches[key] != want
+                or sum(tk.launches.values()) != want):
+            raise AssertionError(f"phase 34 {name} artifact B={B}: K2 "
+                                 f"launches {tk.launches}, expected {want} "
+                                 f"on the {route} route")
+        if name == "solver":
+            u = out
+        else:
+            loss, grad = out
+    with torch.no_grad():
+        u_live = live(kappa)
+    d = float((u - u_live).abs().max())
+    log(f"phase 34 solver artifact B={B} ({route} route) against the live "
+        f"route: max |diff| {d:.3e}"
+        + ("" if d == 0.0 else " (expected 0: the artifact and the live "
+                               "route differ)"))
+    f64 = torch.float64
+    with torch.no_grad():
+        u_p32 = solve_poisson_batched(mesh, kappa, f, method="tridiag",
+                                      kappa_batched=True)
+        u_64 = solve_poisson_batched(mesh64, kappa.double(), f.double(),
+                                     method="tridiag", kappa_batched=True)
+    eu, ep = check_rule("u", u, u_p32, u_64, f"phase 34 B={B}")
+    grads = {}
+    for name, mm, meth, dt in (("live", mesh, "tridiag_pallas", None),
+                               ("plain32", mesh, "tridiag", None),
+                               ("plain64", mesh64, "tridiag", f64)):
+        xk = (kappa if dt is None else kappa.to(dt)).log().requires_grad_()
+        fd = f if dt is None else f.to(dt)
+        ud = u_data if dt is None else u_data.to(dt)
+        lv = loss_of(solve_poisson_batched(mm, xk.exp(), fd, method=meth,
+                                           kappa_batched=True), ud)
+        lv.backward()
+        grads[name] = (lv.detach(), xk.grad)
+    el, _ = check_rule("loss", loss, grads["plain32"][0],
+                       grads["plain64"][0], f"phase 34 B={B}")
+    eg, eg32 = check_rule("grad", grad, grads["plain32"][1],
+                          grads["plain64"][1], f"phase 34 B={B}")
+    egl, egl32 = check_rule("grad against the live route", grad,
+                            grads["live"][1], grads["plain64"][1],
+                            f"phase 34 B={B}")
+    log(f"phase 34 B={B}: u error vs f64 {eu:.3e} (plain f32 {ep:.3e}); "
+        f"loss {el:.3e}; grad {eg:.3e} (plain f32 {eg32:.3e}, autograd "
+        f"through the live K2 route {egl32:.3e}, the artifact against it "
+        f"{rel_err(grad, grads['live'][1]):.3e}); launches a call "
+        f"{launched} [{card}]")
+    return arts, key, (kappa, f, u_data), launched
+
+
+def serve_check(torch, art_path, solve, specs, kappa, f, card):
+    """Phase 34's serving run: ``cli serve`` as a subprocess on 16
+    requests and a malformed line, each reply against the artifact's
+    direct result; then a request's host ms by part, in process."""
+    from difffe_tpu_torch import cli
+
+    dev = kappa.device
+    gen = torch.Generator(device=dev).manual_seed(340)
+    reqs, direct = [], []
+    for i in range(SERVE_REQUESTS):
+        k_i = 1.0 + 2.0 * torch.rand(kappa.shape, generator=gen, device=dev)
+        f_i = f.roll(i, dims=0)
+        reqs.append(json.dumps({"kappa": k_i.tolist(), "f": f_i.tolist()}))
+        with torch.no_grad():
+            direct.append(json.loads(json.dumps(
+                {"u": solve(k_i, f_i).tolist()})))
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "difffe_tpu_torch.cli", "serve",
+         str(art_path)], input="\n".join(reqs + ["{not json"]) + "\n",
+        capture_output=True, text=True, timeout=600, cwd=str(root),
+        env=dict(os.environ, PYTHONPATH=str(root)))
+    t_serve = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or len(lines) != SERVE_REQUESTS + 1:
+        raise AssertionError(f"phase 34 serve: rc {proc.returncode}, "
+                             f"{len(lines)} replies; stderr "
+                             f"{proc.stderr[-2000:]}")
+    bad = [i for i in range(SERVE_REQUESTS) if lines[i] != direct[i]]
+    if bad or "error" not in lines[-1]:
+        raise AssertionError(f"phase 34 serve: replies {bad} differ from "
+                             f"the artifact's results, or the malformed "
+                             f"line got {str(lines[-1])[:200]}")
+    log(f"phase 34 serve (subprocess, {SERVE_REQUESTS} requests of "
+        f"B={kappa.shape[0]} and a malformed line): every reply equals the "
+        f"artifact's result after the JSON round trip, the bad line got "
+        f"{lines[-1]}; {t_serve:.2f} s with the process's start")
+    parts = {"parse": [], "call": [], "reply": []}
+    for line in reqs:
+        t0 = time.perf_counter()
+        args = cli.request_args(json.loads(line), specs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            out = solve(*args)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        json.dumps(cli.reply(out))
+        t3 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k].append(dt * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+    log(f"phase 34 a request's host ms (median of {SERVE_REQUESTS}, "
+        f"B={kappa.shape[0]}, n={f.shape[1]}): parse {med['parse']:.3f}, "
+        f"call {med['call']:.3f}, reply {med['reply']:.3f} [{card}]")
+
+
+def run_export(torch, dev, card):
+    """Phases 34-35: the serving path on K2 and the main path's K1 chain
+    through AOT artifacts, the CLI's 2D artifact and the guard; returns the
+    kernels-line entries of K2 and K1 on the export path."""
+    import shutil
+    import tempfile
+
+    from difffe_tpu_torch import cli
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.ops import stencil as tst
+    from difffe_tpu_torch.ops import tridiag as ttri
+    from difffe_tpu_torch.ops.assembly import (assemble_load,
+                                               assemble_tridiag_1d)
+    from difffe_tpu_torch.ops.kernels import fused_grad_cf_kernel as k1
+    from difffe_tpu_torch.ops.kernels import tridiag_kernel as tk
+    from difffe_tpu_torch.solver import solve_poisson_batched
+    from difffe_tpu_torch.utils import export as texp
+    from difffe_tpu_torch.utils.profiling import timeit_chained
+
+    f32 = torch.float32
+    entries = []
+    tmp = tempfile.mkdtemp(prefix="difffe_export_")
+    try:
+        # -- phase 34: the serving path on K2, config 2's line
+        t0 = time.perf_counter()
+        mesh = FEMesh.line(N_1D, dtype=f32, device=dev)
+        mesh64 = FEMesh.line(N_1D, dtype=torch.float64, device=dev)
+        for B in EXPORT_BATCHES:
+            arts, key, (kappa, f, _), launched = export_k2_case(
+                torch, mesh, mesh64, B, tmp, card)
+            solve = arts["solver"]
+            if B == EXPORT_BATCHES[0]:
+                art_path = Path(tmp) / f"solver_{B}.pt2"
+                _, specs = texp.load_exported_with_avals(
+                    art_path.read_bytes())
+                serve_check(torch, art_path, solve, specs, kappa, f, card)
+
+            def live(c, kappa=kappa):
+                return solve_poisson_batched(
+                    mesh, kappa, c, method="tridiag_pallas",
+                    kappa_batched=True)
+
+            chained = {
+                "artifact": timeit_chained(lambda c: solve(kappa, c), f,
+                                           length=8).min_s * 1e3,
+                "live": timeit_chained(live, f, length=8).min_s * 1e3}
+            kernel = {
+                name: device_ms(torch, fn, f, 20,
+                                "pcr_warp_kernel" if key == "pcr"
+                                else "pcr_kernel",
+                                launched=lambda: tk.launches[key])
+                for name, fn in (("artifact", lambda c: solve(kappa, c)),
+                                 ("live", live))}
+            log(f"phase 34 B={B} ({key}): a solve call chained, artifact "
+                f"{chained['artifact']:.4f} ms, live route "
+                f"{chained['live']:.4f} ms; K2's kernel time a call "
+                f"(profiler): artifact {kernel['artifact']:.4f} ms, live "
+                f"{kernel['live']:.4f} ms [{card}]")
+            if B == EXPORT_BATCHES[0]:
+                # the entry: K2 on the artifact's eliminated bands
+                d, e = assemble_tridiag_1d(
+                    mesh, kappa[:, None].expand(B, mesh.n_elements))
+                d_mod, e_mod, _, rhs = ttri.dirichlet_elimination(mesh, d,
+                                                                  e)
+                F0 = rhs(assemble_load(mesh, f))
+                entry = k2_entry(torch, "tridiag_pcr_export",
+                                 d_mod.contiguous(), e_mod.contiguous(),
+                                 F0.contiguous(),
+                                 launched["solver"][key]
+                                 + launched["grad"][key],
+                                 "phase 34", card)
+                entry["ms"] = kernel["artifact"]
+                entries.append(entry)
+            del arts, solve
+            torch.cuda.empty_cache()
+        log(f"phase 34: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 35: the K1 chain at bench.py's shape through export_fn
+        t0 = time.perf_counter()
+        m30 = FEMesh.line(N_ELEMENTS, dtype=f32, device=dev)
+        g = torch.Generator(device=dev).manual_seed(35)
+        fv = torch.sin(torch.pi * m30.nodes[:, 0]) + 1.0
+        ke_true = 1.0 + 2.0 * torch.rand(BATCH, N_ELEMENTS, generator=g,
+                                         device=dev)
+        with torch.no_grad():
+            ud = solve_poisson_batched(m30, ke_true,
+                                       fv.expand(BATCH, N_ELEMENTS + 1),
+                                       method="tridiag")
+        keT, aux = k1.cf_packed_operands(
+            m30, 1.0 + 0.3 * torch.rand(BATCH, N_ELEMENTS, generator=g,
+                                        device=dev),
+            assemble_load(m30, fv), ud, block_lanes=BLOCK_LANES,
+            operand_dtype=torch.bfloat16)
+        del ud, ke_true
+        udT = aux["udT"]
+        t1 = time.perf_counter()
+        blob = texp.export_fn(
+            lambda k, u: k1.kappa_sgd_chain_cf(k, dict(aux, udT=u), CHAIN_K,
+                                               LR), keT, udT)
+        t_export = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        chain = texp.load_exported(blob)
+        t_load = time.perf_counter() - t1
+        reset_all_launches()
+        lp_a, k_a = chain(keT, udT)
+        torch.cuda.synchronize()
+        chain_launches = dict(k1.launches)
+        if chain_launches != {"step": 0, "chain": 1}:
+            raise AssertionError(f"phase 35 chain artifact: K1 launches "
+                                 f"{chain_launches}, expected 1 chain")
+        lp_l, k_l = k1.kappa_sgd_chain_cf(keT, aux, CHAIN_K, LR)
+        if not (torch.equal(lp_a, lp_l) and torch.equal(k_a, k_l)):
+            raise AssertionError("phase 35: the chain artifact differs from "
+                                 "the live chain")
+        scale = 2.0 / (aux["B"] * aux["n"])
+        _, k_p = k1._cf_chain_plain(keT, udT, aux["cols"], aux["B"], scale,
+                                    aux["u_l"], aux["u_r"], CHAIN_K, LR)
+        max_abs = float((k_a - k_p).abs().max())
+        ms_chained = {
+            "artifact": timeit_chained_min(lambda k: chain(k, udT)[1], keT),
+            "live": timeit_chained_min(lambda k: k1.kappa_sgd_chain_cf(
+                k, aux, CHAIN_K, LR)[1], keT)}
+        ms_kernel = device_ms(torch, lambda k: chain(k, udT)[1], keT, 8,
+                              "cf_lanes_kernel",
+                              launched=lambda: k1.launches["chain"])
+        plain_ms = device_ms(torch, lambda k: k1._cf_chain_plain(
+            k, udT, aux["cols"], aux["B"], scale, aux["u_l"], aux["u_r"],
+            CHAIN_K, LR)[1], keT, 1)
+        log(f"phase 35 K1 chain artifact (n={N_ELEMENTS}, B={BATCH}, "
+            f"k={CHAIN_K}, bf16 u_data): {len(blob)} bytes, export "
+            f"{t_export:.3f} s, load {t_load:.3f} s; bit for bit the live "
+            f"chain, launches {chain_launches}; chained ms a call: artifact "
+            f"{ms_chained['artifact']:.4f}, live {ms_chained['live']:.4f}; "
+            f"kernel time a call (profiler) {ms_kernel:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; max abs err vs plain {max_abs:.3e} "
+            f"[{card}]")
+        n = N_ELEMENTS + 1
+        entries.append(kernel_entry(
+            "cf_chain_export", CU_SOURCE,
+            f"{JAX_KERNEL}:493 (_cf_chain_pallas_stream_ud)",
+            chain_launches["chain"], max_abs, ms_kernel, plain_ms,
+            K1_OPS_PER_ROW_STEP * n * BATCH * CHAIN_K,
+            BATCH * (2 * N_ELEMENTS * 4 + n * udT.element_size() + 4)))
+        del keT, aux, udT, lp_a, k_a, lp_l, k_l, k_p, chain
+        torch.cuda.empty_cache()
+
+        # the CLI's 2D artifact: the tol-gated stencil route
+        arts = {}
+        for name, extra in (("solver", []), ("grad", ["--grad"])):
+            path = str(Path(tmp) / f"rect_{name}.pt2")
+            t1 = time.perf_counter()
+            if cli.main(["export", path, "--dim", "2", "--elements",
+                         str(N_EXPORT_2D), "--batch", str(BATCH_EXPORT_2D),
+                         *extra]) != 0:
+                raise AssertionError(f"phase 35 cli export {name} failed")
+            arts[name] = texp.load_exported(Path(path).read_bytes())
+            log(f"phase 35 cli export --dim 2 {name}: "
+                f"{time.perf_counter() - t1:.2f} s with the load")
+        rect = FEMesh.rectangle(N_EXPORT_2D, N_EXPORT_2D, dtype=f32,
+                                device=dev)
+        B2 = BATCH_EXPORT_2D
+        g2 = torch.Generator(device=dev).manual_seed(352)
+        xy = rect.nodes
+        kk = 1.0 + (torch.arange(B2, device=dev) % 3)
+        f2 = (2 * math.pi ** 2) * torch.sin(
+            kk[:, None] * math.pi * xy[:, 0]) * torch.sin(
+            math.pi * xy[:, 1]) + 1.0
+        k2_ = 1.0 + torch.rand(B2, generator=g2, device=dev)
+        with torch.no_grad():
+            ud2 = solve_poisson_batched(
+                rect, 1.0 + torch.rand(B2, generator=g2, device=dev), f2,
+                kappa_batched=True)
+        res = {}
+        for which in ("artifact", "live"):
+            tst.gated_iters.clear()
+            if which == "artifact":
+                u2 = arts["solver"](k2_, f2)
+                loss2, g2_ = arts["grad"](k2_.log(), f2, ud2)
+            else:
+                with torch.no_grad():
+                    u2 = solve_poisson_batched(rect, k2_, f2,
+                                               kappa_batched=True)
+                x2 = k2_.log().requires_grad_()
+                loss2 = ((solve_poisson_batched(rect, x2.exp(), f2,
+                                                kappa_batched=True)
+                          - ud2) ** 2).mean()
+                loss2.backward()
+                loss2, g2_ = loss2.detach(), x2.grad
+            torch.cuda.synchronize()
+            res[which] = (u2, loss2, g2_, list(tst.gated_iters))
+        a, b_ = res["artifact"], res["live"]
+        log(f"phase 35 2D artifact ({N_EXPORT_2D}², B={B2}, f32, tol-gated "
+            f"CG): u max |diff| {float((a[0] - b_[0]).abs().max()):.3e}, "
+            f"loss {float((a[1] - b_[1]).abs()):.3e}, grad max |diff| "
+            f"{float((a[2] - b_[2]).abs().max()):.3e}; CG iterations "
+            f"artifact {a[3]}, live {b_[3]} [{card}]")
+        if not (torch.equal(a[0], b_[0]) and torch.equal(a[1], b_[1])
+                and torch.equal(a[2], b_[2]) and a[3] == b_[3]):
+            raise AssertionError("phase 35: the 2D artifact differs from "
+                                 "the live route")
+        del arts, res, a, b_
+        # the guard: a function that reaches K3a
+        kg = torch.ones(8, device=dev)
+        fg = torch.ones(8, rect.n_nodes, device=dev)
+        try:
+            texp.export_fn(lambda k_, f_: solve_poisson_batched(
+                rect, k_, f_, cg_tol=0.0, cg_maxiter=32, kappa_batched=True),
+                kg, fg)
+        except NotImplementedError as e:
+            if "K3a" not in str(e):
+                raise
+            log(f"phase 35 guard: export_fn of a K3a solve raised "
+                f"NotImplementedError: {e}")
+        else:
+            raise AssertionError("phase 35: export_fn carried a K3a solve")
+        log(f"phase 35: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return entries
+
+
 def timeit_chained_min(fn, x0, length=4):
     """Best chained ms per call of one function."""
     from difffe_tpu_torch.utils.profiling import timeit_chained
@@ -5060,6 +5476,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += run_parallel(torch, dev, card)
     log(f"parallel path, phases 31-33: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels += run_export(torch, dev, card)
+    log(f"serving path, phases 34-35: {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -6,6 +6,8 @@
     python -m difffe_tpu_torch.cli run batched_inverse_1d --batch 2048
     python -m difffe_tpu_torch.cli bench batched_inverse_1d
     python -m difffe_tpu_torch.cli invert --dim 2
+    python -m difffe_tpu_torch.cli export solver.pt2 --dim 1 --batch 256
+    python -m difffe_tpu_torch.cli serve solver.pt2 < requests.jsonl
 
 PyTorch counterpart of ``difffe_tpu/cli.py``: the same commands, scenarios
 and result keys, over the port's functional API, the config system
@@ -15,7 +17,11 @@ unless ``--device cpu`` is given (``bench`` measures the card and refuses
 the CPU).  As in the JAX CLI, ``run heat_mpc_1d`` runs one unbatched
 receding-horizon loop whatever the config's batch, and ``bench`` times the
 1D κ-recovery step for every 1D scenario, ``heat_mpc_1d`` included.
-``export`` and ``serve`` (AOT solver artifacts) are not ported yet.
+``export`` writes an AOT solver artifact (utils/export.py; ``--grad`` the
+forward + adjoint gradient step) for the device it runs on, and ``serve``
+answers JSON-line requests on stdin with it, one JSON line each on stdout.
+On the card a 1D artifact solves on kernel K2 (``method="tridiag_pallas"``)
+where the JAX CLI's takes the plain sweeps; on the CPU it takes the sweeps.
 """
 
 from __future__ import annotations
@@ -28,9 +34,6 @@ import sys
 import time
 
 import torch
-
-_NOT_PORTED = ("difffe_tpu_torch: {!r} is not yet ported to the PyTorch "
-               "package (AOT solver artifacts; ROADMAP.md, Queue 1 step 8)")
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -267,6 +270,70 @@ def invert_cmd(args):
     return 0
 
 
+def export_cmd(args):
+    """Build an AOT solver artifact for a mesh/batch and write it to disk."""
+    from .mesh import FEMesh
+    from .utils.export import export_batched_solver, export_gradient_step
+
+    mesh = FEMesh.line(n_elements=args.elements, device=args.device) \
+        if args.dim == 1 else FEMesh.rectangle(nx=args.elements,
+                                               ny=args.elements,
+                                               device=args.device)
+    build = export_gradient_step if args.grad else export_batched_solver
+    # a line on the card carries K2, as control/heat.py's "auto" does; the
+    # solver's "auto" is the plain sweeps, which the CPU keeps
+    method = ("tridiag_pallas" if args.dim == 1
+              and mesh.device.type == "cuda" else "auto")
+    blob = build(mesh, batch=args.batch, method=method)
+    with open(args.out, "wb") as fh:
+        fh.write(blob)
+    print(json.dumps({"artifact": args.out, "bytes": len(blob),
+                      "dim": args.dim, "elements": args.elements,
+                      "batch": args.batch, "grad": bool(args.grad)}))
+    return 0
+
+
+def request_args(req: dict, specs) -> tuple:
+    """A request's arrays as the artifact's inputs: κ and f, and u_data for
+    a gradient artifact, cast to the dtypes and device it was traced with
+    (``load_exported_with_avals``)."""
+    keys = ("kappa", "f", "u_data") if "u_data" in req else ("kappa", "f")
+    return tuple(torch.as_tensor(req[k], dtype=s.dtype, device=s.device)
+                 for k, s in zip(keys, specs))
+
+
+def reply(out) -> dict:
+    """The response to one request: {"u": …} or {"loss": …, "grad": …}."""
+    if isinstance(out, (tuple, list)):
+        loss, grad = out
+        return {"loss": float(loss), "grad": grad.tolist()}
+    return {"u": out.tolist()}
+
+
+def serve_cmd(args):
+    """Serve an exported artifact: JSON lines on stdin → JSON lines on stdout.
+
+    Request:  {"kappa": [...B], "f": [[...n]...B]}   (and "u_data" for grad
+    artifacts).  Response: {"u": [[...]]} or {"loss": .., "grad": [...]}.
+    """
+    from .utils.export import load_exported_with_avals
+
+    with open(args.artifact, "rb") as fh:
+        fn, specs = load_exported_with_avals(fh.read(), args.device)
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            with torch.no_grad():
+                out = fn(*request_args(json.loads(line), specs))
+            print(json.dumps(reply(out)), flush=True)
+        except Exception as e:  # malformed request: report, keep serving
+            print(json.dumps({"error": f"{type(e).__name__}: {e}"}),
+                  flush=True)
+    return 0
+
+
 def main(argv=None):
     from .utils.config import BASELINE_CONFIGS
 
@@ -298,17 +365,19 @@ def main(argv=None):
                           "inversion at B>=128")
     pi_.add_argument("--device", default="cuda",
                      help="torch device (default: the CUDA card)")
-    pe = sub.add_parser("export", help="build an AOT solver artifact "
-                                       "(not yet ported)")
+    pe = sub.add_parser("export", help="build an AOT solver artifact")
     pe.add_argument("out")
     pe.add_argument("--dim", type=int, default=1, choices=[1, 2])
     pe.add_argument("--elements", type=int, default=64)
     pe.add_argument("--batch", type=int, default=256)
     pe.add_argument("--grad", action="store_true",
                     help="export the fwd+adjoint gradient step")
-    ps = sub.add_parser("serve", help="serve an artifact over stdin/stdout "
-                                      "(not yet ported)")
+    pe.add_argument("--device", default="cuda",
+                    help="torch device (default: the CUDA card)")
+    ps = sub.add_parser("serve", help="serve an artifact over stdin/stdout")
     ps.add_argument("artifact")
+    ps.add_argument("--device", default="cuda",
+                    help="torch device (default: the CUDA card)")
     args = parser.parse_args(argv)
 
     if args.cmd == "list":
@@ -317,8 +386,10 @@ def main(argv=None):
         return 0
     if args.cmd == "invert":
         return invert_cmd(args)
-    if args.cmd in ("export", "serve"):
-        raise SystemExit(_NOT_PORTED.format(args.cmd))
+    if args.cmd == "export":
+        return export_cmd(args)
+    if args.cmd == "serve":
+        return serve_cmd(args)
 
     cfg = BASELINE_CONFIGS[args.scenario]
     overrides = {}

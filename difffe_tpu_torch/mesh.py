@@ -56,9 +56,10 @@ class FEMesh:
     bc_mask: torch.Tensor
     bc_values: torch.Tensor
     grid: Optional[object] = None
-    # what kernel wrappers derive from the mesh, built at their first call
-    # (ops/kernels/fused_grad_kernel.mesh_constants); a mesh made by
-    # dataclasses.replace starts empty
+    # what kernel wrappers and the solver derive from the mesh, built at
+    # their first call (ops/kernels/fused_grad_kernel.mesh_constants,
+    # solver._mask_is_factory; the grid factories set the latter); a mesh
+    # made by dataclasses.replace starts empty
     derived: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
 
@@ -212,9 +213,11 @@ class FEMesh:
         on_bnd = ((rows == 0) | (rows == ny) | (cols == 0)
                   | (cols == nx)).reshape(-1)
         bc_mask = on_bnd.to(dtype)
-        return cls(nodes=nodes, elements=elements, bc_mask=bc_mask,
+        mesh = cls(nodes=nodes, elements=elements, bc_mask=bc_mask,
                    bc_values=bc_mask * bc_value,
                    grid=StructuredGrid.unit(nx, ny, x_range, y_range))
+        mesh.derived["factory_mask"] = True    # solver._mask_is_factory
+        return mesh
 
     @classmethod
     def box(cls, nx: int = 4, ny: int = 4, nz: int = 4,
@@ -261,10 +264,12 @@ class FEMesh:
         m = torch.ones((nz + 1, ny + 1, nx + 1), dtype=dtype, device=device)
         m[1:-1, 1:-1, 1:-1] = 0.0
         bc_mask = m.reshape(-1)
-        return cls(nodes=nodes, elements=elements, bc_mask=bc_mask,
+        mesh = cls(nodes=nodes, elements=elements, bc_mask=bc_mask,
                    bc_values=bc_mask * bc_value,
                    grid=StructuredGrid3.unit(nx, ny, nz, x_range, y_range,
                                              z_range))
+        mesh.derived["factory_mask"] = True    # solver._mask_is_factory
+        return mesh
 
     @classmethod
     def line_p2(cls, n_elements: int = 10, **kw) -> "FEMesh":

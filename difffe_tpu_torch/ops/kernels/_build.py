@@ -158,3 +158,43 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
+
+
+_OPS = []       # the package's torch.library fragment, made at first use
+
+
+def kernel_op(name: str, schema: str, plain, launch, fake):
+    """Register a kernel as the op ``difffe::<name>`` and return it
+    (``torch.ops.difffe.<name>.default``): ``launch`` is its CUDA
+    implementation, ``plain`` (the plain version) its CPU one and ``fake``
+    gives the outputs' shapes to ``torch.export``'s trace, so an exported
+    program holds the kernel as one node.  A plain ``torch.library``
+    registration: ``torch.library.custom_op`` would add a Python autograd
+    layer to every launch, which costs the host-bound loops on K2 several
+    times as much (probes/k2_dispatch.py times both)."""
+    import torch
+
+    if not _OPS:
+        _OPS.append(torch.library.Library("difffe", "FRAGMENT"))
+    lib = _OPS[0]
+    lib.define(name + schema)
+    lib.impl(name, plain, "CPU")
+    lib.impl(name, launch, "CUDA")
+    torch.library.register_fake(f"difffe::{name}", fake, lib=lib)
+    return getattr(torch.ops.difffe, name).default
+
+
+def refuse_traced(kernel: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when a launch of ``kernel`` is traced.
+
+    ``torch.export`` traces with fake tensors, which hold no memory: a
+    kernel launched through ctypes on ``data_ptr()`` cannot run in the
+    trace, and without a ``torch.library`` custom op (as K1 and K2 have,
+    utils/export.py) an exported program could not hold it.  Every such
+    launch calls this first; nothing falls back to the plain version."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if any(t is not None and is_fake(t) for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no torch.library custom op yet, so torch.export "
+            f"cannot carry it (ROADMAP.md, Queue 1 step 11)")

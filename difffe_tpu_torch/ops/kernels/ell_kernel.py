@@ -126,7 +126,8 @@ def ell_apply(nbr: torch.Tensor, W: torch.Tensor, diag: torch.Tensor,
     if not v.is_cuda:
         raise ValueError(f"K8 runs on CPU (plain) or CUDA tensors, got "
                          f"device {v.device}")
-    from ._build import load_library
+    from ._build import load_library, refuse_traced
+    refuse_traced("K8 (csrc/ell_apply.cu)", v)
 
     _check(nbr, W, diag, v, m)
     n, B = v.shape
@@ -218,7 +219,8 @@ def ell_cluster_plan(nodes: int, Dn: int, itemsize: int, smem_limit: int,
 
 
 def _launch_ell_cg(nbr, W, diag, m, b, iters, plan: ClusterPlan):
-    from ._build import load_library
+    from ._build import load_library, refuse_traced
+    refuse_traced("K8s (csrc/ell_cg.cu)", b)
 
     _check(nbr, W, diag, b, m, "K8s", (torch.float32,))
     n, B = b.shape

@@ -25,6 +25,12 @@ Each operation has two implementations behind one wrapper:
 * the plain PyTorch version below (``torch.cumsum`` on the plane), taken
   only for CPU tensors, and the reference the kernel is checked against.
 
+Both launches are ``torch.library`` custom ops, ``difffe::cf_step`` and
+``difffe::cf_chain``, whose CUDA implementation is the kernel and CPU
+implementation the plain version; their fake implementations give the
+(1, Bp) loss and (N, Bp) plane, so ``torch.export`` carries a step or a
+chain as one node (utils/export.py).
+
 ``cumsum_via`` keeps the JAX signature: on the TPU it picked roll-adds
 ("vpu") or a split-bf16 matmul ("mxu"); here both values select the same
 exact scan.  Lanes b ≥ B are padding: loss 0, gradient 0, κ′ = κ (the
@@ -42,6 +48,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F_
+
+from ._build import kernel_op
 
 # Column indices in the packed (N, 6) constants block the plain version
 # reads; the kernel takes its first three columns (k1_rows).
@@ -101,6 +109,13 @@ def chain_takes(mesh) -> bool:
     ``fit_kappa`` routes every other line mesh to the torch closed form)."""
     return (mesh.dtype == torch.float32
             and packed_rows(mesh.n_nodes) <= MAX_ROWS)
+
+
+def _check_device(keT):
+    # the ops' fake implementation would take any other device (meta)
+    if keT.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"K1 runs on CPU (plain) or CUDA tensors, got "
+                         f"device {keT.device}")
 
 
 def _check_via(cumsum_via: str):
@@ -236,20 +251,37 @@ def _launch(name, keT, udT, cols, B, n, scale, u_l, u_r, chain_args=()):
     return loss, out
 
 
-def _cf_step(keT, udT, cols, B, n, scale, u_l, u_r):
-    """One grad step: plain version on CPU tensors, the kernel on CUDA."""
-    if keT.device.type == "cpu":
-        return _cf_step_plain(keT, udT, cols, B, scale, u_l, u_r)
+def _cf_step_cpu(keT, udT, cols, B, n, scale, u_l, u_r):
+    return _cf_step_plain(keT, udT, cols, B, scale, u_l, u_r)
+
+
+def _cf_step_cuda(keT, udT, cols, B, n, scale, u_l, u_r):
     return _launch("step", keT, udT, cols, B, n, scale, u_l, u_r)
 
 
-def _cf_chain(keT, udT, cols, B, n, scale, u_l, u_r, n_inner, lr):
-    """n_inner SGD steps: plain version on CPU tensors, the kernel on CUDA."""
-    if keT.device.type == "cpu":
-        return _cf_chain_plain(keT, udT, cols, B, scale, u_l, u_r,
-                               n_inner, lr)
+def _cf_chain_cpu(keT, udT, cols, B, n, scale, u_l, u_r, n_inner, lr):
+    return _cf_chain_plain(keT, udT, cols, B, scale, u_l, u_r, n_inner, lr)
+
+
+def _cf_chain_cuda(keT, udT, cols, B, n, scale, u_l, u_r, n_inner, lr):
     return _launch("chain", keT, udT, cols, B, n, scale, u_l, u_r,
-                   (int(n_inner), float(lr)))
+                   (n_inner, lr))
+
+
+def _like_keT(keT, *_):
+    return keT.new_empty((1, keT.shape[1])), torch.empty_like(keT)
+
+
+_CF_ARGS = ("(Tensor keT, Tensor? udT, Tensor cols, int B, int n, "
+            "float scale, float u_l, float u_r")
+#: one grad step and a chain of n_inner SGD steps as the ops
+#: ``difffe::cf_step`` and ``difffe::cf_chain``: the plain version on CPU
+#: tensors, the kernel on CUDA
+_cf_step = kernel_op("cf_step", _CF_ARGS + ") -> (Tensor, Tensor)",
+                     _cf_step_cpu, _cf_step_cuda, _like_keT)
+_cf_chain = kernel_op(
+    "cf_chain", _CF_ARGS + ", int n_inner, float lr) -> (Tensor, Tensor)",
+    _cf_chain_cpu, _cf_chain_cuda, _like_keT)
 
 
 # ---------------------------------------------------------------------------
@@ -334,10 +366,12 @@ def kappa_mse_step_cf_packed(keT, aux: dict, scale: Optional[float] = None,
     """Gradient step on packed (N, Bp) state: returns
     (loss_parts (1, Bp), gradT (N, Bp)), zero in padded lanes."""
     _check_via(cumsum_via)
+    _check_device(keT)
     if scale is None:
         scale = 2.0 / (aux["B"] * aux["n"])
-    return _cf_step(keT, aux["udT"], aux["cols"], aux["B"], aux["n"], scale,
-                    aux["u_l"], aux["u_r"])
+    return _cf_step(keT, aux["udT"], aux["cols"], int(aux["B"]),
+                    int(aux["n"]), float(scale), float(aux["u_l"]),
+                    float(aux["u_r"]))
 
 
 def kappa_sgd_chain_cf(keT, aux: dict, n_inner: int, lr: float,
@@ -352,10 +386,12 @@ def kappa_sgd_chain_cf(keT, aux: dict, n_inner: int, lr: float,
     if int(n_inner) < 1:
         raise ValueError("kappa_sgd_chain_cf needs n_inner >= 1")
     _check_via(cumsum_via)
+    _check_device(keT)
     if scale is None:
         scale = 2.0 / (aux["B"] * aux["n"])
-    return _cf_chain(keT, aux["udT"], aux["cols"], aux["B"], aux["n"], scale,
-                     aux["u_l"], aux["u_r"], int(n_inner), float(lr))
+    return _cf_chain(keT, aux["udT"], aux["cols"], int(aux["B"]),
+                     int(aux["n"]), float(scale), float(aux["u_l"]),
+                     float(aux["u_r"]), int(n_inner), float(lr))
 
 
 def cf_unpack(keT, aux: dict) -> torch.Tensor:

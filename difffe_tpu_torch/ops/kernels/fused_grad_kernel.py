@@ -301,7 +301,9 @@ def check_cuda(dtype, device, what: str, *tensors):
 
 def _launch_pcr(general: bool, kap, F, ud, cols, scale: float, inv_h: float,
                 block_lanes: int, plan=None):
-    from ._build import load_library
+    from ._build import load_library, refuse_traced
+    refuse_traced(f"K5{'b' if general else 'a'} (csrc/fused_grad_pcr.cu)",
+                  kap, F, ud)
 
     name = "k5b" if general else "k5a"
     dtype, dev = kap.dtype, kap.device

@@ -205,7 +205,8 @@ def _k7_plain(log_k, F, ud, cols, W, scale: float, version: int,
 def _launch(log_k, F, ud, cols, W, scale: float, version: int, refine: int,
             block_lanes: int):
     """K7 on the "fma" route."""
-    from ._build import load_library
+    from ._build import load_library, refuse_traced
+    refuse_traced("K7 (csrc/fused_grad_mxu.cu)", log_k, F, ud)
 
     dtype, dev = log_k.dtype, log_k.device
     check_cuda(dtype, dev, "K7", F, ud, cols, W)
@@ -235,7 +236,8 @@ def _launch_tc(log_k, F, ud, cols, W, scale: float, version: int,
                refine: int):
     """K7 on the "tc" route (float32, n ≤ 32), with the version's products
     (:data:`TC_PRODUCTS`)."""
-    from ._build import load_library
+    from ._build import load_library, refuse_traced
+    refuse_traced("K7 (csrc/fused_grad_mxu.cu)", log_k, F, ud)
 
     dtype, dev = log_k.dtype, log_k.device
     check_cuda(dtype, dev, "K7", F, ud, cols, W)

@@ -133,7 +133,8 @@ def _k6_plain(kappa_e, F, ud, cols, inv_h: float, scale: float):
 
 def _launch(mesh, kappa_e, F, ud, cols, inv_h: float, scale: float,
             block_lanes: int, plan: Optional[str]):
-    from ._build import load_library
+    from ._build import load_library, refuse_traced
+    refuse_traced("K6 (csrc/fused_grad_thomas.cu)", kappa_e, F, ud)
 
     dtype, dev = kappa_e.dtype, kappa_e.device
     check_cuda(dtype, dev, "K6", F, ud, cols)

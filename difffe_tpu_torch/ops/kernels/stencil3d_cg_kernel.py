@@ -156,7 +156,8 @@ def _launch_cg3(D, b, Minv, x0, iters, plan: Optional[ClusterPlan] = None):
     """K4a on ``plan``'s route (default :func:`cluster_plan`'s for the
     shape and the stored type; the tests and chip_smoke.py pass another to
     compare routes and cluster sizes)."""
-    from ._build import load_library
+    from ._build import load_library, refuse_traced
+    refuse_traced("K4a (csrc/stencil3d_cg.cu)", D, b)
 
     B, Dz, H, W = _check_cuda_planes(D, Minv, (b, x0))
     out = torch.empty_like(b)
@@ -185,7 +186,8 @@ def _launch_cg3_2(D, b, Minv, x0, lam0, ud, scale, iters,
     """K4b on ``plan``'s route (default :func:`cluster_plan`'s for the
     shape and the stored type; the tests and chip_smoke.py pass another to
     compare routes and cluster sizes)."""
-    from ._build import load_library
+    from ._build import load_library, refuse_traced
+    refuse_traced("K4b (csrc/stencil3d_cg.cu)", D, b)
 
     B, Dz, H, W = _check_cuda_planes(D, Minv, (b, x0, lam0, ud))
     x = torch.empty_like(b)

@@ -289,7 +289,8 @@ def _launch_cg(D, b, Minv, x0, iters, plan: Optional[ClusterPlan] = None):
     """K3a on ``plan``'s route (default :func:`cluster_plan`'s for the
     shape, K3b's; the tests and chip_smoke.py pass another to compare
     routes and cluster sizes)."""
-    from ._build import load_library
+    from ._build import load_library, refuse_traced
+    refuse_traced("K3a (csrc/stencil_cg.cu)", D, b)
 
     B, H, W = _check_cuda_planes(D, (b, Minv, x0))
     out = torch.empty_like(b)
@@ -322,7 +323,8 @@ def _launch_cg2(D, b, Minv, x0, lam0, ud, scale, iters,
     """K3b on ``plan``'s route (default :func:`cluster_plan`'s for the
     shape; the tests and chip_smoke.py pass another to compare routes and
     cluster sizes)."""
-    from ._build import load_library
+    from ._build import load_library, refuse_traced
+    refuse_traced("K3b (csrc/stencil_cg.cu)", D, b)
 
     B, H, W = _check_cuda_planes(D, (b, Minv, x0, lam0, ud))
     x = torch.empty_like(b)

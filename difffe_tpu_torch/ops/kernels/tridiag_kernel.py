@@ -30,11 +30,15 @@ only set the block route's ``spb``, the launch shape:
 Each scenario's arithmetic is the same whatever ``spb`` is, so every layout
 gives the same bits.
 
-The solve has two implementations behind one wrapper: the kernel, launched
-for CUDA tensors, and the plain version (the PCR oracle of ops/tridiag.py
-on explicitly batched bands), taken only for CPU tensors and the reference
-the kernel is checked against.  Name mapped from the JAX module:
-``tridiag_solve_pallas`` → :func:`tridiag_solve_kernel`.
+The solve is one ``torch.library`` custom op, ``difffe::tridiag_pcr``
+(d, e, F as (B, n) rows, ``spb``, ``plan``), with two implementations: the
+kernel, registered for CUDA tensors, and the plain version (the PCR oracle
+of ops/tridiag.py on explicitly batched bands), registered for CPU tensors
+and the reference the kernel is checked against.  Its fake implementation
+gives the (B, n) output, so ``torch.export`` traces a solve as one node and
+an exported program runs the kernel on the card (utils/export.py).  Name
+mapped from the JAX module: ``tridiag_solve_pallas`` →
+:func:`tridiag_solve_kernel`.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import math
 import torch
 
 from ..tridiag import _tridiag_solve_impl
+from ._build import kernel_op
 
 #: Kernel launches made by the wrapper: "pcr" on the warp route, "pcr_block"
 #: on the block route.
@@ -109,33 +114,34 @@ def _batch_stride(t: torch.Tensor) -> int:
     return 0 if t.shape[0] == 1 else t.stride(0)
 
 
-def _launch(d, e, F, lead, n, spb, plan=None):
+def _launch(d2, e2, F2, spb, plan=None):
+    """The kernel on (B, n) rows of bands and right-hand sides (stride-0
+    rows of a shared band read in place)."""
     from ._build import load_library
 
-    for t in (d, e):
-        if t.device != F.device or t.dtype != F.dtype:
+    for t in (d2, e2):
+        if t.device != F2.device or t.dtype != F2.dtype:
             raise ValueError("K2 bands must share F's device and dtype")
-    d2, e2, F2 = _rows(d, lead, n), _rows(e, lead, n - 1), _rows(F, lead, n)
-    B = F2.shape[0]
-    route = k2_plan(n, F.dtype, B, plan)
-    u = torch.empty((B, n), dtype=F.dtype, device=F.device)
+    B, n = F2.shape
+    route = k2_plan(n, F2.dtype, B, plan)
+    u = torch.empty((B, n), dtype=F2.dtype, device=F2.device)
     if B == 0:
         return u
     lib = load_library()
     bands = (d2.data_ptr(), _batch_stride(d2), e2.data_ptr(),
              _batch_stride(e2), F2.data_ptr(), _batch_stride(F2),
              u.data_ptr(), B, n)
-    is_double = int(F.dtype == torch.float64)
-    with torch.cuda.device(F.device):
+    is_double = int(F2.dtype == torch.float64)
+    with torch.cuda.device(F2.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "warp":
             rc = lib.difffe_tridiag_pcr_warp(*bands, is_double, stream)
         else:
-            cap = lib.difffe_tridiag_pcr_max_rows(F.element_size())
+            cap = lib.difffe_tridiag_pcr_max_rows(F2.element_size())
             if n > cap:
                 raise ValueError(
                     f"K2 holds a whole system in one block's shared "
-                    f"memory: n = {n} exceeds {cap} rows for {F.dtype}")
+                    f"memory: n = {n} exceeds {cap} rows for {F2.dtype}")
             rc = lib.difffe_tridiag_pcr(*bands, spb, is_double, stream)
     if rc != 0:
         raise RuntimeError(f"K2 tridiag_pcr ({route} route) launch failed: "
@@ -144,10 +150,24 @@ def _launch(d, e, F, lead, n, spb, plan=None):
     return u
 
 
+def _like_F(d, e, F, spb, plan):
+    return F.new_empty(F.shape)
+
+
+#: K2 as the op ``difffe::tridiag_pcr(d, e, F, spb, plan)``: u = T⁻¹F for
+#: (B, n) rows d, F and (B, n−1) rows e; the plain version on CPU tensors,
+#: the kernel on CUDA tensors (``plan`` forces its route, ``spb`` is the
+#: block route's scenarios a block)
+tridiag_pcr = kernel_op(
+    "tridiag_pcr", "(Tensor d, Tensor e, Tensor F, int spb, str? plan) "
+                   "-> Tensor",
+    lambda d, e, F, spb, plan: _pcr_plain(d, e, F), _launch, _like_F)
+
+
 def _solve(d, e, F, block_b, layout, plan=None):
-    """u = T⁻¹F over the broadcast leading axes of d, e and F.  Plain
-    version on CPU tensors, the kernel on CUDA (``plan`` forces its
-    route)."""
+    """u = T⁻¹F over the broadcast leading axes of d, e and F, through
+    ``difffe::tridiag_pcr``: the plain version on CPU tensors, the kernel
+    on CUDA (``plan`` forces its route)."""
     n = F.shape[-1]
     if n < 1 or d.shape[-1] != n or e.shape[-1] != n - 1:
         raise ValueError(f"bands of shapes d {tuple(d.shape)}, e "
@@ -157,13 +177,12 @@ def _solve(d, e, F, block_b, layout, plan=None):
     if d.shape[:-1] != lead or e.shape[:-1] != lead:
         lead = torch.broadcast_shapes(d.shape[:-1], e.shape[:-1], lead)
     spb = scenarios_per_block(n, block_b, layout)
-    if F.device.type == "cpu":
-        return _pcr_plain(d.expand(lead + (n,)), e.expand(lead + (n - 1,)),
-                          F.expand(lead + (n,)))
-    if not F.is_cuda:
+    if F.device.type not in ("cpu", "cuda"):
         raise ValueError(f"K2 runs on CPU (plain) or CUDA tensors, got "
                          f"device {F.device}")
-    return _launch(d, e, F, lead, n, spb, plan).reshape(lead + (n,))
+    u = tridiag_pcr(_rows(d, lead, n), _rows(e, lead, n - 1),
+                    _rows(F, lead, n), spb, plan)
+    return u.reshape(lead + (n,))
 
 
 class _TridiagSolveKernel(torch.autograd.Function):

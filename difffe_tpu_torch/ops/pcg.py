@@ -34,6 +34,7 @@ def batched_dot(ndim: int = 2):
     def dot(u, v):
         return (u * v).sum(dim=dims, keepdim=True)
 
+    dot.scope_ndim = ndim      # names it to ops/stencil.stencil_cg_gated
     return dot
 
 

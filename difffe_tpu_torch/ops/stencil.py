@@ -19,10 +19,18 @@ theorem backward: one adjoint solve through ``apply_inv`` itself plus the
 closed-form residual VJP.  Both backwards are written in differentiable
 torch ops, so double backward (Hessian-vector products) composes as it
 does in JAX.
+
+A tol-gated solve reads one boolean an iteration, which ``torch.export``
+cannot trace, so ``apply_inv`` runs every tol-gated solve as one
+``torch.library`` custom op, ``difffe::stencil_cg_gated``, whose
+implementation is the loop: an exported program holds the op as one node
+(utils/export.py).  Each gated solve appends its CG iteration count to
+:data:`gated_iters`.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Optional, Tuple
 
@@ -232,21 +240,57 @@ def _operator(C, m, v):
     return m * v + p * stencil_apply(C, p * v)
 
 
-def _pcg_grid(C, m, b, Minv, x0, tol, maxiter, dot=None):
+#: Test hook: CG iterations of the latest tol-gated ``apply_inv`` solves,
+#: newest last (live or in an exported program's replay; a forward solve
+#: and its adjoint append one each).  One deque for the process, so solves
+#: run concurrently interleave their counts.
+gated_iters = collections.deque(maxlen=64)
+
+
+def _apply_inv_loop(grid, kl, ku, b, tol, maxiter, dot):
+    """(x, CG iterations) of the Jacobi-preconditioned solve."""
     from .pcg import pcg
-    return pcg(lambda v: _operator(C, m, v), b, lambda r: Minv * r, x0,
-               tol, maxiter, dot=dot)
 
-
-def _apply_inv_impl(grid, kl, ku, b, tol, maxiter, dot):
     C = stencil_coefficients(grid, kl, ku)
     m = boundary_mask_grid(grid, b.dtype, b.device)
     p = 1.0 - m
     diagA = m + p * C[..., 0, :, :]
     Minv = 1.0 / torch.where(diagA.abs() > 1e-30, diagA,
                              torch.ones_like(diagA))
+    x, iters, _ = pcg(lambda v: _operator(C, m, v), b, lambda r: Minv * r,
+                      torch.zeros_like(b), tol, maxiter, dot=dot,
+                      with_diagnostics=True)
+    return x, iters
+
+
+@torch.library.custom_op(
+    "difffe::stencil_cg_gated", mutates_args=(),
+    schema="(Tensor kl, Tensor ku, Tensor b, int nx, int ny, float hx, "
+           "float hy, float tol, int maxiter, int dot_ndim) -> Tensor")
+def stencil_cg_gated(kl, ku, b, nx, ny, hx, hy, tol, maxiter, dot_ndim):
+    """The tol-gated ``apply_inv`` solve as one op: ``dot_ndim`` 0 is the
+    global dot, n > 0 ``pcg.batched_dot(n)``."""
+    from .pcg import batched_dot
+
+    x, iters = _apply_inv_loop(
+        StructuredGrid(nx, ny, hx, hy), kl, ku, b, tol, maxiter,
+        batched_dot(dot_ndim) if dot_ndim else None)
+    gated_iters.append(iters)
+    return x
+
+
+@stencil_cg_gated.register_fake
+def _(kl, ku, b, nx, ny, hx, hy, tol, maxiter, dot_ndim):
+    return torch.empty_like(b)
+
+
+def _apply_inv_impl(grid, kl, ku, b, tol, maxiter, dot):
     maxit = maxiter if maxiter is not None else (grid.nx + 1) * (grid.ny + 1)
-    return _pcg_grid(C, m, b, Minv, torch.zeros_like(b), tol, maxit, dot)
+    if tol > 0.0:
+        return stencil_cg_gated(kl, ku, b, grid.nx, grid.ny, grid.hx,
+                                grid.hy, float(tol), int(maxit),
+                                0 if dot is None else dot.scope_ndim)
+    return _apply_inv_loop(grid, kl, ku, b, tol, maxit, dot)[0]
 
 
 class _ApplyInv(torch.autograd.Function):
@@ -277,9 +321,9 @@ def apply_inv(grid: StructuredGrid, kappa_lu, b: torch.Tensor,
 
     A differentiable linear-solve primitive: its backward solves A λ = x̄
     with this same primitive (A is symmetric), so reverse mode composes to
-    any order.  ``dot`` is the CG inner product (default: one global dot
-    coupling the whole batch, as in JAX; ``pcg.batched_dot(2)`` gives
-    independent per-scenario solves, what JAX gets from ``vmap``)."""
+    any order.  ``dot`` is the CG inner product: None (one global dot
+    coupling the whole batch, as in JAX) or ``pcg.batched_dot(n)``
+    (independent per-scenario solves, what JAX gets from ``vmap``)."""
     kl, ku = kappa_lu
     return _ApplyInv.apply(grid, tol, maxiter, dot, kl, ku, b)
 

@@ -152,6 +152,8 @@ def workloads(dev):
 
 def launch(fn, mesh, general, kap, F, ud):
     """One warp-route step through ``fn``: (loss, gradient)."""
+    _build.refuse_traced("K5's warp variants (probes/k5_warp_variants.py)",
+                         kap, F, ud)
     B = kap.shape[0]
     cols, inv_h = (k5.general_constants(mesh) if general
                    else (k5.scalar_columns(mesh), 0.0))

@@ -176,7 +176,8 @@ def rule_slack(variant: str, n: int) -> float:
 
 def _launch(variant: str, log_k, F, ud, cols, W, scale: float):
     """One launch of ``variant``'s kernel."""
-    from ..ops.kernels._build import load_library
+    from ..ops.kernels._build import load_library, refuse_traced
+    refuse_traced("P2 (probes/k7_ablation.py)", log_k, F, ud)
 
     dtype, dev = log_k.dtype, log_k.device
     what = f"K7 ablation {variant}"

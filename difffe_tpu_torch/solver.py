@@ -85,18 +85,22 @@ def _cg_policy(mesh: FEMesh, cg_tol, cg_maxiter):
 def _mask_is_factory(mesh: FEMesh) -> bool:
     """True when the mesh's Dirichlet set is the factory full boundary of
     its grid (the assumption of the structured stencil solvers).  One
-    device-to-host copy of the mask."""
-    mask = mesh.bc_mask.detach().cpu().numpy() > 0.5
-    shape = mesh.grid.node_shape
-    factory = np.zeros(shape, bool)
-    for ax in range(len(shape)):
-        lo = [slice(None)] * len(shape)
-        lo[ax] = 0
-        hi = [slice(None)] * len(shape)
-        hi[ax] = -1
-        factory[tuple(lo)] = True
-        factory[tuple(hi)] = True
-    return bool((mask.reshape(shape) == factory).all())
+    device-to-host copy of the mask at a mesh's first call, the answer kept
+    in ``mesh.derived``: a traced call (utils/export.py) reads no tensor."""
+    if "factory_mask" not in mesh.derived:
+        mask = mesh.bc_mask.detach().cpu().numpy() > 0.5
+        shape = mesh.grid.node_shape
+        factory = np.zeros(shape, bool)
+        for ax in range(len(shape)):
+            lo = [slice(None)] * len(shape)
+            lo[ax] = 0
+            hi = [slice(None)] * len(shape)
+            hi[ax] = -1
+            factory[tuple(lo)] = True
+            factory[tuple(hi)] = True
+        mesh.derived["factory_mask"] = bool(
+            (mask.reshape(shape) == factory).all())
+    return mesh.derived["factory_mask"]
 
 
 def _solve_stencil(mesh: FEMesh, kappa, f: torch.Tensor, cg_tol: float,

@@ -1837,3 +1837,106 @@ def test_parallel_halo_and_pipeline_on_the_card(nccl_mesh):
     (gp_ref,) = torch.autograd.grad(cost_ref, (kappa,))
     assert rel_err(u_fin, traj[-1]) <= 1e-5
     assert rel_err(cost, cost_ref) <= 1e-5 and rel_err(gp, gp_ref) <= 1e-5
+
+
+# --- AOT export (utils/export.py): K2 and K1 as torch.library custom ops
+
+
+def _export_line_case(dev, B, dtype=torch.float32):
+    mesh = FEMesh.line(128, dtype=dtype, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(B)
+    kappa = 1.0 + torch.rand(B, generator=gen, device=dev, dtype=dtype)
+    f = torch.randn(B, 129, generator=gen, device=dev, dtype=dtype)
+    return mesh, kappa, f
+
+
+@pytest.mark.parametrize("B, key", [(1024, "pcr_block"), (4096, "pcr")])
+def test_export_k2_artifacts_against_the_live_route(cuda, B, key):
+    """Config 2's line in f32: the solver artifact gives the live K2
+    route's bits, one launch a call on the route k2_plan names; the
+    gradient artifact makes two, and meets autograd through the live route
+    by the rule of phase 7 against the f64 plain route."""
+    from difffe_tpu_torch.utils import export as texp
+
+    mesh, kappa, f = _export_line_case(cuda, B)
+    solve = texp.load_exported(texp.export_batched_solver(
+        mesh, B, method="tridiag_pallas"))
+    step = texp.load_exported(texp.export_gradient_step(
+        mesh, B, method="tridiag_pallas"))
+    live = solve_poisson_batched(mesh, kappa, f, method="tridiag_pallas",
+                                 kappa_batched=True)
+    ud = 0.5 * live
+    for fn, args, launched in ((solve, (kappa, f), 1),
+                               (step, (kappa.log(), f, ud), 2)):
+        before = dict(k2.launches)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        assert k2.launches[key] == before[key] + launched
+        assert sum(k2.launches.values()) == sum(before.values()) + launched
+    assert torch.equal(solve(kappa, f), live)
+    loss, g = out
+    x = kappa.log().requires_grad_()
+    lv = ((solve_poisson_batched(mesh, x.exp(), f, method="tridiag_pallas",
+                                 kappa_batched=True) - ud) ** 2).mean()
+    lv.backward()
+    m64 = FEMesh.line(128, dtype=torch.float64, device=cuda)
+    x64 = kappa.double().log().requires_grad_()
+    l64 = ((solve_poisson_batched(m64, x64.exp(), f.double(),
+                                  method="tridiag", kappa_batched=True)
+            - ud.double()) ** 2).mean()
+    l64.backward()
+    for a, b, c in ((loss, lv.detach(), l64.detach()), (g, x.grad, x64.grad)):
+        ok, errs = _within_rule(a, b, c)
+        assert ok, errs
+
+
+def test_cli_export_of_a_line_on_the_card_carries_k2(cuda, tmp_path):
+    """`cli export --dim 1` on the card traces K2: one node a solve, two a
+    gradient step."""
+    from difffe_tpu_torch import cli
+    from difffe_tpu_torch.utils import export as texp
+
+    for extra, nodes in (([], 1), (["--grad"], 2)):
+        path = tmp_path / f"line_{nodes}.pt2"
+        assert cli.main(["export", str(path), "--dim", "1", "--elements",
+                         "16", "--batch", "8", *extra]) == 0
+        ep = texp._load(path.read_bytes())[0]
+        targets = [str(n.target) for n in ep.graph.nodes
+                   if n.op == "call_function"]
+        assert targets.count("difffe.tridiag_pcr.default") == nodes
+
+
+def test_export_moves_a_cpu_artifact_to_the_card(cuda):
+    """platforms=["cpu", "cuda"]: traced on the CPU, loaded onto the card,
+    where the K2 node launches the kernel; device="cpu" keeps it on the
+    CPU's plain version."""
+    from difffe_tpu_torch.utils import export as texp
+
+    mesh, kappa, f = _export_line_case("cpu", 8, torch.float64)
+    blob = texp.export_batched_solver(mesh, 8, method="tridiag_pallas",
+                                      platforms=["cpu", "cuda"])
+    fn, specs = texp.load_exported_with_avals(blob)
+    assert [s.device.type for s in specs] == ["cuda", "cuda"]
+    before = k2.launches["pcr_block"]
+    u = fn(kappa.to(cuda), f.to(cuda))
+    torch.cuda.synchronize()
+    assert k2.launches["pcr_block"] == before + 1
+    u_cpu = texp.load_exported(blob, device="cpu")(kappa, f)
+    assert rel_err(u, u_cpu) <= 1e-12
+
+
+def test_export_refuses_k3a_with_the_guards_error(cuda):
+    """A function that reaches a kernel without a custom op (K3a: the
+    fixed-trip batched rectangle solve) raises the guard's error under
+    export_fn, and nothing falls back to the plain version."""
+    from difffe_tpu_torch.utils import export as texp
+
+    mesh = FEMesh.rectangle(8, 8, dtype=torch.float32, device=cuda)
+    k = torch.ones(4, device=cuda)
+    f = torch.ones(4, mesh.n_nodes, device=cuda)
+    before = sk.launches["cg"]
+    with pytest.raises(NotImplementedError, match="K3a .*ROADMAP"):
+        texp.export_fn(lambda k_, f_: solve_poisson_batched(
+            mesh, k_, f_, cg_tol=0.0, cg_maxiter=32, kappa_batched=True),
+            k, f)
+    assert sk.launches["cg"] == before

@@ -263,13 +263,39 @@ def _last_json(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
-def test_cli_list_and_not_yet_ported(capsys):
+def test_cli_list_and_not_yet_ported(capsys, monkeypatch, tmp_path):
+    """``list``, and the commands that were not yet ported, ``export`` and
+    ``serve``, in process: as tests/test_utils.py drives the JAX CLI, κ = 2
+    halves u and a malformed line gets an error reply while serving goes
+    on; a gradient artifact answers loss and grad."""
     assert cli.main(["list"]) == 0
     out = capsys.readouterr().out.splitlines()
     assert [line.split()[0] for line in out] == list(tcfg.BASELINE_CONFIGS)
-    for argv in (["export", "a.bin"], ["serve", "a.bin"]):
-        with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):
-            cli.main(argv)
+
+    def serve(art, *lines):
+        monkeypatch.setattr("sys.stdin", io.StringIO("\n".join(lines)))
+        assert cli.main(["serve", art, "--device", "cpu"]) == 0
+        return [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+
+    art, grad_art = str(tmp_path / "solver.pt2"), str(tmp_path / "grad.pt2")
+    for path, extra in ((art, []), (grad_art, ["--grad"])):
+        assert cli.main(["export", path, "--dim", "1", "--elements", "8",
+                         "--batch", "2", "--device", "cpu", *extra]) == 0
+        r = _last_json(capsys)
+        assert r["artifact"] == path and r["bytes"] > 100
+        assert r["grad"] == bool(extra)
+    ones = [[1.0] * 9] * 2
+    resp, err = serve(art, json.dumps({"kappa": [1.0, 2.0], "f": ones}),
+                      "{not json")
+    u = np.asarray(resp["u"])
+    assert u.shape == (2, 9)
+    np.testing.assert_allclose(u[1], u[0] / 2.0, atol=1e-6)
+    assert "error" in err
+    (g,) = serve(grad_art, json.dumps({"kappa": [0.0, 0.0], "f": ones,
+                                       "u_data": (0.5 * u).tolist()}))
+    assert g["loss"] > 0 and len(g["grad"]) == 2
+    # u(κ) = u(1)/κ overshoots the halved data: raising κ lowers the loss
+    assert all(x < 0 for x in g["grad"])
 
 
 def test_cli_run_on_the_cpu(monkeypatch, capsys):
