@@ -367,8 +367,8 @@ kernel K2 on every 1D solve:
     tests/test_debug.py's problem with its bound (1e-4).
 
 The serving path (utils/export.py, ``cli export`` and ``cli serve``): AOT
-artifacts through ``torch.export``, with K2 and K1 as ``torch.library``
-custom ops:
+artifacts through ``torch.export``, with every kernel a ``torch.library``
+op:
 
 34. config 2's ``FEMesh.line(128)`` in f32 at B = 1024 (``k2_plan``'s
     block route) and 4096 (its warp route): ``cli export --dim 1`` and
@@ -389,14 +389,35 @@ custom ops:
     ``export_fn``, bit for bit against the live chain with one K1 launch
     a call; ``cli export --dim 2 --elements 64 --batch 256`` (and
     ``--grad``) against the live tol-gated stencil route: u, the κ
-    gradient and each solve's CG iterations; ``export_fn`` of a function
-    that reaches K3a raises the guard's error.
+    gradient and each solve's CG iterations.
+
+Every kernel through its op (``ops/kernels/_build.kernel_op``):
+
+36. each kernel's path exported by ``export_fn`` at its earlier phase's
+    workload, loaded and replayed with the launch counts set to 0 (exactly
+    the planned launches, the live call's bits), the kernel's time a call
+    inside the artifact and in the live call (profiler), its plain
+    version's time and error: K3a on the factory and the natural planes
+    (``solve_poisson_batched``, ``cg_tol=0``, 64², B = 4096, 256
+    iterations), K3b (``fused_kappa_mse_step_2d``), K4a (the batched box
+    solve) and
+    K4b (``fused_kappa_mse_step_3d_kernel``) at 32³, B = 128, K5a, K5b,
+    K6 and K7 on its "tc" and "fma" routes at the production loop's
+    ``FEMesh.line(30)``, B = 262 144, K8 and K8s
+    (``solve_poisson_cg_ell_batched`` on phase 22's mesh, B = 256);
+    ``export_gradient_step`` on the 32³ box (B = 128) and on phase 22's
+    mesh with ``method="cg"``, each by phase 7's rule against the f64
+    route beside autograd through the live f32 route; the host µs a call
+    of K7's "tc" route and of K8 as the bare launch, the op and the public
+    call (``probes/k2_dispatch.op_ways``); the native meshtool built from
+    ``difffe_tpu_torch/native/`` (``backend() == "native"``, ``rcm_order``
+    equal to its numpy version on phase 22's mesh).
 
 Each path's launch counts are set to 0 just before its main-path phases
 (4-5, 8, 11, 14, 18, 22, 24's probe path, 25's facade call, 28's plan and
 closed loop, each of 29's and 30's runs, each of 31's inversion runs,
 32's halo runs, 33's pipeline and expert calls, 34's artifact calls, 35's
-chain artifact call) and read just after; comparisons and timing outside
+chain artifact call, each of 36's artifact calls) and read just after; comparisons and timing outside
 those do not count.  The
 third-to-last line is one JSON object describing each kernel, with its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -5174,7 +5195,7 @@ def serve_check(torch, art_path, solve, specs, kappa, f, card):
 
 def run_export(torch, dev, card):
     """Phases 34-35: the serving path on K2 and the main path's K1 chain
-    through AOT artifacts, the CLI's 2D artifact and the guard; returns the
+    through AOT artifacts and the CLI's 2D artifact; returns the
     kernels-line entries of K2 and K1 on the export path."""
     import shutil
     import tempfile
@@ -5373,24 +5394,394 @@ def run_export(torch, dev, card):
             raise AssertionError("phase 35: the 2D artifact differs from "
                                  "the live route")
         del arts, res, a, b_
-        # the guard: a function that reaches K3a
-        kg = torch.ones(8, device=dev)
-        fg = torch.ones(8, rect.n_nodes, device=dev)
-        try:
-            texp.export_fn(lambda k_, f_: solve_poisson_batched(
-                rect, k_, f_, cg_tol=0.0, cg_maxiter=32, kappa_batched=True),
-                kg, fg)
-        except NotImplementedError as e:
-            if "K3a" not in str(e):
-                raise
-            log(f"phase 35 guard: export_fn of a K3a solve raised "
-                f"NotImplementedError: {e}")
-        else:
-            raise AssertionError("phase 35: export_fn carried a K3a solve")
         log(f"phase 35: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return entries
+
+
+N_OPS_GEN = N_GEN        # phase 36's ELL mesh: phase 22's perturbed 64²
+OPS_TIMING_CALLS = 3     # calls a profiled trace of an artifact holds
+
+
+def leaves(x):
+    """The tensors of a nested tuple of outputs, in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in leaves(y)]
+    return [x]
+
+
+def export_op_case(torch, card, label, fn, args, want, key, launched, pick,
+                   ref, plain, entry, plain_ms=None):
+    """One kernel of phase 36: the public entry ``fn`` exported at
+    ``args``, loaded and replayed with every launch count set to 0 (just
+    ``want``, {module: {key: n}}, and the live call's bits); the keyed
+    kernel's time a call inside the artifact and in the live call
+    (profiler); ``pick(artifact output)`` held against ``ref()``, the
+    plain version on the same inputs, and the kernel's own plain version
+    ``plain()`` (None: ``ref``) timed, unless ``plain_ms`` gives its time
+    at this shape, measured earlier in the phase.  Returns the kernels
+    line's ``_export`` entry from ``entry`` = (name, source, replaces,
+    ops, nbytes, ops_s), or None without ``entry``."""
+    from difffe_tpu_torch.utils import export as texp
+
+    # the live call first: what the facade derives from a mesh at its
+    # first call (solver._mask_is_factory) is then read from the mesh, as
+    # export_batched_solver arranges for its artifacts
+    live = fn(*args)
+    t0 = time.perf_counter()
+    blob = texp.export_fn(fn, *args)
+    t_exp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = texp.load_exported(blob)
+    t_load = time.perf_counter() - t0
+    counts = reset_all_launches()
+    out = art(*args)
+    torch.cuda.synchronize()
+    check_only(counts, want, f"phase 36 {label} artifact")
+    a, b = leaves(out), leaves(live)
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"phase 36 {label}: the artifact differs from "
+                             f"the live call")
+    n_launch = sum(sum(d.values()) for d in want.values())
+    msg = (f"phase 36 {label}: {len(blob)} bytes, export {t_exp:.2f} s, "
+           f"load {t_load:.2f} s; {n_launch} launch(es) a call {want}, "
+           f"the live call's bits")
+    if entry is None:
+        log(msg + f" [{card}]")
+        return None
+    ms = {w: device_ms(torch, lambda _, g=g: g(*args), None,
+                       OPS_TIMING_CALLS, key, launched=launched)
+          for w, g in (("artifact", art), ("live", fn))}
+    plain = plain or ref
+    max_abs = float((pick(out) - ref()).abs().max())
+    if plain_ms is None:
+        plain_ms = device_ms(torch, lambda _: plain(), None, 1)
+    name, source, replaces, ops, nbytes, ops_s = entry
+    e = kernel_entry(name, source, replaces, n_launch, max_abs,
+                     ms["artifact"], plain_ms, ops, nbytes, None, ops_s)
+    log(msg + f"; {key}'s time a call (profiler): artifact "
+        f"{ms['artifact']:.4f} ms, live {ms['live']:.4f} ms; plain "
+        f"{plain_ms:.4f} ms, max abs err vs plain {max_abs:.3e}, bound "
+        f"{e['bound_ms']:.4f} ms ({e['bound_by']}) [{card}]")
+    return e
+
+
+def run_ops_export(torch, dev, card, seed):
+    """Phase 36: every kernel through its op, in an exported program; the
+    gradient artifacts of the box and of phase 22's mesh; the ops' host
+    cost against the bare launch; the native meshtool.  Returns the
+    ``_export`` entries of the kernels line."""
+    import dataclasses
+
+    from difffe_tpu_torch import (build_ell, native, production,
+                                  solve_poisson_cg_ell_batched)
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.native import meshtool
+    from difffe_tpu_torch.ops import unstructured as tun
+    from difffe_tpu_torch.ops.assembly import assemble_load
+    from difffe_tpu_torch.ops.kernels import ell_kernel as k8
+    from difffe_tpu_torch.ops.kernels import stencil3d_cg_kernel as k4
+    from difffe_tpu_torch.ops.kernels import stencil_cg_kernel as sk
+    from difffe_tpu_torch.ops.stencil import kappa_lu_from_elements
+    from difffe_tpu_torch.ops.stencil_natural import _prep_nat_pallas
+    from difffe_tpu_torch.probes import k2_dispatch
+    from difffe_tpu_torch.solver import solve_poisson_batched
+
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=dev).manual_seed(seed + 36)
+    t_all = time.perf_counter()
+    entries = []
+
+    # -- K3a (factory and natural planes), K3b: config 4's 64², B = 4096
+    rect = FEMesh.rectangle(N_2D, N_2D, dtype=f32, device=dev)
+    grid, B = rect.grid, BATCH_2D
+    H, W = grid.node_shape
+    n_nodes = B * H * W
+    kap = 1.0 + torch.rand(B, generator=gen, device=dev)
+    f = torch.rand(B, rect.n_nodes, generator=gen, device=dev)
+    mid = (H // 2) * W + W // 2           # a pinned interior node
+    pinned = dataclasses.replace(
+        rect, bc_mask=rect.bc_mask.clone().index_fill_(0, torch.tensor(
+            [mid], device=dev), 1.0),
+        bc_values=rect.bc_values.clone().index_fill_(0, torch.tensor(
+            [mid], device=dev), 0.25))
+    klu = kappa_lu_from_elements(grid, kap[:, None].expand(B, rect.n_elements))
+    fg = f.reshape(B, H, W)
+    g0 = rect.bc_values.reshape(H, W)
+    plain_k3a = None
+    for label, mesh, iters, name in (
+            ("K3a factory", rect, K3A_ITERS, "stencil_cg_export"),
+            ("K3a natural", pinned, NAT_ITERS, "stencil_cg_natural_export")):
+        if label.endswith("factory"):
+            _, D, b, Minv, x0, _ = sk._prepare(grid, klu, fg, g0)
+        else:
+            m = pinned.bc_mask.reshape(H, W)
+            _, D, b, Minv, x0, _ = _prep_nat_pallas(
+                grid, klu, fg, pinned.bc_values.reshape(H, W), m, None,
+                None, None)
+        entries.append(export_op_case(
+            torch, card, f"{label} (solve_poisson_batched, {N_2D}², B={B}, "
+            f"cg_tol=0, {iters} iterations)",
+            lambda k, f_, mesh=mesh, iters=iters: solve_poisson_batched(
+                mesh, k, f_, cg_tol=0.0, cg_maxiter=iters,
+                kappa_batched=True), (kap, f),
+            {"stencil_cg_kernel": {"cg": 1}}, "cluster_cg_kernel",
+            lambda: sk.launches["cg"], lambda u: u.reshape(B, H, W),
+            lambda D=D, b=b, Minv=Minv, x0=x0, iters=iters: sk._cg_plain(
+                D, b, Minv, x0, iters), None,
+            (name, K3_SOURCE, f"{JAX_K3}:191",
+             K3_OPS_PER_NODE_ITER * n_nodes * iters, 9 * n_nodes * 4,
+             None),
+            # K3a's plain version on the natural planes is the same
+            # function at the same shape and trip count as on the factory's
+            plain_ms=plain_k3a))
+        plain_k3a = entries[-1]["plain_ms"]
+        del D, b, Minv, x0
+    from difffe_tpu_torch.ops.kernels.stencil_cg_kernel import (
+        fused_kappa_mse_step_2d)
+    ud = 0.01 * torch.rand(B, H, W, generator=gen, device=dev)
+    kl, ku = (t.contiguous() for t in klu)
+    _, D, b, Minv, x0, _ = sk._prepare(grid, (kl, ku), fg, g0)
+    scale = 2.0 / n_nodes
+    entries.append(export_op_case(
+        torch, card, f"K3b (fused_kappa_mse_step_2d, {N_2D}², B={B}, "
+        f"{K3B_ITERS} iterations)",
+        lambda kl_, ku_, f_, ud_: fused_kappa_mse_step_2d(
+            grid, (kl_, ku_), f_, g0, ud_, iters=K3B_ITERS),
+        (kl, ku, fg, ud), {"stencil_cg_kernel": {"cg2": 1}},
+        "cluster_cg_kernel", lambda: sk.launches["cg2"], lambda o: o[2],
+        lambda: sk._cg2_plain(D, b, Minv, x0, torch.zeros_like(b), ud,
+                              scale, K3B_ITERS)[0], None,
+        ("stencil_cg2_export", K3_SOURCE, f"{JAX_K3}:412",
+         K3_OPS_PER_NODE_ITER * n_nodes * K3B_ITERS * 2, 12 * n_nodes * 4,
+         None)))
+    del D, b, Minv, x0, kl, ku, klu, fg, ud, f, kap
+    torch.cuda.empty_cache()
+
+    # -- K4a, K4b: the README's 32³ box, B = 128
+    box = FEMesh.box(N_3D, N_3D, N_3D, dtype=f32, device=dev)
+    grid3, B = box.grid, BATCH_3D
+    shape = (B,) + grid3.node_shape
+    n_nodes = B * box.n_nodes
+    kap = 1.0 + torch.rand(B, generator=gen, device=dev)
+    f = torch.rand(B, box.n_nodes, generator=gen, device=dev)
+    g3 = box.bc_values.reshape(grid3.node_shape)
+    keB = kap[:, None].expand(B, box.n_elements).contiguous()
+    _, D, b, Minv, x0, _ = k4._prepare3(grid3, keB, f.reshape(shape), g3)
+    entries.append(export_op_case(
+        torch, card, f"K4a (solve_poisson_batched, {N_3D}³, B={B}, "
+        f"cg_tol=0, {K4A_ITERS} iterations)",
+        lambda k, f_: solve_poisson_batched(
+            box, k, f_, cg_tol=0.0, cg_maxiter=K4A_ITERS,
+            kappa_batched=True), (kap, f),
+        {"stencil3d_cg_kernel": {"cg3": 1}}, "cluster_cg_kernel",
+        lambda: k4.launches["cg3"], lambda u: u.reshape(shape),
+        lambda: k4._cg3_plain(D, b, Minv, x0, K4A_ITERS), None,
+        ("stencil3d_cg_export", K4_SOURCE, f"{JAX_K4}:153",
+         K4_OPS_PER_NODE_ITER * n_nodes * K4A_ITERS, 11 * n_nodes * 4,
+         None)))
+    ud = 0.01 * torch.rand(shape, generator=gen, device=dev)
+    fb = f.reshape(shape)
+    entries.append(export_op_case(
+        torch, card, f"K4b (fused_kappa_mse_step_3d_kernel, {N_3D}³, "
+        f"B={B}, {K4B_ITERS} iterations)",
+        lambda k, f_, ud_: k4.fused_kappa_mse_step_3d_kernel(
+            grid3, k, f_, g3, ud_, iters=K4B_ITERS), (keB, fb, ud),
+        {"stencil3d_cg_kernel": {"cg3_2": 1}}, "cluster_cg_kernel",
+        lambda: k4.launches["cg3_2"], lambda o: o[2],
+        lambda: k4._cg3_2_plain(D, b, Minv, x0, torch.zeros_like(b), ud,
+                                2.0 / n_nodes, K4B_ITERS)[0], None,
+        ("stencil3d_cg2_export", K4_SOURCE, f"{JAX_K4}:368",
+         K4_OPS_PER_NODE_ITER * n_nodes * K4B_ITERS * 2, 14 * n_nodes * 4,
+         None)))
+    del D, b, Minv, x0, fb, keB
+    torch.cuda.empty_cache()
+
+    # the gradient artifact of the box against live autograd (phase 7's
+    # rule, the f64 route as the reference)
+    box64 = FEMesh.box(N_3D, N_3D, N_3D, dtype=f64, device=dev)
+    grad_check(torch, card, "box 32³", box, box64, "auto", kap.log(), f,
+               ud.reshape(B, box.n_nodes))
+    del box64, f, ud, kap
+    torch.cuda.empty_cache()
+
+    # -- K5a, K5b, K6, K7: the production loop's FEMesh.line(30), B = 262 144
+    mesh = production.production_mesh(dev)
+    n, B = mesh.n_nodes, production.BATCH
+    lk = 0.2 * torch.randn(B, generator=gen, device=dev)
+    ke = 1.0 + torch.rand(B, n - 1, generator=gen, device=dev)
+    Fb = torch.rand(B, n, generator=gen, device=dev)
+    Fs = Fb[0].clone()
+    udf = 0.1 * torch.rand(B, n, generator=gen, device=dev)
+    scale = 2.0 / (B * n)
+    for label, name, kap, F_, plan, want, key, ops, nbytes, ops_s in (
+            ("K5a", "k5a", lk, Fb, None, {"fused_grad_kernel": {"k5a": 1}},
+             "fused_pcr_warp_kernel", B * fused_ops("k5a", n),
+             B * fused_bytes("k5a", n), None),
+            ("K5b", "k5b", ke, Fs, None, {"fused_grad_kernel": {"k5b": 1}},
+             "fused_pcr_warp_kernel", B * fused_ops("k5b", n),
+             B * fused_bytes("k5b", n, shared_f=True), None),
+            ("K6", "k6", ke, Fs, None,
+             {"fused_grad_thomas_kernel": {"k6": 1}}, "thomas_reg_kernel",
+             B * fused_ops("k6", n), B * fused_bytes("k6", n, shared_f=True),
+             None),
+            ("K7 tc", "k7", lk, Fb, "tc",
+             {"fused_grad_mxu_kernel": {"k7": 1}}, "tc_kernel",
+             *k7_bound("tc", n, B, 2, 0)[:3]),
+            ("K7 fma", "k7", lk, Fb, "fma",
+             {"fused_grad_mxu_kernel": {"k7_fma": 1}}, "mxu_kernel",
+             *k7_bound("fma", n, B, 2, 0)[:3])):
+        mod = next(iter(want))
+        ctr = next(iter(want[mod]))
+        counts_mod = reset_all_launches()[mod]
+        kern = fused_kernel(name, mesh, scale, 2, 0, plan=plan)
+        plain = fused_plain(name, mesh, scale, 2, 0)
+        entry_name = (FUSED_NAMES[name] if label != "K7 fma"
+                      else "fused_mxu_fma") + "_export"
+        entries.append(export_op_case(
+            torch, card, f"{label} (n={n}, B={B})", kern, (kap, F_, udf),
+            want, key, lambda c=counts_mod, k=ctr: c[k], lambda o: o[1],
+            lambda kap=kap, F_=F_: plain(kap, F_, udf)[1], None,
+            (entry_name, FUSED_SOURCES[name], FUSED_REPLACES[name], ops,
+             nbytes, ops_s)))
+    del lk, ke, Fb, Fs, udf
+    torch.cuda.empty_cache()
+
+    # -- K8, K8s: phase 22's perturbed 64² triangulation, B = 256
+    tri = general_mesh(torch, dev, (N_OPS_GEN, N_OPS_GEN), f32, seed)
+    ell = build_ell(tri)
+    B = BATCH_GEN
+    ke = 1.0 + torch.rand(B, tri.n_elements, generator=gen, device=dev)
+    x = tri.nodes
+    f = (2 * math.pi ** 2 * torch.sin(math.pi * x[:, 0])
+         * torch.sin(math.pi * x[:, 1])).expand(B, tri.n_nodes)
+    FB = deterministic(torch, lambda: assemble_load(tri, f))
+    keB, Fbm = tun._ell_bm_prep(tri, ke, FB)
+    Wl, diag = tun.ell_weights_bm(tri, ell, keB)
+    m = tri.bc_mask.contiguous()
+    mg = (m * tri.bc_values)[:, None]
+    Fc = Fbm.contiguous()
+    Kmg = k8.ell_apply_plain(ell.nbr, Wl, diag, mg.expand(Fc.shape),
+                             torch.zeros_like(m))
+    rhs = ((1.0 - m[:, None]) * (Fc - Kmg)).contiguous()
+    Dn = ell.nbr.shape[1]
+    ops8, bytes8 = k8_bound(tri.n_nodes, Dn, B)
+    ops_s, bytes_s = k8s_bound(ell.nbr, Wl, m, ELL_ITERS)
+
+    def solve(k_, F_):
+        return solve_poisson_cg_ell_batched(tri, ell, k_, F_, 0.0, ELL_ITERS)
+
+    def plain_u():
+        return (mg + k8.ell_cg_plain(ell.nbr, Wl, diag, m, rhs, 0.0,
+                                     ELL_ITERS)).T
+
+    # the artifact's K8 output (K(m g)) is no output of the solve: both
+    # entries hold the solve's u against the plain solve, and time their
+    # own kernel's plain version
+    for label, name, source, key, ctr, plain, ops, nbytes in (
+            ("K8", "ell_apply_export", K8_SOURCE, K8_KEYS["vec4"],
+             lambda: k8.body_launches["vec4"],
+             lambda: k8.ell_apply_plain(ell.nbr, Wl, diag,
+                                        mg.expand(Fc.shape).contiguous(),
+                                        torch.zeros_like(m)), ops8, bytes8),
+            ("K8s", "ell_cg_export", K8S_SOURCE, "ell_cg_kernel",
+             lambda: k8.launches["ell_cg"],
+             lambda: k8.ell_cg_plain(ell.nbr, Wl, diag, m, rhs, 0.0,
+                                     ELL_ITERS), ops_s, bytes_s)):
+        entries.append(export_op_case(
+            torch, card, f"{label} (solve_poisson_cg_ell_batched, "
+            f"{N_OPS_GEN}² perturbed, B={B}, {ELL_ITERS} iterations)",
+            solve, (ke, FB), {"ell_kernel": {"ell_apply": 1, "ell_cg": 1}},
+            key, ctr, lambda u: u, plain_u, plain,
+            (name, source, f"{P1_PROBE}:29 (try_kernel → pallas_call :31)"
+             + ("" if label == "K8" else
+                f" with the CG around it, {JAX_ELL_CG}:249"),
+             ops, nbytes, None)))
+    del keB, Fbm, Wl, diag, Fc, Kmg, rhs
+    torch.cuda.empty_cache()
+
+    # the gradient artifact of the ELL mesh on method="cg" (the element CG,
+    # tol-gated) against live autograd by phase 7's rule
+    tri64 = dataclasses.replace(tri, nodes=tri.nodes.double(),
+                                bc_mask=tri.bc_mask.double(),
+                                bc_values=tri.bc_values.double())
+    ud = 0.01 * torch.rand(B, tri.n_nodes, generator=gen, device=dev)
+    grad_check(torch, card, f"{N_OPS_GEN}² perturbed, method='cg'", tri,
+               tri64, "cg", 0.2 * torch.randn(B, generator=gen, device=dev),
+               f.contiguous(), ud)
+
+    # -- the ops' host cost against the bare launch (probes/k2_dispatch.py)
+    ways = k2_dispatch.op_ways(dev, gen)
+    for kernel in ("K7 tc", "K8"):
+        us = k2_dispatch.host_us(ways[kernel])
+        log(f"phase 36 host µs a call of {kernel} at {ways['shapes'][kernel]}"
+            f" (median of {k2_dispatch.ROUNDS} rounds of "
+            f"{k2_dispatch.CALLS} calls): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in us.items())
+            + f"; the op costs {us['op'] - us['launch']:.2f} µs over the "
+            f"bare launch [{card}]")
+    del ways
+    torch.cuda.empty_cache()
+
+    # -- the native meshtool, built from its own source
+    if native.backend() != "native":
+        raise AssertionError("phase 36: the native meshtool did not build")
+    elements = tri.elements.cpu().numpy()
+    rp, ci = native.build_adjacency(elements, tri.n_nodes)
+    perm = native.rcm_order(rp, ci)
+    saved = meshtool._lib, meshtool._tried
+    meshtool._lib, meshtool._tried = None, True
+    try:
+        perm_np = native.rcm_order(rp, ci)
+    finally:
+        meshtool._lib, meshtool._tried = saved
+    if not (perm == perm_np).all():
+        raise AssertionError("phase 36: rcm_order differs from its numpy "
+                             "version")
+    log(f"phase 36 native meshtool: backend {native.backend()} "
+        f"({meshtool.library_path().name}); rcm_order on phase 22's mesh "
+        f"({tri.n_nodes} nodes) equals the numpy version, bandwidth "
+        f"{native.graph_bandwidth(rp, ci)} → "
+        f"{native.graph_bandwidth(rp, ci, perm)}")
+    log(f"phase 36: {time.perf_counter() - t_all:.1f} s")
+    return entries
+
+
+def grad_check(torch, card, label, mesh, mesh64, method, log_k, f, ud):
+    """``export_gradient_step`` on ``mesh`` against autograd through the
+    live route, both by phase 7's rule against the f64 route on
+    ``mesh64``."""
+    from difffe_tpu_torch.ops import pcg
+    from difffe_tpu_torch.solver import solve_poisson_batched
+    from difffe_tpu_torch.utils import export as texp
+
+    B = log_k.shape[0]
+    t0 = time.perf_counter()
+    step = texp.load_exported(texp.export_gradient_step(mesh, B,
+                                                        method=method))
+    t_exp = time.perf_counter() - t0
+    pcg.gated_iters.clear()
+    loss, grad = step(log_k, f, ud)
+    iters = list(pcg.gated_iters)
+    res = {}
+    for name, mm, dt in (("live", mesh, None), ("f64", mesh64, torch.float64)):
+        x = (log_k if dt is None else log_k.to(dt)).clone().requires_grad_()
+        fd, udd = (f, ud) if dt is None else (f.to(dt), ud.to(dt))
+        pcg.gated_iters.clear()
+        lv = ((solve_poisson_batched(mm, x.exp(), fd, method=method,
+                                     kappa_batched=True) - udd) ** 2).mean()
+        lv.backward()
+        res[name] = (lv.detach(), x.grad, list(pcg.gated_iters))
+    el, _ = check_rule("loss", loss, res["live"][0], res["f64"][0],
+                       f"phase 36 {label}")
+    eg, eg32 = check_rule("grad", grad, res["live"][1], res["f64"][1],
+                          f"phase 36 {label}")
+    log(f"phase 36 gradient artifact, {label}, B={B}: export and load "
+        f"{t_exp:.2f} s; loss error vs f64 {el:.3e}, grad {eg:.3e} "
+        f"(autograd through the live f32 route {eg32:.3e}); CG iterations "
+        f"(forward, adjoint): artifact {iters}, live {res['live'][2]} "
+        f"[{card}]")
 
 
 def timeit_chained_min(fn, x0, length=4):
@@ -5480,6 +5871,11 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += run_export(torch, dev, card)
     log(f"serving path, phases 34-35: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels += run_ops_export(torch, dev, card, seed)
+    log(f"every kernel through its op, phase 36: "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -189,12 +189,16 @@ def refuse_traced(kernel: str, *tensors) -> None:
 
     ``torch.export`` traces with fake tensors, which hold no memory: a
     kernel launched through ctypes on ``data_ptr()`` cannot run in the
-    trace, and without a ``torch.library`` custom op (as K1 and K2 have,
-    utils/export.py) an exported program could not hold it.  Every such
-    launch calls this first; nothing falls back to the plain version."""
+    trace, and only an op (:func:`kernel_op`) can be held by an exported
+    program.  Every production kernel is such an op; the probes' kernels
+    (P2, probes/k7_ablation.py, and K5's warp variants,
+    probes/k5_warp_variants.py) are on no path a user exports and call
+    this before they launch instead; nothing falls back to the plain
+    version."""
     from torch._subclasses.fake_tensor import is_fake
 
     if any(t is not None and is_fake(t) for t in tensors):
         raise NotImplementedError(
-            f"{kernel} has no torch.library custom op yet, so torch.export "
-            f"cannot carry it (ROADMAP.md, Queue 1 step 11)")
+            f"{kernel} is a probe's kernel, not a torch.library op, so "
+            f"torch.export cannot carry it (ROADMAP.md: the probes refuse "
+            f"export by design)")

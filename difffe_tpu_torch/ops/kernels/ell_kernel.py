@@ -35,6 +35,13 @@ tensors and the reference the kernel is checked against:
   and a shape the plan admits take K8s; float64, tol-gated solves and
   shapes past the plan's reach take the per-iteration route, the plain
   version's PCG with one K8 launch an operator application.
+
+Each is one ``torch.library`` op, live and traced (``_build.kernel_op``):
+``difffe::ell_apply`` (K8) and ``difffe::ell_cg`` (the whole solve, on
+K8s or the per-iteration route, the route planned on the card at call
+time, or a tol-gated PCG loop), the plain version on CPU tensors, the
+kernel on CUDA tensors, so an exported program holds each as one node.
+A tol-gated solve appends its iterations to ``pcg.gated_iters``.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ from typing import Optional
 
 import torch
 
-from ..pcg import pcg
+from ..pcg import gated_iters, pcg
+from ._build import kernel_op
 from .stencil_cg_kernel import (CLUSTER_SIZES, ClusterPlan,
                                 check_schedulable, cluster_layout,
                                 smem_optin)
@@ -113,21 +121,10 @@ def k8_body(n: int, Dn: int, B: int, ptrs, body=None) -> str:
     return body
 
 
-def ell_apply(nbr: torch.Tensor, W: torch.Tensor, diag: torch.Tensor,
-              v: torch.Tensor, m: torch.Tensor, body=None) -> torch.Tensor:
-    """The masked operator y (n, B) of the module note: the plain version
-    on CPU tensors, kernel K8 on CUDA tensors, on the body :func:`k8_body`
-    picks (``body`` forces one)."""
-    if v.ndim != 2 or nbr.ndim != 2 or nbr.shape[0] != v.shape[0]:
-        raise ValueError(f"K8 takes v (n, B) and nbr (n, Dn), got "
-                         f"{tuple(v.shape)} and {tuple(nbr.shape)}")
-    if v.device.type == "cpu":
-        return ell_apply_plain(nbr, W, diag, v, m)
-    if not v.is_cuda:
-        raise ValueError(f"K8 runs on CPU (plain) or CUDA tensors, got "
-                         f"device {v.device}")
-    from ._build import load_library, refuse_traced
-    refuse_traced("K8 (csrc/ell_apply.cu)", v)
+def _launch_k8(nbr, W, diag, v, m, body=None):
+    """K8 on CUDA tensors, on the body :func:`k8_body` picks (``body``
+    forces one): the op's CUDA implementation."""
+    from ._build import load_library
 
     _check(nbr, W, diag, v, m)
     n, B = v.shape
@@ -147,6 +144,33 @@ def ell_apply(nbr: torch.Tensor, W: torch.Tensor, diag: torch.Tensor,
     return y
 
 
+#: K8 as the op ``difffe::ell_apply(nbr, W, diag, v, m, body)``
+k8_op = kernel_op(
+    "ell_apply", "(Tensor nbr, Tensor W, Tensor diag, Tensor v, Tensor m, "
+                 "str? body) -> Tensor",
+    lambda nbr, W, diag, v, m, body: ell_apply_plain(nbr, W, diag, v, m),
+    _launch_k8, lambda nbr, W, diag, v, m, body: torch.empty_like(v))
+
+
+def _check_device(t, what):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CPU (plain) or CUDA tensors, got "
+                         f"device {t.device}")
+
+
+def ell_apply(nbr: torch.Tensor, W: torch.Tensor, diag: torch.Tensor,
+              v: torch.Tensor, m: torch.Tensor, body=None) -> torch.Tensor:
+    """The masked operator y (n, B) of the module note, through
+    ``difffe::ell_apply``: the plain version on CPU tensors, kernel K8 on
+    CUDA tensors, on the body :func:`k8_body` picks (``body`` forces
+    one)."""
+    if v.ndim != 2 or nbr.ndim != 2 or nbr.shape[0] != v.shape[0]:
+        raise ValueError(f"K8 takes v (n, B) and nbr (n, Dn), got "
+                         f"{tuple(v.shape)} and {tuple(nbr.shape)}")
+    _check_device(v, "K8")
+    return k8_op(nbr, W, diag, v, m, body)
+
+
 # ---------------------------------------------------------------------------
 # K8s: the whole solve
 # ---------------------------------------------------------------------------
@@ -158,16 +182,20 @@ def _dot_nodes(u, v):
 
 
 def _pcg_bm(apply, nbr, W, diag, m, b, tol, maxiter):
-    """PCG from 0 on the eliminated operator ``apply`` (K8 or its plain
-    version) for the right-hand side b (n, B), per-scenario dots."""
+    """PCG from 0 on the eliminated operator ``apply`` (K8's launch or its
+    plain version) for the right-hand side b (n, B), per-scenario dots; a
+    tol-gated solve appends its iterations to ``pcg.gated_iters``."""
     mc = m[:, None]
     p = 1.0 - mc
     diagA = mc + p * diag
     Minv = 1.0 / torch.where(diagA.abs() > 1e-30, diagA,
                              torch.ones_like(diagA))
-    return pcg(lambda v: apply(nbr, W, diag, v.contiguous(), m), b,
-               lambda r: Minv * r, torch.zeros_like(b), tol, maxiter,
-               dot=_dot_nodes)
+    x, iters, _ = pcg(lambda v: apply(nbr, W, diag, v.contiguous(), m), b,
+                      lambda r: Minv * r, torch.zeros_like(b), tol, maxiter,
+                      dot=_dot_nodes, with_diagnostics=True)
+    if tol > 0.0:
+        gated_iters.append(iters)
+    return x
 
 
 def ell_cg_plain(nbr, W, diag, m, b, tol, maxiter):
@@ -219,15 +247,12 @@ def ell_cluster_plan(nodes: int, Dn: int, itemsize: int, smem_limit: int,
 
 
 def _launch_ell_cg(nbr, W, diag, m, b, iters, plan: ClusterPlan):
-    from ._build import load_library, refuse_traced
-    refuse_traced("K8s (csrc/ell_cg.cu)", b)
+    """K8s on ``plan``, a cluster plan for b's nodes."""
+    from ._build import load_library
 
     _check(nbr, W, diag, b, m, "K8s", (torch.float32,))
     n, B = b.shape
     Dn = nbr.shape[1]
-    if plan.route != "cluster" or plan.nodes != n:
-        raise ValueError(f"K8s takes a cluster plan for {n} nodes, got "
-                         f"{plan}")
     x = torch.empty_like(b)
     if B == 0:
         return x
@@ -250,30 +275,55 @@ def _launch_ell_cg(nbr, W, diag, m, b, iters, plan: ClusterPlan):
     return x
 
 
+def _cuda_ell_cg(nbr, W, diag, m, b, tol, maxiter, cluster):
+    """The op's CUDA implementation: the route planned from b's dtype,
+    ``tol`` and the shape on this card (``cluster`` forces one: 0 the
+    per-iteration route, c > 0 K8s at c blocks a scenario)."""
+    n, Dn = nbr.shape
+    if cluster is None:
+        plan = ell_cluster_plan(n, Dn, b.element_size(),
+                                smem_optin(b.device.index), tol)
+    elif cluster == 0:
+        plan = per_iteration_plan(n)
+    else:
+        plan = ell_cluster_layout(n, Dn, cluster, smem_optin(b.device.index))
+    if plan.route == "per_iteration":
+        return _pcg_bm(_launch_k8, nbr, W, diag, m, b, tol, maxiter)
+    if tol != 0.0:
+        raise ValueError(f"K8s runs fixed-trip solves (tol = 0), got tol = "
+                         f"{tol}")
+    return _launch_ell_cg(nbr, W, diag, m, b, maxiter, plan)
+
+
+#: the whole solve as the op ``difffe::ell_cg(nbr, W, diag, m, b, tol,
+#: maxiter, cluster)``
+ell_cg_op = kernel_op(
+    "ell_cg", "(Tensor nbr, Tensor W, Tensor diag, Tensor m, Tensor b, "
+              "float tol, int maxiter, int? cluster) -> Tensor",
+    lambda nbr, W, diag, m, b, tol, maxiter, cluster: ell_cg_plain(
+        nbr, W, diag, m, b, tol, maxiter),
+    _cuda_ell_cg, lambda nbr, W, diag, m, b, *_: torch.empty_like(b))
+
+
 def ell_cg(nbr: torch.Tensor, W: torch.Tensor, diag: torch.Tensor,
            m: torch.Tensor, b: torch.Tensor, tol: float, maxiter: int,
            plan: Optional[ClusterPlan] = None) -> torch.Tensor:
     """x (n, B): the Jacobi-PCG solve from 0 of the masked operator for the
     right-hand side b (n, B), ``maxiter`` iterations (``tol == 0``) or
-    fewer (tol-gated).  The plain version on CPU tensors; on CUDA tensors
-    the route of ``plan`` (default :func:`ell_cluster_plan`'s for b's dtype,
-    ``tol`` and the shape; the tests and chip_smoke.py pass another to
-    compare routes and cluster sizes): one K8s launch, or the per-iteration
-    route on K8."""
+    fewer (tol-gated), through ``difffe::ell_cg``.  The plain version on
+    CPU tensors; on CUDA tensors the route of ``plan`` (default
+    :func:`ell_cluster_plan`'s for b's dtype, ``tol`` and the shape, made
+    at call time; the tests and chip_smoke.py pass another to compare
+    routes and cluster sizes): one K8s launch, or the per-iteration route
+    on K8."""
     if b.ndim != 2 or nbr.ndim != 2 or nbr.shape[0] != b.shape[0]:
         raise ValueError(f"K8s takes b (n, B) and nbr (n, Dn), got "
                          f"{tuple(b.shape)} and {tuple(nbr.shape)}")
-    if b.device.type == "cpu":
-        return ell_cg_plain(nbr, W, diag, m, b, tol, maxiter)
-    if not b.is_cuda:
-        raise ValueError(f"K8s runs on CPU (plain) or CUDA tensors, got "
-                         f"device {b.device}")
-    plan = plan or ell_cluster_plan(b.shape[0], nbr.shape[1],
-                                    b.element_size(),
-                                    smem_optin(b.device.index), tol)
-    if plan.route == "per_iteration":
-        return _pcg_bm(ell_apply, nbr, W, diag, m, b, tol, maxiter)
-    if tol != 0.0:
-        raise ValueError(f"K8s runs fixed-trip solves (tol = 0), got tol = "
-                         f"{tol}")
-    return _launch_ell_cg(nbr, W, diag, m, b, maxiter, plan)
+    _check_device(b, "K8s")
+    cluster = None
+    if plan is not None:
+        if plan.route == "cluster" and plan.nodes != b.shape[0]:
+            raise ValueError(f"K8s takes a cluster plan for {b.shape[0]} "
+                             f"nodes, got {plan}")
+        cluster = plan.cluster
+    return ell_cg_op(nbr, W, diag, m, b, float(tol), int(maxiter), cluster)

@@ -47,6 +47,12 @@ scenarios a thread block holds on the block route.  The mesh-derived
 constant columns are built once per mesh and dtype
 (:func:`mesh_constants`).
 
+Both are one ``torch.library`` op, ``difffe::fused_pcr`` (``general`` 0
+for K5a, 1 for K5b), live and traced (``_build.kernel_op``): the kernel on
+CUDA tensors, its route planned from the shape at call time (``plan``
+forces one), the plain version on CPU tensors, so an exported program
+holds a step as one node.
+
 Neither step is differentiable: each *is* a gradient step, and its outputs
 never require grad.
 """
@@ -60,6 +66,7 @@ import numpy as np
 import torch
 
 from ..tridiag import _shift_down, _shift_up
+from ._build import kernel_op
 
 #: Kernel launches made by the wrappers, by kernel (both routes).
 launches = {"k5a": 0, "k5b": 0}
@@ -299,11 +306,11 @@ def check_cuda(dtype, device, what: str, *tensors):
             raise ValueError(f"{what}: operands on {t.device} and {device}")
 
 
-def _launch_pcr(general: bool, kap, F, ud, cols, scale: float, inv_h: float,
-                block_lanes: int, plan=None):
-    from ._build import load_library, refuse_traced
-    refuse_traced(f"K5{'b' if general else 'a'} (csrc/fused_grad_pcr.cu)",
-                  kap, F, ud)
+def _cuda_pcr(kap, F, ud, cols, general: int, scale: float, inv_h: float,
+              block_lanes: int, plan=None):
+    """K5a (``general`` 0) or K5b (1) on CUDA tensors, the op's CUDA
+    implementation."""
+    from ._build import load_library
 
     name = "k5b" if general else "k5a"
     dtype, dev = kap.dtype, kap.device
@@ -349,6 +356,35 @@ def _launch_pcr(general: bool, kap, F, ud, cols, scale: float, inv_h: float,
     return loss, grad
 
 
+def _pcr_cpu(kap, F, ud, cols, general, scale, inv_h, block_lanes, plan):
+    B, n = kap.shape[0], ud.shape[-1]
+    if general:
+        loss, grad = _k5b_plain(kap, F, ud.expand(B, n), cols, inv_h, scale)
+        return loss, grad.contiguous()      # the kernel's layout
+    return _k5a_plain(kap, F, ud.expand(B, n), cols, scale)
+
+
+def _like_pcr(kap, F, ud, cols, general, *_):
+    B, n = kap.shape[0], ud.shape[-1]
+    return kap.new_empty(B), kap.new_empty((B, n - 1) if general else B)
+
+
+#: K5a and K5b as the op ``difffe::fused_pcr(kap, F, ud, cols, general,
+#: scale, inv_h, block_lanes, plan)`` → (loss_parts, grad)
+fused_pcr = kernel_op(
+    "fused_pcr", "(Tensor kap, Tensor F, Tensor ud, Tensor cols, "
+                 "int general, float scale, float inv_h, int block_lanes, "
+                 "str? plan) -> (Tensor, Tensor)",
+    _pcr_cpu, _cuda_pcr, _like_pcr)
+
+
+def _launch_pcr(general: bool, kap, F, ud, cols, scale: float, inv_h: float,
+                block_lanes: int, plan=None):
+    """K5a or K5b through ``difffe::fused_pcr``."""
+    return fused_pcr(kap, F, ud, cols, int(general), float(scale),
+                     float(inv_h), int(block_lanes), plan)
+
+
 # ---------------------------------------------------------------------------
 # Public API (same names and signatures as the JAX module)
 # ---------------------------------------------------------------------------
@@ -385,9 +421,6 @@ def fused_kappa_mse_step(mesh, log_k, F, u_data,
         scale = 2.0 / (B * n)
     cols = scalar_columns(mesh)
     with torch.no_grad():
-        if log_k.device.type == "cpu":
-            return _k5a_plain(log_k, F, u_data.expand(B, n), cols,
-                              float(scale))
         return _launch_pcr(False, log_k, F, u_data, cols, scale, 0.0,
                            block_lanes, plan)
 
@@ -423,8 +456,5 @@ def fused_kappa_mse_step_general_pcr(mesh, kappa_e, F, u_data,
     if scale is None:
         scale = 2.0 / (B * n)
     with torch.no_grad():
-        if kappa_e.device.type == "cpu":
-            return _k5b_plain(kappa_e, F, u_data.expand(B, n), cols, inv_h,
-                              float(scale))
         return _launch_pcr(True, kappa_e, F, u_data, cols, scale, inv_h,
                            block_lanes, plan)

@@ -48,6 +48,10 @@ TPU's probe-only ablation switches (``_V2_PRECISION``,
 ``_V2_SKIP_MATMUL``) are not carried over: K7's ablations, the port of the
 TPU probe ``scripts/probe_mxu_kernel.py``, are kernels of their own
 (``difffe_tpu_torch/probes/k7_ablation.py``, ``csrc/k7_ablation.cu``).
+The step is one ``torch.library`` op, ``difffe::fused_mxu``, live and
+traced (``_build.kernel_op``): the kernel on CUDA tensors, its route
+planned from the shape at call time (``plan`` forces "tc" or "fma"), the
+plain version with exact products on CPU tensors.
 Not differentiable: it is the gradient step.
 """
 
@@ -59,6 +63,7 @@ import numpy as np
 import torch
 
 from . import fused_grad_kernel as _k5
+from ._build import kernel_op
 from ..tridiag import _shift_down, _shift_up
 from .fused_grad_kernel import (_as_dtype, _check_block_lanes,
                                 _check_planes, _plane, check_cuda,
@@ -202,11 +207,10 @@ def _k7_plain(log_k, F, ud, cols, W, scale: float, version: int,
     return (diff * diff).sum(-1), -scale * (lam * pf).sum(-1)
 
 
-def _launch(log_k, F, ud, cols, W, scale: float, version: int, refine: int,
-            block_lanes: int):
+def _cuda_fma(log_k, F, ud, cols, W, scale: float, version: int,
+              refine: int, block_lanes: int):
     """K7 on the "fma" route."""
-    from ._build import load_library, refuse_traced
-    refuse_traced("K7 (csrc/fused_grad_mxu.cu)", log_k, F, ud)
+    from ._build import load_library
 
     dtype, dev = log_k.dtype, log_k.device
     check_cuda(dtype, dev, "K7", F, ud, cols, W)
@@ -232,12 +236,11 @@ def _launch(log_k, F, ud, cols, W, scale: float, version: int, refine: int,
     return loss, grad
 
 
-def _launch_tc(log_k, F, ud, cols, W, scale: float, version: int,
-               refine: int):
+def _cuda_tc(log_k, F, ud, cols, W, scale: float, version: int,
+             refine: int):
     """K7 on the "tc" route (float32, n ≤ 32), with the version's products
     (:data:`TC_PRODUCTS`)."""
-    from ._build import load_library, refuse_traced
-    refuse_traced("K7 (csrc/fused_grad_mxu.cu)", log_k, F, ud)
+    from ._build import load_library
 
     dtype, dev = log_k.dtype, log_k.device
     check_cuda(dtype, dev, "K7", F, ud, cols, W)
@@ -264,6 +267,51 @@ def _launch_tc(log_k, F, ud, cols, W, scale: float, version: int,
                            f"error {rc}")
     launches["k7"] += 1
     return loss, grad
+
+
+def _cuda_mxu(log_k, F, ud, cols, W, scale, version, refine, block_lanes,
+              plan):
+    """K7 on CUDA tensors, the op's CUDA implementation: the route of
+    :func:`k7_plan` at call time, or ``plan`` ("tc" or "fma")."""
+    route = plan or k7_plan(log_k.dtype, ud.shape[-1], version)
+    if route == "tc":
+        return _cuda_tc(log_k, F, ud, cols, W, scale, version, refine)
+    if route != "fma":
+        raise ValueError(f"K7 runs the 'tc' or 'fma' route, got {route!r} "
+                         f"(meshes above {MXU_MAX_NODES} nodes take K5a)")
+    return _cuda_fma(log_k, F, ud, cols, W, scale, version, refine,
+                     block_lanes)
+
+
+def _mxu_cpu(log_k, F, ud, cols, W, scale, version, refine, block_lanes,
+             plan):
+    B, n = log_k.shape[0], ud.shape[-1]
+    return _k7_plain(log_k, F, ud.expand(B, n), cols, W, scale, version,
+                     refine)
+
+
+#: K7 as the op ``difffe::fused_mxu(log_k, F, ud, cols, W, scale, version,
+#: refine, block_lanes, plan)`` → (loss_parts, ∂log κ)
+fused_mxu = kernel_op(
+    "fused_mxu", "(Tensor log_k, Tensor F, Tensor ud, Tensor cols, "
+                 "Tensor W, float scale, int version, int refine, "
+                 "int block_lanes, str? plan) -> (Tensor, Tensor)",
+    _mxu_cpu, _cuda_mxu,
+    lambda log_k, *_: (torch.empty_like(log_k), torch.empty_like(log_k)))
+
+
+def _launch(log_k, F, ud, cols, W, scale: float, version: int, refine: int,
+            block_lanes: int):
+    """K7 on the "fma" route, through ``difffe::fused_mxu``."""
+    return fused_mxu(log_k, F, ud, cols, W, float(scale), int(version),
+                     int(refine), int(block_lanes), "fma")
+
+
+def _launch_tc(log_k, F, ud, cols, W, scale: float, version: int,
+               refine: int):
+    """K7 on the "tc" route, through ``difffe::fused_mxu``."""
+    return fused_mxu(log_k, F, ud, cols, W, float(scale), int(version),
+                     int(refine), 1, "tc")
 
 
 def fused_kappa_mse_step_mxu(mesh, log_k, F, u_data,
@@ -313,11 +361,5 @@ def fused_kappa_mse_step_mxu(mesh, log_k, F, u_data,
     block_lanes = _check_block_lanes(block_lanes)
     cols, W = scalar_columns(mesh), mxu_inverse(mesh)
     with torch.no_grad():
-        if log_k.device.type == "cpu":
-            return _k7_plain(log_k, F, u_data.expand(B, n), cols, W,
-                             float(scale), version, int(refine))
-        if (plan or route) == "tc":
-            return _launch_tc(log_k, F, u_data, cols, W, scale, version,
-                              int(refine))
-        return _launch(log_k, F, u_data, cols, W, scale, version,
-                       int(refine), block_lanes)
+        return fused_mxu(log_k, F, u_data, cols, W, float(scale), version,
+                         int(refine), block_lanes, plan)

@@ -26,8 +26,12 @@ plain PyTorch version below runs the same row recurrences on (B,) vectors
 and is taken only for CPU tensors.  The TPU's (N, 8, B/8) packing and its
 SMEM constant columns have no counterpart: the kernel reads the caller's
 (B, n) rows.  ``block_lanes`` caps the scenarios a thread block holds on
-the block route.  Not differentiable: it is the gradient step, and its
-outputs never require grad.
+the block route.  The step is one ``torch.library`` op,
+``difffe::fused_thomas``, live and traced (``_build.kernel_op``): the
+kernel on CUDA tensors, its route planned from the shape at call time
+(``plan`` forces one), the plain version on CPU tensors; the reg route's
+mesh rows reach it as a host tensor.  Not differentiable: it is the
+gradient step, and its outputs never require grad.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from ._build import kernel_op
 from .fused_grad_kernel import (_as_dtype, _check_block_lanes, _check_planes,
                                 _plane, check_cuda, general_constants,
                                 mesh_constants, rows_view, storage_code)
@@ -131,10 +136,12 @@ def _k6_plain(kappa_e, F, ud, cols, inv_h: float, scale: float):
     return loss, torch.stack(grad, dim=1)
 
 
-def _launch(mesh, kappa_e, F, ud, cols, inv_h: float, scale: float,
-            block_lanes: int, plan: Optional[str]):
-    from ._build import load_library, refuse_traced
-    refuse_traced("K6 (csrc/fused_grad_thomas.cu)", kappa_e, F, ud)
+def _cuda_thomas(kappa_e, F, ud, cols, host_rows, inv_h: float,
+                 scale: float, block_lanes: int, plan: Optional[str]):
+    """K6 on CUDA tensors, the op's CUDA implementation; ``host_rows`` is
+    the (3, n) rows (m, p, m g) in host memory, which the reg route passes
+    in its kernel's parameters."""
+    from ._build import load_library
 
     dtype, dev = kappa_e.dtype, kappa_e.device
     check_cuda(dtype, dev, "K6", F, ud, cols)
@@ -154,8 +161,11 @@ def _launch(mesh, kappa_e, F, ud, cols, inv_h: float, scale: float,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "reg":
+            if host_rows.device.type != "cpu":     # an artifact moved
+                host_rows = host_rows.cpu()
             rc = lib.difffe_fused_thomas_reg(
-                *operands, _host_rows(mesh).data_ptr(), loss.data_ptr(),
+                *operands, host_rows.contiguous().data_ptr(),
+                loss.data_ptr(),
                 grad.data_ptr(), B, n, float(inv_h), float(scale), stream)
         else:
             words = lib.difffe_thomas_workspace(B, n, block_lanes, is_double)
@@ -171,6 +181,31 @@ def _launch(mesh, kappa_e, F, ud, cols, inv_h: float, scale: float,
     launches["k6"] += 1
     route_launches[route] += 1
     return loss, grad
+
+
+def _thomas_cpu(kappa_e, F, ud, cols, host_rows, inv_h, scale, block_lanes,
+                plan):
+    B, n = kappa_e.shape[0], ud.shape[-1]
+    return _k6_plain(kappa_e, F.expand(B, n) if F.ndim == 2 else F,
+                     ud.expand(B, n), cols, inv_h, scale)
+
+
+#: K6 as the op ``difffe::fused_thomas(kappa_e, F, ud, cols, host_rows,
+#: inv_h, scale, block_lanes, plan)`` → (loss_parts, grad)
+fused_thomas = kernel_op(
+    "fused_thomas", "(Tensor kappa_e, Tensor F, Tensor ud, Tensor cols, "
+                    "Tensor host_rows, float inv_h, float scale, "
+                    "int block_lanes, str? plan) -> (Tensor, Tensor)",
+    _thomas_cpu, _cuda_thomas,
+    lambda kappa_e, *_: (kappa_e.new_empty(kappa_e.shape[0]),
+                         torch.empty_like(kappa_e)))
+
+
+def _launch(mesh, kappa_e, F, ud, cols, inv_h: float, scale: float,
+            block_lanes: int, plan: Optional[str]):
+    """K6 through ``difffe::fused_thomas``."""
+    return fused_thomas(kappa_e, F, ud, cols, _host_rows(mesh), float(inv_h),
+                        float(scale), int(block_lanes), plan)
 
 
 def fused_kappa_mse_step_general(mesh, kappa_e, F, u_data,
@@ -214,8 +249,5 @@ def fused_kappa_mse_step_general(mesh, kappa_e, F, u_data,
     if scale is None:
         scale = 2.0 / (B * n)
     with torch.no_grad():
-        if kappa_e.device.type == "cpu":
-            return _k6_plain(kappa_e, F.expand(B, n) if F.ndim == 2 else F,
-                             u_data.expand(B, n), cols, inv_h, float(scale))
         return _launch(mesh, kappa_e, F, u_data, cols, inv_h, scale,
                        block_lanes, plan)

@@ -18,6 +18,12 @@ Each solve has two implementations behind one wrapper:
   with the same freeze rule, ``ops/pcg.py`` with per-scenario dots), taken
   only for CPU tensors, and the reference the kernels are checked against.
 
+Each kernel is one ``torch.library`` op, live and traced
+(``_build.kernel_op``): ``difffe::stencil3d_cg`` (K4a) and
+``difffe::stencil3d_cg2`` (K4b), the kernel on CUDA tensors (its route
+planned from the shape and the stored type on the card at call time;
+``cluster`` forces one, as for K3), the plain version on CPU tensors.
+
 Names mapped from the JAX module: ``_cg3_pallas`` → :func:`_cg3` (K4a),
 ``_cg3_2_pallas`` → :func:`_cg3_2` (K4b), ``solve_structured_pallas_3d``
 → :func:`solve_structured_kernel_3d`, ``fused_kappa_mse_step_3d_pallas``
@@ -42,6 +48,7 @@ from typing import Optional
 import torch
 
 from ..pcg import batched_dot, pcg
+from ._build import kernel_op
 from ..stencil3d import (
     OFFSETS3,
     StructuredGrid3,
@@ -53,8 +60,10 @@ from ..stencil3d import (
     stencil3d_apply,
     stencil3d_coefficients,
 )
-from .stencil_cg_kernel import (ClusterPlan, _check_block_b,
-                                check_schedulable, cluster_plan, smem_optin)
+from .stencil_cg_kernel import (ClusterPlan, _check_block_b, _check_device,
+                                _fresh, check_schedulable, cluster_layout,
+                                cluster_plan, forced_cluster, smem_optin,
+                                workspace_plan)
 
 #: Kernel launches made by the wrappers, by kernel and route: "cg3" K4a
 #: and "cg3_2" K4b on the cluster route, "cg3_workspace" and
@@ -132,10 +141,15 @@ def _workspace(lib, B, Dz, H, W, device):
     return torch.empty(B * per, dtype=torch.float32, device=device)
 
 
-def _plan_cg3(D, Dz, H, W, plan):
-    """K4a's and K4b's plan (their blocks hold the same bytes)."""
-    return plan or cluster_plan(Dz * H * W, 7, D.element_size(),
-                                smem_optin(D.device.index))
+def _plan_cg3(D, Dz, H, W, cluster):
+    """K4a's and K4b's plan (their blocks hold the same bytes), or the one
+    ``cluster`` forces (0 the workspace route)."""
+    nodes, smem = Dz * H * W, smem_optin(D.device.index)
+    if cluster is None:
+        return cluster_plan(nodes, 7, D.element_size(), smem)
+    if cluster == 0:
+        return workspace_plan(nodes)
+    return cluster_layout(nodes, 7, D.element_size(), cluster, smem)
 
 
 def _ready(lib, D, B, Dz, H, W, plan, query):
@@ -152,19 +166,16 @@ def _ready(lib, D, B, Dz, H, W, plan, query):
     return None
 
 
-def _launch_cg3(D, b, Minv, x0, iters, plan: Optional[ClusterPlan] = None):
-    """K4a on ``plan``'s route (default :func:`cluster_plan`'s for the
-    shape and the stored type; the tests and chip_smoke.py pass another to
-    compare routes and cluster sizes)."""
-    from ._build import load_library, refuse_traced
-    refuse_traced("K4a (csrc/stencil3d_cg.cu)", D, b)
+def _cuda_cg3(D, b, Minv, x0, iters, cluster):
+    """K4a on CUDA tensors, the op's CUDA implementation."""
+    from ._build import load_library
 
     B, Dz, H, W = _check_cuda_planes(D, Minv, (b, x0))
     out = torch.empty_like(b)
     if B == 0:
         return out
     lib = load_library()
-    plan = _plan_cg3(D, Dz, H, W, plan)
+    plan = _plan_cg3(D, Dz, H, W, cluster)
     work = _ready(lib, D, B, Dz, H, W, plan,
                   lib.difffe_stencil3d_cg_clusters)
     with torch.cuda.device(D.device):
@@ -181,13 +192,9 @@ def _launch_cg3(D, b, Minv, x0, iters, plan: Optional[ClusterPlan] = None):
     return out
 
 
-def _launch_cg3_2(D, b, Minv, x0, lam0, ud, scale, iters,
-                  plan: Optional[ClusterPlan] = None):
-    """K4b on ``plan``'s route (default :func:`cluster_plan`'s for the
-    shape and the stored type; the tests and chip_smoke.py pass another to
-    compare routes and cluster sizes)."""
-    from ._build import load_library, refuse_traced
-    refuse_traced("K4b (csrc/stencil3d_cg.cu)", D, b)
+def _cuda_cg3_2(D, b, Minv, x0, lam0, ud, scale, iters, cluster):
+    """K4b on CUDA tensors, the op's CUDA implementation."""
+    from ._build import load_library
 
     B, Dz, H, W = _check_cuda_planes(D, Minv, (b, x0, lam0, ud))
     x = torch.empty_like(b)
@@ -195,7 +202,7 @@ def _launch_cg3_2(D, b, Minv, x0, lam0, ud, scale, iters,
     if B == 0:
         return x, lam
     lib = load_library()
-    plan = _plan_cg3(D, Dz, H, W, plan)
+    plan = _plan_cg3(D, Dz, H, W, cluster)
     work = _ready(lib, D, B, Dz, H, W, plan,
                   lib.difffe_stencil3d_cg2_clusters)
     with torch.cuda.device(D.device):
@@ -214,14 +221,54 @@ def _launch_cg3_2(D, b, Minv, x0, lam0, ud, scale, iters,
     return x, lam
 
 
+def _cg3_2_cpu(D, b, Minv, x0, lam0, ud, scale, iters, cluster):
+    x, lam = _cg3_2_plain(D, b, Minv, x0, lam0, ud, scale, iters)
+    return _fresh(x, x0), _fresh(lam, lam0)
+
+
+#: K4a as the op ``difffe::stencil3d_cg(D, b, Minv, x0, iters, cluster)``
+stencil3d_cg = kernel_op(
+    "stencil3d_cg", "(Tensor D, Tensor b, Tensor Minv, Tensor x0, "
+                    "int iters, int? cluster) -> Tensor",
+    lambda D, b, Minv, x0, iters, cluster: _fresh(
+        _cg3_plain(D, b, Minv, x0, iters), x0),
+    _cuda_cg3, lambda D, b, *_: torch.empty_like(b))
+
+#: K4b as the op ``difffe::stencil3d_cg2(D, b, Minv, x0, lam0, ud, scale,
+#: iters, cluster)`` → (x, λ)
+stencil3d_cg2 = kernel_op(
+    "stencil3d_cg2", "(Tensor D, Tensor b, Tensor Minv, Tensor x0, "
+                     "Tensor lam0, Tensor ud, float scale, int iters, "
+                     "int? cluster) -> (Tensor, Tensor)",
+    _cg3_2_cpu, _cuda_cg3_2,
+    lambda D, b, *_: (torch.empty_like(b), torch.empty_like(b)))
+
+
+def _launch_cg3(D, b, Minv, x0, iters, plan: Optional[ClusterPlan] = None):
+    """K4a through ``difffe::stencil3d_cg``, on ``plan``'s route (default
+    :func:`cluster_plan`'s for the shape and the stored type; the tests
+    and chip_smoke.py pass another to compare routes and cluster
+    sizes)."""
+    return stencil3d_cg(D, b, Minv, x0, int(iters), forced_cluster(plan))
+
+
+def _launch_cg3_2(D, b, Minv, x0, lam0, ud, scale, iters,
+                  plan: Optional[ClusterPlan] = None):
+    """K4b through ``difffe::stencil3d_cg2``, on ``plan``'s route (default
+    :func:`cluster_plan`'s for the shape and the stored type; the tests
+    and chip_smoke.py pass another to compare routes and cluster
+    sizes)."""
+    return stencil3d_cg2(D, b, Minv, x0, lam0, ud, float(scale), int(iters),
+                         forced_cluster(plan))
+
+
 def _cg3(D, b, Minv, x0, iters: int, block_b: int = 1):
     """K4a: ``iters`` fixed PCG iterations per scenario.
 
     D: (7, B, Dz, H, W) folded planes; b/Minv/x0: (B, Dz, H, W); D and
     Minv may be bf16.  Plain version on CPU tensors, the kernel on CUDA."""
     _check_block_b(block_b)
-    if D.device.type == "cpu":
-        return _cg3_plain(D, b, Minv, x0, iters)
+    _check_device(D)
     return _launch_cg3(D, b, Minv, x0, iters)
 
 
@@ -231,8 +278,7 @@ def _cg3_2(D, b, Minv, x0, lam0, ud, scale: float, iters: int,
     from λ0.  Returns (x, λ).  Plain version on CPU tensors, the kernel on
     CUDA."""
     _check_block_b(block_b)
-    if D.device.type == "cpu":
-        return _cg3_2_plain(D, b, Minv, x0, lam0, ud, scale, iters)
+    _check_device(D)
     return _launch_cg3_2(D, b, Minv, x0, lam0, ud, scale, iters)
 
 

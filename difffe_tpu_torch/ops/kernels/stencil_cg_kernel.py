@@ -18,6 +18,14 @@ Each solve has two implementations behind one wrapper:
   with the same freeze rule), taken only for CPU tensors, and the
   reference the kernels are checked against.
 
+Each kernel is one ``torch.library`` op, live and traced
+(``_build.kernel_op``): ``difffe::stencil_cg`` (K3a) and
+``difffe::stencil_cg2`` (K3b), the kernel on CUDA tensors (its route
+planned from the shape on the card at call time; ``cluster`` forces one:
+0 the workspace route, c > 0 the cluster route at c blocks), the plain
+version on CPU tensors, so an exported program holds each launch as one
+node.
+
 Names mapped from the JAX module: ``_cg_pallas`` → :func:`_cg` (K3a),
 ``_cg2_pallas`` → :func:`_cg2` (K3b), ``solve_structured_pallas`` →
 :func:`solve_structured_kernel`.  Nothing is padded: the TPU padded W to
@@ -40,6 +48,7 @@ from typing import Optional
 
 import torch
 
+from ._build import kernel_op
 from ..stencil import (
     OFFSETS,
     StructuredGrid,
@@ -280,24 +289,33 @@ def check_schedulable(query, key, plan: ClusterPlan, device) -> None:
     _SCHEDULABLE.add(key)
 
 
-def _plan_cg2(D, H, W, plan):
-    """K3a's and K3b's plan (their blocks hold the same bytes)."""
-    return plan or cluster_plan(H * W, 5, 4, smem_optin(D.device.index))
+def forced_cluster(plan: Optional[ClusterPlan]):
+    """A forced plan as the ops take it: None (the plan's own choice), 0
+    (the workspace route) or the cluster size."""
+    return None if plan is None else plan.cluster
 
 
-def _launch_cg(D, b, Minv, x0, iters, plan: Optional[ClusterPlan] = None):
-    """K3a on ``plan``'s route (default :func:`cluster_plan`'s for the
-    shape, K3b's; the tests and chip_smoke.py pass another to compare
-    routes and cluster sizes)."""
-    from ._build import load_library, refuse_traced
-    refuse_traced("K3a (csrc/stencil_cg.cu)", D, b)
+def _plan_cg2(D, H, W, cluster):
+    """K3a's and K3b's plan (their blocks hold the same bytes), or the one
+    ``cluster`` forces."""
+    smem = smem_optin(D.device.index)
+    if cluster is None:
+        return cluster_plan(H * W, 5, 4, smem)
+    if cluster == 0:
+        return workspace_plan(H * W)
+    return cluster_layout(H * W, 5, 4, cluster, smem)
+
+
+def _cuda_cg(D, b, Minv, x0, iters, cluster):
+    """K3a on CUDA tensors, the op's CUDA implementation."""
+    from ._build import load_library
 
     B, H, W = _check_cuda_planes(D, (b, Minv, x0))
     out = torch.empty_like(b)
     if B == 0:
         return out
     lib = load_library()
-    plan = _plan_cg2(D, H, W, plan)
+    plan = _plan_cg2(D, H, W, cluster)
     work = None
     if plan.route == "cluster":
         check_schedulable(
@@ -318,13 +336,9 @@ def _launch_cg(D, b, Minv, x0, iters, plan: Optional[ClusterPlan] = None):
     return out
 
 
-def _launch_cg2(D, b, Minv, x0, lam0, ud, scale, iters,
-                plan: Optional[ClusterPlan] = None):
-    """K3b on ``plan``'s route (default :func:`cluster_plan`'s for the
-    shape; the tests and chip_smoke.py pass another to compare routes and
-    cluster sizes)."""
-    from ._build import load_library, refuse_traced
-    refuse_traced("K3b (csrc/stencil_cg.cu)", D, b)
+def _cuda_cg2(D, b, Minv, x0, lam0, ud, scale, iters, cluster):
+    """K3b on CUDA tensors, the op's CUDA implementation."""
+    from ._build import load_library
 
     B, H, W = _check_cuda_planes(D, (b, Minv, x0, lam0, ud))
     x = torch.empty_like(b)
@@ -332,7 +346,7 @@ def _launch_cg2(D, b, Minv, x0, lam0, ud, scale, iters,
     if B == 0:
         return x, lam
     lib = load_library()
-    plan = _plan_cg2(D, H, W, plan)
+    plan = _plan_cg2(D, H, W, cluster)
     work = None
     if plan.route == "cluster":
         check_schedulable(
@@ -355,9 +369,61 @@ def _launch_cg2(D, b, Minv, x0, lam0, ud, scale, iters,
     return x, lam
 
 
+def _fresh(x, like):
+    """An op's output never aliases its input (zero iterations return the
+    start)."""
+    return x.clone() if x is like else x
+
+
+#: K3a as the op ``difffe::stencil_cg(D, b, Minv, x0, iters, cluster)``
+stencil_cg = kernel_op(
+    "stencil_cg", "(Tensor D, Tensor b, Tensor Minv, Tensor x0, int iters, "
+                  "int? cluster) -> Tensor",
+    lambda D, b, Minv, x0, iters, cluster: _fresh(
+        _cg_plain(D, b, Minv, x0, iters), x0),
+    _cuda_cg, lambda D, b, *_: torch.empty_like(b))
+
+
+def _cg2_cpu(D, b, Minv, x0, lam0, ud, scale, iters, cluster):
+    x, lam = _cg2_plain(D, b, Minv, x0, lam0, ud, scale, iters)
+    return _fresh(x, x0), _fresh(lam, lam0)
+
+
+#: K3b as the op ``difffe::stencil_cg2(D, b, Minv, x0, lam0, ud, scale,
+#: iters, cluster)`` → (x, λ)
+stencil_cg2 = kernel_op(
+    "stencil_cg2", "(Tensor D, Tensor b, Tensor Minv, Tensor x0, "
+                   "Tensor lam0, Tensor ud, float scale, int iters, "
+                   "int? cluster) -> (Tensor, Tensor)",
+    _cg2_cpu, _cuda_cg2,
+    lambda D, b, *_: (torch.empty_like(b), torch.empty_like(b)))
+
+
+def _launch_cg(D, b, Minv, x0, iters, plan: Optional[ClusterPlan] = None):
+    """K3a through ``difffe::stencil_cg``, on ``plan``'s route (default
+    :func:`cluster_plan`'s for the shape, K3b's; the tests and
+    chip_smoke.py pass another to compare routes and cluster sizes)."""
+    return stencil_cg(D, b, Minv, x0, int(iters), forced_cluster(plan))
+
+
+def _launch_cg2(D, b, Minv, x0, lam0, ud, scale, iters,
+                plan: Optional[ClusterPlan] = None):
+    """K3b through ``difffe::stencil_cg2``, on ``plan``'s route (default
+    :func:`cluster_plan`'s for the shape; the tests and chip_smoke.py pass
+    another to compare routes and cluster sizes)."""
+    return stencil_cg2(D, b, Minv, x0, lam0, ud, float(scale), int(iters),
+                       forced_cluster(plan))
+
+
 def _check_block_b(block_b):
     if int(block_b) < 1:
         raise ValueError(f"block_b must be >= 1, got {block_b}")
+
+
+def _check_device(D):
+    if D.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"K3 runs on CPU (plain) or CUDA tensors, got "
+                         f"device {D.device}")
 
 
 def _cg(D, b, Minv, x0, iters: int, block_b: int = 1):
@@ -366,8 +432,7 @@ def _cg(D, b, Minv, x0, iters: int, block_b: int = 1):
     D: (5, B, H, W) folded planes; b/Minv/x0: (B, H, W).  Plain version on
     CPU tensors, the kernel on CUDA."""
     _check_block_b(block_b)
-    if D.device.type == "cpu":
-        return _cg_plain(D, b, Minv, x0, iters)
+    _check_device(D)
     return _launch_cg(D, b, Minv, x0, iters)
 
 
@@ -377,8 +442,7 @@ def _cg2(D, b, Minv, x0, lam0, ud, scale: float, iters: int,
     from λ0.  Returns (x, λ).  Plain version on CPU tensors, the kernel on
     CUDA."""
     _check_block_b(block_b)
-    if D.device.type == "cpu":
-        return _cg2_plain(D, b, Minv, x0, lam0, ud, scale, iters)
+    _check_device(D)
     return _launch_cg2(D, b, Minv, x0, lam0, ud, scale, iters)
 
 

@@ -16,14 +16,26 @@ Parameterized over:
 Modes: ``tol=0`` runs exactly ``maxiter`` iterations and never waits for
 the device.  ``tol>0`` is gated: before every iteration the loop reads
 one boolean (``bool(tensor)``), so it synchronizes with the device once
-per iteration.
+per iteration.  ``torch.export`` cannot trace that read, so each caller
+that runs the loop tol-gated does so inside a ``torch.library`` op of its
+own (ops/stencil.py, ops/stencil3d.py, ops/stencil_natural.py, ops/cg.py,
+ops/kernels/ell_kernel.py): an exported program holds the loop as one
+node and runs it, with the live route's iterations, when it is called.
+Each such solve appends its iteration count to :data:`gated_iters`.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Callable, Optional
 
 import torch
+
+#: Test hook: CG iterations of the latest tol-gated solves run by the ops
+#: above, newest last (live or in an exported program's replay; a forward
+#: solve and its adjoint append one each).  One deque for the process, so
+#: solves run concurrently interleave their counts.
+gated_iters = collections.deque(maxlen=64)
 
 
 def batched_dot(ndim: int = 2):
@@ -34,7 +46,7 @@ def batched_dot(ndim: int = 2):
     def dot(u, v):
         return (u * v).sum(dim=dims, keepdim=True)
 
-    dot.scope_ndim = ndim      # names it to ops/stencil.stencil_cg_gated
+    dot.scope_ndim = ndim      # names it to the gated ops' schemas
     return dot
 
 
@@ -115,3 +127,14 @@ def pcg(A: Callable, b: torch.Tensor, Minv: Callable, x0: torch.Tensor,
     if with_diagnostics:
         return x, k, r
     return x
+
+
+def dot_of(ndim: int):
+    """The dot a gated op's ``dot_ndim`` names: 0 the global dot, n > 0
+    :func:`batched_dot` (n)."""
+    return batched_dot(ndim) if ndim else None
+
+
+def dot_ndim(dot: Optional[Callable]) -> int:
+    """The inverse of :func:`dot_of`."""
+    return 0 if dot is None else dot.scope_ndim

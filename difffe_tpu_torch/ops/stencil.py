@@ -22,20 +22,22 @@ does in JAX.
 
 A tol-gated solve reads one boolean an iteration, which ``torch.export``
 cannot trace, so ``apply_inv`` runs every tol-gated solve as one
-``torch.library`` custom op, ``difffe::stencil_cg_gated``, whose
-implementation is the loop: an exported program holds the op as one node
-(utils/export.py).  Each gated solve appends its CG iteration count to
-:data:`gated_iters`.
+``torch.library`` op, ``difffe::stencil_cg_gated``, whose implementation
+on CPU and CUDA tensors is the loop: an exported program holds the op as
+one node (utils/export.py).  Each gated solve appends its CG iteration
+count to :data:`gated_iters` (``pcg.gated_iters``).
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F_
+
+from .kernels._build import kernel_op
+from .pcg import dot_ndim, dot_of, gated_iters
 
 OFFSETS = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0), (1, -1), (-1, 1))
 
@@ -240,13 +242,6 @@ def _operator(C, m, v):
     return m * v + p * stencil_apply(C, p * v)
 
 
-#: Test hook: CG iterations of the latest tol-gated ``apply_inv`` solves,
-#: newest last (live or in an exported program's replay; a forward solve
-#: and its adjoint append one each).  One deque for the process, so solves
-#: run concurrently interleave their counts.
-gated_iters = collections.deque(maxlen=64)
-
-
 def _apply_inv_loop(grid, kl, ku, b, tol, maxiter, dot):
     """(x, CG iterations) of the Jacobi-preconditioned solve."""
     from .pcg import pcg
@@ -263,25 +258,23 @@ def _apply_inv_loop(grid, kl, ku, b, tol, maxiter, dot):
     return x, iters
 
 
-@torch.library.custom_op(
-    "difffe::stencil_cg_gated", mutates_args=(),
-    schema="(Tensor kl, Tensor ku, Tensor b, int nx, int ny, float hx, "
-           "float hy, float tol, int maxiter, int dot_ndim) -> Tensor")
-def stencil_cg_gated(kl, ku, b, nx, ny, hx, hy, tol, maxiter, dot_ndim):
-    """The tol-gated ``apply_inv`` solve as one op: ``dot_ndim`` 0 is the
-    global dot, n > 0 ``pcg.batched_dot(n)``."""
-    from .pcg import batched_dot
-
-    x, iters = _apply_inv_loop(
-        StructuredGrid(nx, ny, hx, hy), kl, ku, b, tol, maxiter,
-        batched_dot(dot_ndim) if dot_ndim else None)
+def _stencil_cg_gated(kl, ku, b, nx, ny, hx, hy, tol, maxiter, dot_ndim):
+    """The tol-gated ``apply_inv`` solve, the op's implementation on CPU
+    and CUDA tensors alike: ``dot_ndim`` 0 is the global dot, n > 0
+    ``pcg.batched_dot(n)``."""
+    x, iters = _apply_inv_loop(StructuredGrid(nx, ny, hx, hy), kl, ku, b,
+                               tol, maxiter, dot_of(dot_ndim))
     gated_iters.append(iters)
     return x
 
 
-@stencil_cg_gated.register_fake
-def _(kl, ku, b, nx, ny, hx, hy, tol, maxiter, dot_ndim):
-    return torch.empty_like(b)
+#: the tol-gated solve as the op ``difffe::stencil_cg_gated``
+stencil_cg_gated = kernel_op(
+    "stencil_cg_gated",
+    "(Tensor kl, Tensor ku, Tensor b, int nx, int ny, float hx, float hy, "
+    "float tol, int maxiter, int dot_ndim) -> Tensor",
+    _stencil_cg_gated, _stencil_cg_gated,
+    lambda kl, ku, b, *_: torch.empty_like(b))
 
 
 def _apply_inv_impl(grid, kl, ku, b, tol, maxiter, dot):
@@ -289,7 +282,7 @@ def _apply_inv_impl(grid, kl, ku, b, tol, maxiter, dot):
     if tol > 0.0:
         return stencil_cg_gated(kl, ku, b, grid.nx, grid.ny, grid.hx,
                                 grid.hy, float(tol), int(maxit),
-                                0 if dot is None else dot.scope_ndim)
+                                dot_ndim(dot))
     return _apply_inv_loop(grid, kl, ku, b, tol, maxit, dot)[0]
 
 

@@ -25,6 +25,10 @@ functions' results, the same per-scenario α/β, trip count and freeze.
 ``solve_poisson_structured_3d`` and ``apply_inv_3d`` are
 ``torch.autograd.Function``s with the implicit-function-theorem backward;
 ``apply_inv_3d``'s backward calls itself, so double backward composes.
+A tol-gated solve runs as the ``torch.library`` op
+``difffe::stencil3d_cg_gated`` (the loop on CPU and CUDA tensors alike,
+one node of an exported program), as the 2D one does (ops/stencil.py);
+it appends its iterations to ``pcg.gated_iters``.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F_
 
-from .pcg import batched_dot, pcg
+from .kernels._build import kernel_op
+from .pcg import batched_dot, dot_ndim, dot_of, gated_iters, pcg
 
 OFFSETS3 = ((0, 0, 0), (0, 0, 1), (0, 0, -1), (0, 1, 0), (0, -1, 0),
             (1, 0, 0), (-1, 0, 0))
@@ -282,12 +287,43 @@ def _max_iters(grid: StructuredGrid3, maxiter):
     return maxiter if maxiter is not None else math.prod(grid.node_shape)
 
 
-def _apply_inv_impl(grid, kappa, b, tol, maxiter, dot):
+def _apply_inv_loop(grid, kappa, b, tol, maxiter, dot):
+    """(x, CG iterations) of the Jacobi-preconditioned solve."""
     C = stencil3d_coefficients(grid, kappa)
     m = boundary_mask_box(grid, b.dtype, b.device)
     Minv = _jacobi(C, m)
-    return pcg(lambda v: _operator(C, m, v), b, lambda r: Minv * r,
-               torch.zeros_like(b), tol, _max_iters(grid, maxiter), dot=dot)
+    x, iters, _ = pcg(lambda v: _operator(C, m, v), b, lambda r: Minv * r,
+                      torch.zeros_like(b), tol, maxiter, dot=dot,
+                      with_diagnostics=True)
+    return x, iters
+
+
+def _stencil3d_cg_gated(kappa, b, nx, ny, nz, hx, hy, hz, tol, maxiter,
+                        dot_ndim):
+    """The tol-gated ``apply_inv_3d`` solve, the op's implementation on CPU
+    and CUDA tensors alike (``dot_ndim`` as ``pcg.dot_of`` reads it)."""
+    x, iters = _apply_inv_loop(StructuredGrid3(nx, ny, nz, hx, hy, hz),
+                               kappa, b, tol, maxiter, dot_of(dot_ndim))
+    gated_iters.append(iters)
+    return x
+
+
+#: the tol-gated box solve as the op ``difffe::stencil3d_cg_gated``
+stencil3d_cg_gated = kernel_op(
+    "stencil3d_cg_gated",
+    "(Tensor kappa, Tensor b, int nx, int ny, int nz, float hx, float hy, "
+    "float hz, float tol, int maxiter, int dot_ndim) -> Tensor",
+    _stencil3d_cg_gated, _stencil3d_cg_gated,
+    lambda kappa, b, *_: torch.empty_like(b))
+
+
+def _apply_inv_impl(grid, kappa, b, tol, maxiter, dot):
+    maxit = _max_iters(grid, maxiter)
+    if tol > 0.0:
+        return stencil3d_cg_gated(kappa, b, grid.nx, grid.ny, grid.nz,
+                                  grid.hx, grid.hy, grid.hz, float(tol),
+                                  int(maxit), dot_ndim(dot))
+    return _apply_inv_loop(grid, kappa, b, tol, maxit, dot)[0]
 
 
 class _ApplyInv3d(torch.autograd.Function):

@@ -22,7 +22,11 @@ kernel).  The kernel takes the folded planes unpadded, (5, B, H, W)
 contiguous: the TPU padded W to 128 lanes and B to ``block_b``.
 
 Both solves are ``torch.autograd.Function``s with the implicit-function-
-theorem backward of the JAX custom VJPs, first order only.
+theorem backward of the JAX custom VJPs, first order only.  A tol-gated
+PCG solve runs as the ``torch.library`` op
+``difffe::stencil_natural_cg_gated`` (the loop on CPU and CUDA tensors
+alike, one node of an exported program; ops/pcg.py), which takes the
+planes, the Robin planes and the mask.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .pcg import batched_dot, first_order_only, pcg
+from .kernels._build import kernel_op
+from .pcg import batched_dot, first_order_only, gated_iters, pcg
 from .stencil import (OFFSETS, StructuredGrid, _reduce_to, _shift2d,
                       load_grid, stencil_apply, stencil_coefficients,
                       stencil_kappa_grad)
@@ -125,16 +130,45 @@ def _jacobi(m, C, C_r):
                              torch.ones_like(diagA))
 
 
-def _pcg_nat(grid, C, C_r, m, b, x0, tol, maxiter):
-    """The generalized-mask Jacobi PCG; per-scenario dots on batched
-    right-hand sides (what the JAX facade's vmap gives), one global dot
-    otherwise."""
+def _pcg_nat_loop(C, C_r, m, b, x0, tol, maxiter):
+    """(x, iterations) of the generalized-mask Jacobi PCG; per-scenario
+    dots on batched right-hand sides (what the JAX facade's vmap gives),
+    one global dot otherwise."""
     p = 1.0 - m
     Minv = _jacobi(m, C, C_r)
+    x, iters, _ = pcg(lambda v: m * v + p * _apply_tot(C, C_r, p * v), b,
+                      lambda r_: Minv * r_, x0, tol, maxiter,
+                      dot=batched_dot(2) if b.ndim > 2 else None,
+                      with_diagnostics=True)
+    return x, iters
+
+
+def _natural_cg_gated(C, C_r, m, b, x0, tol, maxiter):
+    """The tol-gated solve, the op's implementation on CPU and CUDA
+    tensors alike."""
+    x, iters = _pcg_nat_loop(C, C_r, m, b, x0, tol, maxiter)
+    gated_iters.append(iters)
+    return x
+
+
+#: the tol-gated generalized-mask solve as the op
+#: ``difffe::stencil_natural_cg_gated``
+stencil_natural_cg_gated = kernel_op(
+    "stencil_natural_cg_gated",
+    "(Tensor C, Tensor? C_r, Tensor m, Tensor b, Tensor x0, float tol, "
+    "int maxiter) -> Tensor",
+    _natural_cg_gated, _natural_cg_gated,
+    lambda C, C_r, m, b, *_: torch.empty_like(b))
+
+
+def _pcg_nat(grid, C, C_r, m, b, x0, tol, maxiter):
+    """The generalized-mask Jacobi PCG (``_pcg_nat_loop``); tol-gated
+    solves through ``difffe::stencil_natural_cg_gated``."""
     maxit = maxiter if maxiter is not None else (grid.nx + 1) * (grid.ny + 1)
-    return pcg(lambda v: m * v + p * _apply_tot(C, C_r, p * v), b,
-               lambda r_: Minv * r_, x0, tol, maxit,
-               dot=batched_dot(2) if b.ndim > 2 else None)
+    if tol > 0.0:
+        return stencil_natural_cg_gated(C, C_r, m, b, x0, float(tol),
+                                        int(maxit))
+    return _pcg_nat_loop(C, C_r, m, b, x0, tol, maxit)[0]
 
 
 def _solve_nat_impl(grid, kappa_lu, f, g, m, qn, C_r, rload, tol,

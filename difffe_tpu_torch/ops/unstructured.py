@@ -160,9 +160,8 @@ def _ell_system(mesh: FEMesh, ell: ELL):
             return ell_apply_w(ell, W, diag, w)
 
         b = dirichlet_rhs(ms, applyK, F)
-        Minv = jacobi(ms, diag)
         return (lambda v: apply_dirichlet_operator(ms, applyK, v), b,
-                lambda r: Minv * r, (ms.bc_mask * ms.bc_values).expand(
+                jacobi(ms, diag), (ms.bc_mask * ms.bc_values).expand(
                     b.shape))
     return system
 

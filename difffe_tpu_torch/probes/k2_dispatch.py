@@ -17,7 +17,11 @@ scenario), this probe times the host µs a call of
 in turns, a few hundred calls each, then the plan of chip_smoke.py's
 phase 28 (``make_planner_batched`` at config 3's width, three chained
 plans after a first) and two steps of its ``receding_horizon`` (B = 1, the
-block route).  A way that a tree lacks (a tree from before the custom op)
+block route).  :func:`op_ways` gives the same split for K7's "tc" route at
+the production loop's shape (``FEMesh.line(30)``, B = 262 144) and for K8
+at chip_smoke.py's phase 22 shape (a perturbed 64² triangulation,
+B = 256): the bare launch (the op's CUDA implementation), the op, and the
+public call; chip_smoke.py's phase 36 times them with :func:`host_us`.  A way that a tree lacks (a tree from before the custom op)
 is left out, so the probe runs on an older checkout too: copy it into that
 tree's ``difffe_tpu_torch/probes/`` and run it from that tree's root.
 
@@ -81,6 +85,62 @@ def launch_ways(tk, d, e, F):
     if hasattr(tk, "tridiag_pcr"):
         ways["op"] = lambda: tk.tridiag_pcr(d2, e2, F, spb, None)
     return {**ways, **public_ways(tk, d, e, F)}
+
+
+def op_ways(dev, gen) -> dict:
+    """kernel → (name → a call): K7 on the "tc" route at the production
+    loop's shape and K8 at phase 22's, each as the bare launch, the op and
+    the public call, on random operands from ``gen``."""
+    from difffe_tpu_torch import production
+    from difffe_tpu_torch.mesh import FEMesh
+    from difffe_tpu_torch.ops.kernels import ell_kernel as k8
+    from difffe_tpu_torch.ops.kernels import fused_grad_kernel as k5
+    from difffe_tpu_torch.ops.kernels import fused_grad_mxu_kernel as k7
+    from difffe_tpu_torch.ops.unstructured import build_ell, ell_weights_bm
+
+    mesh = production.production_mesh(dev)
+    B, n = production.BATCH, mesh.n_nodes
+    lk = 0.1 * torch.randn(B, generator=gen, device=dev)
+    F = torch.rand(B, n, generator=gen, device=dev)
+    ud = torch.rand(B, n, generator=gen, device=dev)
+    cols, W = k5.scalar_columns(mesh), k7.mxu_inverse(mesh)
+    scale = 2.0 / (B * n)
+    k7_ways = {
+        "launch": lambda: k7._cuda_tc(lk, F, ud, cols, W, scale, 2, 0),
+        "op": lambda: k7.fused_mxu(lk, F, ud, cols, W, scale, 2, 0, 1024,
+                                   "tc"),
+        "public": lambda: k7.fused_kappa_mse_step_mxu(
+            mesh, lk, F, ud, scale=scale, version=2, refine=0)}
+
+    base = FEMesh.rectangle(64, 64, dtype=torch.float64, device="cpu")
+    nodes = base.nodes.clone()
+    inner = base.bc_mask < 0.5
+    nodes[inner] += (torch.rand(nodes[inner].shape, dtype=torch.float64)
+                     - 0.5) * 0.6 / 64
+    tri = FEMesh.from_arrays(nodes.numpy(), base.elements.numpy(),
+                             base.bc_mask.numpy(), base.bc_values.numpy(),
+                             device=dev, dtype=torch.float32)
+    ell = build_ell(tri)
+    Bg = 256
+    keB = 1.0 + torch.rand(tri.n_elements, Bg, generator=gen, device=dev)
+    Wl, diag = ell_weights_bm(tri, ell, keB)
+    v = torch.rand(tri.n_nodes, Bg, generator=gen, device=dev)
+    m = tri.bc_mask.contiguous()
+    k8_ways = {
+        "launch": lambda: k8._launch_k8(ell.nbr, Wl, diag, v, m),
+        "op": lambda: k8.k8_op(ell.nbr, Wl, diag, v, m, None),
+        "public": lambda: k8.ell_apply(ell.nbr, Wl, diag, v, m)}
+    for ways in (k7_ways, k8_ways):
+        ref = ways["launch"]()
+        for k in ("op", "public"):
+            got = ways[k]()
+            for a, b in zip(ref if isinstance(ref, tuple) else (ref,),
+                            got if isinstance(got, tuple) else (got,)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{k} differs from the launch")
+    return {"K7 tc": k7_ways, "K8": k8_ways,
+            "shapes": {"K7 tc": [B, n],
+                       "K8": [tri.n_nodes, int(ell.nbr.shape[1]), Bg]}}
 
 
 def public_ways(tk, d, e, F):

@@ -7,15 +7,23 @@ bytes: the batched solve or the gradient step is built once, shipped, and
 run later without retracing the Python that built it.  An artifact holds
 
 * plain PyTorch (assembly, the elimination, the 'tridiag' sweeps, the
-  stencil operators);
-* the kernels that are ``torch.library`` custom ops, one node each: K2
-  (``difffe::tridiag_pcr``, ``method="tridiag_pallas"``) and K1
-  (``difffe::cf_step``, ``difffe::cf_chain``), which run the kernel on CUDA
-  tensors and the plain version on CPU tensors;
-* the tol-gated stencil CG (``difffe::stencil_cg_gated``, ops/stencil.py),
-  whose loop reads a boolean an iteration.
+  dense factorizations, the stencil operators);
+* every kernel as a ``torch.library`` op, one node each
+  (``ops/kernels/_build.kernel_op``), which runs the kernel on CUDA
+  tensors, planning its route at call time, and the plain version on CPU
+  tensors: K1 (``difffe::cf_step``, ``difffe::cf_chain``), K2
+  (``difffe::tridiag_pcr``), K3a/K3b (``difffe::stencil_cg``,
+  ``difffe::stencil_cg2``), K4a/K4b (``difffe::stencil3d_cg``,
+  ``difffe::stencil3d_cg2``), K5a/K5b (``difffe::fused_pcr``), K6
+  (``difffe::fused_thomas``), K7 (``difffe::fused_mxu``), K8
+  (``difffe::ell_apply``) and K8s (``difffe::ell_cg``, which also runs the
+  per-iteration and tol-gated ELL solves);
+* the tol-gated CG loops, which read a boolean an iteration, one op each:
+  ``difffe::stencil_cg_gated`` (2D), ``difffe::stencil3d_cg_gated`` (3D),
+  ``difffe::stencil_natural_cg_gated`` (natural and custom masks) and
+  ``difffe::element_cg_gated`` (the element CG of ``method="cg"``).
 
-Any other kernel raises ``NotImplementedError`` when traced
+Only the probes' kernels (P2 and K5's warp variants) refuse to be traced
 (``ops/kernels/_build.refuse_traced``).  The loaders import the modules
 that register the ops before ``torch.export.load``.
 
@@ -112,10 +120,12 @@ def export_fn(fn: Callable, *example_args,
 
 
 def _register_ops():
-    """Import the modules that define the artifacts' custom ops."""
-    from ..ops import stencil  # noqa: F401  difffe::stencil_cg_gated
-    from ..ops.kernels import fused_grad_cf_kernel  # noqa: F401  K1
-    from ..ops.kernels import tridiag_kernel  # noqa: F401  K2
+    """Import the modules that define the artifacts' ops."""
+    from ..ops import cg, stencil, stencil3d, stencil_natural  # noqa: F401
+    from ..ops.kernels import (ell_kernel, fused_grad_cf_kernel,  # noqa: F401
+                               fused_grad_kernel, fused_grad_mxu_kernel,
+                               fused_grad_thomas_kernel, stencil3d_cg_kernel,
+                               stencil_cg_kernel, tridiag_kernel)
 
 
 def _load(blob: bytes, device=None):
@@ -201,51 +211,137 @@ def _mse_cotangent(r):
     return (r.new_ones(()) / r.numel()) * (2.0 * r)
 
 
-def _adjoint_1d(mesh: FEMesh, backend: str):
-    """λ-contraction of the band routes: with p = 1 − m and A(κ) the
-    assembled bands before elimination (linear in κ), ∂loss/∂log κ_b =
-    −(p⊙λ_b)ᵀ A(κ_b) u_b, which holds the κ-dependence of the eliminated
-    right-hand side where g ≠ 0."""
+def _band_pieces(mesh: FEMesh, backend: str):
+    """The band routes: λ by the eliminated bands' solve, K(κ)u by the
+    assembled bands before elimination."""
     from ..ops.assembly import assemble_tridiag_1d
     from ..ops.tridiag import (dirichlet_elimination, solve_eliminated,
                                tridiag_matvec)
 
-    def adjoint(kappa, u, ubar):
-        d, e = assemble_tridiag_1d(
-            mesh, kappa[:, None].expand(kappa.shape[0], mesh.n_elements))
-        d_mod, e_mod, p, _ = dirichlet_elimination(mesh, d, e)
-        lam = solve_eliminated(d_mod, e_mod, ubar, backend)
-        return -(p * lam * tridiag_matvec(d, e, u)).sum(-1)
+    def pieces(ke, u, ubar):
+        d, e = assemble_tridiag_1d(mesh, ke)
+        d_mod, e_mod, _, _ = dirichlet_elimination(mesh, d, e)
+        return (solve_eliminated(d_mod, e_mod, ubar, backend),
+                tridiag_matvec(d, e, u))
 
-    return adjoint
+    return pieces
 
 
-def _adjoint_2d(mesh: FEMesh):
-    """The stencil route's adjoint as its IFT backward forms it: λ by the
-    same tol-gated CG, then the closed-form κ contraction per triangle."""
-    from ..ops.pcg import batched_dot
-    from ..ops.stencil import (apply_inv, boundary_mask_grid,
-                               kappa_lu_from_elements, stencil_kappa_grad)
+def _dense_pieces(mesh: FEMesh, factor: str):
+    """The dense routes: λ from the eliminated matrix's factors, as the
+    live backward solves it (Cholesky, or LU's adjoint solve), K(κ)u by
+    the assembled matrix."""
+    from ..ops.assembly import assemble_stiffness_dense
+    from ..ops.solve import apply_dirichlet_dense
+
+    def pieces(ke, u, ubar):
+        K = assemble_stiffness_dense(mesh, ke)
+        K_mod, _ = apply_dirichlet_dense(mesh, K, ubar)
+        if factor == "dense":
+            lam = torch.cholesky_solve(ubar[..., None],
+                                       torch.linalg.cholesky(K_mod))
+        else:
+            LU, piv = torch.linalg.lu_factor(K_mod)
+            lam = torch.linalg.lu_solve(LU, piv, ubar[..., None],
+                                        adjoint=True)
+        return lam[..., 0], (K @ u[..., None])[..., 0]
+
+    return pieces
+
+
+def _cg_pieces(mesh: FEMesh):
+    """The element CG route: λ by the same (tol-gated) PCG on the same
+    operator, K(κ)u by its element apply."""
+    from ..ops.cg import (apply_K, element_operator, jacobi, solve_element,
+                          stiffness_diag)
     from ..solver import _cg_policy
+
+    tol, maxiter = _cg_policy(mesh, None, None)
+
+    def pieces(ke, u, ubar):
+        op = element_operator(mesh, ke)
+        Minv = jacobi(mesh, stiffness_diag(mesh, ke))
+        lam = solve_element(op, ubar, Minv, torch.zeros_like(ubar), tol,
+                            maxiter)
+        return lam, apply_K(op, u)
+
+    return pieces
+
+
+def _stencil_adjoint(mesh: FEMesh):
+    """The stencil routes (2D factory and natural/custom masks, 3D box)
+    as their IFT backwards form them: λ by the route's tol-gated CG, then
+    the closed-form κ contraction per element (so the 2D factory route
+    gives its live backward's bits)."""
+    from ..ops.pcg import batched_dot
+    from ..ops import stencil as st
+    from ..solver import _cg_policy, _mask_is_factory
 
     grid = mesh.grid
     shape = grid.node_shape
     tol, maxiter = _cg_policy(mesh, None, None)
-    dot = batched_dot(2)
+    m = mesh.bc_mask.reshape(shape)
+    p = 1.0 - m
+    g = mesh.bc_values.reshape(shape)
+    if mesh.dim == 3:
+        from ..ops import stencil3d as st3
+
+        def lam_and_grad(ke, u, ubar):
+            lam = st3.apply_inv_3d(grid, ke, ubar, tol, maxiter,
+                                   batched_dot(3))
+            return -st3.stencil3d_kappa_grad(grid, p * lam, m * g + p * u)
+    else:
+        from ..ops import stencil_natural as sn
+        factory = _mask_is_factory(mesh)
+
+        def lam_and_grad(ke, u, ubar):
+            kl, ku = st.kappa_lu_from_elements(grid, ke)
+            if factory:
+                lam = st.apply_inv(grid, (kl, ku), ubar, tol, maxiter,
+                                   batched_dot(2))
+            else:
+                lam = sn._pcg_nat(grid, st.stencil_coefficients(grid, kl, ku),
+                                  None, m, ubar, torch.zeros_like(ubar), tol,
+                                  maxiter)
+            g_low, g_up = st.stencil_kappa_grad(grid, p * lam,
+                                                m * g + p * u)
+            return torch.stack([-g_low, -g_up], dim=-1)
 
     def adjoint(kappa, u, ubar):
         B = kappa.shape[0]
-        kl, ku = kappa_lu_from_elements(
-            grid, kappa[:, None].expand(B, mesh.n_elements))
-        lam = apply_inv(grid, (kl, ku), ubar.reshape((B,) + shape), tol,
-                        maxiter, dot)
-        m = boundary_mask_grid(grid, lam.dtype, lam.device)
-        p = 1.0 - m
-        g_low, g_up = stencil_kappa_grad(
-            grid, p * lam, m * mesh.bc_values.reshape(shape)
-            + p * u.reshape((B,) + shape))
-        g_el = torch.stack([-g_low, -g_up], dim=-1).reshape(B, -1)
-        return g_el.sum(-1) * kappa
+        ke = kappa[:, None].expand(B, mesh.n_elements)
+        g_el = lam_and_grad(ke, u.reshape((B,) + shape),
+                            ubar.reshape((B,) + shape))
+        return g_el.reshape(B, -1).sum(-1) * kappa
+
+    return adjoint
+
+
+def _adjoint(mesh: FEMesh, route: str):
+    """(κ (B,), u (B, n), ū (B, n)) → ∂loss/∂log κ (B,) on ``route``.
+
+    For one κ per scenario the eliminated operator is A(κ_b) = m +
+    κ_b·P K₁ P, so with λ_b = A(κ_b)⁻¹ ū_b (A symmetric), solved by the
+    route's own solve on ū itself, ∂loss/∂log κ_b = −(P λ_b)ᵀ K(κ_b) u_b,
+    with K before elimination: u_b = m⊙g + P u_b, so the term holds the
+    κ-dependence of the eliminated right-hand side where g ≠ 0."""
+    if route == "stencil":
+        return _stencil_adjoint(mesh)
+    if route in ("tridiag", "tridiag_pallas"):
+        pieces = _band_pieces(mesh, "pallas" if route == "tridiag_pallas"
+                              else "xla")
+    elif route in ("dense", "lu"):
+        pieces = _dense_pieces(mesh, route)
+    elif route == "cg":
+        pieces = _cg_pieces(mesh)
+    else:
+        raise ValueError(f"Unknown method {route!r}")
+    p = 1.0 - mesh.bc_mask
+
+    def adjoint(kappa, u, ubar):
+        ke = kappa[:, None].expand(kappa.shape[0], mesh.n_elements)
+        lam, Ku = pieces(ke, u, ubar)
+        return -(p * lam * Ku).sum(-1)
 
     return adjoint
 
@@ -256,28 +352,16 @@ def export_gradient_step(mesh: FEMesh, batch: int,
     """AOT-export one fwd+adjoint κ-gradient step (the inversion hot loop).
 
     Artifact signature: (log_κ (B,), f (B,n), u_data (B,n)) →
-    (loss scalar, grad (B,)), grad = ∂ mean((u − u_data)²)/∂ log κ.  The
-    1D band routes ('auto', 'tridiag', 'tridiag_pallas' on line meshes)
-    and the 2D stencil route ('auto' on rectangle meshes with the factory
-    boundary, tol-gated) are carried; other routes raise
-    ``NotImplementedError``.
+    (loss scalar, grad (B,)), grad = ∂ mean((u − u_data)²)/∂ log κ, on
+    every route the facade takes for ``method``: the band routes of line
+    meshes, 'dense', 'lu' and 'cg' on any mesh, the 2D stencil route with
+    the factory or any other Dirichlet mask and the 3D stencil route (both
+    tol-gated), as :func:`_adjoint` forms the gradient.
     """
-    from ..solver import (_mask_is_factory, _resolve_method,
-                          solve_poisson_batched)
+    from ..solver import _resolve_method, solve_poisson_batched
 
     mesh = _mesh_for_export(mesh, platforms)
-    route = _resolve_method(mesh, method)
-    if mesh.dim == 1 and route in ("tridiag", "tridiag_pallas"):
-        adjoint = _adjoint_1d(mesh, "pallas" if route == "tridiag_pallas"
-                              else "xla")
-    elif (mesh.dim == 2 and route == "stencil" and mesh.grid is not None
-          and _mask_is_factory(mesh)):
-        adjoint = _adjoint_2d(mesh)
-    else:
-        raise NotImplementedError(
-            f"export_gradient_step carries the 1D band routes and the 2D "
-            f"stencil route; method {method!r} on this {mesh.dim}D mesh "
-            f"takes {route!r}")
+    adjoint = _adjoint(mesh, _resolve_method(mesh, method))
 
     def step(log_k, f_b, u_data):
         kappa = log_k.exp()

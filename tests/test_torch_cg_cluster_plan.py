@@ -142,8 +142,13 @@ def test_k4a_takes_k4b_plan(monkeypatch, n, item):
     if item == 4 and n[0] >= 32:
         assert (plan.route, plan.cluster) == (
             ("cluster", 8) if n[0] == 32 else ("workspace", 0))
-    forced = sk.workspace_plan(nodes)
-    assert k4._plan_cg3(D, nz + 1, ny + 1, nx + 1, forced) is forced
+    # a forced plan reaches the op as its cluster size, 0 the workspace
+    assert k4._plan_cg3(D, nz + 1, ny + 1, nx + 1,
+                        sk.forced_cluster(sk.workspace_plan(nodes))) == \
+        sk.workspace_plan(nodes)
+    if plan.route == "cluster":
+        assert k4._plan_cg3(D, nz + 1, ny + 1, nx + 1,
+                            sk.forced_cluster(plan)) == plan
 
 
 @pytest.mark.parametrize("n,want", [(8, ("cluster", 1)), (64, ("cluster", 1)),
@@ -159,8 +164,11 @@ def test_k3a_takes_k3b_plan(monkeypatch, n, want):
     plan = sk._plan_cg2(D, n + 1, n + 1, None)
     assert plan == sk.cluster_plan((n + 1) ** 2, 5, 4, LIMIT)
     assert (plan.route, plan.cluster) == want
+    # a forced plan reaches the op as its cluster size, 0 the workspace
     forced = sk.workspace_plan((n + 1) ** 2)
-    assert sk._plan_cg2(D, n + 1, n + 1, forced) is forced
+    assert sk._plan_cg2(D, n + 1, n + 1, sk.forced_cluster(forced)) == forced
+    if plan.route == "cluster":
+        assert sk._plan_cg2(D, n + 1, n + 1, sk.forced_cluster(plan)) == plan
 
 
 def _ell_bytes(nodes, Dn, c):

@@ -1839,7 +1839,7 @@ def test_parallel_halo_and_pipeline_on_the_card(nccl_mesh):
     assert rel_err(cost, cost_ref) <= 1e-5 and rel_err(gp, gp_ref) <= 1e-5
 
 
-# --- AOT export (utils/export.py): K2 and K1 as torch.library custom ops
+# --- AOT export (utils/export.py): every kernel a torch.library op
 
 
 def _export_line_case(dev, B, dtype=torch.float32):
@@ -1925,18 +1925,28 @@ def test_export_moves_a_cpu_artifact_to_the_card(cuda):
     assert rel_err(u, u_cpu) <= 1e-12
 
 
-def test_export_refuses_k3a_with_the_guards_error(cuda):
-    """A function that reaches a kernel without a custom op (K3a: the
-    fixed-trip batched rectangle solve) raises the guard's error under
-    export_fn, and nothing falls back to the plain version."""
+def test_export_replays_k3a_with_its_launch_count(cuda):
+    """A function that reaches K3a (the fixed-trip batched rectangle solve)
+    exports with K3a as one node, ``difffe::stencil_cg``; the artifact
+    launches it once a call on the route its plan picks at call time and
+    gives the live route's bits."""
     from difffe_tpu_torch.utils import export as texp
 
     mesh = FEMesh.rectangle(8, 8, dtype=torch.float32, device=cuda)
-    k = torch.ones(4, device=cuda)
-    f = torch.ones(4, mesh.n_nodes, device=cuda)
+    k = 1.0 + torch.rand(4, device=cuda)
+    f = torch.randn(4, mesh.n_nodes, device=cuda)
+
+    def fn(k_, f_):
+        return solve_poisson_batched(mesh, k_, f_, cg_tol=0.0, cg_maxiter=32,
+                                     kappa_batched=True)
+
     before = sk.launches["cg"]
-    with pytest.raises(NotImplementedError, match="K3a .*ROADMAP"):
-        texp.export_fn(lambda k_, f_: solve_poisson_batched(
-            mesh, k_, f_, cg_tol=0.0, cg_maxiter=32, kappa_batched=True),
-            k, f)
+    blob = texp.export_fn(fn, k, f)
     assert sk.launches["cg"] == before
+    ep = texp._load(blob)[0]
+    assert [str(n.target) for n in ep.graph.nodes].count(
+        "difffe.stencil_cg.default") == 1
+    u = texp.load_exported(blob)(k, f)
+    torch.cuda.synchronize()
+    assert sk.launches["cg"] == before + 1
+    assert torch.equal(u, fn(k, f))
