@@ -1,0 +1,4 @@
+"""The CG kernels' share of their roofline in the forward cells (moves
+``solves_per_s``)."""
+
+from benchmark.metrics._read import cg_roofline as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""The device's idle share of the traced calls (moves ``solves_per_s``)."""
+
+from benchmark.metrics._read import idle_pct as read  # noqa: F401
